@@ -1,3 +1,4 @@
-"""Neural-network layers (port). This slice carries the attention
-helpers the serving path calls; the layer classes come with the
-training slice."""
+"""Neural-network configuration, layers, updaters and
+``MultiLayerNetwork`` (port). This slice carries what the causal LM
+trains with; see ``layers``, ``config``, ``updaters``, ``weights`` and
+``multilayer``."""

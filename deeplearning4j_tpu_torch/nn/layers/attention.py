@@ -1,14 +1,25 @@
-"""Attention helpers: rotary embedding, GQA head broadcast and the
-flash-dispatched ``scaled_dot_attention``.
+"""Attention: rotary embedding, GQA head broadcast, the flash-dispatched
+``scaled_dot_attention``, and the layers of the causal LM's stack.
 
-Port of the functions of ``deeplearning4j_tpu/nn/layers/attention.py``
-that the serving path calls; the layer classes (MultiHeadAttention, the
-encoder and decoder blocks) come with the training slice. Shapes are the
-JAX package's: [B, T, H, D], head axis 2; key mask [B, Tk].
+Port of ``deeplearning4j_tpu/nn/layers/attention.py``: the functions the
+serving path calls, :class:`MultiHeadAttention` (local attention; the
+sequence-parallel modes come with the ``parallel/`` slice) and the
+pre-RMSNorm :class:`TransformerDecoderBlock`. The encoder block, learned
+and recurrent attention come with the encoder slice. Shapes are the JAX
+package's: [B, T, H, D], head axis 2; key mask [B, Tk].
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
+import torch.utils.checkpoint
+
+from deeplearning4j_tpu_torch.nn import weights as winit
+from deeplearning4j_tpu_torch.nn.layers.base import (Layer, register_layer,
+                                                     split_seed)
 
 
 def rotary_embedding(x, theta: float = 10000.0, offset=0):
@@ -59,9 +70,9 @@ def scaled_dot_attention(q, k, v, mask=None, causal=False):
     query i attends keys ≤ i + Tk − Tq). mask: [B, Tk] key mask.
 
     On the card this is the hand-written flash kernel
-    (``ops.cuda_kernels.flash_attention``); otherwise the explicit
-    einsum + softmax with -1e9 masking, as the JAX package computes it
-    off the TPU."""
+    (``ops.cuda_kernels.flash_attention``, differentiable through its
+    backward kernel); otherwise the explicit einsum + softmax with -1e9
+    masking, as the JAX package computes it off the TPU."""
     d = q.shape[-1]
     if _use_flash(q, k, causal):
         from deeplearning4j_tpu_torch.ops.cuda_kernels import \
@@ -83,3 +94,143 @@ def scaled_dot_attention(q, k, v, mask=None, causal=False):
     w = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", w, v)
 
+
+def _split_heads(x, n_heads):
+    b, t, f = x.shape
+    return x.reshape(b, t, n_heads, f // n_heads)
+
+
+def _merge_heads(x):
+    b, t, h, d = x.shape
+    return x.reshape(b, t, h * d)
+
+
+@register_layer
+@dataclass
+class MultiHeadAttention(Layer):
+    """Self multi-head attention projection block (reference
+    multi_head_dot_product_attention op). Grouped-query attention via
+    ``n_kv_heads``, rotary embeddings via ``rope``. Local attention
+    only: ``sequence_parallel`` modes come with the ``parallel/``
+    slice."""
+    n_in: Optional[int] = None
+    n_out: int = 0
+    n_heads: int = 1
+    causal: bool = False
+    project_out: bool = True
+    sequence_parallel: Optional[str] = None
+    n_kv_heads: Optional[int] = None   # grouped-query attention
+    rope: bool = False                 # rotary position embeddings
+    rope_theta: float = 10000.0
+
+    def _check(self):
+        if self.sequence_parallel is not None:
+            raise NotImplementedError(
+                f"sequence_parallel={self.sequence_parallel!r}: the "
+                "ring/zigzag/Ulysses attention comes with the "
+                "parallel/ slice (local attention only)")
+
+    def init(self, gen, input_shape, dtype=torch.float32):
+        self._check()
+        n_in = self.n_in or input_shape[-1]
+        n_out = self.n_out or n_in
+        if n_out % self.n_heads:
+            raise ValueError(f"n_out={n_out} not divisible by "
+                             f"n_heads={self.n_heads}")
+        n_kv = self.n_kv_heads or self.n_heads
+        if self.n_heads % n_kv:
+            raise ValueError(f"n_heads={self.n_heads} not divisible "
+                             f"by n_kv_heads={n_kv}")
+        kv_out = (n_out // self.n_heads) * n_kv
+        wi = winit.get(self.weight_init or "xavier")
+        params = {"Wq": wi(gen, (n_in, n_out), dtype),
+                  "Wk": wi(gen, (n_in, kv_out), dtype),
+                  "Wv": wi(gen, (n_in, kv_out), dtype)}
+        if self.project_out:
+            params["Wo"] = wi(gen, (n_out, n_out), dtype)
+            params["bo"] = torch.zeros((n_out,), dtype=dtype)
+        return params, {}, (input_shape[0], n_out)
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        self._check()
+        n_kv = self.n_kv_heads or self.n_heads
+        q = _split_heads(x @ params["Wq"], self.n_heads)
+        k = _split_heads(x @ params["Wk"], n_kv)
+        v = _split_heads(x @ params["Wv"], n_kv)
+        if self.rope:
+            q = rotary_embedding(q, self.rope_theta)
+            k = rotary_embedding(k, self.rope_theta)
+        o = _merge_heads(scaled_dot_attention(q, k, v, mask, self.causal))
+        if self.project_out:
+            o = o @ params["Wo"] + params["bo"]
+        if mask is not None:
+            o = o * mask[..., None].to(o.dtype)
+        return self._maybe_dropout(self._act()(o), train, rng), state
+
+
+@register_layer
+@dataclass
+class TransformerDecoderBlock(Layer):
+    """Pre-RMSNorm causal decoder block: grouped-query attention with
+    rotary embeddings and a SwiGLU MLP, residuals around both. The
+    residual add before the second norm is one fused kernel (K7,
+    ``ops.fused_norms.add_rms_norm``) on the card.
+
+    ``remat=True`` recomputes the block's activations during the
+    backward (``torch.utils.checkpoint``, non-reentrant) instead of
+    storing them; the dropout seed is an argument of the block, so the
+    recomputation draws the same mask."""
+    n_in: Optional[int] = None
+    n_heads: int = 8
+    n_kv_heads: Optional[int] = None
+    ffn_mult: float = 4
+    rope_theta: float = 10000.0
+    sequence_parallel: Optional[str] = None
+    remat: bool = False
+
+    def _subs(self):
+        if not hasattr(self, "_mha"):
+            from deeplearning4j_tpu_torch.nn.layers.core import RMSNorm
+            f = self.n_in
+            self._mha = MultiHeadAttention(
+                n_in=f, n_out=f, n_heads=self.n_heads,
+                n_kv_heads=self.n_kv_heads, causal=True, rope=True,
+                rope_theta=self.rope_theta,
+                sequence_parallel=self.sequence_parallel)
+            self._ln1 = RMSNorm()
+            self._ln2 = RMSNorm()
+
+    def init(self, gen, input_shape, dtype=torch.float32):
+        f = self.n_in = self.n_in or input_shape[-1]
+        self._subs()
+        wi = winit.get(self.weight_init or "xavier")
+        pa, _, _ = self._mha.init(gen, input_shape, dtype)
+        p1, _, _ = self._ln1.init(gen, input_shape, dtype)
+        p2, _, _ = self._ln2.init(gen, input_shape, dtype)
+        hid = int(round(f * self.ffn_mult))
+        params = {"mha": pa, "ln1": p1, "ln2": p2,
+                  # SwiGLU: (silu(x W_gate) * x W_up) W_down
+                  "Wg": wi(gen, (f, hid), dtype),
+                  "Wu": wi(gen, (f, hid), dtype),
+                  "Wd": wi(gen, (hid, f), dtype)}
+        return params, {}, tuple(input_shape)
+
+    def _body(self, params, x, mask, train, rng):
+        from deeplearning4j_tpu_torch.ops import fused_norms
+        r1, r2 = split_seed(rng) if rng is not None else (None, None)
+        h, _ = self._ln1.apply(params["ln1"], {}, x)
+        a, _ = self._mha.apply(params["mha"], {}, h, train=train,
+                               rng=r1, mask=mask)
+        h, x = fused_norms.add_rms_norm(x, a, params["ln2"]["gamma"],
+                                        eps=self._ln2.eps)
+        h = F.silu(h @ params["Wg"]) * (h @ params["Wu"])
+        return x + self._maybe_dropout(h @ params["Wd"], train, r2)
+
+    def apply(self, params, state, x, *, train=False, rng=None,
+              mask=None):
+        self._subs()
+        if self.remat and torch.is_grad_enabled():
+            return torch.utils.checkpoint.checkpoint(
+                lambda p, x: self._body(p, x, mask, train, rng), params,
+                x, use_reentrant=False), state
+        return self._body(params, x, mask, train, rng), state

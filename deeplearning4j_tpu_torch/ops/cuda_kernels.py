@@ -8,10 +8,21 @@ Counterpart of ``deeplearning4j_tpu/ops/pallas_kernels.py``. Kernels:
   CPU tensor it runs the plain version, :func:`flash_attention_reference`
   (the port of the JAX ``_reference_scan``). There is no other route: a
   CUDA input the kernel does not take raises.
+- :func:`flash_attention_bwd` — the single-pass FlashAttention-2
+  backward (``csrc/flash_attention_bwd.cu``, replacing
+  ``_flash_bwd_fused_kernel``): dq, dk, dv from q, k, v, the output, its
+  gradient and the saved row logsumexp. Its plain version is
+  :func:`flash_attention_bwd_reference` (the port of the JAX
+  ``_reference_bwd_block``).
 
-The backward kernels, the ring-composition entries
-(``flash_block_fwd``/``flash_block_bwd``) and the threshold codec come
-with later slices (``ops/kernel_registry.py`` lists them).
+:func:`flash_attention` is differentiable: when autograd needs its
+gradient it runs through :class:`_FlashAttentionFn`, whose forward calls
+the forward kernel with the logsumexp and whose backward calls the
+backward kernel (their plain versions for CPU tensors).
+
+The split backward kernels for very long sequences, the ring-composition
+entries (``flash_block_fwd``/``flash_block_bwd``) and the threshold
+codec come with later slices (``ops/kernel_registry.py`` lists them).
 """
 from __future__ import annotations
 
@@ -23,27 +34,44 @@ import torch
 
 from deeplearning4j_tpu_torch.obs import devtime
 
-_LIB_NAME = "flash_attention"
-_SOURCES = ("flash_attention.cu",)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
-#: the kernel's fixed tile: 64 query rows per block, 64-key tiles
+#: the kernels' fixed tile: 64 query rows by 64 keys
 KERNEL_BLOCK = 64
 
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: library name -> (sources, C entry point, its argtypes)
+_LIBS = {
+    "flash_attention": (
+        ("flash_attention.cu",), "dl4j_flash_attention_fwd",
+        [_I, _I] + [_P] * 6 + [_I] * 5 + [_LL] * 9
+        + [_I, _I, ctypes.c_float, _P]),
+    "flash_attention_bwd": (
+        ("flash_attention_bwd.cu",), "dl4j_flash_attention_bwd",
+        [_I, _I] + [_P] * 12 + [_I] * 5 + [_LL] * 15
+        + [_I, _I, ctypes.c_float, _P]),
+}
 
-def _lib() -> ctypes.CDLL:
+
+def _lib(name: str = "flash_attention") -> ctypes.CDLL:
     from deeplearning4j_tpu_torch.ops import cuda_build
-    lib = cuda_build.load(_LIB_NAME, _SOURCES)
-    fn = lib.dl4j_flash_attention_fwd
+    sources, entry, argtypes = _LIBS[name]
+    lib = cuda_build.load(name, sources)
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
         # argtypes last: a thread that sees them set sees the rest set
         lib.dl4j_cuda_error_string.argtypes = [ctypes.c_int]
         lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
         fn.restype = ctypes.c_int
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([i, i, p, p, p, p, p, p, i, i, i, i, i]
-                       + [ll] * 9 + [i, i, ctypes.c_float, p])
+        fn.argtypes = argtypes
     return lib
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err:
+        msg = ("unsupported dtype or head dim" if err < 0 else
+               lib.dl4j_cuda_error_string(err).decode())
+        raise RuntimeError(f"{what} kernel launch failed ({err}): {msg}")
 
 
 def _reference_scan(q, k, v, km=None, offs=None, causal: bool = False,
@@ -155,11 +183,7 @@ def _flash_cuda(q, k, v, mask, causal: bool, q_off: int,
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         int(causal), int(q_off), 1.0 / math.sqrt(d), stream)
-    if err:
-        msg = ("unsupported dtype or head dim" if err < 0 else
-               lib.dl4j_cuda_error_string(err).decode())
-        raise RuntimeError(f"flash_attention kernel launch failed "
-                           f"({err}): {msg}")
+    _raise_on(lib, err, "flash_attention")
     flash_attention.launches += 1
     return out, lse
 
@@ -181,17 +205,24 @@ def flash_attention(q, k, v, causal: bool = False,
     ``block_q``/``block_k`` only as None or 64). A CPU tensor runs the
     plain :func:`flash_attention_reference` (``block_k`` its key tile,
     default 512). ``return_lse`` also returns the f32 row logsumexp
-    [B, H, Tq]. Forward only: the backward kernels come with the
-    training slice."""
+    [B, H, Tq] (no gradient). Differentiable in q, k and v: when autograd
+    needs the gradient the call runs through :class:`_FlashAttentionFn`
+    (forward kernel with lse, backward kernel)."""
     t, h, h_kv = q.shape[1], q.shape[2], k.shape[2]
     if h % h_kv:
         raise ValueError(f"q heads ({h}) not divisible by kv heads "
                          f"({h_kv})")
     with devtime.scope("ops.flash_attention"):
+        if q.is_cuda:
+            _check_cuda_inputs(q, k, v, mask, block_q, block_k)
+        if (not return_lse and torch.is_grad_enabled()
+                and (q.requires_grad or k.requires_grad
+                     or v.requires_grad)):
+            return _FlashAttentionFn.apply(q, k, v, mask, causal,
+                                           block_k or 512)
         if not q.is_cuda:
             return flash_attention_reference(q, k, v, causal, mask,
                                              block_k or 512, return_lse)
-        _check_cuda_inputs(q, k, v, mask, block_q, block_k)
         out, lse = _flash_cuda(q, k, v, mask, causal,
                                k.shape[1] - t if causal else 0,
                                return_lse)
@@ -221,5 +252,145 @@ def flash_attention_reference(q, k, v, causal: bool = False, mask=None,
     return (out, lse.reshape(b, h, t)) if return_lse else out
 
 
-#: launches of the CUDA kernel (the count the smoke run reads)
+class _FlashAttentionFn(torch.autograd.Function):
+    """Differentiable flash attention (the port of the JAX ``_flash``
+    custom vjp). The forward runs the forward kernel with the row
+    logsumexp and saves ``q, k, v, out, lse`` — never the probabilities;
+    the backward runs :func:`flash_attention_bwd` on them. CPU tensors
+    take the plain versions of both."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, causal, block_k):
+        if q.is_cuda:
+            out, lse = _flash_cuda(q, k, v, mask, causal,
+                                   k.shape[1] - q.shape[1] if causal
+                                   else 0, True)
+        else:
+            out, lse = flash_attention_reference(q, k, v, causal, mask,
+                                                 block_k, True)
+        ctx.save_for_backward(q, k, v, out, lse, mask)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, mask = ctx.saved_tensors
+        # autograd's cotangent may come out of a reshape or permute: the
+        # kernel reads dO through strides but needs the head dim dense
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         dout.contiguous(),
+                                         causal=ctx.causal, mask=mask)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = False,
+                        mask: Optional[torch.Tensor] = None):
+    """Gradients (dq, dk, dv) of :func:`flash_attention` given its output
+    ``out`` [B, Tq, H, D], the f32 row logsumexp ``lse`` [B, H, Tq] it
+    returned and the output's gradient ``dout``; ``k``/``v``
+    [B, Tk, Hkv, D] (GQA: dk/dv are summed over each kv head's query
+    heads). A CUDA tensor launches the CUDA kernel; a CPU tensor runs
+    :func:`flash_attention_bwd_reference`."""
+    with devtime.scope("ops.flash_attention_bwd"):
+        if not q.is_cuda:
+            return flash_attention_bwd_reference(q, k, v, out, lse, dout,
+                                                 causal, mask)
+        _check_cuda_inputs(q, k, v, mask, None, None)
+        b, t, h, d = q.shape
+        for name, x in (("out", out), ("dout", dout)):
+            if (not x.is_cuda or x.dtype != q.dtype
+                    or x.shape != q.shape or x.stride(-1) != 1):
+                raise ValueError(
+                    f"flash_attention_bwd: {name} must be a CUDA "
+                    f"{q.dtype} tensor shaped like q {tuple(q.shape)} "
+                    f"with a dense head dim, got {tuple(x.shape)} "
+                    f"{x.dtype} on {x.device}")
+        if (not lse.is_cuda or lse.dtype != torch.float32
+                or tuple(lse.shape) != (b, h, t)
+                or not lse.is_contiguous()):
+            raise ValueError(f"flash_attention_bwd: lse must be a "
+                             f"contiguous CUDA float32 [{b}, {h}, {t}] "
+                             f"tensor, got {tuple(lse.shape)} "
+                             f"{lse.dtype} on {lse.device}")
+        return _flash_bwd_cuda(q, k, v, out, lse, dout, mask, causal)
+
+
+def _flash_bwd_cuda(q, k, v, out, lse, dout, mask, causal: bool):
+    b, t, h, d = q.shape
+    tk, h_kv = k.shape[1], k.shape[2]
+    dq = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, tk, h_kv, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, tk, h_kv, d), dtype=v.dtype, device=q.device)
+    if t == 0 or tk == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    # scratch: dq accumulates in f32 across key tiles, Delta per row
+    dq_acc = torch.empty((b, t, h, d), dtype=torch.float32,
+                         device=q.device)
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    km = None if mask is None else mask.to(torch.float32).contiguous()
+    lib = _lib("flash_attention_bwd")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.dl4j_flash_attention_bwd(
+        _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        None if km is None else km.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), dq_acc.data_ptr(),
+        delta.data_ptr(), b, t, tk, h, h_kv,
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        out.stride(0), out.stride(1), out.stride(2),
+        dout.stride(0), dout.stride(1), dout.stride(2),
+        int(causal), tk - t if causal else 0, 1.0 / math.sqrt(d), stream)
+    _raise_on(lib, err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd_reference(q, k, v, out, lse, dout,
+                                  causal: bool = False, mask=None):
+    """The plain version of :func:`flash_attention_bwd` on any device —
+    the port of the JAX ``_reference_bwd_block`` on [B, T, H, D]: the
+    kv heads repeated per head group, the whole [Tq, Tk] probability
+    matrix recomputed in f32 from the logsumexp (lse taken as 0 where it
+    is not finite), dk/dv summed back onto the kv heads. O(Tq·Tk)
+    memory: for tests and the card's comparison only."""
+    b, t, h, d = q.shape
+    tk, h_kv = k.shape[1], k.shape[2]
+    groups = h // h_kv
+    scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    fold = lambda x: x.permute(0, 2, 1, 3).reshape(
+        b * x.shape[2], x.shape[1], d).float()
+    expand = lambda x: x.repeat_interleave(groups, dim=0)
+    qf, of, gf = fold(q), fold(out), fold(dout)
+    kf, vf = expand(fold(k)), expand(fold(v))
+    s = torch.einsum("bqd,bkd->bqk", qf, kf) * scale
+    live = torch.ones((1, t, tk), dtype=torch.bool, device=dev)
+    if mask is not None:
+        live = mask.to(torch.float32).repeat_interleave(
+            h, dim=0)[:, None, :] > 0
+    if causal:
+        q_idx = (tk - t) + torch.arange(t, device=dev)[:, None]
+        live = live & (torch.arange(tk, device=dev)[None, :] <= q_idx)
+    lse3 = lse.reshape(b * h, t, 1)
+    lse_safe = torch.where(torch.isfinite(lse3), lse3,
+                           torch.zeros_like(lse3))
+    p = torch.where(live, torch.exp(s - lse_safe), torch.zeros_like(s))
+    delta = (gf * of).sum(-1, keepdim=True)
+    dp = torch.einsum("bqd,bkd->bqk", gf, vf)
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bqk,bkd->bqd", ds, kf)
+    dk = torch.einsum("bqk,bqd->bkd", ds, qf)
+    dv = torch.einsum("bqk,bqd->bkd", p, gf)
+    reduce = lambda x: x.reshape(b * h_kv, groups, tk, d).sum(1)
+    unfold = lambda x, heads, n: x.reshape(b, heads, n, d).permute(
+        0, 2, 1, 3).contiguous()
+    return (unfold(dq, h, t).to(q.dtype),
+            unfold(reduce(dk), h_kv, tk).to(k.dtype),
+            unfold(reduce(dv), h_kv, tk).to(v.dtype))
+
+
+#: launches of the CUDA kernels (the counts the smoke run reads)
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0

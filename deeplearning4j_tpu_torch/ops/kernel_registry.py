@@ -3,11 +3,13 @@
 
 For each row: the JAX kernel body and its entry point, the port function
 and its plain PyTorch version, the launch counter, the route (``cuda`` or
-``triton``), the source file, and the status — ``ported`` or ``todo``.
-``chip_smoke.py`` reads this table: it builds and checks every
-``ported`` row on the card and reads its launch counter around the
-serving run. ``tests/test_torch_imports.py`` holds the ``ported`` rows
-to importable functions that carry a ``launches`` counter.
+``triton``), the source file, the status — ``ported`` or ``todo`` — and
+the main paths that launch it (``serve``, ``train``). ``chip_smoke.py``
+reads this table: it builds and checks every ``ported`` row on the card,
+zeroes the launch counters just before each path it drives and reads
+them just after, and expects every row to launch on each of its paths.
+``tests/test_torch_imports.py`` holds the ``ported`` rows to importable
+functions that carry a ``launches`` counter.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ class KernelEntry:
     source: Optional[str] = None         # kernel source in the repo
     port: Optional[str] = None           # "module:function"
     plain: Optional[str] = None          # "module:function"
+    paths: Tuple[str, ...] = ()          # main paths that launch it
 
     def _resolve(self, ref: str) -> Callable:
         mod, fn = ref.split(":")
@@ -59,22 +62,36 @@ KERNELS: Tuple[KernelEntry, ...] = (
         route="cuda",
         source="deeplearning4j_tpu_torch/csrc/flash_attention.cu",
         port=f"{_CK}:flash_attention",
-        plain=f"{_CK}:flash_attention_reference"),
+        plain=f"{_CK}:flash_attention_reference",
+        paths=("serve", "train")),
     KernelEntry(
         "K2", "rms_norm_fwd", f"{_FN}:111", f"{_FN}:rms_norm", "ported",
         "serving", route="triton",
         source="deeplearning4j_tpu_torch/ops/fused_norms.py",
-        port=f"{_NORM}:rms_norm", plain=f"{_NORM}:rms_norm_reference"),
-    KernelEntry("K3", "flash_attention_bwd_fused", f"{_PK}:488",
-                f"{_PK}:_flash_bwd", "todo", "training"),
+        port=f"{_NORM}:rms_norm", plain=f"{_NORM}:rms_norm_reference",
+        paths=("serve", "train")),
+    KernelEntry(
+        "K3", "flash_attention_bwd_fused", f"{_PK}:488",
+        f"{_PK}:_flash_bwd", "ported", "training", route="cuda",
+        source="deeplearning4j_tpu_torch/csrc/flash_attention_bwd.cu",
+        port=f"{_CK}:flash_attention_bwd",
+        plain=f"{_CK}:flash_attention_bwd_reference", paths=("train",)),
     KernelEntry("K4", "flash_attention_bwd_dq", f"{_PK}:418",
-                f"{_PK}:_flash_bwd", "todo", "training"),
+                f"{_PK}:_flash_bwd", "todo", "long-context"),
     KernelEntry("K5", "flash_attention_bwd_dkv", f"{_PK}:451",
-                f"{_PK}:_flash_bwd", "todo", "training"),
-    KernelEntry("K6", "rms_norm_bwd", f"{_FN}:119",
-                f"{_FN}:_rms_bwd_call", "todo", "training"),
-    KernelEntry("K7", "add_rms_norm_fwd", f"{_FN}:218",
-                f"{_FN}:add_rms_norm", "todo", "training"),
+                f"{_PK}:_flash_bwd", "todo", "long-context"),
+    KernelEntry(
+        "K6", "rms_norm_bwd", f"{_FN}:119", f"{_FN}:_rms_bwd_call",
+        "ported", "training", route="triton",
+        source="deeplearning4j_tpu_torch/ops/fused_norms.py",
+        port=f"{_NORM}:rms_norm_bwd",
+        plain=f"{_NORM}:rms_norm_bwd_reference", paths=("train",)),
+    KernelEntry(
+        "K7", "add_rms_norm_fwd", f"{_FN}:218", f"{_FN}:add_rms_norm",
+        "ported", "training", route="triton",
+        source="deeplearning4j_tpu_torch/ops/fused_norms.py",
+        port=f"{_NORM}:add_rms_norm",
+        plain=f"{_NORM}:add_rms_norm_reference", paths=("train",)),
     KernelEntry("K8", "layer_norm_fwd", f"{_FN}:298",
                 f"{_FN}:layer_norm", "todo", "encoder"),
     KernelEntry("K9", "layer_norm_bwd", f"{_FN}:312",
@@ -88,3 +105,8 @@ KERNELS: Tuple[KernelEntry, ...] = (
 
 def ported() -> Tuple[KernelEntry, ...]:
     return tuple(e for e in KERNELS if e.status == "ported")
+
+
+def on_path(path: str) -> Tuple[KernelEntry, ...]:
+    """The ported rows a main path (``serve``, ``train``) launches."""
+    return tuple(e for e in ported() if path in e.paths)

@@ -1,2 +1,2 @@
-"""Model zoo (port). This slice carries the decoder-only LM's serving
-half (``gpt``)."""
+"""Model zoo (port). This slice carries the decoder-only LM (``gpt``):
+its serving half and its training configuration."""

@@ -1,10 +1,13 @@
-"""Decoder-only causal transformer LM — the serving half.
+"""Decoder-only causal transformer LM.
 
 Port of ``deeplearning4j_tpu/zoo/gpt.py``: RMSNorm pre-norm blocks,
-rotary position embeddings, grouped-query attention and SwiGLU MLPs,
-decoded with a KV cache — one batched prefill forward over the prompt
-(every cache row written at once, attention through the flash kernel on
-the card) followed by one decode step per generated position.
+rotary position embeddings, grouped-query attention and SwiGLU MLPs.
+Train it through the JAX package's entry points, :meth:`conf` /
+:meth:`init` → ``MultiLayerNetwork.fit(tokens[B,T], next_ids[B,T])``
+(sparse softmax cross-entropy from the logits, the model's AdamW by
+default); decode it with a KV cache — one batched prefill forward over
+the prompt (every cache row written at once, attention through the flash
+kernel on the card) followed by one decode step per generated position.
 
 The model holds the configuration; parameters are a nested dict of
 tensors with the JAX package's names and shapes (``layer_0`` the
@@ -13,10 +16,12 @@ embedding ``W`` [V, F]; ``layer_1..L`` the blocks with
 ``layer_{L+1}.gamma`` the final norm; ``layer_{L+2}`` the head ``b``
 and, untied, ``W`` [F, V]). :meth:`CausalTransformerLM.init_params`
 builds them from a seed; :meth:`CausalTransformerLM.params_from_jax`
-carries a JAX network's weights across.
+carries a JAX network's weights across. A trained ``MultiLayerNetwork``
+holds the same tree in ``net.params``, so :meth:`generate` and the
+serving gateway take it as it is.
 
-Training (the layer classes, ``MultiLayerNetwork``), int8 weight and
-KV-cache quantisation and beam search come with later slices.
+Sequence-parallel training, int8 weight and KV-cache quantisation and
+beam search come with later slices.
 """
 from __future__ import annotations
 
@@ -28,9 +33,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from deeplearning4j_tpu_torch import dtypes, obs
+from deeplearning4j_tpu_torch import dtypes, obs, tree
+from deeplearning4j_tpu_torch.nn import updaters as upd
+from deeplearning4j_tpu_torch.nn.config import (InputType,
+                                                NeuralNetConfiguration)
+from deeplearning4j_tpu_torch.nn.layers import (EmbeddingSequenceLayer,
+                                                RMSNorm, RnnOutputLayer,
+                                                TransformerDecoderBlock)
 from deeplearning4j_tpu_torch.nn.layers.attention import (
     rotary_embedding, scaled_dot_attention)
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.ops import fused_norms
 
 
@@ -49,35 +61,27 @@ def prompt_bucket(t0: int, max_len: Optional[int] = None) -> int:
     return tb if max_len is None else min(tb, max_len)
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
-def _to_torch(a) -> torch.Tensor:
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":      # ml_dtypes bf16: no torch view
-        return torch.tensor(a.astype(np.float32)).to(torch.bfloat16)
-    return torch.tensor(a)
-
-
 class CausalTransformerLM:
-    """Configurable decoder-only LM (serving). ``GPTNano()`` /
-    ``GPTMini()`` give preset sizes. Decode with :meth:`generate` or
-    serve through ``serving.gateway.ServingGateway``."""
+    """Configurable decoder-only LM. ``GPTNano()`` / ``GPTMini()`` give
+    preset sizes. Train with ``init(seq_len)`` then
+    ``fit(tokens[B,T], next_ids[B,T])``; decode with :meth:`generate`
+    or serve through ``serving.gateway.ServingGateway``."""
 
     def __init__(self, vocab_size: int = 50257, hidden: int = 768,
                  n_layers: int = 12, n_heads: int = 12,
                  n_kv_heads: Optional[int] = None, max_len: int = 1024,
                  ffn_mult: float = 4, rope_theta: float = 10000.0,
-                 tie_embeddings: bool = False,
+                 dropout: float = 0.0,
+                 sequence_parallel: Optional[str] = None,
+                 remat: bool = False, tie_embeddings: bool = False,
                  serve_quant: Optional[str] = None,
                  cache_quant: Optional[str] = None,
-                 seed: int = 123,
+                 seed: int = 123, updater=None,
                  compute_dtype: Optional[str] = None):
+        if sequence_parallel is not None:
+            raise NotImplementedError(
+                f"sequence_parallel={sequence_parallel!r}: sequence-"
+                "parallel training comes with the parallel/ slice")
         if serve_quant is not None:
             raise ValueError(f"serve_quant={serve_quant!r}: int8 "
                              "weight-only serving is not ported yet "
@@ -102,6 +106,12 @@ class CausalTransformerLM:
         self.ffn_mult = ffn_mult
         self.rope_theta = rope_theta
         self.seed = seed
+        self.dropout = dropout
+        self.sequence_parallel = sequence_parallel
+        self.remat = remat
+        self.updater = updater or upd.AdamW(learning_rate=3e-4,
+                                            weight_decay=0.1,
+                                            exclude_bias_and_norm=True)
         self.compute_dtype = compute_dtype
         self._gen_calls = 0
         self._decode_params_cache = None
@@ -156,34 +166,55 @@ class CausalTransformerLM:
 
         return build(self.param_shapes())
 
-    def params_from_jax(self, tree, device="cuda") -> Dict[str, dict]:
-        """Carry a JAX network's weights across: ``tree`` is the nested
-        dict of numpy arrays ``jax.tree.map(np.asarray, net.params)``
-        gives. Returns the port's parameters on ``device``, checked
-        against :meth:`param_shapes` (same dtypes as given)."""
-        want = self.param_shapes()
+    def params_from_jax(self, params_tree,
+                        device="cuda") -> Dict[str, dict]:
+        """Carry a JAX network's weights across: ``params_tree`` is the
+        nested dict of numpy arrays ``jax.tree.map(np.asarray,
+        net.params)`` gives. Returns the port's parameters on
+        ``device``, checked against :meth:`param_shapes` (same dtypes as
+        given)."""
+        return tree.from_numpy(self.param_shapes(), params_tree, device)
 
-        def walk(shapes, sub, path):
-            if set(sub) != set(shapes):
-                raise ValueError(f"params{path}: keys {sorted(sub)} != "
-                                 f"expected {sorted(shapes)}")
-            out = {}
-            for k, shape in shapes.items():
-                if isinstance(shape, dict):
-                    out[k] = walk(shape, sub[k], f"{path}.{k}")
-                    continue
-                t = _to_torch(sub[k])
-                if tuple(t.shape) != shape:
-                    raise ValueError(f"params{path}.{k}: shape "
-                                     f"{tuple(t.shape)} != {shape}")
-                out[k] = t.to(device)
-            return out
+    # -- training -------------------------------------------------------
+    def conf(self, seq_len: int):
+        """The network configuration the JAX package builds: embedding,
+        ``n_layers`` decoder blocks, the final RMSNorm and a softmax
+        head trained by sparse cross-entropy from the logits; the head
+        tied to the embedding (transposed) with ``tie_embeddings``."""
+        b = (NeuralNetConfiguration.builder()
+             .seed(self.seed)
+             .updater(self.updater)
+             .compute_data_type(self.compute_dtype)
+             .list()
+             .layer(EmbeddingSequenceLayer(n_in=self.vocab_size,
+                                           n_out=self.hidden,
+                                           weight_init="normal")))
+        for _ in range(self.n_layers):
+            b.layer(TransformerDecoderBlock(
+                n_heads=self.n_heads, n_kv_heads=self.n_kv_heads,
+                ffn_mult=self.ffn_mult, rope_theta=self.rope_theta,
+                dropout=self.dropout or None, remat=self.remat,
+                sequence_parallel=self.sequence_parallel))
+        b.layer(RMSNorm())
+        b.layer(RnnOutputLayer(n_out=self.vocab_size,
+                               activation="softmax",
+                               loss="sparse_mcxent"))
+        if self.tie_embeddings:
+            b.tie_weights(self.n_layers + 2, "W", 0, "W",
+                          transpose=True)
+        return b.set_input_type(
+            InputType.recurrent(1, seq_len)).build()
 
-        return walk(want, tree, "")
+    def init(self, seq_len: Optional[int] = None,
+             device="cuda") -> MultiLayerNetwork:
+        """A new network with random weights (from the model's seed) on
+        ``device``, ready for ``fit``."""
+        return MultiLayerNetwork(
+            self.conf(seq_len or self.max_len)).init(device=device)
 
     # -- KV-cached autoregressive decoding ------------------------------
     @torch.no_grad()
-    def generate(self, params, prompt, n_new: int,
+    def generate(self, net, prompt, n_new: int,
                  temperature: float = 0.0, top_k: Optional[int] = None,
                  top_p: Optional[float] = None,
                  generator: Optional[torch.Generator] = None):
@@ -192,8 +223,10 @@ class CausalTransformerLM:
         then one decode step per generated position against a dense KV
         cache. Sampling (``temperature > 0``) supports ``top_k`` and
         nucleus ``top_p``; both filters compose. ``prompt``: [B, T0]
-        ints. Returns [B, T0 + n_new] int32 (numpy). Runs on the device
-        ``params`` live on.
+        ints. Returns [B, T0 + n_new] int32 (numpy). ``net`` is a
+        ``MultiLayerNetwork`` of this model (as the JAX ``generate``
+        takes) or its parameter tree; it runs on the device they live
+        on.
 
         ``generator``: a ``torch.Generator`` on that device for
         reproducible samples; the default seeds one from a per-call
@@ -212,6 +245,7 @@ class CausalTransformerLM:
             raise ValueError(f"prompt+new ({t0 + n_new}) exceeds "
                              f"max_len={self.max_len}")
         tb = prompt_bucket(t0, self.max_len)
+        params = net.params if isinstance(net, MultiLayerNetwork) else net
         p = self._decode_params(params)
         dev = p["layer_0"]["W"].device
         pad = np.zeros((b, tb), np.int64)
@@ -377,7 +411,7 @@ class CausalTransformerLM:
         tensors."""
         if self.compute_dtype is None:
             return params
-        leaves = list(_leaves(params))
+        leaves = list(tree.leaves(params))
         cached = self._decode_params_cache
         if (cached is not None and len(cached[0]) == len(leaves)
                 and all(w() is t for w, t in zip(cached[0], leaves))):

@@ -30,7 +30,8 @@ from deeplearning4j_tpu.ops import pallas_kernels as jax_pk
 from deeplearning4j_tpu_torch.nn.layers.attention import (
     _use_flash, repeat_kv_heads, rotary_embedding, scaled_dot_attention)
 from deeplearning4j_tpu_torch.ops import cuda_kernels, fused_norms
-from deeplearning4j_tpu_torch.ops.kernel_registry import KERNELS, ported
+from deeplearning4j_tpu_torch.ops.kernel_registry import (KERNELS, on_path,
+                                                          ported)
 
 F32_NORM_TOL = 1e-5
 F32_ATTN_TOL = 2e-5
@@ -194,14 +195,19 @@ def test_use_flash_gate_keeps_semantic_refusals():
 def test_registry_lists_every_tpu_kernel():
     keys = [e.key for e in KERNELS]
     assert keys == [f"K{i}" for i in range(1, 12)]
-    assert {e.key for e in ported()} == {"K1", "K2"}
+    assert {e.key for e in ported()} == {"K1", "K2", "K3", "K6", "K7"}
     for e in ported():
         assert e.route in ("cuda", "triton")
         assert callable(e.plain_fn())
         assert isinstance(e.launches(), int)
+        # every ported row names the main paths that launch it
+        assert e.paths and set(e.paths) <= {"serve", "train"}
+    assert {e.key for e in on_path("serve")} == {"K1", "K2"}
+    assert {e.key for e in on_path("train")} == {"K1", "K2", "K3", "K6",
+                                                 "K7"}
     for e in KERNELS:
         if e.status == "todo":
-            assert e.port is None and e.route is None
+            assert e.port is None and e.route is None and not e.paths
 
 
 # -- the CUDA build -------------------------------------------------------------

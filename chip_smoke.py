@@ -88,6 +88,10 @@ RMS_TOL_BF16_ULPS = 8
 # bf16 — both sides compute in f32 from the same bf16 inputs and round
 # each output once: at most one bf16 ulp (2^-8) of the largest value
 K3_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# K1's f32 row logsumexp (values < 16): both sides sum the same f32
+# scores in another order (the kernel with __expf), whatever the input
+# dtype
+LSE_TOL = 1e-4
 # RMSNorm backward (K6): both sides f32 math; bf16 rounds once on each
 # side, dγ summed in another order — 2 bf16 ulps
 K6_TOL_F32 = 1e-4
@@ -103,12 +107,6 @@ SERVE = dict(vocab_size=50257, hidden=768, n_layers=12, n_heads=6,
              max_len=2048, ffn_mult=8 / 3, tie_embeddings=True)
 TRAIN = dict(SERVE, max_len=1024)
 TRAIN_B, TRAIN_T = 16, 1024
-#: launches per training step of the 12-layer model (remat off):
-#: attention fwd/bwd once per block, RMSNorm for ln1 x12 + the final
-#: norm, the fused add+norm once per block, and the norm backward for
-#: all 25 norms
-TRAIN_LAUNCHES_PER_STEP = {"K1": 12, "K3": 12, "K2": 13, "K7": 12,
-                           "K6": 25}
 
 
 def log(msg: str) -> None:
@@ -356,10 +354,13 @@ def _flash_bwd_case(dt, b, t, h, h_kv, causal, masked, seed):
 
 
 def _check_flash_bwd(e, rows, card):
-    """K3 against its plain version at [1, T, 6, 128], then timed at the
-    training shape [16, 1024, 6, 128] bf16 causal."""
+    """K3 against its plain version at [1, T, 6, 128]; then, at the
+    training shape [16, 1024, 6, 128] bf16 causal, K1 with its lse and
+    K3 against their plain versions, and K3 timed."""
     import torch
     import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.ops.cuda_kernels import (
+        flash_attention_reference)
     bwd, plain = e.port_fn(), e.plain_fn()
     cases = [(t, 6, True, False) for t in (200, 1024, 2048)]
     cases += [(2048, 2, True, False), (1024, 6, False, True)]
@@ -386,11 +387,35 @@ def _check_flash_bwd(e, rows, card):
                 raise AssertionError(f"K3 disagrees with its plain "
                                      f"version: {line}")
             err_max = max(err_max, *errs)
-    rows["K3_err"] = err_max
-    # timing row: the training path's shape
+    # the training path's shape: K1's out and lse, then K3 on them, held
+    # against their plain versions, then timed
     b, t, h = TRAIN_B, TRAIN_T, 6
     q, k, v, out, lse, do, _ = _flash_bwd_case(torch.bfloat16, b, t, h, h,
                                                True, False, 7)
+    ref_out, ref_lse = flash_attention_reference(q, k, v, causal=True,
+                                                 return_lse=True)
+    got = bwd(q, k, v, out, lse, do, causal=True)
+    ref = plain(q, k, v, out, lse, do, causal=True)
+    torch.cuda.synchronize()
+    o_err = (out.float() - ref_out.float()).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    errs = [(a.float() - r.float()).abs().max().item()
+            for a, r in zip(got, ref)]
+    rel = max(_rel_err(a, r) for a, r in zip(got, ref))
+    line = (f"K1+K3 bfloat16 [{b},{t},{h},128] causal: K1 out "
+            f"max_abs_err={o_err:.3e} tol={FLASH_TOL['bfloat16']:.0e} lse "
+            f"max_abs_err={lse_err:.3e} tol={LSE_TOL:.0e}; K3 max_abs_err"
+            f"(dq,dk,dv)={','.join(f'{x:.3e}' for x in errs)} rel="
+            f"{rel:.3e} tol={K3_TOL['bfloat16']:.0e} {card}")
+    log(line)
+    finite = all(bool(torch.isfinite(x).all()) for x in (out, lse, *got))
+    if not (o_err <= FLASH_TOL["bfloat16"] and lse_err <= LSE_TOL
+            and rel <= K3_TOL["bfloat16"] and finite):
+        raise AssertionError(f"K1 or K3 disagrees with its plain version "
+                             f"at the training shape: {line}")
+    del ref_out, ref_lse, ref
+    rows["K1_err"] = max(rows["K1_err"], o_err)
+    rows["K3_err"] = max(err_max, *errs)
     t_k = time_ms(lambda: bwd(q, k, v, out, lse, do, causal=True),
                   iters=10)
     t_p = time_ms(lambda: plain(q, k, v, out, lse, do, causal=True),
@@ -694,14 +719,16 @@ def phase_train(state):
     log(f"train: B={TRAIN_B} T={TRAIN_T} steps={steps} mean_step_ms="
         f"{step_ms:.3f} tokens_per_s={TRAIN_B * TRAIN_T / wall * steps:.1f}"
         f" max_memory_allocated_gb={peak_gb:.3f} {card}")
+    per_step = {e.key: e.train_per_step
+                for e in kernel_registry.on_path("train")}
     log(f"train: launches over {steps} steps {launches} (per step "
-        f"expected {TRAIN_LAUNCHES_PER_STEP}) {card}")
+        f"expected {per_step}) {card}")
     assert all(math.isfinite(l) for l in losses), losses
     assert losses[-1] < losses[0], losses
-    for e in kernel_registry.on_path("train"):
-        want = steps * TRAIN_LAUNCHES_PER_STEP[e.key]
-        assert launches[e.key] == want, \
-            f"{e.key}: {launches[e.key]} launches in {steps} steps, " \
+    for key, n in per_step.items():
+        want = steps * n
+        assert launches[key] == want, \
+            f"{key}: {launches[key]} launches in {steps} steps, " \
             f"expected {want}"
 
 

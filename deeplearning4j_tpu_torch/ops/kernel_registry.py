@@ -4,10 +4,12 @@
 For each row: the JAX kernel body and its entry point, the port function
 and its plain PyTorch version, the launch counter, the route (``cuda`` or
 ``triton``), the source file, the status — ``ported`` or ``todo`` — and
-the main paths that launch it (``serve``, ``train``). ``chip_smoke.py``
-reads this table: it builds and checks every ``ported`` row on the card,
-zeroes the launch counters just before each path it drives and reads
-them just after, and expects every row to launch on each of its paths.
+the main paths that launch it (``serve``, ``train``) and, for the train
+path, its launches per training step. ``chip_smoke.py`` reads this
+table: it builds and checks every ``ported`` row on the card, zeroes the
+launch counters just before each path it drives and reads them just
+after, and expects every row to launch on each of its paths (on the
+train path, exactly ``train_per_step`` times a step).
 ``tests/test_torch_imports.py`` holds the ``ported`` rows to importable
 functions that carry a ``launches`` counter.
 """
@@ -34,6 +36,9 @@ class KernelEntry:
     port: Optional[str] = None           # "module:function"
     plain: Optional[str] = None          # "module:function"
     paths: Tuple[str, ...] = ()          # main paths that launch it
+    #: launches per training step of the 12-layer GPT-2-small-class
+    #: model (remat off); nonzero exactly when ``"train" in paths``
+    train_per_step: int = 0
 
     def _resolve(self, ref: str) -> Callable:
         mod, fn = ref.split(":")
@@ -63,19 +68,20 @@ KERNELS: Tuple[KernelEntry, ...] = (
         source="deeplearning4j_tpu_torch/csrc/flash_attention.cu",
         port=f"{_CK}:flash_attention",
         plain=f"{_CK}:flash_attention_reference",
-        paths=("serve", "train")),
+        paths=("serve", "train"), train_per_step=12),     # once a block
     KernelEntry(
         "K2", "rms_norm_fwd", f"{_FN}:111", f"{_FN}:rms_norm", "ported",
         "serving", route="triton",
         source="deeplearning4j_tpu_torch/ops/fused_norms.py",
         port=f"{_NORM}:rms_norm", plain=f"{_NORM}:rms_norm_reference",
-        paths=("serve", "train")),
+        paths=("serve", "train"), train_per_step=13),     # ln1 x12, final
     KernelEntry(
         "K3", "flash_attention_bwd_fused", f"{_PK}:488",
         f"{_PK}:_flash_bwd", "ported", "training", route="cuda",
         source="deeplearning4j_tpu_torch/csrc/flash_attention_bwd.cu",
         port=f"{_CK}:flash_attention_bwd",
-        plain=f"{_CK}:flash_attention_bwd_reference", paths=("train",)),
+        plain=f"{_CK}:flash_attention_bwd_reference", paths=("train",),
+        train_per_step=12),                               # once a block
     KernelEntry("K4", "flash_attention_bwd_dq", f"{_PK}:418",
                 f"{_PK}:_flash_bwd", "todo", "long-context"),
     KernelEntry("K5", "flash_attention_bwd_dkv", f"{_PK}:451",
@@ -85,13 +91,15 @@ KERNELS: Tuple[KernelEntry, ...] = (
         "ported", "training", route="triton",
         source="deeplearning4j_tpu_torch/ops/fused_norms.py",
         port=f"{_NORM}:rms_norm_bwd",
-        plain=f"{_NORM}:rms_norm_bwd_reference", paths=("train",)),
+        plain=f"{_NORM}:rms_norm_bwd_reference", paths=("train",),
+        train_per_step=25),                               # all 25 norms
     KernelEntry(
         "K7", "add_rms_norm_fwd", f"{_FN}:218", f"{_FN}:add_rms_norm",
         "ported", "training", route="triton",
         source="deeplearning4j_tpu_torch/ops/fused_norms.py",
         port=f"{_NORM}:add_rms_norm",
-        plain=f"{_NORM}:add_rms_norm_reference", paths=("train",)),
+        plain=f"{_NORM}:add_rms_norm_reference", paths=("train",),
+        train_per_step=12),                               # once a block
     KernelEntry("K8", "layer_norm_fwd", f"{_FN}:298",
                 f"{_FN}:layer_norm", "todo", "encoder"),
     KernelEntry("K9", "layer_norm_bwd", f"{_FN}:312",

@@ -202,12 +202,16 @@ def test_registry_lists_every_tpu_kernel():
         assert isinstance(e.launches(), int)
         # every ported row names the main paths that launch it
         assert e.paths and set(e.paths) <= {"serve", "train"}
+        # the train phase's expected launches per step: on the train
+        # path's rows only
+        assert (e.train_per_step > 0) == ("train" in e.paths)
     assert {e.key for e in on_path("serve")} == {"K1", "K2"}
     assert {e.key for e in on_path("train")} == {"K1", "K2", "K3", "K6",
                                                  "K7"}
     for e in KERNELS:
         if e.status == "todo":
             assert e.port is None and e.route is None and not e.paths
+            assert e.train_per_step == 0
 
 
 # -- the CUDA build -------------------------------------------------------------

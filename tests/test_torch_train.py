@@ -15,10 +15,13 @@ Tolerances:
   the gradient and round at every op, in different places, so the
   gradients differ at the bf16 level and Adam turns that into
   differences of a fraction of lr per step; losses within 2e-3 relative
-  (measured ≤ 5.5e-4), 99 % of the parameters within 1e-4 (a third of
-  one step; measured 99.4 %), all within 3 · lr · steps (each of the 3
-  Adam steps moves an element by about lr, and near-zero gradients may
-  point either way; measured ≤ 1.5e-3).
+  (measured ≤ 5.5e-4). Each parameter tensor on its own has 97 % of
+  its elements within 1e-4, a third of one step (measured ≥ 98.4 %, the
+  worst a 128-element bias with 2 elements outside): a tensor given a
+  wrong update, such as a wrong dγ, moves most of its elements by about
+  lr a step and fails. Every element is within 2 · lr · steps, the most
+  two Adam trajectories of 3 steps of about lr each can part when
+  near-zero gradients point opposite ways (measured ≤ 1.5e-3).
 - remat against no remat, one package: recomputing the same f32 ops
   gives the same numbers, 1e-6.
 """
@@ -69,12 +72,19 @@ def _batches(n, b=4, t=24, vocab=16, seed=0):
             for _ in range(n)]
 
 
-def _param_diffs(jnet, pnet):
+def _leaf_diffs(jnet, pnet):
+    """|JAX − port| per parameter tensor, by its key path."""
     jp = jax.tree.map(lambda a: np.asarray(a, np.float32), jnet.params)
     pp = tree.map_(lambda t: t.detach().float().numpy(), pnet.params)
     assert jax.tree.structure(jp) == jax.tree.structure(pp)
-    return np.concatenate([np.abs(a - b).ravel() for a, b in zip(
-        jax.tree.leaves(jp), jax.tree.leaves(pp))])
+    paths = [jax.tree_util.keystr(p)
+             for p, _ in jax.tree_util.tree_flatten_with_path(jp)[0]]
+    return {k: np.abs(a - b).ravel() for k, a, b in zip(
+        paths, jax.tree.leaves(jp), jax.tree.leaves(pp))}
+
+
+def _param_diffs(jnet, pnet):
+    return np.concatenate(list(_leaf_diffs(jnet, pnet).values()))
 
 
 @pytest.mark.parametrize("kw", [{}, {"tie_embeddings": True}],
@@ -104,9 +114,9 @@ def test_fit_steps_match_jax_bf16_compute():
     # the masters and the optimizer state stay f32
     assert all(t.dtype == torch.float32
                for t in tree.leaves(pnet.params))
-    d = _param_diffs(jnet, pnet)
-    assert (d <= 1e-4).mean() >= 0.99, (d <= 1e-4).mean()
-    assert d.max() <= 3 * LR * STEPS, d.max()
+    for key, d in _leaf_diffs(jnet, pnet).items():
+        assert (d <= 1e-4).mean() >= 0.97, (key, (d <= 1e-4).mean())
+        assert d.max() <= 2 * LR * STEPS, (key, d.max())
 
 
 def test_remat_equals_plain_block():

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card (H100).
 
-    python3 chip_smoke.py               # phases 1-6 (needs one card)
+    python3 chip_smoke.py               # phases 1-8 (needs one card)
     python3 chip_smoke.py --phases train,train_agree,kernels
+    python3 chip_smoke.py --phases finetune,finetune_agree,kernels
     python3 chip_smoke.py --phases profile    # device-time breakdown
 
 Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
@@ -27,29 +28,47 @@ Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
 5. train_agree — the same model in float32 (TF32 off), one step at
    B = 2, T = 256: the card's loss and every gradient against the port
    on the CPU;
-6. kernels — holds each ported kernel against its plain PyTorch version
-   on the card at its main path's shapes, in bfloat16 and float32, and
+6. finetune — BERT-base at full width and depth (vocab 30522, hidden
+   768, 12 layers, 12 heads of 64, FFN x4, max_len 512, dropout 0.1,
+   bfloat16 compute, the model's AdamW, random weights from a seed)
+   built by ``BertBase(...).init_classifier(2, 128)`` and trained by
+   ``ComputationGraph.fit([tokens, segments], [labels],
+   features_masks=[mask, mask])`` on one fixed padded sentence-pair
+   batch of 64 x 128 (lengths 32..128): 2 warm steps, then 8 timed
+   steps; every loss finite, and the mean of the last two below the
+   mean of the first two (under dropout a single step's loss is noisy);
+   each kernel launched exactly its registry count per step; then one
+   ``output(...)`` whose rows each sum to 1;
+7. finetune_agree — BERT-base in float32 with dropout 0 (a CUDA and a
+   CPU ``torch.Generator`` draw different masks) and TF32 off, one step
+   at B = 4, T = 128 with a key mask: the card's loss and every gradient
+   against the port on the CPU;
+8. kernels — holds each ported kernel against its plain PyTorch version
+   on the card at its main paths' shapes, in bfloat16 and float32, and
    times the kernel, the plain version and a PyTorch library call that
    computes the same function (a yardstick the port never calls). The
    CUDA kernels (K1, K3, milliseconds each at these shapes) are timed by
    CUDA events around a run of launches; everything else by the replay
    of a CUDA graph of 20 calls, which keeps the host's launch path out
-   of the time. For the small norm kernels (K2, K6, K7) the host-side
-   time per launch (CUDA events around 20 launches) is printed beside
-   it as ``host_ms``. This phase runs last, so that nothing it leaves
-   behind in the process can slow the host-bound serve step
-   (``PERF.md`` records such a slowdown, cause not isolated).
+   of the time. For the small norm kernels (K2, K6, K7, K8, K9) the
+   host-side time per launch (CUDA events around 20 launches) is
+   printed beside it as ``host_ms``. This phase runs last, so that
+   nothing it leaves behind in the process can slow the host-bound
+   serve step (``PERF.md`` records such a slowdown, cause not
+   isolated).
 
-Each main path (serve, train) zeroes the launch counters of the kernels
-just before it runs and reads them just after; it fails if a kernel the
-registry lists for that path was not launched.
+Each main path (serve, train, finetune) zeroes the launch counters of
+the kernels just before it runs and reads them just after; it fails if
+a kernel the registry lists for that path was not launched, and on a
+stepped path (train, finetune) if it was launched other than its
+registry count per step.
 
 ``profile`` (not in the default run) prints the device busy time, idle
 share and top kernels of one 2048-bucket prefill, of 8 decode steps with
-32 active slots and of one training step, from ``torch.profiler``. Each
-window's wall time is taken before the first profiled window, and the
-decode window's wall once more after the last one, to show whether
-profiling changed it.
+32 active slots, of one training step and of one fine-tune step, from
+``torch.profiler``. Each window's wall time is taken before the first
+profiled window, and the decode window's wall once more after the last
+one, to show whether profiling changed it.
 
 Any failed phase exits non-zero before the result lines. The last two
 lines are the ``kernels`` JSON object (when the kernels phase and a path
@@ -65,7 +84,8 @@ import subprocess
 import sys
 import time
 
-PHASES = ("device", "serve", "agree", "train", "train_agree", "kernels")
+PHASES = ("device", "serve", "agree", "train", "train_agree", "finetune",
+          "finetune_agree", "kernels")
 
 # published peaks of one H100 SXM (dense): the bound of a kernel is the
 # larger of its operations over the peak rate for their type and its
@@ -96,17 +116,33 @@ LSE_TOL = 1e-4
 # side, dγ summed in another order — 2 bf16 ulps
 K6_TOL_F32 = 1e-4
 K6_TOL_BF16_ULPS = 2
+# LayerNorm forward (K8): f32 — f32 math both sides; bf16 — the plain
+# version rounds in bf16 at every op, the kernel once: 8 bf16 ulps, as
+# for K2 (the CPU tests measure ≤ 4 between the two formulas)
+LN_TOL_F32 = 1e-4
+LN_TOL_BF16_ULPS = 8
+# LayerNorm backward (K9): f32 — max |err| over max |plain| per output;
+# bf16 — both sides f32 math rounded once, dγ and dβ summed in another
+# order: 2 bf16 ulps, as for K6
+K9_TOL_F32 = 1e-4
+K9_TOL_BF16_ULPS = 2
 AGREE_TOL = 2e-3     # f32 logits, card vs CPU, 12 layers deep
 # train_agree, f32 with TF32 off: the loss to 1e-5 relative; each
 # gradient tensor to 1e-3 of its largest magnitude (f32 sums in another
 # order through 12 layers and back)
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_TOL = 1e-3
+# the classifier's output rows sum to 1: in f32 within 1e-3; under bf16
+# compute the softmax rounds each of the 2 probabilities (each < 1) to
+# bf16 once, half an ulp ≤ 2^-9 apiece, so within 2 · 2^-9
+PROB_SUM_TOL = {"float32": 1e-3, "bfloat16": 2 * 2.0 ** -9}
 
 SERVE = dict(vocab_size=50257, hidden=768, n_layers=12, n_heads=6,
              max_len=2048, ffn_mult=8 / 3, tie_embeddings=True)
 TRAIN = dict(SERVE, max_len=1024)
 TRAIN_B, TRAIN_T = 16, 1024
+# BERT-base fine-tune: the BASELINE's config #4 (B = 64, T = 128, bf16)
+BERT_B, BERT_T, BERT_HEADS, BERT_D = 64, 128, 12, 64
 
 
 def log(msg: str) -> None:
@@ -176,7 +212,7 @@ def phase_device(state):
     state["card"] = f"[{state['smi']}]"
 
 
-# -- phase 2 ---------------------------------------------------------------
+# -- the builds; phase 8, kernels ------------------------------------------
 def _build_all():
     """Build every ported CUDA library at once, one nvcc each."""
     from pathlib import Path
@@ -324,8 +360,10 @@ def phase_kernels(state):
             rows.setdefault("K2_err", 0.0)
             rows["K2_err"] = max(rows["K2_err"], err)
     _check_flash_bwd(ents["K3"], rows, card)
+    _check_flash_finetune(ents["K1"], ents["K3"], rows, card)
     _check_norm_bwd(ents["K6"], rows, card)
     _check_add_norm(ents["K7"], rows, card)
+    _check_layer_norm(ents["K8"], ents["K9"], rows, card)
     state["kernel_rows"] = rows
 
 
@@ -334,17 +372,30 @@ def _rel_err(out, ref) -> float:
             / ref.float().abs().max().clamp_min(1e-30)).item()
 
 
-def _flash_bwd_case(dt, b, t, h, h_kv, causal, masked, seed):
+def _lengths_mask(b, t, g):
+    """A padded batch's key mask [b, t] on the card: row i live on its
+    first lengths[i] keys, lengths uniform in 32..t (the fine-tune
+    batch's)."""
+    import torch
+    lens = torch.randint(32, t + 1, (b, 1), generator=g, device="cuda")
+    return (torch.arange(t, device="cuda")[None, :] < lens).float()
+
+
+def _flash_bwd_case(dt, b, t, h, h_kv, causal, masked, seed, d=128):
     """Inputs of one K3 case: q, k, v, the output gradient and the key
-    mask, with the forward's out and lse from K1."""
+    mask (``masked``: False, True for a random 70 % of the keys, or
+    "lengths" for padded rows), with the forward's out and lse from
+    K1."""
     import torch
     from deeplearning4j_tpu_torch.ops.cuda_kernels import flash_attention
     g = torch.Generator(device="cuda").manual_seed(seed)
-    mk = lambda hh: torch.randn((b, t, hh, 128), generator=g,
+    mk = lambda hh: torch.randn((b, t, hh, d), generator=g,
                                 device="cuda").to(dt)
     q, k, v, do = mk(h), mk(h_kv), mk(h_kv), mk(h)
     mask = None
-    if masked:
+    if masked == "lengths":
+        mask = _lengths_mask(b, t, g)
+    elif masked:
         mask = (torch.rand((b, t), generator=g, device="cuda") > 0.3)
         mask[:, 0] = True
         mask = mask.float()
@@ -442,6 +493,158 @@ def _check_flash_bwd(e, rows, card):
         f"sdpa_bwd_ms={t_l:.4f} bound_ms={b_ms:.5f}({b_by}) {card}")
     rows["K3"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
                       bound_ms=b_ms, bound_by=b_by)
+
+
+def _check_flash_finetune(e1, e3, rows, card):
+    """K1 (out and lse) and K3 at the fine-tune shape [64, 128, 12, 64],
+    not causal, keys masked by padded lengths, in bfloat16 and float32,
+    against their plain versions; then both timed against SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.ops.cuda_kernels import (
+        flash_attention_reference)
+    flash, bwd, plain = e1.port_fn(), e3.port_fn(), e3.plain_fn()
+    b, t, h, d = BERT_B, BERT_T, BERT_HEADS, BERT_D
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        q, k, v, out, lse, do, mask = _flash_bwd_case(
+            dt, b, t, h, h, False, "lengths", 300, d=d)
+        ref_out, ref_lse = flash_attention_reference(q, k, v, mask=mask,
+                                                     return_lse=True)
+        got = bwd(q, k, v, out, lse, do, mask=mask)
+        ref = plain(q, k, v, out, lse, do, mask=mask)
+        torch.cuda.synchronize()
+        o_err = (out.float() - ref_out.float()).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        errs = [(a.float() - r.float()).abs().max().item()
+                for a, r in zip(got, ref)]
+        rel = max(_rel_err(a, r) for a, r in zip(got, ref))
+        finite = all(bool(torch.isfinite(x).all())
+                     for x in (out, lse, *got))
+        line = (f"K1+K3 {dname} [{b},{t},{h},{d}] key-masked: K1 out "
+                f"max_abs_err={o_err:.3e} tol={FLASH_TOL[dname]:.0e} lse "
+                f"max_abs_err={lse_err:.3e} tol={LSE_TOL:.0e}; K3 "
+                f"max_abs_err(dq,dk,dv)="
+                f"{','.join(f'{x:.3e}' for x in errs)} rel={rel:.3e} "
+                f"tol={K3_TOL[dname]:.0e}")
+        if dname == "bfloat16":
+            live = float(mask.sum()) * t          # (query, key) pairs
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            am = mask.bool()[:, None, None, :]
+            dot = do.transpose(1, 2)
+
+            def sdpa_fwd():
+                with torch.no_grad():
+                    F.scaled_dot_product_attention(qt, kt, vt,
+                                                   attn_mask=am)
+
+            def sdpa_fwd_bwd():
+                o = F.scaled_dot_product_attention(qt, kt, vt,
+                                                   attn_mask=am)
+                torch.autograd.grad(o, (qt, kt, vt), dot)
+
+            t_k1 = time_ms(lambda: flash(q, k, v, mask=mask))
+            t_k3 = time_ms(lambda: bwd(q, k, v, out, lse, do, mask=mask),
+                           iters=10)
+            t_l1 = device_ms(sdpa_fwd)
+            t_l3 = device_ms(sdpa_fwd_bwd) - t_l1
+            el = q.element_size()
+            b1, by1 = bound_ms(4 * d * h * live,
+                               4 * q.numel() * el + mask.numel() * 4,
+                               PEAK_BF16_FLOPS)
+            b3, by3 = bound_ms(10 * d * h * live,
+                               8 * q.numel() * el + lse.numel() * 4,
+                               PEAK_BF16_FLOPS)
+            line += (f"; K1 kernel_ms={t_k1:.4f} sdpa_ms={t_l1:.4f} "
+                     f"bound_ms={b1:.5f}({by1}); K3 kernel_ms={t_k3:.4f} "
+                     f"sdpa_bwd_ms={t_l3:.4f} bound_ms={b3:.5f}({by3})")
+        log(f"{line} {card}")
+        if not (o_err <= FLASH_TOL[dname] and lse_err <= LSE_TOL
+                and rel <= K3_TOL[dname] and finite):
+            raise AssertionError(f"K1 or K3 disagrees with its plain "
+                                 f"version at the fine-tune shape: {line}")
+        rows["K1_err"] = max(rows["K1_err"], o_err)
+        rows["K3_err"] = max(rows["K3_err"], *errs)
+
+
+def _check_layer_norm(e8, e9, rows, card):
+    """K8 and K9 against their plain versions at the fine-tune shape
+    [8192, 768] and a ragged [1000, 200], bf16 and f32; yardsticks
+    ``F.layer_norm`` and the backward of autograd through it."""
+    import torch
+    import torch.nn.functional as F
+    fwd, fwd_plain = e8.port_fn(), e8.plain_fn()
+    bwd, bwd_plain = e9.port_fn(), e9.plain_fn()
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        for n, f in ((BERT_B * BERT_T, 768), (1000, 200)):
+            g = torch.Generator(device="cuda").manual_seed(n + f)
+            rnd = lambda *shape: torch.randn(shape, generator=g,
+                                             device="cuda")
+            x = (2 * rnd(n, f) + 0.5).to(dt)
+            dy = rnd(n, f).to(dt)
+            gamma = (1 + 0.1 * rnd(f)).to(dt)
+            beta = (0.1 * rnd(f)).to(dt)
+            y, ry = fwd(x, gamma, beta), fwd_plain(x, gamma, beta)
+            got, ref = bwd(x, gamma, dy), bwd_plain(x, gamma, dy)
+            torch.cuda.synchronize()
+            err8 = (y.float() - ry.float()).abs().max().item()
+            err9 = max((a.float() - r.float()).abs().max().item()
+                       for a, r in zip(got, ref))
+            if dname == "bfloat16":
+                u8 = _ulps(y, ry)
+                u9 = max(_ulps(a, r) for a, r in zip(got, ref))
+                ok8, ok9 = u8 <= LN_TOL_BF16_ULPS, u9 <= K9_TOL_BF16_ULPS
+                tol8 = f"max_ulps={u8:.2f} tol={LN_TOL_BF16_ULPS}ulps"
+                tol9 = f"max_ulps={u9:.2f} tol={K9_TOL_BF16_ULPS}ulps"
+            else:
+                rel9 = max(_rel_err(a, r) for a, r in zip(got, ref))
+                ok8, ok9 = err8 <= LN_TOL_F32, rel9 <= K9_TOL_F32
+                tol8 = f"tol={LN_TOL_F32:.0e}"
+                tol9 = f"rel={rel9:.3e} tol={K9_TOL_F32:.0e}"
+            ok8 = ok8 and bool(torch.isfinite(y).all())
+            ok9 = ok9 and all(bool(torch.isfinite(a).all()) for a in got)
+            xr, gr, br = (a.detach().clone().requires_grad_()
+                          for a in (x, gamma, beta))
+            lib_fwd = lambda: F.layer_norm(xr, (f,), gr, br, eps=1e-5)
+            t8 = dict(h=time_ms(lambda: fwd(x, gamma, beta)),
+                      k=device_ms(lambda: fwd(x, gamma, beta)),
+                      p=device_ms(lambda: fwd_plain(x, gamma, beta)),
+                      l=device_ms(lambda: F.layer_norm(x, (f,), gamma,
+                                                       beta, eps=1e-5)))
+            t9 = dict(h=time_ms(lambda: bwd(x, gamma, dy)),
+                      k=device_ms(lambda: bwd(x, gamma, dy)),
+                      p=device_ms(lambda: bwd_plain(x, gamma, dy)),
+                      l=device_ms(lambda: torch.autograd.grad(
+                          lib_fwd(), (xr, gr, br), dy))
+                      - device_ms(lib_fwd))
+            el = x.element_size()
+            # K8 reads x, γ, β and writes y; K9 reads x, dy, γ and
+            # writes dx, dγ, dβ
+            b8 = bound_ms(8 * x.numel(), (2 * x.numel() + 3 * f) * el,
+                          PEAK_F32_FLOPS)
+            b9 = bound_ms(14 * x.numel(), (3 * x.numel() + 3 * f) * el,
+                          PEAK_F32_FLOPS)
+            for key, name, err, tol, ok, t, (b_ms, b_by), lib in (
+                    ("K8", "layer_norm", err8, tol8, ok8, t8, b8,
+                     "F.layer_norm_ms"),
+                    ("K9", "layer_norm_bwd", err9, tol9, ok9, t9, b9,
+                     "F.layer_norm_bwd_ms")):
+                line = (f"{key} {name} {dname} rows={n} F={f}: "
+                        f"max_abs_err={err:.3e} {tol} kernel_ms="
+                        f"{t['k']:.4f} host_ms={t['h']:.4f} plain_ms="
+                        f"{t['p']:.4f} {lib}={t['l']:.4f} bound_ms="
+                        f"{b_ms:.5f}({b_by}) {card}")
+                log(line)
+                if not ok:
+                    raise AssertionError(f"{key} disagrees with its "
+                                         f"plain version: {line}")
+                if (dname, n) == ("bfloat16", BERT_B * BERT_T):
+                    rows[key] = dict(ms=t["k"], plain_ms=t["p"],
+                                     library_ms=t["l"], bound_ms=b_ms,
+                                     bound_by=b_by)
+                rows[f"{key}_err"] = max(rows.get(f"{key}_err", 0.0), err)
 
 
 def _norm_inputs(dt, n, f, seed):
@@ -556,7 +759,7 @@ def _check_add_norm(e, rows, card):
         rows["K7_err"] = max(rows.get("K7_err", 0.0), err)
 
 
-# -- phase 3 ---------------------------------------------------------------
+# -- phase 2 ---------------------------------------------------------------
 def phase_serve(state):
     import numpy as np
     import torch
@@ -640,7 +843,7 @@ def phase_serve(state):
         gw.shutdown(drain=False)
 
 
-# -- phase 4 ---------------------------------------------------------------
+# -- phase 3 ---------------------------------------------------------------
 def phase_agree(state):
     import numpy as np
     import torch
@@ -675,7 +878,7 @@ def phase_agree(state):
         raise AssertionError("card and CPU logits disagree")
 
 
-# -- phase 5 ---------------------------------------------------------------
+# -- phase 4 ---------------------------------------------------------------
 def _train_batch(seed: int, b: int, t: int, vocab: int):
     """Random tokens from ``np.random.default_rng(seed)``: inputs and
     their next-token labels, [b, t] int32 each."""
@@ -719,20 +922,27 @@ def phase_train(state):
     log(f"train: B={TRAIN_B} T={TRAIN_T} steps={steps} mean_step_ms="
         f"{step_ms:.3f} tokens_per_s={TRAIN_B * TRAIN_T / wall * steps:.1f}"
         f" max_memory_allocated_gb={peak_gb:.3f} {card}")
-    per_step = {e.key: e.train_per_step
-                for e in kernel_registry.on_path("train")}
-    log(f"train: launches over {steps} steps {launches} (per step "
-        f"expected {per_step}) {card}")
     assert all(math.isfinite(l) for l in losses), losses
     assert losses[-1] < losses[0], losses
+    _check_step_launches("train", steps, launches, card)
+
+
+def _check_step_launches(path: str, steps: int, launches, card) -> None:
+    """Every kernel the registry lists for the stepped ``path`` was
+    launched exactly its registry count per step over ``steps`` steps."""
+    from deeplearning4j_tpu_torch.ops import kernel_registry
+    per_step = {e.key: e.per_step[path]
+                for e in kernel_registry.on_path(path)}
+    log(f"{path}: launches over {steps} steps {launches} (per step "
+        f"expected {per_step}) {card}")
     for key, n in per_step.items():
         want = steps * n
         assert launches[key] == want, \
-            f"{key}: {launches[key]} launches in {steps} steps, " \
-            f"expected {want}"
+            f"{key}: {launches[key]} launches in {steps} steps of " \
+            f"{path}, expected {want}"
 
 
-# -- phase 6 ---------------------------------------------------------------
+# -- phase 5 ---------------------------------------------------------------
 def phase_train_agree(state):
     import torch
     from deeplearning4j_tpu_torch import tree
@@ -760,6 +970,112 @@ def phase_train_agree(state):
         f"{state['card']}")
     if not (loss_rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_TOL):
         raise AssertionError("card and CPU training step disagree")
+
+
+# -- phases 6, 7 -----------------------------------------------------------
+def _finetune_batch(seed: int, b: int, t: int):
+    """One padded sentence-pair batch from ``np.random.default_rng(seed)``
+    as GLUE fine-tuning feeds it: tokens uniform in 0..30000, lengths
+    uniform in 32..t with a key mask of ones on the live positions (the
+    same mask for both inputs), segments 0 then 1 from a per-row split
+    point inside the live part, one-hot labels over 2 classes."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, 30000, (b, t)).astype(np.int32)
+    lens = rng.integers(32, t + 1, b)
+    split = rng.integers(1, lens)
+    pos = np.arange(t)[None, :]
+    mask = (pos < lens[:, None]).astype(np.float32)
+    segments = (pos >= split[:, None]).astype(np.int32)
+    labels = np.eye(2, dtype=np.float32)[rng.integers(0, 2, b)]
+    return tokens, segments, mask, labels
+
+
+def phase_finetune(state):
+    import math
+    import torch
+    from deeplearning4j_tpu_torch.ops import kernel_registry
+    from deeplearning4j_tpu_torch.zoo.bert import BertBase
+    card = state["card"]
+    t0 = time.perf_counter()
+    net = BertBase(seed=2, compute_dtype="bfloat16").init_classifier(
+        2, BERT_T)
+    tokens, segments, mask, labels = _finetune_batch(0, BERT_B, BERT_T)
+    log(f"finetune: init {net.num_params()} params on {net.device} "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    def step():
+        net.fit([tokens, segments], [labels], features_masks=[mask, mask])
+        return net.score()                   # fit ends in a device sync
+
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step() for _ in range(2)]      # warm steps
+    for e in kernel_registry.ported():
+        e.reset()
+    torch.cuda.synchronize()
+    steps = 8
+    t_start = time.perf_counter()
+    losses += [step() for _ in range(steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    launches = {e.key: e.launches() for e in kernel_registry.ported()}
+    state.setdefault("launches", {})["finetune"] = launches
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"finetune: losses {' '.join(f'{l:.4f}' for l in losses)} {card}")
+    log(f"finetune: B={BERT_B} T={BERT_T} steps={steps} mean_step_ms="
+        f"{wall / steps * 1e3:.3f} samples_per_s="
+        f"{BERT_B * steps / wall:.1f} max_memory_allocated_gb="
+        f"{peak_gb:.3f} {card}")
+    assert all(math.isfinite(l) for l in losses), losses
+    first, last = sum(losses[:2]) / 2, sum(losses[-2:]) / 2
+    assert last < first, (first, last, losses)
+    _check_step_launches("finetune", steps, launches, card)
+    probs = net.output(tokens, segments, features_masks=[mask, mask])[0]
+    _check_prob_rows("finetune", probs, PROB_SUM_TOL["bfloat16"], card)
+
+
+def _check_prob_rows(phase, probs, tol, card) -> None:
+    """The classifier's output on the card: finite [B, 2] probabilities
+    whose rows each sum to 1 within ``tol``."""
+    import torch
+    row_err = (probs.sum(-1) - 1).abs().max().item()
+    log(f"{phase}: output {tuple(probs.shape)} on {probs.device} "
+        f"max|row sum - 1|={row_err:.2e} tol={tol:.1e} {card}")
+    assert probs.ndim == 2 and probs.shape[1] == 2 and probs.is_cuda
+    assert bool(torch.isfinite(probs).all()) and row_err <= tol
+
+
+def phase_finetune_agree(state):
+    import torch
+    from deeplearning4j_tpu_torch import tree
+    from deeplearning4j_tpu_torch.zoo.bert import BertBase
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = BertBase(seed=3, dropout=0.0)            # float32
+    tokens, segments, mask, labels = _finetune_batch(1, 4, BERT_T)
+    results = {}
+    for dev in ("cuda", "cpu"):
+        net = model.init_classifier(2, BERT_T, device=dev)
+        loss, grads, _ = net._loss_and_grads(
+            [tokens, segments], [labels], [mask, mask])
+        results[dev] = (loss.item(), tree.map_(lambda g: g.cpu(), grads))
+        if dev == "cuda":
+            _check_prob_rows("finetune_agree", net.output(
+                tokens, segments, features_masks=[mask, mask])[0],
+                PROB_SUM_TOL["float32"], state["card"])
+        del net, grads
+    (l_card, g_card), (l_cpu, g_cpu) = results["cuda"], results["cpu"]
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    rels = tree.map_with_path(
+        lambda path, a, b: (_rel_err(a, b), ".".join(path)), g_card, g_cpu)
+    worst, worst_key = max(tree.leaves(rels))
+    log(f"finetune_agree: f32 B=4 T={BERT_T} key-masked one step, card vs "
+        f"CPU: loss {l_card:.6f} vs {l_cpu:.6f} rel={loss_rel:.3e} "
+        f"tol={TRAIN_LOSS_RTOL:.0e}; worst gradient {worst_key} "
+        f"max|d|/max|g|={worst:.3e} tol={TRAIN_GRAD_TOL:.0e} "
+        f"{state['card']}")
+    if not (loss_rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_TOL):
+        raise AssertionError("card and CPU fine-tune step disagree")
 
 
 def _wall_ms(fn) -> float:
@@ -804,8 +1120,9 @@ def _device_window(name: str, fn, wall_ms: float, card: str) -> None:
 def phase_profile(state):
     """Device-time breakdown of the serving path — the prefill of the
     longest prompt (bucket 2048), then 8 decode steps with all 32 slots
-    active — and of one training step of the train phase's model and
-    batch. Every wall time is taken before the first profiled window,
+    active — of one training step of the train phase's model and batch,
+    and of one fine-tune step of the finetune phase's model and batch.
+    Every wall time is taken before the first profiled window,
     and the decode window's once more after the last one: a host-bound
     step ran slower after the kernels phase, and this shows whether
     profiling alone does that."""
@@ -833,10 +1150,19 @@ def phase_profile(state):
     x, y = _train_batch(0, TRAIN_B, TRAIN_T, tmodel.vocab_size)
     for _ in range(2):
         net.fit(x, y)
+    from deeplearning4j_tpu_torch.zoo.bert import BertBase
+    bert = BertBase(seed=2, compute_dtype="bfloat16").init_classifier(
+        2, BERT_T)
+    tokens, segments, mask, labels = _finetune_batch(0, BERT_B, BERT_T)
+    ft_step = lambda: bert.fit([tokens, segments], [labels],
+                               features_masks=[mask, mask])
+    for _ in range(2):
+        ft_step()
     decode = lambda: [sched.step() for _ in range(8)]
     train_step = lambda: net.fit(x, y)
     walls = {"prefill": _wall_ms(lambda: sched.admit(reqs[first])),
-             "decode": _wall_ms(decode), "train": _wall_ms(train_step)}
+             "decode": _wall_ms(decode), "train": _wall_ms(train_step),
+             "finetune": _wall_ms(ft_step)}
     sched.evict(reqs[first])            # its slot and pages, once more
     _device_window(f"prefill t0={lens[first]} (bucket 2048)",
                    lambda: sched.admit(stream(first)), walls["prefill"],
@@ -845,6 +1171,8 @@ def phase_profile(state):
                    card)
     _device_window(f"train step B={TRAIN_B} T={TRAIN_T}", train_step,
                    walls["train"], card)
+    _device_window(f"finetune step B={BERT_B} T={BERT_T}", ft_step,
+                   walls["finetune"], card)
     log(f"profile: 8 decode steps x 32 slots wall_ms before any profiling"
         f"={walls['decode']:.3f}, after it={_wall_ms(decode):.3f} {card}")
 

@@ -3,9 +3,10 @@
 The fluent builder of the reference: ``NeuralNetConfiguration.builder()
 .seed(..).updater(..).compute_data_type(..).list().layer(..)...
 .tie_weights(..).set_input_type(..).build()`` gives a
-:class:`MultiLayerConfiguration`. Global defaults (activation, weight
-init, dropout, ...) flow into layers that leave them unset. JSON
-serialisation, graph builders and input preprocessors come with the
+:class:`MultiLayerConfiguration`, and ``.graph_builder()`` a
+``nn.graph.GraphBuilder`` for a ``ComputationGraph``. Global defaults
+(activation, weight init, dropout, ...) flow into layers that leave them
+unset. JSON serialisation and input preprocessors come with the
 MultiLayerNetwork-core slice; truncated BPTT with the recurrent slice.
 """
 from __future__ import annotations
@@ -180,3 +181,8 @@ class NeuralNetConfiguration:
 
     def list(self) -> ListBuilder:
         return ListBuilder(self)
+
+    def graph_builder(self):
+        """Reference: NeuralNetConfiguration.Builder.graphBuilder()."""
+        from deeplearning4j_tpu_torch.nn.graph import GraphBuilder
+        return GraphBuilder(self)

@@ -3,10 +3,12 @@
 
 Port of ``deeplearning4j_tpu/nn/layers/attention.py``: the functions the
 serving path calls, :class:`MultiHeadAttention` (local attention; the
-sequence-parallel modes come with the ``parallel/`` slice) and the
-pre-RMSNorm :class:`TransformerDecoderBlock`. The encoder block, learned
-and recurrent attention come with the encoder slice. Shapes are the JAX
-package's: [B, T, H, D], head axis 2; key mask [B, Tk].
+sequence-parallel modes come with the ``parallel/`` slice), the
+pre-RMSNorm :class:`TransformerDecoderBlock`, and BERT's layers — the
+learned :class:`PositionalEmbeddingLayer`, the pre-LayerNorm
+:class:`TransformerEncoderBlock` and the :class:`ClsTokenPoolLayer`.
+Learned and recurrent attention come with a later slice. Shapes are the
+JAX package's: [B, T, H, D], head axis 2; key mask [B, Tk].
 """
 from __future__ import annotations
 
@@ -234,3 +236,105 @@ class TransformerDecoderBlock(Layer):
                 lambda p, x: self._body(p, x, mask, train, rng), params,
                 x, use_reentrant=False), state
         return self._body(params, x, mask, train, rng), state
+
+
+@register_layer
+@dataclass
+class PositionalEmbeddingLayer(Layer):
+    """Learned positional embeddings added to [B, T, F] (BERT-style),
+    drawn N(0, 0.02²)."""
+    max_len: int = 512
+
+    def init(self, gen, input_shape, dtype=torch.float32):
+        t, f = input_shape
+        params = {"pos": torch.randn((self.max_len, f), generator=gen,
+                                     dtype=dtype) * 0.02}
+        return params, {}, tuple(input_shape)
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        t = x.shape[1]
+        return x + params["pos"][None, :t, :], state
+
+
+@register_layer
+@dataclass
+class TransformerEncoderBlock(Layer):
+    """Pre-LayerNorm transformer encoder block: multi-head attention (not
+    causal; the key mask passes through) and a GELU MLP with biases,
+    residuals around both. Both norms are ``LayerNormalization`` (K8 and
+    K9 on the card). The JAX block calls ``jax.nn.gelu``, whose default
+    is the tanh approximation, so this block does too. Dropout applies
+    to the MLP's output."""
+    n_in: Optional[int] = None
+    n_heads: int = 8
+    ffn_mult: float = 4
+    causal: bool = False
+    sequence_parallel: Optional[str] = None
+
+    def _subs(self):
+        if not hasattr(self, "_mha"):
+            from deeplearning4j_tpu_torch.nn.layers.core import \
+                LayerNormalization
+            f = self.n_in
+            self._mha = MultiHeadAttention(
+                n_in=f, n_out=f, n_heads=self.n_heads, causal=self.causal,
+                sequence_parallel=self.sequence_parallel)
+            self._ln1 = LayerNormalization()
+            self._ln2 = LayerNormalization()
+
+    def init(self, gen, input_shape, dtype=torch.float32):
+        f = self.n_in = self.n_in or input_shape[-1]
+        self._subs()
+        wi = winit.get(self.weight_init or "xavier")
+        pa, _, _ = self._mha.init(gen, input_shape, dtype)
+        p1, _, _ = self._ln1.init(gen, input_shape, dtype)
+        p2, _, _ = self._ln2.init(gen, input_shape, dtype)
+        hid = int(round(f * self.ffn_mult))
+        params = {"mha": pa, "ln1": p1, "ln2": p2,
+                  "W1": wi(gen, (f, hid), dtype),
+                  "b1": torch.zeros((hid,), dtype=dtype),
+                  "W2": wi(gen, (hid, f), dtype),
+                  "b2": torch.zeros((f,), dtype=dtype)}
+        return params, {}, tuple(input_shape)
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        self._subs()
+        r1, r2 = split_seed(rng) if rng is not None else (None, None)
+        h, _ = self._ln1.apply(params["ln1"], {}, x)
+        a, _ = self._mha.apply(params["mha"], {}, h, train=train, rng=r1,
+                               mask=mask)
+        x = x + a
+        h, _ = self._ln2.apply(params["ln2"], {}, x)
+        h = F.gelu(h @ params["W1"] + params["b1"], approximate="tanh")
+        h = h @ params["W2"] + params["b2"]
+        return x + self._maybe_dropout(h, train, r2), state
+
+
+@register_layer
+@dataclass
+class ClsTokenPoolLayer(Layer):
+    """[B, T, F] -> [B, F]: the first (CLS) token, optionally through a
+    tanh pooler dense (BERT's pooler). Ends the sequence mask."""
+    n_out: int = 0                 # 0: no pooler dense, raw CLS vector
+    pooler: bool = False
+
+    def init(self, gen, input_shape, dtype=torch.float32):
+        t, f = input_shape
+        if self.n_out and not self.pooler:
+            raise ValueError("ClsTokenPoolLayer: n_out requires "
+                             "pooler=True (no projection otherwise)")
+        if self.pooler:
+            n = self.n_out or f
+            wi = winit.get(self.weight_init or "xavier")
+            return ({"W": wi(gen, (f, n), dtype),
+                     "b": torch.zeros((n,), dtype=dtype)}, {}, (n,))
+        return {}, {}, (f,)
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        cls = x[:, 0, :]
+        if self.pooler:
+            cls = torch.tanh(cls @ params["W"] + params["b"])
+        return cls, state
+
+    def propagate_mask(self, mask, input_shape):
+        return None                # the sequence axis is gone

@@ -1,7 +1,7 @@
 """Core layers (port of ``deeplearning4j_tpu/nn/layers/core.py``): the
-dense and output layers, the embeddings and RMSNorm. BatchNorm,
-LayerNorm, dropout and the other feed-forward layers come with the
-MultiLayerNetwork-core and encoder slices.
+dense and output layers, standalone dropout, the embeddings, LayerNorm
+and RMSNorm. BatchNorm and the other feed-forward layers come with the
+MultiLayerNetwork-core slice.
 """
 from __future__ import annotations
 
@@ -63,6 +63,24 @@ class OutputLayer(DenseLayer):
 
 @register_layer
 @dataclass
+class DropoutLayer(Layer):
+    """Standalone dropout (reference DropoutLayer). ``dropout`` is the
+    drop probability (0.5 when unset); inverted dropout, scaled at train
+    time."""
+
+    def __post_init__(self):
+        if self.dropout is None:
+            self.dropout = 0.5
+
+    def init(self, gen, input_shape, dtype=torch.float32):
+        return {}, {}, tuple(input_shape)
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        return self._maybe_dropout(x, train, rng), state
+
+
+@register_layer
+@dataclass
 class EmbeddingLayer(Layer):
     """Int index -> dense vector (reference EmbeddingLayer)."""
     n_in: Optional[int] = None     # vocab size
@@ -98,6 +116,25 @@ class EmbeddingSequenceLayer(EmbeddingLayer):
         params, state, _ = super().init(gen, input_shape, dtype)
         t = self.input_length or (input_shape[0] if input_shape else None)
         return params, state, (t, self.n_out)
+
+
+@register_layer
+@dataclass
+class LayerNormalization(Layer):
+    """Layer norm over the trailing axis, through
+    ``ops.fused_norms.layer_norm``: the Triton kernels (forward K8,
+    backward K9) on the card, the plain versions on the CPU."""
+    eps: float = fused_norms.LAYERNORM_EPS
+
+    def init(self, gen, input_shape, dtype=torch.float32):
+        c = input_shape[-1]
+        return ({"gamma": torch.ones((c,), dtype=dtype),
+                 "beta": torch.zeros((c,), dtype=dtype)}, {},
+                tuple(input_shape))
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        return fused_norms.layer_norm(x, params["gamma"], params["beta"],
+                                      eps=self.eps), state
 
 
 @register_layer

@@ -62,6 +62,38 @@ def _lname(i: int) -> str:
     return f"layer_{i}"
 
 
+def loss_and_grads(loss_fn, params):
+    """``(loss, gradients, aux)`` of ``loss_fn(params) -> (loss, aux)``
+    at ``params`` (a nested dict of tensors): the loss detached and a
+    gradient tree of the parameters' structure and dtype (zeros for a
+    parameter the loss does not reach). The training step of both
+    ``MultiLayerNetwork`` and ``ComputationGraph``."""
+    work = tree.map_(lambda t: t.detach().requires_grad_(True), params)
+    loss, aux = loss_fn(work)
+    leaves = list(tree.leaves(work))
+    flat = torch.autograd.grad(loss, leaves, allow_unused=True)
+    it = iter(torch.zeros_like(p) if g is None else g
+              for p, g in zip(leaves, flat))
+    grads = tree.map_(lambda _: next(it), work)
+    return loss.detach(), grads, aux
+
+
+def apply_updates(updater, grad_norm, params, grads, opt_state):
+    """One optax-style update of every top-level group of ``params`` (a
+    layer, or a graph node) with its own gradient normalisation and
+    updater state, as the JAX networks' per-layer ``multi_transform``
+    does. Returns ``(new params, new optimizer state)``: new tensors,
+    the old trees untouched."""
+    with torch.no_grad(), obs.devtime.scope("optimizer.update"):
+        new_params, new_opt = {}, {}
+        for name, p in params.items():
+            u, new_opt[name] = updater.update(grad_norm(grads[name]),
+                                              opt_state[name], p)
+            new_params[name] = tree.map_(lambda a, d: (a + d).to(a.dtype),
+                                         p, u)
+    return new_params, new_opt
+
+
 class MultiLayerNetwork:
     """Sequential stack model (reference MultiLayerNetwork)."""
 
@@ -253,16 +285,9 @@ class MultiLayerNetwork:
     def _loss_and_grads(self, x, y, mask=None, lmask=None, rng=None):
         """(loss, gradient tree, new state) at the current parameters;
         the gradients have the master parameters' dtype."""
-        work = tree.map_(lambda t: t.detach().requires_grad_(True),
-                         self.params)
-        loss, new_state = self._loss_fn(work, self.state, x, y, mask,
-                                        lmask, rng)
-        leaves = list(tree.leaves(work))
-        flat = torch.autograd.grad(loss, leaves, allow_unused=True)
-        it = iter(torch.zeros_like(p) if g is None else g
-                  for p, g in zip(leaves, flat))
-        grads = tree.map_(lambda _: next(it), work)
-        return loss.detach(), grads, new_state
+        return loss_and_grads(
+            lambda p: self._loss_fn(p, self.state, x, y, mask, lmask, rng),
+            self.params)
 
     # ------------------------------------------------------------------
     # fit
@@ -272,15 +297,10 @@ class MultiLayerNetwork:
         device)."""
         loss, grads, new_state = self._loss_and_grads(x, y, mask, lmask,
                                                       rng)
-        with torch.no_grad(), obs.devtime.scope("optimizer.update"):
-            params, opt_state = {}, {}
-            for name, p in self.params.items():
-                u, opt_state[name] = self.conf.updater.update(
-                    self._grad_norm(grads[name]), self.opt_state[name], p)
-                params[name] = tree.map_(lambda a, d: (a + d).to(a.dtype),
-                                         p, u)
-        self.params, self.opt_state, self.state = (params, opt_state,
-                                                   new_state)
+        self.params, self.opt_state = apply_updates(
+            self.conf.updater, self._grad_norm, self.params, grads,
+            self.opt_state)
+        self.state = new_state
         return loss
 
     def _as_input(self, a, dtype=None):

@@ -1,10 +1,12 @@
 """Activation functions (port of ``deeplearning4j_tpu/ops/activations.py``).
 
-This slice carries the activations the causal LM's stack names:
-identity (the default of every layer), softmax (the LM head, fused into
-the loss) and silu (the SwiGLU gate). Each is a plain elementwise torch
-function; gradients come from autograd. Other reference names raise
-``NotImplementedError`` until the slice that needs them.
+The ported slices carry the activations their stacks name: identity
+(the default of every layer), softmax (the heads, fused into the loss),
+silu (the causal LM's SwiGLU gate), gelu in its erf and tanh forms and
+tanh (BERT's encoder MLP and pooler), and relu. Each is a plain
+elementwise torch function; gradients come from autograd. Other
+reference names raise ``NotImplementedError`` until the slice that needs
+them.
 """
 from __future__ import annotations
 
@@ -26,12 +28,34 @@ def swish(x):
     return F.silu(x)
 
 
+def relu(x):
+    return F.relu(x)
+
+
+def gelu(x):
+    """The exact (erf) GELU, as the JAX package's ``gelu``."""
+    return F.gelu(x)
+
+
+def gelu_tanh(x):
+    """The tanh-approximated GELU (``jax.nn.gelu``'s default form)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def tanh(x):
+    return torch.tanh(x)
+
+
 _REGISTRY: Dict[str, Callable] = {
     "identity": identity,
     "linear": identity,
     "softmax": softmax,
     "swish": swish,
     "silu": swish,
+    "relu": relu,
+    "gelu": gelu,
+    "gelu_tanh": gelu_tanh,
+    "tanh": tanh,
 }
 
 

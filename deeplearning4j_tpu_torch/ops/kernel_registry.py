@@ -3,21 +3,22 @@
 
 For each row: the JAX kernel body and its entry point, the port function
 and its plain PyTorch version, the launch counter, the route (``cuda`` or
-``triton``), the source file, the status — ``ported`` or ``todo`` — and
-the main paths that launch it (``serve``, ``train``) and, for the train
-path, its launches per training step. ``chip_smoke.py`` reads this
-table: it builds and checks every ``ported`` row on the card, zeroes the
-launch counters just before each path it drives and reads them just
-after, and expects every row to launch on each of its paths (on the
-train path, exactly ``train_per_step`` times a step).
-``tests/test_torch_imports.py`` holds the ``ported`` rows to importable
-functions that carry a ``launches`` counter.
+``triton``), the source file, the status — ``ported`` or ``todo`` — the
+main paths that launch it (``serve``, ``train``, ``finetune``) and, for
+each path that runs in steps (``train``, ``finetune``), its launches per
+step. ``chip_smoke.py`` reads this table: it builds and checks every
+``ported`` row on the card, zeroes the launch counters just before each
+path it drives and reads them just after, and expects every row to
+launch on each of its paths (on a stepped path, exactly
+``per_step[path]`` times a step). ``tests/test_torch_imports.py`` holds
+the ``ported`` rows to importable functions that carry a ``launches``
+counter.
 """
 from __future__ import annotations
 
 import importlib
-from dataclasses import dataclass
-from typing import Callable, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Callable, Dict, Optional, Tuple
 
 _PK = "deeplearning4j_tpu/ops/pallas_kernels.py"
 _FN = "deeplearning4j_tpu/ops/fused_norms.py"
@@ -36,9 +37,10 @@ class KernelEntry:
     port: Optional[str] = None           # "module:function"
     plain: Optional[str] = None          # "module:function"
     paths: Tuple[str, ...] = ()          # main paths that launch it
-    #: launches per training step of the 12-layer GPT-2-small-class
-    #: model (remat off); nonzero exactly when ``"train" in paths``
-    train_per_step: int = 0
+    #: launches per step on each stepped path that launches it: ``train``
+    #: (the 12-layer GPT-2-small-class LM, remat off) and ``finetune``
+    #: (BERT-base's classifier); ``serve`` runs no steps
+    per_step: Dict[str, int] = field(default_factory=dict)
 
     def _resolve(self, ref: str) -> Callable:
         mod, fn = ref.split(":")
@@ -68,20 +70,23 @@ KERNELS: Tuple[KernelEntry, ...] = (
         source="deeplearning4j_tpu_torch/csrc/flash_attention.cu",
         port=f"{_CK}:flash_attention",
         plain=f"{_CK}:flash_attention_reference",
-        paths=("serve", "train"), train_per_step=12),     # once a block
+        # once a block
+        paths=("serve", "train", "finetune"),
+        per_step={"train": 12, "finetune": 12}),
     KernelEntry(
         "K2", "rms_norm_fwd", f"{_FN}:111", f"{_FN}:rms_norm", "ported",
         "serving", route="triton",
         source="deeplearning4j_tpu_torch/ops/fused_norms.py",
         port=f"{_NORM}:rms_norm", plain=f"{_NORM}:rms_norm_reference",
-        paths=("serve", "train"), train_per_step=13),     # ln1 x12, final
+        paths=("serve", "train"), per_step={"train": 13}),  # ln1 x12, final
     KernelEntry(
         "K3", "flash_attention_bwd_fused", f"{_PK}:488",
         f"{_PK}:_flash_bwd", "ported", "training", route="cuda",
         source="deeplearning4j_tpu_torch/csrc/flash_attention_bwd.cu",
         port=f"{_CK}:flash_attention_bwd",
-        plain=f"{_CK}:flash_attention_bwd_reference", paths=("train",),
-        train_per_step=12),                               # once a block
+        plain=f"{_CK}:flash_attention_bwd_reference",
+        paths=("train", "finetune"),
+        per_step={"train": 12, "finetune": 12}),          # once a block
     KernelEntry("K4", "flash_attention_bwd_dq", f"{_PK}:418",
                 f"{_PK}:_flash_bwd", "todo", "long-context"),
     KernelEntry("K5", "flash_attention_bwd_dkv", f"{_PK}:451",
@@ -92,18 +97,28 @@ KERNELS: Tuple[KernelEntry, ...] = (
         source="deeplearning4j_tpu_torch/ops/fused_norms.py",
         port=f"{_NORM}:rms_norm_bwd",
         plain=f"{_NORM}:rms_norm_bwd_reference", paths=("train",),
-        train_per_step=25),                               # all 25 norms
+        per_step={"train": 25}),                          # all 25 norms
     KernelEntry(
         "K7", "add_rms_norm_fwd", f"{_FN}:218", f"{_FN}:add_rms_norm",
         "ported", "training", route="triton",
         source="deeplearning4j_tpu_torch/ops/fused_norms.py",
         port=f"{_NORM}:add_rms_norm",
         plain=f"{_NORM}:add_rms_norm_reference", paths=("train",),
-        train_per_step=12),                               # once a block
-    KernelEntry("K8", "layer_norm_fwd", f"{_FN}:298",
-                f"{_FN}:layer_norm", "todo", "encoder"),
-    KernelEntry("K9", "layer_norm_bwd", f"{_FN}:312",
-                f"{_FN}:_ln_bwd_call", "todo", "encoder"),
+        per_step={"train": 12}),                          # once a block
+    KernelEntry(
+        "K8", "layer_norm_fwd", f"{_FN}:298", f"{_FN}:layer_norm",
+        "ported", "encoder", route="triton",
+        source="deeplearning4j_tpu_torch/ops/fused_norms.py",
+        port=f"{_NORM}:layer_norm", plain=f"{_NORM}:layer_norm_reference",
+        # emb_ln, ln1 and ln2 of 12 blocks, final_ln
+        paths=("finetune",), per_step={"finetune": 26}),
+    KernelEntry(
+        "K9", "layer_norm_bwd", f"{_FN}:312", f"{_FN}:_ln_bwd_call",
+        "ported", "encoder", route="triton",
+        source="deeplearning4j_tpu_torch/ops/fused_norms.py",
+        port=f"{_NORM}:layer_norm_bwd",
+        plain=f"{_NORM}:layer_norm_bwd_reference", paths=("finetune",),
+        per_step={"finetune": 26}),                       # all 26 norms
     KernelEntry("K10", "threshold_encode", f"{_PK}:843",
                 f"{_PK}:threshold_encode", "todo", "parallel"),
     KernelEntry("K11", "threshold_decode", f"{_PK}:854",
@@ -116,5 +131,6 @@ def ported() -> Tuple[KernelEntry, ...]:
 
 
 def on_path(path: str) -> Tuple[KernelEntry, ...]:
-    """The ported rows a main path (``serve``, ``train``) launches."""
+    """The ported rows a main path (``serve``, ``train``, ``finetune``)
+    launches."""
     return tuple(e for e in ported() if path in e.paths)

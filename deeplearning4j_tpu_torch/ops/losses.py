@@ -2,9 +2,11 @@
 
 Every loss is ``fn(labels, preds, mask=None, weights=None) -> scalar``:
 the mean over the batch of per-example sums (masked steps contribute 0),
-the reference's ``BaseOutputLayer.computeScore`` semantics. This slice
-carries ``sparse_mcxent``, the causal LM's loss; other names raise
-``NotImplementedError`` until the slice that needs them.
+the reference's ``BaseOutputLayer.computeScore`` semantics. The ported
+slices carry ``sparse_mcxent`` (the causal LM's loss) and ``mcxent`` with
+its alias ``negativeloglikelihood`` (one-hot labels: BERT's classifier);
+other names raise ``NotImplementedError`` until the slice that needs
+them.
 
 ``sparse_mcxent(..., from_logits=True)`` takes the logits in their own
 dtype: the logsumexp runs in f32, but on row chunks, so a bfloat16
@@ -96,6 +98,24 @@ def sparse_mcxent(labels, preds, mask=None, weights=None,
 sparse_mcxent.handles_low_precision_logits = True
 
 
+def mcxent(labels, preds, mask=None, weights=None, from_logits=False):
+    """Multi-class cross-entropy over one-hot (or soft) labels (reference
+    LossMCXENT): ``log_softmax`` of the logits with ``from_logits``, else
+    the log of the probabilities clipped at 1e-7."""
+    if from_logits:
+        logp = torch.log_softmax(preds, dim=-1)
+    else:
+        logp = torch.log(torch.clamp(preds, _EPS, 1.0))
+    raw = -labels * logp
+    if weights is not None:
+        raw = raw * torch.as_tensor(weights, dtype=raw.dtype,
+                                    device=raw.device)
+    return _mean(raw, mask)
+
+
+negativeloglikelihood = mcxent
+
+
 def wants_f32_logits(fn, fused: bool) -> bool:
     """The single gate for the half-precision-training loss cast:
     losses that fold the upcast into their own reductions (marked
@@ -108,6 +128,8 @@ def wants_f32_logits(fn, fused: bool) -> bool:
 
 _REGISTRY: Dict[str, Callable] = {
     "sparse_mcxent": sparse_mcxent,
+    "mcxent": mcxent,
+    "negativeloglikelihood": negativeloglikelihood,
 }
 
 

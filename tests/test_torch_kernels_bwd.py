@@ -138,6 +138,39 @@ def test_flash_bwd_plain_matches_jax_kernel(causal, tq, tk, h, h_kv,
             assert rel <= BF16_ATTN_REL, (name, rel)
 
 
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t,lengths", [(128, (1, 47, 128)),
+                                       (100, (1, 64, 99))])
+def test_flash_bwd_plain_matches_jax_kernel_d64_key_masked(t, lengths,
+                                                           dname):
+    """The fine-tune path's attention backward: head dim 64, not causal,
+    keys masked by padded lengths (>= 1)."""
+    b, h, d = len(lengths), 2, 64
+    dt = getattr(torch, dname)
+    q, k, v, g, _ = _bwd_inputs(t + len(dname), b, t, t, h, h, d, False)
+    mask = (np.arange(t)[None, :]
+            < np.asarray(lengths)[:, None]).astype(np.float32)
+    tq_, tk_, tv_, tg_ = (_t(x, dt) for x in (q, k, v, g))
+    out, lse = cuda_kernels.flash_attention(tq_, tk_, tv_, mask=_t(mask),
+                                            return_lse=True)
+    ours = cuda_kernels.flash_attention_bwd(tq_, tk_, tv_, out, lse, tg_,
+                                            mask=_t(mask))
+    theirs = _jax_bwd(_np(tq_), _np(tk_), _np(tv_), _np(out), lse.numpy(),
+                      _np(tg_), mask, False,
+                      jnp.bfloat16 if dname == "bfloat16" else jnp.float32)
+    for name, o, th in zip(("dq", "dk", "dv"), ours, theirs):
+        o = _np(o)
+        if dname == "float32":
+            np.testing.assert_allclose(o, th, atol=F32_ATTN_TOL, rtol=0,
+                                       err_msg=name)
+        else:
+            rel = np.abs(o - th).max() / np.abs(th).max()
+            assert rel <= BF16_ATTN_REL, (name, rel)
+        # masked keys get no gradient
+        if name != "dq":
+            assert (o[0, 1:] == 0).all()
+
+
 def test_flash_bwd_plain_row_without_live_key_has_zero_grads():
     """A fully key-masked example: lse = -inf is taken as 0 and every p
     is 0, so all three gradients are exactly 0 there, as in the JAX

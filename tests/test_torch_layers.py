@@ -309,13 +309,14 @@ def test_sparse_mcxent_probabilities_and_weights_match_jax():
 def test_activations_and_weight_inits():
     x = torch.linspace(-3, 3, 13)
     from deeplearning4j_tpu.ops import activations as jact
-    for name in ("identity", "linear", "softmax", "silu", "swish"):
+    for name in ("identity", "linear", "softmax", "silu", "swish", "relu",
+                 "gelu", "gelu_tanh", "tanh"):
         np.testing.assert_allclose(
             pact.get(name)(x).numpy(),
             np.asarray(jact.get(name)(jnp.asarray(x.numpy()))),
             atol=1e-6)
-    with pytest.raises(NotImplementedError, match="relu"):
-        pact.get("relu")
+    with pytest.raises(NotImplementedError, match="elu"):
+        pact.get("elu")
     g = torch.Generator().manual_seed(0)
     w = pweights.get("xavier")(g, (300, 500))
     assert abs(w.std().item() - (2 / 800) ** 0.5) < 1e-3

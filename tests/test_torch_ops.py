@@ -119,6 +119,42 @@ def test_flash_plain_matches_jax(causal, tq, tk, h, h_kv, masked):
     np.testing.assert_allclose(ours, ein, atol=F32_ATTN_TOL, rtol=0)
 
 
+def _length_mask(t, lengths):
+    """A padded batch's key mask: row i live on its first lengths[i]
+    keys (lengths >= 1: a row with no live key is the documented
+    einsum/kernel difference)."""
+    return (np.arange(t)[None, :]
+            < np.asarray(lengths)[:, None]).astype(np.float32)
+
+
+@pytest.mark.parametrize("t,lengths", [(128, (1, 47, 128)),
+                                       (100, (1, 64, 99))])
+def test_flash_plain_matches_jax_d64_key_masked(t, lengths):
+    """The fine-tune path's attention: head dim 64, not causal, keys
+    masked by padded lengths. Out and lse against the JAX kernels in
+    interpret mode, out against the einsum the CPU path runs."""
+    b, h, d = len(lengths), 2, 64
+    q, k, v = _qkv(t + d, b, t, t, h, h, d)
+    mask = _length_mask(t, lengths)
+    out, lse = cuda_kernels.flash_attention(_t(q), _t(k), _t(v),
+                                            mask=_t(mask), return_lse=True)
+    kern = np.asarray(jax_pk.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        mask=jnp.asarray(mask), block_q=64, block_k=64))
+    np.testing.assert_allclose(out.numpy(), kern, atol=F32_ATTN_TOL, rtol=0)
+    fold = lambda x: jnp.asarray(x).transpose(0, 2, 1, 3).reshape(
+        b * h, t, d)
+    _, j_lse = jax_pk.flash_block_fwd(
+        fold(q), fold(k), fold(v), km=jnp.repeat(jnp.asarray(mask), h, 0),
+        block_q=64, block_k=64)
+    np.testing.assert_allclose(lse.reshape(b * h, t).numpy(),
+                               np.asarray(j_lse)[..., 0],
+                               atol=F32_ATTN_TOL, rtol=0)
+    ein = np.asarray(jax_sdpa(jnp.asarray(q), jnp.asarray(k),
+                              jnp.asarray(v), jnp.asarray(mask), False))
+    np.testing.assert_allclose(out.numpy(), ein, atol=F32_ATTN_TOL, rtol=0)
+
+
 def test_flash_plain_lse_matches_jax_block_fwd():
     """The optional lse output: the JAX kernel's per-row logsumexp
     (``flash_block_fwd``, folded [B·H, T, 1]) against the port's
@@ -195,23 +231,29 @@ def test_use_flash_gate_keeps_semantic_refusals():
 def test_registry_lists_every_tpu_kernel():
     keys = [e.key for e in KERNELS]
     assert keys == [f"K{i}" for i in range(1, 12)]
-    assert {e.key for e in ported()} == {"K1", "K2", "K3", "K6", "K7"}
+    assert {e.key for e in ported()} == {"K1", "K2", "K3", "K6", "K7",
+                                         "K8", "K9"}
     for e in ported():
         assert e.route in ("cuda", "triton")
         assert callable(e.plain_fn())
         assert isinstance(e.launches(), int)
         # every ported row names the main paths that launch it
-        assert e.paths and set(e.paths) <= {"serve", "train"}
-        # the train phase's expected launches per step: on the train
-        # path's rows only
-        assert (e.train_per_step > 0) == ("train" in e.paths)
+        assert e.paths and set(e.paths) <= {"serve", "train", "finetune"}
+        # the stepped phases' expected launches per step: one positive
+        # count for each stepped path of the row, none for serve
+        stepped = set(e.paths) - {"serve"}
+        assert set(e.per_step) == stepped
+        assert all(n > 0 for n in e.per_step.values())
     assert {e.key for e in on_path("serve")} == {"K1", "K2"}
     assert {e.key for e in on_path("train")} == {"K1", "K2", "K3", "K6",
                                                  "K7"}
+    assert {e.key: e.per_step["finetune"]
+            for e in on_path("finetune")} == {"K1": 12, "K3": 12,
+                                              "K8": 26, "K9": 26}
     for e in KERNELS:
         if e.status == "todo":
             assert e.port is None and e.route is None and not e.paths
-            assert e.train_per_step == 0
+            assert not e.per_step
 
 
 # -- the CUDA build -------------------------------------------------------------

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card (H100).
 
-    python3 chip_smoke.py               # phases 1-8 (needs one card)
+    python3 chip_smoke.py               # phases 1-10 (needs one card)
     python3 chip_smoke.py --phases train,train_agree,kernels
     python3 chip_smoke.py --phases finetune,finetune_agree,kernels
+    python3 chip_smoke.py --phases longctx,longctx_agree,kernels
     python3 chip_smoke.py --phases profile    # device-time breakdown
 
 Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
@@ -43,11 +44,25 @@ Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
    CPU ``torch.Generator`` draw different masks) and TF32 off, one step
    at B = 4, T = 128 with a key mask: the card's loss and every gradient
    against the port on the CPU;
-8. kernels — holds each ported kernel against its plain PyTorch version
+8. longctx — the serve phase's LM at a 32 768-token context, built by
+   ``CausalTransformerLM(..., max_len=32768).init(32768)`` (bfloat16
+   compute, the model's AdamW) and trained by ``net.fit(x, y)`` on one
+   fixed batch of 1 x 32 768 random tokens: 1 warm step, then 3 timed
+   steps. Past 24 576 query rows the attention backward takes the split
+   pair K4 (dq) + K5 (dk/dv) instead of the fused K3, by the JAX
+   package's own test; every loss finite and the last below the first,
+   each kernel launched exactly its registry count per step (K3 none);
+9. longctx_agree — the same model in float32 (TF32 off), one step at
+   B = 2, T = 256 with the fused backward's budget set to 0, so the
+   card's backward runs K4 + K5: its loss and every gradient against
+   the port on the CPU;
+10. kernels — holds each ported kernel against its plain PyTorch version
    on the card at its main paths' shapes, in bfloat16 and float32, and
    times the kernel, the plain version and a PyTorch library call that
    computes the same function (a yardstick the port never calls). The
-   CUDA kernels (K1, K3, milliseconds each at these shapes) are timed by
+   split pair is also held against K3 at the long-context shape, and
+   K4's dq must be the same to the bit over two runs. The CUDA kernels
+   (K1, K3, K4, K5, milliseconds each at these shapes) are timed by
    CUDA events around a run of launches; everything else by the replay
    of a CUDA graph of 20 calls, which keeps the host's launch path out
    of the time. For the small norm kernels (K2, K6, K7, K8, K9) the
@@ -57,18 +72,19 @@ Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
    serve step (``PERF.md`` records such a slowdown, cause not
    isolated).
 
-Each main path (serve, train, finetune) zeroes the launch counters of
-the kernels just before it runs and reads them just after; it fails if
-a kernel the registry lists for that path was not launched, and on a
-stepped path (train, finetune) if it was launched other than its
-registry count per step.
+Each main path (serve, train, finetune, longctx) zeroes the launch
+counters of the kernels just before it runs and reads them just after;
+it fails if a kernel the registry lists for that path was not launched,
+and on a stepped path (train, finetune, longctx) if any ported kernel
+was launched other than its registry count per step (0 for a kernel the
+path does not list).
 
 ``profile`` (not in the default run) prints the device busy time, idle
 share and top kernels of one 2048-bucket prefill, of 8 decode steps with
-32 active slots, of one training step and of one fine-tune step, from
-``torch.profiler``. Each window's wall time is taken before the first
-profiled window, and the decode window's wall once more after the last
-one, to show whether profiling changed it.
+32 active slots, of one training step, of one fine-tune step and of one
+long-context step, from ``torch.profiler``. Each window's wall time is
+taken before the first profiled window, and the decode window's wall
+once more after the last one, to show whether profiling changed it.
 
 Any failed phase exits non-zero before the result lines. The last two
 lines are the ``kernels`` JSON object (when the kernels phase and a path
@@ -78,6 +94,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import json
 import os
 import subprocess
@@ -85,7 +102,7 @@ import sys
 import time
 
 PHASES = ("device", "serve", "agree", "train", "train_agree", "finetune",
-          "finetune_agree", "kernels")
+          "finetune_agree", "longctx", "longctx_agree", "kernels")
 
 # published peaks of one H100 SXM (dense): the bound of a kernel is the
 # larger of its operations over the peak rate for their type and its
@@ -143,6 +160,11 @@ TRAIN = dict(SERVE, max_len=1024)
 TRAIN_B, TRAIN_T = 16, 1024
 # BERT-base fine-tune: the BASELINE's config #4 (B = 64, T = 128, bf16)
 BERT_B, BERT_T, BERT_HEADS, BERT_D = 64, 128, 12, 64
+# long context: the model of the JAX package's long-context row
+# (tools/perf_dossier.py gpt8k, remat off) at 32 768 tokens, one sequence
+# a step: past 24 576 query rows its backward takes the split pair
+LONGCTX = dict(SERVE, max_len=32768)
+LONGCTX_B, LONGCTX_T = 1, 32768
 
 
 def log(msg: str) -> None:
@@ -212,7 +234,7 @@ def phase_device(state):
     state["card"] = f"[{state['smi']}]"
 
 
-# -- the builds; phase 8, kernels ------------------------------------------
+# -- the builds; phase 10, kernels -----------------------------------------
 def _build_all():
     """Build every ported CUDA library at once, one nvcc each."""
     from pathlib import Path
@@ -361,6 +383,7 @@ def phase_kernels(state):
             rows["K2_err"] = max(rows["K2_err"], err)
     _check_flash_bwd(ents["K3"], rows, card)
     _check_flash_finetune(ents["K1"], ents["K3"], rows, card)
+    _check_flash_split(ents, rows, card)
     _check_norm_bwd(ents["K6"], rows, card)
     _check_add_norm(ents["K7"], rows, card)
     _check_layer_norm(ents["K8"], ents["K9"], rows, card)
@@ -381,22 +404,24 @@ def _lengths_mask(b, t, g):
     return (torch.arange(t, device="cuda")[None, :] < lens).float()
 
 
-def _flash_bwd_case(dt, b, t, h, h_kv, causal, masked, seed, d=128):
-    """Inputs of one K3 case: q, k, v, the output gradient and the key
-    mask (``masked``: False, True for a random 70 % of the keys, or
+def _flash_bwd_case(dt, b, t, h, h_kv, causal, masked, seed, d=128,
+                    tk=None):
+    """Inputs of one backward case: q, k, v, the output gradient and the
+    key mask (``masked``: False, True for a random 70 % of the keys, or
     "lengths" for padded rows), with the forward's out and lse from
-    K1."""
+    K1; ``tk`` keys (default ``t``)."""
     import torch
     from deeplearning4j_tpu_torch.ops.cuda_kernels import flash_attention
+    tk = tk or t
     g = torch.Generator(device="cuda").manual_seed(seed)
-    mk = lambda hh: torch.randn((b, t, hh, d), generator=g,
-                                device="cuda").to(dt)
-    q, k, v, do = mk(h), mk(h_kv), mk(h_kv), mk(h)
+    mk = lambda n, hh: torch.randn((b, n, hh, d), generator=g,
+                                   device="cuda").to(dt)
+    q, k, v, do = mk(t, h), mk(tk, h_kv), mk(tk, h_kv), mk(t, h)
     mask = None
     if masked == "lengths":
-        mask = _lengths_mask(b, t, g)
+        mask = _lengths_mask(b, tk, g)
     elif masked:
-        mask = (torch.rand((b, t), generator=g, device="cuda") > 0.3)
+        mask = (torch.rand((b, tk), generator=g, device="cuda") > 0.3)
         mask[:, 0] = True
         mask = mask.float()
     out, lse = flash_attention(q, k, v, causal=causal, mask=mask,
@@ -566,6 +591,191 @@ def _check_flash_finetune(e1, e3, rows, card):
                                  f"version at the fine-tune shape: {line}")
         rows["K1_err"] = max(rows["K1_err"], o_err)
         rows["K3_err"] = max(rows["K3_err"], *errs)
+
+
+# the split pair's cases: (b, tq, tk, h, h_kv, causal, masked, d,
+# offsets); the first two are the train and long-context paths' shapes
+SPLIT_CASES = [
+    (TRAIN_B, TRAIN_T, TRAIN_T, 6, 6, True, False, 128, None),
+    (LONGCTX_B, LONGCTX_T, LONGCTX_T, 6, 6, True, False, 128, None),
+    (BERT_B, BERT_T, BERT_T, BERT_HEADS, BERT_HEADS, False, "lengths",
+     BERT_D, None),
+    (1, 2048, 2048, 6, 2, True, False, 128, None),          # GQA
+    (2, 300, 1000, 6, 2, True, True, 64, None),     # Tq < Tk, key mask
+    # ring-style offsets: row i sees key j when 200 + j <= 100 + i, so
+    # the first 100 rows see no key
+    (1, 1000, 1000, 6, 2, True, False, 128, (100, 200)),
+]
+
+
+def _check_flash_split(ents, rows, card):
+    """K4 and K5 against their plain versions at ``SPLIT_CASES``, in
+    bfloat16 and float32, with K3's tolerances. At the long-context shape
+    [1, 32768, 6, 128] bf16 causal: K1's out and lse against its plain
+    version, the split pair against K3 on the same inputs, K4's dq the
+    same to the bit over two runs. Then K4, K5, K4 + K5 and K3 timed at
+    both causal shapes, with the plain versions and SDPA's backward."""
+    import torch
+    from deeplearning4j_tpu_torch.ops.cuda_kernels import (
+        flash_attention_reference)
+    e4, e5 = ents["K4"], ents["K5"]
+    dq_k, dkv_k, dq_p, dkv_p = (e4.port_fn(), e5.port_fn(), e4.plain_fn(),
+                                e5.plain_fn())
+    bwd = ents["K3"].port_fn()               # the dispatching backward
+    errs = {"K4": 0.0, "K5": 0.0}
+    timed = {}
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        for i, (b, tq, tk, h, h_kv, causal, masked, d, offs) in \
+                enumerate(SPLIT_CASES):
+            q, k, v, out, lse, do, mask = _flash_bwd_case(
+                dt, b, tq, h, h_kv, causal, masked, 500 + i, d=d, tk=tk)
+            kw = dict(causal=causal, mask=mask, offsets=offs)
+            dq = dq_k(q, k, v, out, lse, do, **kw)
+            dk, dv = dkv_k(q, k, v, out, lse, do, **kw)
+            got = (dq, dk, dv)
+            ref = (dq_p(q, k, v, out, lse, do, **kw),
+                   *dkv_p(q, k, v, out, lse, do, **kw))
+            torch.cuda.synchronize()
+            abs_errs = [(a.float() - r.float()).abs().max().item()
+                        for a, r in zip(got, ref)]
+            rel = max(_rel_err(a, r) for a, r in zip(got, ref))
+            ok = (rel <= K3_TOL[dname]
+                  and all(bool(torch.isfinite(a).all()) for a in got))
+            line = (f"K4+K5 flash_bwd_split {dname} [{b},{tq},{h},{d}] "
+                    f"Tk={tk} Hkv={h_kv} causal={causal} mask={masked} "
+                    f"offsets={offs}: max_abs_err(dq,dk,dv)="
+                    f"{','.join(f'{x:.3e}' for x in abs_errs)} rel="
+                    f"{rel:.3e} tol={K3_TOL[dname]:.0e}")
+            errs["K4"] = max(errs["K4"], abs_errs[0])
+            errs["K5"] = max(errs["K5"], *abs_errs[1:])
+            del ref
+            if (dname, i) == ("bfloat16", 1):
+                line += "; " + _check_longctx_pair(
+                    ents["K1"].port_fn(), bwd, dq_k,
+                    flash_attention_reference, q, k, v, out, lse, do, got)
+            log(f"{line} {card}")
+            if not ok:
+                raise AssertionError(f"K4 or K5 disagrees with its plain "
+                                     f"version: {line}")
+            if dname == "bfloat16" and i < 2:
+                timed[(b, tq)] = _time_split(
+                    bwd, dq_k, dkv_k, dq_p, dkv_p, q, k, v, out, lse, do,
+                    card)
+            del q, k, v, out, lse, do, got, dq, dk, dv
+    rows["K4_err"], rows["K5_err"] = errs["K4"], errs["K5"]
+    # the JSON rows: the long-context path's shape
+    t4, t5, t_l, (b4, by4), (b5, by5) = timed[(LONGCTX_B, LONGCTX_T)]
+    rows["K4"] = dict(ms=t4["k"], plain_ms=t4["p"], library_ms=t_l,
+                      bound_ms=b4, bound_by=by4)
+    rows["K5"] = dict(ms=t5["k"], plain_ms=t5["p"], library_ms=t_l,
+                      bound_ms=b5, bound_by=by5)
+
+
+def _check_longctx_pair(fwd, bwd, dq_k, fwd_plain, q, k, v, out, lse, do,
+                        got) -> str:
+    """At the long-context shape: K1's out and lse (from
+    ``_flash_bwd_case``) against the plain forward, and K1 timed beside
+    SDPA; the split pair's ``got`` against K3 on the same inputs, and
+    K4's dq over a second run. Raises on a disagreement; returns the log
+    line's part."""
+    import torch
+    import torch.nn.functional as F
+    b, t, h, d = q.shape
+    t1 = time_ms(lambda: fwd(q, k, v, causal=True), iters=3, warm=1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    t1_l = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), iters=5)
+    b1 = bound_ms(4 * d * b * h * t * (t + 1) / 2,
+                  4 * q.numel() * q.element_size(), PEAK_BF16_FLOPS)
+    ref_out, ref_lse = fwd_plain(q, k, v, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    o_err = (out.float() - ref_out.float()).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    del ref_out, ref_lse
+    with _fused_budget(1 << 62):
+        fused = bwd(q, k, v, out, lse, do, causal=True)
+    dq2 = dq_k(q, k, v, out, lse, do, causal=True)
+    torch.cuda.synchronize()
+    rel3 = max(_rel_err(a, r) for a, r in zip(got, fused))
+    same = bool(torch.equal(dq2, got[0]))
+    part = (f"K1 out max_abs_err={o_err:.3e} tol="
+            f"{FLASH_TOL['bfloat16']:.0e} lse max_abs_err={lse_err:.3e} "
+            f"tol={LSE_TOL:.0e} kernel_ms={t1:.4f} sdpa_ms={t1_l:.4f} "
+            f"bound_ms={b1[0]:.5f}({b1[1]}); split vs K3 rel={rel3:.3e} "
+            f"tol={K3_TOL['bfloat16']:.0e}; K4 dq bit-identical over two "
+            f"runs={same}")
+    if not (o_err <= FLASH_TOL["bfloat16"] and lse_err <= LSE_TOL
+            and rel3 <= K3_TOL["bfloat16"] and same):
+        raise AssertionError(f"long-context check failed: {part}")
+    return part
+
+
+def _time_split(bwd, dq_k, dkv_k, dq_p, dkv_p, q, k, v, out, lse, do,
+                card):
+    """K4 and K5 alone (Delta computed once beforehand), the pair as the
+    path calls it (Delta + K4 + K5), K3, the two plain versions and
+    SDPA's backward (forward + backward − forward) on the same causal
+    bf16 inputs. Bounds: the live (query, key) pairs times 2·D flops a
+    product — K4 3 (s, dp, dq), K5 4 (s, dp, dv, dk), the backward 5 —
+    or each input read and each output written once."""
+    import torch
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.ops.cuda_kernels import _delta_reference
+    b, t, h, d = q.shape
+    long = t > 4096
+    iters, p_iters = (3, 1) if long else (10, 3)
+    delta = _delta_reference(out, do)
+    kw = dict(causal=True, delta=delta)
+    t4 = dict(k=time_ms(lambda: dq_k(q, k, v, out, lse, do, **kw),
+                        iters=iters, warm=1),
+              p=time_ms(lambda: dq_p(q, k, v, out, lse, do, **kw),
+                        iters=p_iters, warm=1))
+    t5 = dict(k=time_ms(lambda: dkv_k(q, k, v, out, lse, do, **kw),
+                        iters=iters, warm=1),
+              p=time_ms(lambda: dkv_p(q, k, v, out, lse, do, **kw),
+                        iters=p_iters, warm=1))
+    with _fused_budget(0):
+        t_pair = time_ms(lambda: bwd(q, k, v, out, lse, do, causal=True),
+                         iters=iters, warm=1)
+    with _fused_budget(1 << 62):
+        t_k3 = time_ms(lambda: bwd(q, k, v, out, lse, do, causal=True),
+                       iters=iters, warm=1)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        torch.autograd.grad(o, (qt, kt, vt), dot)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    n = 5 if long else 20
+    t_l = device_ms(sdpa_fwd_bwd, iters=n) - device_ms(sdpa_fwd, iters=n)
+    pairs = b * h * t * (t + 1) / 2
+    el, arr = q.element_size(), q.numel()
+    # K4 reads q, k, v, o, dO, lse, writes dq; K5 the same, writes dk, dv
+    b4 = bound_ms(3 * 2 * d * pairs, 6 * arr * el + lse.numel() * 4,
+                  PEAK_BF16_FLOPS)
+    b5 = bound_ms(4 * 2 * d * pairs, 7 * arr * el + lse.numel() * 4,
+                  PEAK_BF16_FLOPS)
+    b3 = bound_ms(5 * 2 * d * pairs, 8 * arr * el + lse.numel() * 4,
+                  PEAK_BF16_FLOPS)
+    log(f"K4 flash_bwd_dq bfloat16 [{b},{t},{h},{d}] causal: kernel_ms="
+        f"{t4['k']:.4f} plain_ms={t4['p']:.4f} sdpa_bwd_ms={t_l:.4f} "
+        f"bound_ms={b4[0]:.5f}({b4[1]}) {card}")
+    log(f"K5 flash_bwd_dkv bfloat16 [{b},{t},{h},{d}] causal: kernel_ms="
+        f"{t5['k']:.4f} plain_ms={t5['p']:.4f} sdpa_bwd_ms={t_l:.4f} "
+        f"bound_ms={b5[0]:.5f}({b5[1]}) {card}")
+    log(f"K3 vs K4+K5 bfloat16 [{b},{t},{h},{d}] causal: K3_ms="
+        f"{t_k3:.4f} delta+K4+K5_ms={t_pair:.4f} K4+K5_ms="
+        f"{t4['k'] + t5['k']:.4f} split/K3={t_pair / t_k3:.3f} "
+        f"sdpa_bwd_ms={t_l:.4f} backward bound_ms={b3[0]:.5f}({b3[1]}) "
+        f"{card}")
+    return t4, t5, t_l, b4, b5
 
 
 def _check_layer_norm(e8, e9, rows, card):
@@ -878,7 +1088,7 @@ def phase_agree(state):
         raise AssertionError("card and CPU logits disagree")
 
 
-# -- phase 4 ---------------------------------------------------------------
+# -- phases 4, 8 ------------------------------------------------------------
 def _train_batch(seed: int, b: int, t: int, vocab: int):
     """Random tokens from ``np.random.default_rng(seed)``: inputs and
     their next-token labels, [b, t] int32 each."""
@@ -887,27 +1097,31 @@ def _train_batch(seed: int, b: int, t: int, vocab: int):
     return (toks[:, :-1].astype(np.int32), toks[:, 1:].astype(np.int32))
 
 
-def phase_train(state):
+def _fit_steps(state, path: str, model_kw, b: int, t: int, warm: int,
+               steps: int) -> None:
+    """The stepped LM path ``path``: ``CausalTransformerLM(**model_kw)``
+    (bfloat16 compute) built by ``init(t)`` and trained by ``net.fit`` on
+    one fixed [b, t] batch, ``warm`` steps, then ``steps`` timed ones
+    between zeroed and read launch counters."""
     import math
     import torch
     from deeplearning4j_tpu_torch.ops import kernel_registry
     from deeplearning4j_tpu_torch.zoo.gpt import CausalTransformerLM
     card = state["card"]
-    model = CausalTransformerLM(compute_dtype="bfloat16", **TRAIN)
+    model = CausalTransformerLM(compute_dtype="bfloat16", **model_kw)
     t0 = time.perf_counter()
-    net = model.init(TRAIN_T)
-    x, y = _train_batch(0, TRAIN_B, TRAIN_T, model.vocab_size)
-    log(f"train: init {net.num_params()} params "
+    net = model.init(t)
+    x, y = _train_batch(0, b, t, model.vocab_size)
+    log(f"{path}: init {net.num_params()} params "
         f"{time.perf_counter() - t0:.1f}s")
     torch.cuda.reset_peak_memory_stats()
     losses = []
-    for _ in range(2):                       # warm steps
+    for _ in range(warm):
         net.fit(x, y)
         losses.append(net.score())
     for e in kernel_registry.ported():
         e.reset()
     torch.cuda.synchronize()
-    steps = 8
     t_start = time.perf_counter()
     for _ in range(steps):
         net.fit(x, y)                        # ends in a device sync
@@ -915,24 +1129,33 @@ def phase_train(state):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_start
     launches = {e.key: e.launches() for e in kernel_registry.ported()}
-    state.setdefault("launches", {})["train"] = launches
-    step_ms = wall / steps * 1e3
+    state.setdefault("launches", {})[path] = launches
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"train: losses {' '.join(f'{l:.4f}' for l in losses)} {card}")
-    log(f"train: B={TRAIN_B} T={TRAIN_T} steps={steps} mean_step_ms="
-        f"{step_ms:.3f} tokens_per_s={TRAIN_B * TRAIN_T / wall * steps:.1f}"
+    log(f"{path}: losses {' '.join(f'{l:.4f}' for l in losses)} {card}")
+    log(f"{path}: B={b} T={t} steps={steps} mean_step_ms="
+        f"{wall / steps * 1e3:.3f} tokens_per_s={b * t / wall * steps:.1f}"
         f" max_memory_allocated_gb={peak_gb:.3f} {card}")
     assert all(math.isfinite(l) for l in losses), losses
     assert losses[-1] < losses[0], losses
-    _check_step_launches("train", steps, launches, card)
+    _check_step_launches(path, steps, launches, card)
+
+
+def phase_train(state):
+    _fit_steps(state, "train", TRAIN, TRAIN_B, TRAIN_T, warm=2, steps=8)
+
+
+def phase_longctx(state):
+    _fit_steps(state, "longctx", LONGCTX, LONGCTX_B, LONGCTX_T, warm=1,
+               steps=3)
 
 
 def _check_step_launches(path: str, steps: int, launches, card) -> None:
-    """Every kernel the registry lists for the stepped ``path`` was
-    launched exactly its registry count per step over ``steps`` steps."""
+    """Every ported kernel was launched exactly its registry count per
+    step on the stepped ``path`` over ``steps`` steps: 0 for a kernel
+    the registry does not list for that path."""
     from deeplearning4j_tpu_torch.ops import kernel_registry
-    per_step = {e.key: e.per_step[path]
-                for e in kernel_registry.on_path(path)}
+    per_step = {e.key: e.per_step.get(path, 0)
+                for e in kernel_registry.ported()}
     log(f"{path}: launches over {steps} steps {launches} (per step "
         f"expected {per_step}) {card}")
     for key, n in per_step.items():
@@ -942,14 +1165,17 @@ def _check_step_launches(path: str, steps: int, launches, card) -> None:
             f"{path}, expected {want}"
 
 
-# -- phase 5 ---------------------------------------------------------------
-def phase_train_agree(state):
+# -- phases 5, 9 ------------------------------------------------------------
+def _lm_agree(state, name: str, model_kw) -> None:
+    """One f32 training step (TF32 off) of ``CausalTransformerLM(
+    **model_kw)`` at B = 2, T = 256: the card's loss and every gradient
+    against the port on the CPU."""
     import torch
     from deeplearning4j_tpu_torch import tree
     from deeplearning4j_tpu_torch.zoo.gpt import CausalTransformerLM
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    model = CausalTransformerLM(**TRAIN)         # float32
+    model = CausalTransformerLM(**model_kw)      # float32
     x, y = _train_batch(1, 2, 256, model.vocab_size)
     results = {}
     for dev in ("cuda", "cpu"):
@@ -963,13 +1189,47 @@ def phase_train_agree(state):
     rels = tree.map_with_path(
         lambda path, a, b: (_rel_err(a, b), ".".join(path)), g_card, g_cpu)
     worst, worst_key = max(tree.leaves(rels))
-    log(f"train_agree: f32 B=2 T=256 one step, card vs CPU: loss "
+    log(f"{name}: f32 B=2 T=256 one step, card vs CPU: loss "
         f"{l_card:.6f} vs {l_cpu:.6f} rel={loss_rel:.3e} "
         f"tol={TRAIN_LOSS_RTOL:.0e}; worst gradient {worst_key} "
         f"max|d|/max|g|={worst:.3e} tol={TRAIN_GRAD_TOL:.0e} "
         f"{state['card']}")
     if not (loss_rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_TOL):
-        raise AssertionError("card and CPU training step disagree")
+        raise AssertionError(f"card and CPU training step disagree "
+                             f"({name})")
+
+
+def phase_train_agree(state):
+    _lm_agree(state, "train_agree", TRAIN)
+
+
+@contextlib.contextmanager
+def _fused_budget(nbytes: int):
+    """Set the port's fused-backward budget (``cuda_kernels.
+    _FUSED_BWD_DQ_VMEM``, the JAX package's test) inside the block: 0
+    sends every attention backward to the split pair K4 + K5, a huge
+    one to the fused K3."""
+    from deeplearning4j_tpu_torch.ops import cuda_kernels
+    prev = cuda_kernels._FUSED_BWD_DQ_VMEM
+    cuda_kernels._FUSED_BWD_DQ_VMEM = nbytes
+    try:
+        yield
+    finally:
+        cuda_kernels._FUSED_BWD_DQ_VMEM = prev
+
+
+def phase_longctx_agree(state):
+    """The long-context model's step at B = 2, T = 256 with the budget at
+    0, so that the card's backward runs K4 + K5, against the CPU."""
+    from deeplearning4j_tpu_torch.ops import kernel_registry
+    for e in kernel_registry.ported():
+        e.reset()
+    with _fused_budget(0):
+        _lm_agree(state, "longctx_agree", LONGCTX)
+    launches = {e.key: e.launches() for e in kernel_registry.ported()}
+    log(f"longctx_agree: card launches {launches} {state['card']}")
+    assert launches["K4"] > 0 and launches["K5"] > 0, launches
+    assert launches["K3"] == 0, launches
 
 
 # -- phases 6, 7 -----------------------------------------------------------
@@ -1121,7 +1381,8 @@ def phase_profile(state):
     """Device-time breakdown of the serving path — the prefill of the
     longest prompt (bucket 2048), then 8 decode steps with all 32 slots
     active — of one training step of the train phase's model and batch,
-    and of one fine-tune step of the finetune phase's model and batch.
+    of one fine-tune step of the finetune phase's model and batch, and
+    of one step of the longctx phase's model and batch.
     Every wall time is taken before the first profiled window,
     and the decode window's once more after the last one: a host-bound
     step ran slower after the kernels phase, and this shows whether
@@ -1158,11 +1419,16 @@ def phase_profile(state):
                                features_masks=[mask, mask])
     for _ in range(2):
         ft_step()
+    lmodel = CausalTransformerLM(compute_dtype="bfloat16", **LONGCTX)
+    lnet = lmodel.init(LONGCTX_T)
+    lx, ly = _train_batch(0, LONGCTX_B, LONGCTX_T, lmodel.vocab_size)
+    long_step = lambda: lnet.fit(lx, ly)
+    long_step()
     decode = lambda: [sched.step() for _ in range(8)]
     train_step = lambda: net.fit(x, y)
     walls = {"prefill": _wall_ms(lambda: sched.admit(reqs[first])),
              "decode": _wall_ms(decode), "train": _wall_ms(train_step),
-             "finetune": _wall_ms(ft_step)}
+             "finetune": _wall_ms(ft_step), "longctx": _wall_ms(long_step)}
     sched.evict(reqs[first])            # its slot and pages, once more
     _device_window(f"prefill t0={lens[first]} (bucket 2048)",
                    lambda: sched.admit(stream(first)), walls["prefill"],
@@ -1173,6 +1439,8 @@ def phase_profile(state):
                    walls["train"], card)
     _device_window(f"finetune step B={BERT_B} T={BERT_T}", ft_step,
                    walls["finetune"], card)
+    _device_window(f"longctx step B={LONGCTX_B} T={LONGCTX_T}", long_step,
+                   walls["longctx"], card)
     log(f"profile: 8 decode steps x 32 slots wall_ms before any profiling"
         f"={walls['decode']:.3f}, after it={_wall_ms(decode):.3f} {card}")
 

@@ -4,10 +4,11 @@ Each library is compiled by ``nvcc`` into a shared object with a plain C
 interface and loaded with ``ctypes`` (no PyTorch headers: a build takes
 seconds, not minutes). The build runs at first use, into
 ``deeplearning4j_tpu_torch/_build/`` (listed in ``.gitignore``), under a
-file name keyed by a hash of the sources and flags, so an edited source
-never loads a stale library. A thread lock and an ``fcntl`` file lock
-serialise the build: the serving gateway's worker thread may be the
-first caller, and several processes may share one checkout.
+file name keyed by a hash of the sources, the shared headers and the
+flags, so an edited source or header never loads a stale library. A
+thread lock and an ``fcntl`` file lock serialise the build: the serving
+gateway's worker thread may be the first caller, and several processes
+may share one checkout.
 """
 from __future__ import annotations
 
@@ -44,8 +45,10 @@ def nvcc_path() -> str:
 
 
 def _key(sources: Sequence[Path]) -> str:
+    """Hash of the flags, the sources and every header under ``csrc/``
+    (a source may include any of them)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in [*sources, *sorted(CSRC_DIR.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

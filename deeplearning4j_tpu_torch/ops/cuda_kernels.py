@@ -8,27 +8,35 @@ Counterpart of ``deeplearning4j_tpu/ops/pallas_kernels.py``. Kernels:
   CPU tensor it runs the plain version, :func:`flash_attention_reference`
   (the port of the JAX ``_reference_scan``). There is no other route: a
   CUDA input the kernel does not take raises.
-- :func:`flash_attention_bwd` — the single-pass FlashAttention-2
-  backward (``csrc/flash_attention_bwd.cu``, replacing
-  ``_flash_bwd_fused_kernel``): dq, dk, dv from q, k, v, the output, its
-  gradient and the saved row logsumexp. Its plain version is
-  :func:`flash_attention_bwd_reference` (the port of the JAX
-  ``_reference_bwd_block``).
+- :func:`flash_attention_bwd` — the backward: dq, dk, dv from q, k, v,
+  the output, its gradient and the saved row logsumexp. It makes the
+  JAX ``_flash_bwd``'s choice on the same padded shapes
+  (``_FUSED_BWD_DQ_VMEM``): the single-pass FlashAttention-2 backward
+  (``csrc/flash_attention_bwd.cu``, replacing
+  ``_flash_bwd_fused_kernel``; plain version
+  :func:`flash_attention_bwd_reference`, the port of the JAX
+  ``_reference_bwd_block``) up to ~24k query rows, past that the split
+  pair of ``csrc/flash_attention_bwd_split.cu``:
+  :func:`flash_attention_bwd_dq` (replacing ``_flash_bwd_dq_kernel``)
+  and :func:`flash_attention_bwd_dkv` (replacing
+  ``_flash_bwd_dkv_kernel``), with the blockwise plain versions
+  :func:`flash_attention_bwd_dq_reference` and
+  :func:`flash_attention_bwd_dkv_reference`.
 
 :func:`flash_attention` is differentiable: when autograd needs its
 gradient it runs through :class:`_FlashAttentionFn`, whose forward calls
-the forward kernel with the logsumexp and whose backward calls the
-backward kernel (their plain versions for CPU tensors).
+the forward kernel with the logsumexp and whose backward calls
+:func:`flash_attention_bwd` (the plain versions for CPU tensors).
 
-The split backward kernels for very long sequences, the ring-composition
-entries (``flash_block_fwd``/``flash_block_bwd``) and the threshold
-codec come with later slices (``ops/kernel_registry.py`` lists them).
+The ring-composition entries (``flash_block_fwd``/``flash_block_bwd``)
+and the threshold codec come with the ``parallel/`` slice
+(``ops/kernel_registry.py`` lists them).
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -40,30 +48,41 @@ _HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_BLOCK = 64
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-#: library name -> (sources, C entry point, its argtypes)
+_F = ctypes.c_float
+#: library name -> (sources, {C entry point: its argtypes})
 _LIBS = {
-    "flash_attention": (
-        ("flash_attention.cu",), "dl4j_flash_attention_fwd",
-        [_I, _I] + [_P] * 6 + [_I] * 5 + [_LL] * 9
-        + [_I, _I, ctypes.c_float, _P]),
-    "flash_attention_bwd": (
-        ("flash_attention_bwd.cu",), "dl4j_flash_attention_bwd",
-        [_I, _I] + [_P] * 12 + [_I] * 5 + [_LL] * 15
-        + [_I, _I, ctypes.c_float, _P]),
+    "flash_attention": (("flash_attention.cu",), {
+        "dl4j_flash_attention_fwd":
+            [_I, _I] + [_P] * 6 + [_I] * 5 + [_LL] * 9 + [_I, _I, _F, _P]}),
+    "flash_attention_bwd": (("flash_attention_bwd.cu",), {
+        "dl4j_flash_attention_bwd":
+            [_I, _I] + [_P] * 12 + [_I] * 5 + [_LL] * 15
+            + [_I, _I, _F, _P]}),
+    "flash_attention_bwd_split": (("flash_attention_bwd_split.cu",), {
+        "dl4j_flash_attention_bwd_delta":
+            [_I, _I] + [_P] * 3 + [_I] * 3 + [_LL] * 6 + [_P],
+        "dl4j_flash_attention_bwd_dq":
+            [_I, _I] + [_P] * 8 + [_I] * 5 + [_LL] * 12
+            + [_I] * 3 + [_F, _P],
+        "dl4j_flash_attention_bwd_dkv":
+            [_I, _I] + [_P] * 9 + [_I] * 5 + [_LL] * 12
+            + [_I] * 3 + [_F, _P]}),
 }
 
 
 def _lib(name: str = "flash_attention") -> ctypes.CDLL:
     from deeplearning4j_tpu_torch.ops import cuda_build
-    sources, entry, argtypes = _LIBS[name]
+    sources, entries = _LIBS[name]
     lib = cuda_build.load(name, sources)
-    fn = getattr(lib, entry)
-    if fn.argtypes is None:
-        # argtypes last: a thread that sees them set sees the rest set
+    if getattr(lib, list(entries)[-1]).argtypes is None:
         lib.dl4j_cuda_error_string.argtypes = [ctypes.c_int]
         lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
+        # the last entry's argtypes last: a thread that sees them set
+        # sees the rest set
+        for entry, argtypes in entries.items():
+            fn = getattr(lib, entry)
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
     return lib
 
 
@@ -283,35 +302,88 @@ class _FlashAttentionFn(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+#: the fused backward's full-length dq scratch budget in f32 bytes, the
+#: JAX package's ``_FUSED_BWD_DQ_VMEM`` (``pallas_kernels.py:557``): past
+#: it :func:`flash_attention_bwd` takes the split pair K4 + K5, as the JAX
+#: ``_flash_bwd`` does (at head dim <= 128, past 24 576 query rows)
+_FUSED_BWD_DQ_VMEM = 12 * 1024 * 1024
+#: the JAX ``flash_attention``'s default query block
+_JAX_BLOCK_Q = 1024
+
+
+def _flash_blocks(tq_real: int, d: int):
+    """The query side of the JAX ``_flash_blocks`` padding at the JAX
+    ``flash_attention``'s default query block (its Mosaic clamp of the
+    key block left out): the query block, the padded query length and
+    the 128-lane head dim."""
+    block_q = min(_JAX_BLOCK_Q, -(-tq_real // 128) * 128)
+    tq = -(-tq_real // block_q) * block_q
+    dp = max(-(-d // 128) * 128, 128)
+    return block_q, tq, dp
+
+
+def _split_bwd(tq: int, d: int) -> bool:
+    """Whether the backward over ``tq`` query rows at head dim ``d``
+    takes the split pair (K4, K5) rather than the fused K3: the JAX
+    ``_flash_bwd``'s test ``tq · dp · 4 <= _FUSED_BWD_DQ_VMEM``
+    (``pallas_kernels.py:621``) on the same padded shapes, negated."""
+    if tq == 0:
+        return False
+    _, tq_pad, dp = _flash_blocks(tq, d)
+    return tq_pad * dp * 4 > _FUSED_BWD_DQ_VMEM
+
+
+def _check_bwd_inputs(q, k, v, out, lse, dout, mask, delta=None) -> None:
+    """Raise on anything the backward kernels do not take."""
+    _check_cuda_inputs(q, k, v, mask, None, None)
+    b, t, h, d = q.shape
+    for name, x in (("out", out), ("dout", dout)):
+        if (not x.is_cuda or x.dtype != q.dtype
+                or x.shape != q.shape or x.stride(-1) != 1):
+            raise ValueError(
+                f"flash_attention_bwd: {name} must be a CUDA "
+                f"{q.dtype} tensor shaped like q {tuple(q.shape)} "
+                f"with a dense head dim, got {tuple(x.shape)} "
+                f"{x.dtype} on {x.device}")
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x is not None and (not x.is_cuda or x.dtype != torch.float32
+                              or tuple(x.shape) != (b, h, t)
+                              or not x.is_contiguous()):
+            raise ValueError(f"flash_attention_bwd: {name} must be a "
+                             f"contiguous CUDA float32 [{b}, {h}, {t}] "
+                             f"tensor, got {tuple(x.shape)} "
+                             f"{x.dtype} on {x.device}")
+
+
 def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = False,
                         mask: Optional[torch.Tensor] = None):
     """Gradients (dq, dk, dv) of :func:`flash_attention` given its output
     ``out`` [B, Tq, H, D], the f32 row logsumexp ``lse`` [B, H, Tq] it
     returned and the output's gradient ``dout``; ``k``/``v``
     [B, Tk, Hkv, D] (GQA: dk/dv are summed over each kv head's query
-    heads). A CUDA tensor launches the CUDA kernel; a CPU tensor runs
-    :func:`flash_attention_bwd_reference`."""
+    heads).
+
+    The JAX ``_flash_bwd``'s choice of kernels, made first: the fused
+    K3 while its full-length dq scratch fits in ``_FUSED_BWD_DQ_VMEM``
+    (:func:`_split_bwd`), else the split pair — one Delta pre-pass, then
+    :func:`flash_attention_bwd_dq` (K4) and
+    :func:`flash_attention_bwd_dkv` (K5). A CUDA tensor launches the
+    picked kernels; a CPU tensor runs their plain versions
+    (:func:`flash_attention_bwd_reference`, or the split pair's)."""
     with devtime.scope("ops.flash_attention_bwd"):
+        if q.is_cuda:
+            _check_bwd_inputs(q, k, v, out, lse, dout, mask)
+        if _split_bwd(q.shape[1], q.shape[-1]):
+            delta = (_flash_delta_cuda(out, dout) if q.is_cuda
+                     else _delta_reference(out, dout))
+            dq = flash_attention_bwd_dq(q, k, v, out, lse, dout, causal,
+                                        mask, delta=delta)
+            dk, dv = flash_attention_bwd_dkv(q, k, v, out, lse, dout,
+                                             causal, mask, delta=delta)
+            return dq, dk, dv
         if not q.is_cuda:
             return flash_attention_bwd_reference(q, k, v, out, lse, dout,
                                                  causal, mask)
-        _check_cuda_inputs(q, k, v, mask, None, None)
-        b, t, h, d = q.shape
-        for name, x in (("out", out), ("dout", dout)):
-            if (not x.is_cuda or x.dtype != q.dtype
-                    or x.shape != q.shape or x.stride(-1) != 1):
-                raise ValueError(
-                    f"flash_attention_bwd: {name} must be a CUDA "
-                    f"{q.dtype} tensor shaped like q {tuple(q.shape)} "
-                    f"with a dense head dim, got {tuple(x.shape)} "
-                    f"{x.dtype} on {x.device}")
-        if (not lse.is_cuda or lse.dtype != torch.float32
-                or tuple(lse.shape) != (b, h, t)
-                or not lse.is_contiguous()):
-            raise ValueError(f"flash_attention_bwd: lse must be a "
-                             f"contiguous CUDA float32 [{b}, {h}, {t}] "
-                             f"tensor, got {tuple(lse.shape)} "
-                             f"{lse.dtype} on {lse.device}")
         return _flash_bwd_cuda(q, k, v, out, lse, dout, mask, causal)
 
 
@@ -347,50 +419,253 @@ def _flash_bwd_cuda(q, k, v, out, lse, dout, mask, causal: bool):
     return dq, dk, dv
 
 
-def flash_attention_bwd_reference(q, k, v, out, lse, dout,
-                                  causal: bool = False, mask=None):
-    """The plain version of :func:`flash_attention_bwd` on any device —
-    the port of the JAX ``_reference_bwd_block`` on [B, T, H, D]: the
-    kv heads repeated per head group, the whole [Tq, Tk] probability
-    matrix recomputed in f32 from the logsumexp (lse taken as 0 where it
-    is not finite), dk/dv summed back onto the kv heads. O(Tq·Tk)
-    memory: for tests and the card's comparison only."""
+def _offsets(tq: int, tk: int, causal: bool, offsets):
+    """The causal offsets ``(q_off, k_off)``: given, or the end-aligned
+    ``(Tk − Tq, 0)``."""
+    if offsets is not None:
+        return int(offsets[0]), int(offsets[1])
+    return (tk - tq, 0) if causal else (0, 0)
+
+
+def _flash_delta_cuda(out, dout):
+    """Delta = rowsum(dO ∘ O) in f32, [B, H, Tq], by the split library's
+    pre-pass kernel (read by K4 and K5)."""
+    b, t, h, d = out.shape
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=out.device)
+    if delta.numel():
+        lib = _lib("flash_attention_bwd_split")
+        err = lib.dl4j_flash_attention_bwd_delta(
+            _DTYPE_CODES[out.dtype], d, out.data_ptr(), dout.data_ptr(),
+            delta.data_ptr(), b, t, h, out.stride(0), out.stride(1),
+            out.stride(2), dout.stride(0), dout.stride(1), dout.stride(2),
+            torch.cuda.current_stream(out.device).cuda_stream)
+        _raise_on(lib, err, "flash_attention_bwd delta")
+    return delta
+
+
+def _delta_reference(out, dout):
+    """The plain Delta = rowsum(dO ∘ O) in f32, [B, H, Tq]."""
+    return (dout.float() * out.float()).sum(-1).permute(0, 2, 1) \
+        .contiguous()
+
+
+def _split_launch(entry: str, q, k, v, out, lse, dout, causal, mask,
+                  offsets, delta, outputs) -> None:
+    """Launch K4 (``outputs`` = (dq,)) or K5 (``outputs`` = (dk, dv))."""
     b, t, h, d = q.shape
     tk, h_kv = k.shape[1], k.shape[2]
-    groups = h // h_kv
-    scale = 1.0 / math.sqrt(d)
-    dev = q.device
+    if delta is None:
+        delta = _flash_delta_cuda(out, dout)
+    km = None if mask is None else mask.to(torch.float32).contiguous()
+    q_off, k_off = _offsets(t, tk, causal, offsets)
+    lib = _lib("flash_attention_bwd_split")
+    err = getattr(lib, entry)(
+        _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        None if km is None else km.data_ptr(),
+        *(x.data_ptr() for x in outputs), b, t, tk, h, h_kv,
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        dout.stride(0), dout.stride(1), dout.stride(2),
+        int(causal), q_off, k_off, 1.0 / math.sqrt(d),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(lib, err, entry)
+
+
+def flash_attention_bwd_dq(q, k, v, out, lse, dout, causal: bool = False,
+                           mask: Optional[torch.Tensor] = None,
+                           offsets=None, delta=None):
+    """dq of :func:`flash_attention` by the split dq pass (K4,
+    ``csrc/flash_attention_bwd_split.cu``, replacing
+    ``_flash_bwd_dq_kernel``): the arguments of
+    :func:`flash_attention_bwd`, plus the causal ``offsets`` ``(q_off,
+    k_off)`` (row i sees key j when k_off + j ≤ q_off + i; default the
+    end-aligned ``(Tk − Tq, 0)``) and ``delta``, rowsum(dO ∘ O) as f32
+    [B, H, Tq] (computed here when None). No atomics: dq is the same to
+    the bit from run to run. A CPU tensor runs
+    :func:`flash_attention_bwd_dq_reference`."""
+    with devtime.scope("ops.flash_attention_bwd_dq"):
+        if not q.is_cuda:
+            return flash_attention_bwd_dq_reference(
+                q, k, v, out, lse, dout, causal, mask, offsets, delta)
+        _check_bwd_inputs(q, k, v, out, lse, dout, mask, delta)
+        dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        if q.shape[1] == 0 or k.shape[1] == 0:
+            return dq.zero_()
+        _split_launch("dl4j_flash_attention_bwd_dq", q, k, v, out, lse,
+                      dout, causal, mask, offsets, delta, (dq,))
+        flash_attention_bwd_dq.launches += 1
+        return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, out, lse, dout, causal: bool = False,
+                            mask: Optional[torch.Tensor] = None,
+                            offsets=None, delta=None):
+    """(dk, dv) of :func:`flash_attention` by the split dk/dv pass (K5,
+    ``csrc/flash_attention_bwd_split.cu``, replacing
+    ``_flash_bwd_dkv_kernel``): the arguments of
+    :func:`flash_attention_bwd_dq`. dk/dv [B, Tk, Hkv, D] come out summed
+    over each kv head's query heads, in a fixed order. A CPU tensor runs
+    :func:`flash_attention_bwd_dkv_reference`."""
+    with devtime.scope("ops.flash_attention_bwd_dkv"):
+        if not q.is_cuda:
+            return flash_attention_bwd_dkv_reference(
+                q, k, v, out, lse, dout, causal, mask, offsets, delta)
+        _check_bwd_inputs(q, k, v, out, lse, dout, mask, delta)
+        dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+        dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+        if q.shape[1] == 0 or k.shape[1] == 0:
+            return dk.zero_(), dv.zero_()
+        _split_launch("dl4j_flash_attention_bwd_dkv", q, k, v, out, lse,
+                      dout, causal, mask, offsets, delta, (dk, dv))
+        flash_attention_bwd_dkv.launches += 1
+        return dk, dv
+
+
+class _Rows(NamedTuple):
+    """The split plain versions' operands as f32 [B·H, T, ·] rows: q, dO,
+    k and v (kv rows repeated per head group), the key mask per row or
+    None, lse (0 where not finite) and Delta as [B·H, Tq, 1]."""
+    q: torch.Tensor
+    g: torch.Tensor
+    k: torch.Tensor
+    v: torch.Tensor
+    km: Optional[torch.Tensor]
+    lse: torch.Tensor
+    delta: torch.Tensor
+
+
+def _rows(q, k, v, out, lse, dout, mask, delta) -> _Rows:
+    b, t, h, d = q.shape
+    groups = h // k.shape[2]
     fold = lambda x: x.permute(0, 2, 1, 3).reshape(
         b * x.shape[2], x.shape[1], d).float()
-    expand = lambda x: x.repeat_interleave(groups, dim=0)
-    qf, of, gf = fold(q), fold(out), fold(dout)
-    kf, vf = expand(fold(k)), expand(fold(v))
-    s = torch.einsum("bqd,bkd->bqk", qf, kf) * scale
-    live = torch.ones((1, t, tk), dtype=torch.bool, device=dev)
-    if mask is not None:
-        live = mask.to(torch.float32).repeat_interleave(
-            h, dim=0)[:, None, :] > 0
-    if causal:
-        q_idx = (tk - t) + torch.arange(t, device=dev)[:, None]
-        live = live & (torch.arange(tk, device=dev)[None, :] <= q_idx)
+    expand = lambda x: fold(x).repeat_interleave(groups, dim=0)
     lse3 = lse.reshape(b * h, t, 1)
-    lse_safe = torch.where(torch.isfinite(lse3), lse3,
-                           torch.zeros_like(lse3))
-    p = torch.where(live, torch.exp(s - lse_safe), torch.zeros_like(s))
-    delta = (gf * of).sum(-1, keepdim=True)
-    dp = torch.einsum("bqd,bkd->bqk", gf, vf)
-    ds = p * (dp - delta) * scale
-    dq = torch.einsum("bqk,bkd->bqd", ds, kf)
-    dk = torch.einsum("bqk,bqd->bkd", ds, qf)
-    dv = torch.einsum("bqk,bqd->bkd", p, gf)
-    reduce = lambda x: x.reshape(b * h_kv, groups, tk, d).sum(1)
-    unfold = lambda x, heads, n: x.reshape(b, heads, n, d).permute(
-        0, 2, 1, 3).contiguous()
-    return (unfold(dq, h, t).to(q.dtype),
-            unfold(reduce(dk), h_kv, tk).to(k.dtype),
-            unfold(reduce(dv), h_kv, tk).to(v.dtype))
+    if delta is None:
+        delta = _delta_reference(out, dout)
+    km = (None if mask is None
+          else mask.to(torch.float32).repeat_interleave(h, dim=0))
+    return _Rows(fold(q), fold(dout), expand(k), expand(v), km,
+                 torch.where(torch.isfinite(lse3), lse3,
+                             torch.zeros_like(lse3)),
+                 delta.reshape(b * h, t, 1).float())
+
+
+def _tile_p_ds(r: _Rows, i0: int, i1: int, j0: int, j1: int,
+               causal: bool, q_off: int, k_off: int, scale: float):
+    """p and ds = p ∘ (dp − Δ) for query rows i0:i1 and keys j0:j1 (the
+    JAX ``_flash_bwd_p_ds``, in f32)."""
+    dev = r.q.device
+    s = torch.einsum("bqd,bkd->bqk", r.q[:, i0:i1], r.k[:, j0:j1]) * scale
+    live = torch.ones((1, i1 - i0, j1 - j0), dtype=torch.bool, device=dev)
+    if r.km is not None:
+        live = r.km[:, None, j0:j1] > 0
+    if causal:
+        q_idx = q_off + torch.arange(i0, i1, device=dev)[:, None]
+        k_idx = k_off + torch.arange(j0, j1, device=dev)[None, :]
+        live = live & (k_idx <= q_idx)
+    p = torch.where(live, torch.exp(s - r.lse[:, i0:i1]),
+                    torch.zeros_like(s))
+    dp = torch.einsum("bqd,bkd->bqk", r.g[:, i0:i1], r.v[:, j0:j1])
+    return p, p * (dp - r.delta[:, i0:i1])
+
+
+def _unfold(x, b: int, heads: int, dtype):
+    """[B·heads, T, D] rows back to [B, T, heads, D] in ``dtype``."""
+    n, d = x.shape[1], x.shape[2]
+    return x.reshape(b, heads, n, d).permute(0, 2, 1, 3).contiguous() \
+        .to(dtype)
+
+
+def _reduce_kv(x, b: int, h: int, h_kv: int):
+    """Per-query-head kv gradients [B·H, Tk, D] summed onto their kv
+    heads [B·Hkv, Tk, D] (the JAX ``_reduce_kv_rows``)."""
+    return x.reshape(b * h_kv, h // h_kv, *x.shape[1:]).sum(1)
+
+
+def flash_attention_bwd_reference(q, k, v, out, lse, dout,
+                                  causal: bool = False, mask=None):
+    """The plain version of :func:`flash_attention_bwd`'s fused kernel
+    on any device — the port of the JAX ``_reference_bwd_block`` on
+    [B, T, H, D]: the kv heads repeated per head group, the whole
+    [Tq, Tk] probability matrix recomputed in f32 from the logsumexp
+    (lse taken as 0 where it is not finite), dk/dv summed back onto the
+    kv heads. O(Tq·Tk) memory: for tests and the card's comparison only
+    (the split pair's plain versions are blockwise)."""
+    b, t, h, d = q.shape
+    tk, h_kv = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    r = _rows(q, k, v, out, lse, dout, mask, None)
+    p, ds = _tile_p_ds(r, 0, t, 0, tk, causal,
+                       *_offsets(t, tk, causal, None), scale)
+    dq = torch.einsum("bqk,bkd->bqd", ds, r.k) * scale
+    dk = torch.einsum("bqk,bqd->bkd", ds, r.q) * scale
+    dv = torch.einsum("bqk,bqd->bkd", p, r.g)
+    return (_unfold(dq, b, h, q.dtype),
+            _unfold(_reduce_kv(dk, b, h, h_kv), b, h_kv, k.dtype),
+            _unfold(_reduce_kv(dv, b, h, h_kv), b, h_kv, v.dtype))
+
+
+def flash_attention_bwd_dq_reference(q, k, v, out, lse, dout,
+                                     causal: bool = False, mask=None,
+                                     offsets=None, delta=None,
+                                     block: int = 512):
+    """The plain version of :func:`flash_attention_bwd_dq` on any device,
+    the port of the JAX dq pass: for each ``block``-row query tile, a
+    loop over ``block``-key tiles up to the causal diagonal, p
+    recomputed in f32 from the logsumexp, dq accumulated in f32 and
+    scaled once. O(B·H·T·block) memory."""
+    b, t, h, d = q.shape
+    tk = k.shape[1]
+    q_off, k_off = _offsets(t, tk, causal, offsets)
+    scale = 1.0 / math.sqrt(d)
+    r = _rows(q, k, v, out, lse, dout, mask, delta)
+    dq = torch.zeros_like(r.q)
+    for i0 in range(0, t, block):
+        i1 = min(i0 + block, t)
+        for j0 in range(0, tk, block):
+            if causal and k_off + j0 > q_off + i1 - 1:
+                break                    # past the diagonal
+            j1 = min(j0 + block, tk)
+            _, ds = _tile_p_ds(r, i0, i1, j0, j1, causal, q_off, k_off,
+                               scale)
+            dq[:, i0:i1] += torch.einsum("bqk,bkd->bqd", ds, r.k[:, j0:j1])
+    return _unfold(dq * scale, b, h, q.dtype)
+
+
+def flash_attention_bwd_dkv_reference(q, k, v, out, lse, dout,
+                                      causal: bool = False, mask=None,
+                                      offsets=None, delta=None,
+                                      block: int = 512):
+    """The plain version of :func:`flash_attention_bwd_dkv` on any
+    device, the port of the JAX dk/dv pass: for each ``block``-key tile,
+    a loop over ``block``-row query tiles from the causal diagonal on,
+    dv += pᵀ·dO and dk += dsᵀ·q in f32 per query head, dk scaled once,
+    then both summed onto the kv heads (``_reduce_kv_rows``).
+    O(B·H·T·block) memory."""
+    b, t, h, d = q.shape
+    tk, h_kv = k.shape[1], k.shape[2]
+    q_off, k_off = _offsets(t, tk, causal, offsets)
+    scale = 1.0 / math.sqrt(d)
+    r = _rows(q, k, v, out, lse, dout, mask, delta)
+    dk, dv = torch.zeros_like(r.k), torch.zeros_like(r.v)
+    for j0 in range(0, tk, block):
+        j1 = min(j0 + block, tk)
+        first = max(0, j0 + k_off - q_off) if causal else 0
+        for i0 in range(first // block * block, t, block):
+            i1 = min(i0 + block, t)
+            p, ds = _tile_p_ds(r, i0, i1, j0, j1, causal, q_off, k_off,
+                               scale)
+            dv[:, j0:j1] += torch.einsum("bqk,bqd->bkd", p, r.g[:, i0:i1])
+            dk[:, j0:j1] += torch.einsum("bqk,bqd->bkd", ds, r.q[:, i0:i1])
+    return (_unfold(_reduce_kv(dk * scale, b, h, h_kv), b, h_kv, k.dtype),
+            _unfold(_reduce_kv(dv, b, h, h_kv), b, h_kv, v.dtype))
 
 
 #: launches of the CUDA kernels (the counts the smoke run reads)
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0

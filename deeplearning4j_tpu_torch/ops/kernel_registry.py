@@ -4,13 +4,16 @@
 For each row: the JAX kernel body and its entry point, the port function
 and its plain PyTorch version, the launch counter, the route (``cuda`` or
 ``triton``), the source file, the status — ``ported`` or ``todo`` — the
-main paths that launch it (``serve``, ``train``, ``finetune``) and, for
-each path that runs in steps (``train``, ``finetune``), its launches per
-step. ``chip_smoke.py`` reads this table: it builds and checks every
-``ported`` row on the card, zeroes the launch counters just before each
-path it drives and reads them just after, and expects every row to
-launch on each of its paths (on a stepped path, exactly
-``per_step[path]`` times a step). ``tests/test_torch_imports.py`` holds
+main paths that launch it (``serve``, ``train``, ``finetune``,
+``longctx``) and, for each path that runs in steps (``train``,
+``finetune``, ``longctx``: the LM trained at a 32 768-token context,
+where the backward takes the split pair K4 + K5 instead of K3), its
+launches per step. ``chip_smoke.py`` reads this table: it builds and
+checks every ``ported`` row on the card, zeroes the launch counters just
+before each path it drives and reads them just after, and expects every
+row to launch on each of its paths (on a stepped path, exactly
+``per_step[path]`` times a step, and no launch of a row the path does
+not list). ``tests/test_torch_imports.py`` holds
 the ``ported`` rows to importable functions that carry a ``launches``
 counter.
 """
@@ -38,8 +41,9 @@ class KernelEntry:
     plain: Optional[str] = None          # "module:function"
     paths: Tuple[str, ...] = ()          # main paths that launch it
     #: launches per step on each stepped path that launches it: ``train``
-    #: (the 12-layer GPT-2-small-class LM, remat off) and ``finetune``
-    #: (BERT-base's classifier); ``serve`` runs no steps
+    #: and ``longctx`` (the 12-layer GPT-2-small-class LM at 1 024 and
+    #: 32 768 tokens, remat off) and ``finetune`` (BERT-base's
+    #: classifier); ``serve`` runs no steps
     per_step: Dict[str, int] = field(default_factory=dict)
 
     def _resolve(self, ref: str) -> Callable:
@@ -71,14 +75,16 @@ KERNELS: Tuple[KernelEntry, ...] = (
         port=f"{_CK}:flash_attention",
         plain=f"{_CK}:flash_attention_reference",
         # once a block
-        paths=("serve", "train", "finetune"),
-        per_step={"train": 12, "finetune": 12}),
+        paths=("serve", "train", "finetune", "longctx"),
+        per_step={"train": 12, "finetune": 12, "longctx": 12}),
     KernelEntry(
         "K2", "rms_norm_fwd", f"{_FN}:111", f"{_FN}:rms_norm", "ported",
         "serving", route="triton",
         source="deeplearning4j_tpu_torch/ops/fused_norms.py",
         port=f"{_NORM}:rms_norm", plain=f"{_NORM}:rms_norm_reference",
-        paths=("serve", "train"), per_step={"train": 13}),  # ln1 x12, final
+        # ln1 of 12 blocks, the final norm
+        paths=("serve", "train", "longctx"),
+        per_step={"train": 13, "longctx": 13}),
     KernelEntry(
         "K3", "flash_attention_bwd_fused", f"{_PK}:488",
         f"{_PK}:_flash_bwd", "ported", "training", route="cuda",
@@ -87,24 +93,36 @@ KERNELS: Tuple[KernelEntry, ...] = (
         plain=f"{_CK}:flash_attention_bwd_reference",
         paths=("train", "finetune"),
         per_step={"train": 12, "finetune": 12}),          # once a block
-    KernelEntry("K4", "flash_attention_bwd_dq", f"{_PK}:418",
-                f"{_PK}:_flash_bwd", "todo", "long-context"),
-    KernelEntry("K5", "flash_attention_bwd_dkv", f"{_PK}:451",
-                f"{_PK}:_flash_bwd", "todo", "long-context"),
+    KernelEntry(
+        "K4", "flash_attention_bwd_dq", f"{_PK}:418", f"{_PK}:_flash_bwd",
+        "ported", "long-context", route="cuda",
+        source="deeplearning4j_tpu_torch/csrc/flash_attention_bwd_split.cu",
+        port=f"{_CK}:flash_attention_bwd_dq",
+        plain=f"{_CK}:flash_attention_bwd_dq_reference",
+        paths=("longctx",), per_step={"longctx": 12}),    # once a block
+    KernelEntry(
+        "K5", "flash_attention_bwd_dkv", f"{_PK}:451", f"{_PK}:_flash_bwd",
+        "ported", "long-context", route="cuda",
+        source="deeplearning4j_tpu_torch/csrc/flash_attention_bwd_split.cu",
+        port=f"{_CK}:flash_attention_bwd_dkv",
+        plain=f"{_CK}:flash_attention_bwd_dkv_reference",
+        paths=("longctx",), per_step={"longctx": 12}),    # once a block
     KernelEntry(
         "K6", "rms_norm_bwd", f"{_FN}:119", f"{_FN}:_rms_bwd_call",
         "ported", "training", route="triton",
         source="deeplearning4j_tpu_torch/ops/fused_norms.py",
         port=f"{_NORM}:rms_norm_bwd",
-        plain=f"{_NORM}:rms_norm_bwd_reference", paths=("train",),
-        per_step={"train": 25}),                          # all 25 norms
+        plain=f"{_NORM}:rms_norm_bwd_reference",
+        paths=("train", "longctx"),
+        per_step={"train": 25, "longctx": 25}),           # all 25 norms
     KernelEntry(
         "K7", "add_rms_norm_fwd", f"{_FN}:218", f"{_FN}:add_rms_norm",
         "ported", "training", route="triton",
         source="deeplearning4j_tpu_torch/ops/fused_norms.py",
         port=f"{_NORM}:add_rms_norm",
-        plain=f"{_NORM}:add_rms_norm_reference", paths=("train",),
-        per_step={"train": 12}),                          # once a block
+        plain=f"{_NORM}:add_rms_norm_reference",
+        paths=("train", "longctx"),
+        per_step={"train": 12, "longctx": 12}),           # once a block
     KernelEntry(
         "K8", "layer_norm_fwd", f"{_FN}:298", f"{_FN}:layer_norm",
         "ported", "encoder", route="triton",
@@ -131,6 +149,6 @@ def ported() -> Tuple[KernelEntry, ...]:
 
 
 def on_path(path: str) -> Tuple[KernelEntry, ...]:
-    """The ported rows a main path (``serve``, ``train``, ``finetune``)
-    launches."""
+    """The ported rows a main path (``serve``, ``train``, ``finetune``,
+    ``longctx``) launches."""
     return tuple(e for e in ported() if path in e.paths)

@@ -231,14 +231,15 @@ def test_use_flash_gate_keeps_semantic_refusals():
 def test_registry_lists_every_tpu_kernel():
     keys = [e.key for e in KERNELS]
     assert keys == [f"K{i}" for i in range(1, 12)]
-    assert {e.key for e in ported()} == {"K1", "K2", "K3", "K6", "K7",
-                                         "K8", "K9"}
+    assert {e.key for e in ported()} == {"K1", "K2", "K3", "K4", "K5",
+                                         "K6", "K7", "K8", "K9"}
     for e in ported():
         assert e.route in ("cuda", "triton")
         assert callable(e.plain_fn())
         assert isinstance(e.launches(), int)
         # every ported row names the main paths that launch it
-        assert e.paths and set(e.paths) <= {"serve", "train", "finetune"}
+        assert e.paths and set(e.paths) <= {"serve", "train", "finetune",
+                                            "longctx"}
         # the stepped phases' expected launches per step: one positive
         # count for each stepped path of the row, none for serve
         stepped = set(e.paths) - {"serve"}
@@ -250,6 +251,10 @@ def test_registry_lists_every_tpu_kernel():
     assert {e.key: e.per_step["finetune"]
             for e in on_path("finetune")} == {"K1": 12, "K3": 12,
                                               "K8": 26, "K9": 26}
+    # the long-context step: K4 + K5 in K3's place
+    assert {e.key: e.per_step["longctx"]
+            for e in on_path("longctx")} == {"K1": 12, "K2": 13, "K4": 12,
+                                             "K5": 12, "K6": 25, "K7": 12}
     for e in KERNELS:
         if e.status == "todo":
             assert e.port is None and e.route is None and not e.paths
@@ -294,3 +299,27 @@ def test_cuda_build_caches_by_source_hash_under_lock(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="error: no"):
         cuda_build.build("k", ["k.cu"])
     assert not list(bld.glob("*.tmp"))
+
+
+def test_cuda_build_key_covers_the_shared_headers(tmp_path, monkeypatch):
+    """A source may include any header under ``csrc/``: editing one
+    rebuilds every library, so no stale library is loaded."""
+    from deeplearning4j_tpu_torch.ops import cuda_build
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    key = cuda_build._key([tmp_path / "k.cu"])
+    assert cuda_build._key([tmp_path / "k.cu"]) == key
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    assert cuda_build._key([tmp_path / "k.cu"]) != key
+
+
+def test_the_real_cuda_sources_share_one_header():
+    """K3 and the split pair K4/K5 include the one backward header, the
+    header the build key hashes."""
+    from deeplearning4j_tpu_torch.ops import cuda_build
+    headers = sorted(p.name for p in cuda_build.CSRC_DIR.glob("*.cuh"))
+    assert headers == ["flash_bwd_common.cuh"]
+    for src in ("flash_attention_bwd.cu", "flash_attention_bwd_split.cu"):
+        text = (cuda_build.CSRC_DIR / src).read_text()
+        assert '#include "flash_bwd_common.cuh"' in text

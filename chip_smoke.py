@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card (H100).
 
-    python3 chip_smoke.py               # phases 1-10 (needs one card)
+    python3 chip_smoke.py               # phases 1-13 (needs one card)
     python3 chip_smoke.py --phases train,train_agree,kernels
     python3 chip_smoke.py --phases finetune,finetune_agree,kernels
     python3 chip_smoke.py --phases longctx,longctx_agree,kernels
+    python3 chip_smoke.py --phases dp,dp_packed,dp_agree,kernels
     python3 chip_smoke.py --phases profile    # device-time breakdown
 
 Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
@@ -56,35 +57,57 @@ Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
    B = 2, T = 256 with the fused backward's budget set to 0, so the
    card's backward runs K4 + K5: its loss and every gradient against
    the port on the CPU;
-10. kernels — holds each ported kernel against its plain PyTorch version
+10. dp — ``initialize_distributed()`` (this process alone, a
+   ``"cpu:gloo,cuda:nccl"`` group: NCCL for CUDA tensors, gloo for CPU
+   ones), then the train phase's LM and batch through
+   ``SharedTrainingMaster().make_wrapper(net, data_parallel_mesh())`` →
+   ``ParallelWrapper.fit`` (ENCODED: threshold-encoded gradients, the
+   decoded update summed over the group): 2 warm steps, then 8 timed;
+   every loss finite and the last below the first, the train kernels'
+   launches exactly, K10 and K11 none;
+11. dp_packed — the same LM and batch in a step loop over the data group:
+   ``loss_and_grads`` → ``EncodedGradientsAccumulator.exchange_packed``
+   (K10 once a parameter leaf, the packed words all-gathered, K11 once a
+   leaf and rank) → ``apply_updates``; 2 warm and 8 timed steps, the
+   launches exactly (K10 = the net's parameter leaves, K11 = leaves ×
+   ranks);
+12. dp_agree — one f32 step (TF32 off) of ENCODED and of the packed
+   exchange at B = 2, T = 256 from the same weights, card against CPU in
+   the same group (the CPU tensors over gloo): the loss, the decoded
+   updates (all but the codes flipped at |g| ≈ τ equal) and the
+   residuals (where the codes agree, to 1e-3 of the leaf's largest
+   gradient);
+13. kernels — holds each ported kernel against its plain PyTorch version
    on the card at its main paths' shapes, in bfloat16 and float32, and
    times the kernel, the plain version and a PyTorch library call that
    computes the same function (a yardstick the port never calls). The
    split pair is also held against K3 at the long-context shape, and
-   K4's dq must be the same to the bit over two runs. The CUDA kernels
-   (K1, K3, K4, K5, milliseconds each at these shapes) are timed by
-   CUDA events around a run of launches; everything else by the replay
-   of a CUDA graph of 20 calls, which keeps the host's launch path out
-   of the time. For the small norm kernels (K2, K6, K7, K8, K9) the
-   host-side time per launch (CUDA events around 20 launches) is
-   printed beside it as ``host_ms``. This phase runs last, so that
-   nothing it leaves behind in the process can slow the host-bound
-   serve step (``PERF.md`` records such a slowdown, cause not
-   isolated).
+   K4's dq must be the same to the bit over two runs; K10 and K11 are
+   held to the bit (words, residuals, decoded values, and four emulated
+   ranks' decode-sum). The CUDA attention kernels (K1, K3, K4, K5,
+   milliseconds each at these shapes) are timed by CUDA events around a
+   run of launches; everything else by the replay of a CUDA graph of 20
+   calls, which keeps the host's launch path out of the time. For the
+   small norm kernels (K2, K6, K7, K8, K9) the host-side time per launch
+   (CUDA events around 20 launches) is printed beside it as
+   ``host_ms``. This phase runs last, so that nothing it leaves behind
+   in the process can slow the host-bound serve step (``PERF.md``
+   records such a slowdown, cause not isolated).
 
-Each main path (serve, train, finetune, longctx) zeroes the launch
-counters of the kernels just before it runs and reads them just after;
-it fails if a kernel the registry lists for that path was not launched,
-and on a stepped path (train, finetune, longctx) if any ported kernel
+Each main path (serve, train, finetune, longctx, dp, dp_packed) zeroes
+the launch counters of the kernels just before it runs and reads them
+just after; it fails if a kernel the registry lists for that path was
+not launched, and on a stepped path (all but serve) if any ported kernel
 was launched other than its registry count per step (0 for a kernel the
 path does not list).
 
 ``profile`` (not in the default run) prints the device busy time, idle
 share and top kernels of one 2048-bucket prefill, of 8 decode steps with
-32 active slots, of one training step, of one fine-tune step and of one
-long-context step, from ``torch.profiler``. Each window's wall time is
-taken before the first profiled window, and the decode window's wall
-once more after the last one, to show whether profiling changed it.
+32 active slots, of one training step, of one fine-tune step, of one
+long-context step, of one dp_packed step and of its exchange alone, from
+``torch.profiler``. Each window's wall time is taken before the first
+profiled window, and the decode window's wall once more after the last
+one, to show whether profiling changed it.
 
 Any failed phase exits non-zero before the result lines. The last two
 lines are the ``kernels`` JSON object (when the kernels phase and a path
@@ -102,7 +125,8 @@ import sys
 import time
 
 PHASES = ("device", "serve", "agree", "train", "train_agree", "finetune",
-          "finetune_agree", "longctx", "longctx_agree", "kernels")
+          "finetune_agree", "longctx", "longctx_agree", "dp", "dp_packed",
+          "dp_agree", "kernels")
 
 # published peaks of one H100 SXM (dense): the bound of a kernel is the
 # larger of its operations over the peak rate for their type and its
@@ -153,6 +177,11 @@ TRAIN_GRAD_TOL = 1e-3
 # compute the softmax rounds each of the 2 probabilities (each < 1) to
 # bf16 once, half an ulp ≤ 2^-9 apiece, so within 2 · 2^-9
 PROB_SUM_TOL = {"float32": 1e-3, "bfloat16": 2 * 2.0 ** -9}
+# dp_agree: the share of decoded-update elements allowed to differ, card
+# vs CPU — the encoding is discontinuous at |g| = τ, so an element whose
+# f32 gradient lies within the two devices' rounding of ±τ may take
+# another code; every other element is equal
+DP_FLIP_TOL = 1e-4
 
 SERVE = dict(vocab_size=50257, hidden=768, n_layers=12, n_heads=6,
              max_len=2048, ffn_mult=8 / 3, tie_embeddings=True)
@@ -387,6 +416,7 @@ def phase_kernels(state):
     _check_norm_bwd(ents["K6"], rows, card)
     _check_add_norm(ents["K7"], rows, card)
     _check_layer_norm(ents["K8"], ents["K9"], rows, card)
+    _check_codec(ents["K10"], ents["K11"], rows, card)
     state["kernel_rows"] = rows
 
 
@@ -857,6 +887,104 @@ def _check_layer_norm(e8, e9, rows, card):
                 rows[f"{key}_err"] = max(rows.get(f"{key}_err", 0.0), err)
 
 
+def _same_bits(a, b) -> bool:
+    """Equal to the bit (NaN where NaN): the same 32-bit words."""
+    import torch
+    return bool(torch.equal(a.reshape(-1).view(torch.int32),
+                            b.reshape(-1).view(torch.int32)))
+
+
+def _codec_grad(shape, seed, dtype_name="float32"):
+    """N(0, 1e-3) gradients on the card with values exactly ±τ, a NaN and
+    ±inf at the front (τ = 1e-3 as f32)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    grad = torch.randn(shape, generator=g, device="cuda") * 1e-3
+    tau = torch.tensor(1e-3, device="cuda")
+    grad.view(-1)[:5] = torch.stack([tau, -tau, tau * float("nan"),
+                                     tau * float("inf"),
+                                     -tau * float("inf")])
+    return grad.to(getattr(torch, dtype_name)), tau
+
+
+def _check_codec(e10, e11, rows, card):
+    """K10 and K11 against their plain versions, bit for bit: packed
+    words, residuals and decoded values, at the embedding leaf
+    [50257, 768] (f32, the path's largest) and a ragged 10 001 (f32 and
+    bf16); then four emulated ranks — four gradients encoded by K10,
+    decoded and summed by K11 — against the plain versions' sum. Times by
+    CUDA-graph replay; bounds by bytes (each input read and each output
+    written once); no PyTorch call computes either function."""
+    import torch
+    from deeplearning4j_tpu_torch.ops.cuda_kernels import threshold_words
+    enc, enc_p = e10.port_fn(), e10.plain_fn()
+    dec, dec_p = e11.port_fn(), e11.plain_fn()
+    for i, (shape, dname) in enumerate((((50257, 768), "float32"),
+                                        ((10001,), "float32"),
+                                        ((10001,), "bfloat16"))):
+        grad, tau = _codec_grad(shape, 700 + i, dname)
+        n, c = grad.numel(), threshold_words(grad.numel())
+        words, resid = enc(grad, tau)
+        rw, rr = enc_p(grad, tau)
+        out = dec(words, tau, n, shape)
+        ro = dec_p(rw, tau, n, shape)
+        torch.cuda.synchronize()
+        same = dict(words=bool(torch.equal(words, rw)),
+                    resid=_same_bits(resid, rr),
+                    decoded=_same_bits(out, ro))
+        enc_err = (resid - rr).abs().nan_to_num(0.0).max().item()
+        dec_err = (out - ro).abs().max().item()
+        line = (f"K10+K11 codec {dname} {list(shape)} words={c}: "
+                f"bit-identical {same} encoded "
+                f"{(out != 0).float().mean().item():.4f} of the elements")
+        if (shape, dname) != ((10001,), "bfloat16"):
+            t10 = device_ms(lambda: enc(grad, tau))
+            p10 = device_ms(lambda: enc_p(grad, tau), iters=5)
+            t11 = device_ms(lambda: dec(words, tau, n, shape))
+            p11 = device_ms(lambda: dec_p(words, tau, n, shape), iters=5)
+            # K10: g read, residual written (f32), words written; K11:
+            # the words it needs read, n f32 written; a compare, a select
+            # and a subtraction an element
+            b10 = bound_ms(3 * n, 4 * n + 4 * n + 4 * c, PEAK_F32_FLOPS)
+            b11 = bound_ms(2 * n, 4 * -(-n // 16) + 4 * n, PEAK_F32_FLOPS)
+            line += (f"; K10 kernel_ms={t10:.4f} plain_ms={p10:.4f} "
+                     f"bound_ms={b10[0]:.5f}({b10[1]}); K11 kernel_ms="
+                     f"{t11:.4f} plain_ms={p11:.4f} bound_ms={b11[0]:.5f}"
+                     f"({b11[1]})")
+            if i == 0:
+                rows["K10"] = dict(ms=t10, plain_ms=p10, library_ms=None,
+                                   bound_ms=b10[0], bound_by=b10[1])
+                rows["K11"] = dict(ms=t11, plain_ms=p11, library_ms=None,
+                                   bound_ms=b11[0], bound_by=b11[1])
+        log(f"{line} {card}")
+        if not all(same.values()):
+            raise AssertionError(f"K10 or K11 disagrees with its plain "
+                                 f"version: {line}")
+        rows["K10_err"] = max(rows.get("K10_err", 0.0), enc_err)
+        rows["K11_err"] = max(rows.get("K11_err", 0.0), dec_err)
+        del grad, words, resid, rw, rr, out, ro
+    # four ranks at the embedding leaf: each rank's words by K10, every
+    # rank's words decoded by K11 and summed in rank order
+    shape = (50257, 768)
+    grads = [_codec_grad(shape, 710 + r)[0] for r in range(4)]
+    tau = torch.tensor(1e-3, device="cuda")
+    words = [enc(g, tau)[0] for g in grads]
+    plain_words = [enc_p(g, tau)[0] for g in grads]
+    got = dec(words[0], tau, grads[0].numel(), shape)
+    ref = dec_p(plain_words[0], tau, grads[0].numel(), shape)
+    for w, pw in zip(words[1:], plain_words[1:]):
+        got += dec(w, tau, grads[0].numel(), shape)
+        ref += dec_p(pw, tau, grads[0].numel(), shape)
+    torch.cuda.synchronize()
+    same = (all(torch.equal(a, b) for a, b in zip(words, plain_words))
+            and _same_bits(got, ref))
+    log(f"K10+K11 four ranks {list(shape)}: words and decoded sum "
+        f"bit-identical={same} {card}")
+    if not same:
+        raise AssertionError("K10/K11 four-rank decode-sum disagrees with "
+                             "the plain versions")
+
+
 def _norm_inputs(dt, n, f, seed):
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1098,11 +1226,13 @@ def _train_batch(seed: int, b: int, t: int, vocab: int):
 
 
 def _fit_steps(state, path: str, model_kw, b: int, t: int, warm: int,
-               steps: int) -> None:
+               steps: int, make_step=None):
     """The stepped LM path ``path``: ``CausalTransformerLM(**model_kw)``
-    (bfloat16 compute) built by ``init(t)`` and trained by ``net.fit`` on
-    one fixed [b, t] batch, ``warm`` steps, then ``steps`` timed ones
-    between zeroed and read launch counters."""
+    (bfloat16 compute) built by ``init(t)`` and trained on one fixed
+    [b, t] batch, ``warm`` steps, then ``steps`` timed ones between
+    zeroed and read launch counters. A step is ``net.fit(x, y)``, or the
+    callable ``make_step(net, x, y)`` returns (it ends in a device sync
+    and leaves the loss in ``net.score()``). Returns the net."""
     import math
     import torch
     from deeplearning4j_tpu_torch.ops import kernel_registry
@@ -1114,17 +1244,19 @@ def _fit_steps(state, path: str, model_kw, b: int, t: int, warm: int,
     x, y = _train_batch(0, b, t, model.vocab_size)
     log(f"{path}: init {net.num_params()} params "
         f"{time.perf_counter() - t0:.1f}s")
+    step = (make_step(net, x, y) if make_step is not None
+            else lambda: net.fit(x, y))
     torch.cuda.reset_peak_memory_stats()
     losses = []
     for _ in range(warm):
-        net.fit(x, y)
+        step()
         losses.append(net.score())
     for e in kernel_registry.ported():
         e.reset()
     torch.cuda.synchronize()
     t_start = time.perf_counter()
     for _ in range(steps):
-        net.fit(x, y)                        # ends in a device sync
+        step()                               # ends in a device sync
         losses.append(net.score())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_start
@@ -1138,6 +1270,7 @@ def _fit_steps(state, path: str, model_kw, b: int, t: int, warm: int,
     assert all(math.isfinite(l) for l in losses), losses
     assert losses[-1] < losses[0], losses
     _check_step_launches(path, steps, launches, card)
+    return net
 
 
 def phase_train(state):
@@ -1230,6 +1363,175 @@ def phase_longctx_agree(state):
     log(f"longctx_agree: card launches {launches} {state['card']}")
     assert launches["K4"] > 0 and launches["K5"] > 0, launches
     assert launches["K3"] == 0, launches
+
+
+# -- phases 10-12: data-parallel --------------------------------------------
+def _dp_mesh(state):
+    """The default process group (``initialize_distributed``: this
+    process alone, ``"cpu:gloo,cuda:nccl"``, so CUDA tensors go over
+    NCCL and CPU tensors over gloo) and its one-axis data mesh, made
+    once per run."""
+    if "mesh" not in state:
+        import torch.distributed as dist
+        from deeplearning4j_tpu_torch.parallel import (data_parallel_mesh,
+                                                       initialize_distributed)
+        initialize_distributed()
+        state["mesh"] = data_parallel_mesh()
+        log(f"dp: process group {dist.get_backend()!r} world "
+            f"{dist.get_world_size()} {state['card']}")
+    return state["mesh"]
+
+
+def phase_dp(state):
+    """The train LM through ``SharedTrainingMaster(...).make_wrapper(net,
+    data_parallel_mesh())`` → ``ParallelWrapper.fit`` (ENCODED: the dense
+    exchange of the decoded update, the codec kernels not launched)."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.parallel import SharedTrainingMaster
+    mesh = _dp_mesh(state)
+    wrappers = []
+
+    def make_step(net, x, y):
+        w = SharedTrainingMaster().make_wrapper(net, mesh)
+        wrappers.append(w)
+        batch = [DataSet(x, y)]
+        return lambda: w.fit(batch)
+
+    _fit_steps(state, "dp", TRAIN, TRAIN_B, TRAIN_T, warm=2, steps=8,
+               make_step=make_step)
+    (w,) = wrappers
+    log(f"dp: mode={w.mode} world={w.n} tau after 10 steps="
+        f"{w._acc_state['tau'].item():.6e} {state['card']}")
+
+
+def _packed_step(mesh, net, x, y):
+    """One data-parallel step with the packed exchange over the mesh's
+    data group, as ``tests/test_pallas.py``'s shard_map step uses it:
+    ``loss_and_grads`` of this rank's rows → ``acc.exchange_packed`` (K10
+    once a leaf, the packed words all-gathered, K11 once a leaf and
+    rank) → ``apply_updates``; the loss's mean over the group in
+    ``net.score()``. Returns (the step, a function that gives
+    ``(grads, acc state, group)`` for timing the exchange alone)."""
+    from deeplearning4j_tpu_torch.nn.layers.base import fold_in
+    from deeplearning4j_tpu_torch.nn.multilayer import (apply_updates,
+                                                        loss_and_grads)
+    from deeplearning4j_tpu_torch.parallel import EncodedGradientsAccumulator
+    from deeplearning4j_tpu_torch.parallel.mesh import mean_over
+    group, n, r = mesh.group("data"), mesh.size("data"), mesh.index("data")
+    b = x.shape[0] // n
+    xs, ys = net._as_input(x[r * b:(r + 1) * b]), net._as_input(
+        y[r * b:(r + 1) * b])
+    acc = EncodedGradientsAccumulator()
+    carry = {"acc": acc.init_state(net.params)}
+
+    def grads():
+        rng = fold_in(net.conf.seed, net.iteration)
+        return loss_and_grads(
+            lambda p: net._loss_fn(p, net.state, xs, ys, None, None, rng),
+            net.params)
+
+    def step():
+        loss, g, net.state = grads()
+        dec, carry["acc"] = acc.exchange_packed(g, carry["acc"], group)
+        net.params, net.opt_state = apply_updates(
+            net.conf.updater, net._grad_norm, net.params, dec,
+            net.opt_state)
+        net.score_ = mean_over(loss, group).item()     # device sync
+        net.iteration += 1
+
+    return step, lambda: (grads()[1], carry["acc"], group, acc)
+
+
+def phase_dp_packed(state):
+    """The train LM's step with ``EncodedGradientsAccumulator.
+    exchange_packed`` over the data group: K10 once a parameter leaf, K11
+    once a leaf and rank, beside the train step's kernels."""
+    from deeplearning4j_tpu_torch import tree
+    from deeplearning4j_tpu_torch.ops import kernel_registry
+    mesh = _dp_mesh(state)
+    net = _fit_steps(state, "dp_packed", TRAIN, TRAIN_B, TRAIN_T, warm=2,
+                     steps=8, make_step=lambda net, x, y: _packed_step(
+                         mesh, net, x, y)[0])
+    leaves = len(list(tree.leaves(net.params)))
+    rows = {e.key: e.per_step["dp_packed"]
+            for e in kernel_registry.on_path("dp_packed")}
+    log(f"dp_packed: {leaves} parameter leaves, world {mesh.size()}: "
+        f"K10 {rows['K10']} and K11 {rows['K11']} a step expected "
+        f"{state['card']}")
+    assert rows["K10"] == leaves and rows["K11"] == leaves * mesh.size()
+
+
+def phase_dp_agree(state):
+    """One f32 step (TF32 off) of ENCODED (the wrapper's exchanged
+    gradient) and of the packed exchange, card against CPU in the same
+    mixed-backend group (CPU tensors over gloo) at B = 2, T = 256, from
+    the same weights: the loss, the decoded updates and the residuals."""
+    import torch
+    from deeplearning4j_tpu_torch import tree
+    from deeplearning4j_tpu_torch.nn.layers.base import fold_in
+    from deeplearning4j_tpu_torch.ops import kernel_registry
+    from deeplearning4j_tpu_torch.parallel import SharedTrainingMaster
+    from deeplearning4j_tpu_torch.zoo.gpt import CausalTransformerLM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = _dp_mesh(state)
+    model = CausalTransformerLM(**TRAIN)          # float32
+    x, y = _train_batch(1, 2, 256, model.vocab_size)
+    cpu = lambda t: tree.map_(lambda a: a.detach().cpu(), t)
+    results = {}
+    for e in kernel_registry.ported():
+        e.reset()
+    for dev in ("cuda", "cpu"):
+        net = model.init(256, device=dev)
+        w = SharedTrainingMaster().make_wrapper(net, mesh)
+        w._place()
+        loss, dec, _ = w._exchanged_grads(net._as_input(x), net._as_input(y),
+                                          fold_in(net.conf.seed, 0))
+        enc = (loss.item(), cpu(dec), cpu(w._acc_state["residual"]))
+        step, parts = _packed_step(mesh, net, x, y)
+        g, acc_state, group, acc = parts()
+        pdec, pst = acc.exchange_packed(g, acc_state, group)
+        packed = (enc[0], cpu(pdec), cpu(pst["residual"]))
+        results[dev] = {"encoded": enc, "packed": packed,
+                        "gmax": [a.abs().max().item()
+                                 for a in tree.leaves(g)]}
+        del net, w, dec, g, pdec, pst
+    launches = {e.key: e.launches() for e in kernel_registry.ported()}
+    for method in ("encoded", "packed"):
+        (l_card, d_card, r_card), (l_cpu, d_cpu, r_cpu) = (
+            results["cuda"][method], results["cpu"][method])
+        loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+        d1 = torch.cat([a.reshape(-1) for a in tree.leaves(d_card)])
+        d2 = torch.cat([a.reshape(-1) for a in tree.leaves(d_cpu)])
+        same = d1 == d2
+        flipped = 1 - same.float().mean().item()
+        # a residual is g + r − q clipped: where the codes agree its error
+        # is the gradient's, held like train_agree's gradients against
+        # the leaf's largest gradient
+        worst, worst_key = 0.0, ""
+        keys = tree.leaves(tree.map_with_path(lambda p, _: ".".join(p),
+                                              r_card))
+        for key, a, b, da, db, gmax in zip(
+                keys,
+                tree.leaves(r_card), tree.leaves(r_cpu),
+                tree.leaves(d_card), tree.leaves(d_cpu),
+                results["cpu"]["gmax"]):
+            keep = da == db
+            rel = ((a - b).abs()[keep].max().item() / max(gmax, 1e-30)
+                   if keep.any() else 0.0)
+            if rel > worst:
+                worst, worst_key = rel, key
+        log(f"dp_agree {method}: f32 B=2 T=256 one step, card vs CPU: loss "
+            f"{l_card:.6f} vs {l_cpu:.6f} rel={loss_rel:.3e} "
+            f"tol={TRAIN_LOSS_RTOL:.0e}; decoded updates differ in "
+            f"{flipped:.3e} of {d1.numel()} elements tol={DP_FLIP_TOL:.0e};"
+            f" worst residual {worst_key} max|d|/max|g|={worst:.3e} "
+            f"tol={TRAIN_GRAD_TOL:.0e} {state['card']}")
+        if not (loss_rel <= TRAIN_LOSS_RTOL and flipped <= DP_FLIP_TOL
+                and worst <= TRAIN_GRAD_TOL):
+            raise AssertionError(f"card and CPU {method} step disagree")
+    log(f"dp_agree: card launches {launches} {state['card']}")
+    assert launches["K10"] > 0 and launches["K11"] > 0, launches
 
 
 # -- phases 6, 7 -----------------------------------------------------------
@@ -1349,12 +1651,15 @@ def _wall_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def _device_window(name: str, fn, wall_ms: float, card: str) -> None:
+def _device_window(name: str, fn, wall_ms: float, card: str,
+                   host_top: int = 0) -> None:
     """Run ``fn`` under ``torch.profiler`` and sum the device time of
     every kernel, memcpy and memset (user-annotation ranges are not
     counted). Prints the busy time, its idle share of ``wall_ms`` (an
     unprofiled run of the same work) and the ten largest device items by
-    name."""
+    name; with ``host_top``, also that many host-side ops by their own
+    CPU time under the profiler (which inflates them: a ranking, not a
+    time)."""
     import collections
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1375,14 +1680,20 @@ def _device_window(name: str, fn, wall_ms: float, card: str) -> None:
     for key, ms in by_name.most_common(10):
         log(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}% x{count[key]:<5d} "
             f"{key[:90]}")
+    host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                  reverse=True)
+    for ev in host[:host_top]:
+        log(f"  host {ev.self_cpu_time_total / 1e3:9.3f} ms self "
+            f"x{ev.count:<5d} {ev.key[:80]}")
 
 
 def phase_profile(state):
     """Device-time breakdown of the serving path — the prefill of the
     longest prompt (bucket 2048), then 8 decode steps with all 32 slots
     active — of one training step of the train phase's model and batch,
-    of one fine-tune step of the finetune phase's model and batch, and
-    of one step of the longctx phase's model and batch.
+    of one fine-tune step of the finetune phase's model and batch, of
+    one step of the longctx phase's model and batch, of one dp_packed
+    step (on the train net) and of its packed exchange alone.
     Every wall time is taken before the first profiled window,
     and the decode window's once more after the last one: a host-bound
     step ran slower after the kernels phase, and this shows whether
@@ -1424,11 +1735,20 @@ def phase_profile(state):
     lx, ly = _train_batch(0, LONGCTX_B, LONGCTX_T, lmodel.vocab_size)
     long_step = lambda: lnet.fit(lx, ly)
     long_step()
+    # the dp_packed step on the train net, and its exchange alone on one
+    # step's gradients
+    packed_step, parts = _packed_step(_dp_mesh(state), net, x, y)
+    packed_step()
+    g, acc_state, group, acc = parts()
+    exchange = lambda: acc.exchange_packed(g, acc_state, group)
+    exchange()
     decode = lambda: [sched.step() for _ in range(8)]
     train_step = lambda: net.fit(x, y)
     walls = {"prefill": _wall_ms(lambda: sched.admit(reqs[first])),
              "decode": _wall_ms(decode), "train": _wall_ms(train_step),
-             "finetune": _wall_ms(ft_step), "longctx": _wall_ms(long_step)}
+             "finetune": _wall_ms(ft_step), "longctx": _wall_ms(long_step),
+             "dp_packed": _wall_ms(packed_step),
+             "exchange": _wall_ms(exchange)}
     sched.evict(reqs[first])            # its slot and pages, once more
     _device_window(f"prefill t0={lens[first]} (bucket 2048)",
                    lambda: sched.admit(stream(first)), walls["prefill"],
@@ -1441,6 +1761,13 @@ def phase_profile(state):
                    walls["finetune"], card)
     _device_window(f"longctx step B={LONGCTX_B} T={LONGCTX_T}", long_step,
                    walls["longctx"], card)
+    _device_window(f"dp_packed step B={TRAIN_B} T={TRAIN_T}", packed_step,
+                   walls["dp_packed"], card)
+    _device_window("exchange_packed alone", exchange,
+                   walls["exchange"], card, host_top=12)
+    log(f"profile: dp_packed exchange wall_ms={walls['exchange']:.3f} of a "
+        f"{walls['dp_packed']:.3f} ms step "
+        f"({100 * walls['exchange'] / walls['dp_packed']:.1f}%) {card}")
     log(f"profile: 8 decode steps x 32 slots wall_ms before any profiling"
         f"={walls['decode']:.3f}, after it={_wall_ms(decode):.3f} {card}")
 
@@ -1470,20 +1797,25 @@ def main(argv=None) -> int:
     state = {}
     phase_device(state)
     _build_all()
-    for name in phases:
-        if name == "device":
-            continue
-        t0 = time.perf_counter()
-        log(f"== phase {name}")
-        try:
-            globals()[f"phase_{name}"](state)
-        except Exception as e:
-            import traceback
-            traceback.print_exc()
-            print(f"chip_smoke: phase {name} FAILED: "
-                  f"{type(e).__name__}: {e}", file=sys.stderr)
-            return 1
-        log(f"== phase {name} ok ({time.perf_counter() - t0:.1f}s)")
+    try:
+        for name in phases:
+            if name == "device":
+                continue
+            t0 = time.perf_counter()
+            log(f"== phase {name}")
+            try:
+                globals()[f"phase_{name}"](state)
+            except Exception as e:
+                import traceback
+                traceback.print_exc()
+                print(f"chip_smoke: phase {name} FAILED: "
+                      f"{type(e).__name__}: {e}", file=sys.stderr)
+                return 1
+            log(f"== phase {name} ok ({time.perf_counter() - t0:.1f}s)")
+    finally:
+        import torch.distributed as dist
+        if dist.is_initialized():            # the dp phases' group
+            dist.destroy_process_group()
     if "kernels" in phases and state.get("launches"):
         from deeplearning4j_tpu_torch.ops import kernel_registry
         rows = state["kernel_rows"]

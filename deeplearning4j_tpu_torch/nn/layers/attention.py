@@ -3,7 +3,7 @@
 
 Port of ``deeplearning4j_tpu/nn/layers/attention.py``: the functions the
 serving path calls, :class:`MultiHeadAttention` (local attention; the
-sequence-parallel modes come with the ``parallel/`` slice), the
+sequence-parallel modes come with the sequence-parallel slice), the
 pre-RMSNorm :class:`TransformerDecoderBlock`, and BERT's layers — the
 learned :class:`PositionalEmbeddingLayer`, the pre-LayerNorm
 :class:`TransformerEncoderBlock` and the :class:`ClsTokenPoolLayer`.
@@ -113,8 +113,8 @@ class MultiHeadAttention(Layer):
     """Self multi-head attention projection block (reference
     multi_head_dot_product_attention op). Grouped-query attention via
     ``n_kv_heads``, rotary embeddings via ``rope``. Local attention
-    only: ``sequence_parallel`` modes come with the ``parallel/``
-    slice."""
+    only: ``sequence_parallel`` modes come with the
+    sequence-parallel slice."""
     n_in: Optional[int] = None
     n_out: int = 0
     n_heads: int = 1
@@ -130,7 +130,7 @@ class MultiHeadAttention(Layer):
             raise NotImplementedError(
                 f"sequence_parallel={self.sequence_parallel!r}: the "
                 "ring/zigzag/Ulysses attention comes with the "
-                "parallel/ slice (local attention only)")
+                "sequence-parallel slice (local attention only)")
 
     def init(self, gen, input_shape, dtype=torch.float32):
         self._check()

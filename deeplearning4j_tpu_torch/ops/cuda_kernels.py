@@ -23,14 +23,23 @@ Counterpart of ``deeplearning4j_tpu/ops/pallas_kernels.py``. Kernels:
   :func:`flash_attention_bwd_dq_reference` and
   :func:`flash_attention_bwd_dkv_reference`.
 
+- :func:`threshold_encode` and :func:`threshold_decode` — the codec of
+  the packed gradient exchange (``csrc/threshold_codec.cu``, replacing
+  ``_encode_kernel`` and ``_decode_kernel``): 16 two-bit codes per int32
+  word, the JAX entries' word count and bit layout, with the plain
+  versions :func:`threshold_encode_reference` and
+  :func:`threshold_decode_reference` (the ports of
+  ``_jnp_threshold_encode``/``_jnp_threshold_decode``, on the flat
+  layout).
+
 :func:`flash_attention` is differentiable: when autograd needs its
 gradient it runs through :class:`_FlashAttentionFn`, whose forward calls
 the forward kernel with the logsumexp and whose backward calls
 :func:`flash_attention_bwd` (the plain versions for CPU tensors).
 
 The ring-composition entries (``flash_block_fwd``/``flash_block_bwd``)
-and the threshold codec come with the ``parallel/`` slice
-(``ops/kernel_registry.py`` lists them).
+come with the sequence-parallel slice (``ops/kernel_registry.py`` lists
+the kernels they reach).
 """
 from __future__ import annotations
 
@@ -67,6 +76,9 @@ _LIBS = {
         "dl4j_flash_attention_bwd_dkv":
             [_I, _I] + [_P] * 9 + [_I] * 5 + [_LL] * 12
             + [_I] * 3 + [_F, _P]}),
+    "threshold_codec": (("threshold_codec.cu",), {
+        "dl4j_threshold_encode": [_P] * 4 + [_LL, _LL, _P],
+        "dl4j_threshold_decode": [_P] * 3 + [_LL, _P]}),
 }
 
 
@@ -86,9 +98,10 @@ def _lib(name: str = "flash_attention") -> ctypes.CDLL:
     return lib
 
 
-def _raise_on(lib, err: int, what: str) -> None:
+def _raise_on(lib, err: int, what: str,
+              refused: str = "unsupported dtype or head dim") -> None:
     if err:
-        msg = ("unsupported dtype or head dim" if err < 0 else
+        msg = (refused if err < 0 else
                lib.dl4j_cuda_error_string(err).decode())
         raise RuntimeError(f"{what} kernel launch failed ({err}): {msg}")
 
@@ -664,8 +677,140 @@ def flash_attention_bwd_dkv_reference(q, k, v, out, lse, dout,
             _unfold(_reduce_kv(dv, b, h, h_kv), b, h_kv, v.dtype))
 
 
+# ---------------------------------------------------------------------------
+# threshold compression codec
+# ---------------------------------------------------------------------------
+_GROUP = 16          # 16 two-bit codes per int32 word
+#: the JAX entries' grid block width, which rounds the word count up
+_BLOCK_COLS = 32768
+_CODEC_FLOATS = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def threshold_words(size: int) -> int:
+    """The packed word count C for ``size`` elements, the JAX
+    ``threshold_encode``'s: ceil(size / 16) rounded up to 128 lanes, then
+    to a multiple of ``min(C, 32768)``. It fixes the bytes on the wire,
+    so the two packages send the same number of words."""
+    c = -(-size // _GROUP)
+    c = -(-c // 128) * 128
+    if c == 0:
+        return 0
+    bc = min(c, _BLOCK_COLS)
+    return -(-c // bc) * bc
+
+
+def _tau(tau, device) -> torch.Tensor:
+    """τ as a one-element f32 tensor on ``device``: a tensor stays where
+    it lives when that is ``device`` (the kernels read it there; no host
+    read), a Python number is copied over."""
+    t = torch.as_tensor(tau, dtype=torch.float32, device=device)
+    if t.numel() != 1:
+        raise ValueError(f"tau must hold one value, got shape "
+                         f"{tuple(t.shape)}")
+    return t.reshape(1)
+
+
+def threshold_encode_reference(grad, tau):
+    """The plain version of :func:`threshold_encode` on any device, the
+    port of the JAX ``_jnp_threshold_encode`` on the flat layout: the
+    grad cast to f32 and zero-padded to ``16 · C`` elements, row c of the
+    [C, 16] view packed into word c."""
+    shape, size = tuple(grad.shape), grad.numel()
+    n_words = threshold_words(size)
+    g = grad.reshape(-1).to(torch.float32)
+    t = _tau(tau, g.device)[0]
+    flat = torch.zeros(n_words * _GROUP, dtype=torch.float32,
+                       device=g.device)
+    flat[:size] = g
+    g2 = flat.reshape(n_words, _GROUP)
+    pos, neg = g2 > t, g2 < -t
+    code = torch.where(pos, 1, torch.where(neg, 2, 0)).to(torch.int64)
+    q = torch.where(pos, t, torch.where(neg, -t, 0.0))
+    shifts = 2 * torch.arange(_GROUP, device=g.device)
+    word = (code << shifts).sum(-1)               # < 2^32, as uint32
+    packed = torch.where(word >= 2 ** 31, word - 2 ** 32, word).to(
+        torch.int32)
+    resid = (g2 - q).reshape(-1)[:size].reshape(shape)
+    return packed, resid
+
+
+def threshold_decode_reference(packed, tau, size: int, shape=None):
+    """The plain version of :func:`threshold_decode` on any device, the
+    port of the JAX ``_jnp_threshold_decode`` on the flat layout."""
+    words = packed.reshape(-1)[:-(-size // _GROUP)].to(torch.int64) \
+        & 0xFFFFFFFF
+    t = _tau(tau, packed.device)[0]
+    shifts = 2 * torch.arange(_GROUP, device=packed.device)
+    code = (words[:, None] >> shifts) & 3
+    out = torch.where(code == 1, t, torch.where(code == 2, -t, 0.0))
+    dense = out.reshape(-1)[:size]
+    return dense.reshape(shape) if shape is not None else dense
+
+
+def threshold_encode(grad, tau):
+    """Fused threshold encode (K10, ``csrc/threshold_codec.cu``,
+    replacing ``_encode_kernel``): grad → (packed int32 codes [C],
+    residual f32 in grad's shape). q = τ·sign(g)·1[|g| > τ]; 2 bits an
+    element (code 0, +τ = 1, −τ = 2), residual = g − q; C is
+    :func:`threshold_words`, the padding words 0. ``tau``: a one-element
+    tensor (read on the card, no host sync) or a number. A CUDA grad
+    launches the kernel; a CPU grad runs
+    :func:`threshold_encode_reference`."""
+    with devtime.scope("ops.threshold_encode"):
+        if not grad.is_cuda:
+            return threshold_encode_reference(grad, tau)
+        if grad.dtype not in _CODEC_FLOATS:
+            raise ValueError(f"threshold_encode takes a float grad, not "
+                             f"{grad.dtype}")
+        shape, size = tuple(grad.shape), grad.numel()
+        n_words = threshold_words(size)
+        g = grad.reshape(-1).to(torch.float32).contiguous()
+        t = _tau(tau, g.device)
+        packed = torch.empty(n_words, dtype=torch.int32, device=g.device)
+        resid = torch.empty(size, dtype=torch.float32, device=g.device)
+        if n_words:
+            lib = _lib("threshold_codec")
+            err = lib.dl4j_threshold_encode(
+                g.data_ptr(), t.data_ptr(), packed.data_ptr(),
+                resid.data_ptr(), size, n_words,
+                torch.cuda.current_stream(g.device).cuda_stream)
+            _raise_on(lib, err, "threshold_encode", "grid too large")
+            threshold_encode.launches += 1
+        return packed, resid.reshape(shape)
+
+
+def threshold_decode(packed, tau, size: int, shape=None):
+    """Threshold decode (K11, ``csrc/threshold_codec.cu``, replacing
+    ``_decode_kernel``): the first ``size`` codes of ``packed`` (int32,
+    at least ceil(size / 16) words) → dense f32 ±τ/0, shaped ``shape``
+    when given. A CUDA ``packed`` launches the kernel; a CPU one runs
+    :func:`threshold_decode_reference`."""
+    with devtime.scope("ops.threshold_decode"):
+        if not packed.is_cuda:
+            return threshold_decode_reference(packed, tau, size, shape)
+        if (packed.dtype != torch.int32 or packed.dim() != 1
+                or packed.numel() * _GROUP < size
+                or not packed.is_contiguous()):
+            raise ValueError(
+                f"threshold_decode takes a contiguous int32 [C] tensor "
+                f"with C >= ceil({size} / 16), got {packed.dtype} "
+                f"{tuple(packed.shape)}")
+        t = _tau(tau, packed.device)
+        out = torch.empty(size, dtype=torch.float32, device=packed.device)
+        if size:
+            lib = _lib("threshold_codec")
+            err = lib.dl4j_threshold_decode(
+                packed.data_ptr(), t.data_ptr(), out.data_ptr(), size,
+                torch.cuda.current_stream(packed.device).cuda_stream)
+            _raise_on(lib, err, "threshold_decode", "grid too large")
+            threshold_decode.launches += 1
+        return out.reshape(shape) if shape is not None else out
+
+
 #: launches of the CUDA kernels (the counts the smoke run reads)
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
+threshold_encode.launches = 0
+threshold_decode.launches = 0

@@ -5,10 +5,13 @@ For each row: the JAX kernel body and its entry point, the port function
 and its plain PyTorch version, the launch counter, the route (``cuda`` or
 ``triton``), the source file, the status — ``ported`` or ``todo`` — the
 main paths that launch it (``serve``, ``train``, ``finetune``,
-``longctx``) and, for each path that runs in steps (``train``,
-``finetune``, ``longctx``: the LM trained at a 32 768-token context,
-where the backward takes the split pair K4 + K5 instead of K3), its
-launches per step. ``chip_smoke.py`` reads this table: it builds and
+``longctx``, ``dp``, ``dp_packed``) and, for each path that runs in
+steps (``train``, ``finetune``, ``longctx``: the LM trained at a
+32 768-token context, where the backward takes the split pair K4 + K5
+instead of K3; ``dp``: the train LM through ``ParallelWrapper``'s
+ENCODED mode; ``dp_packed``: the same step with
+``EncodedGradientsAccumulator.exchange_packed``), its launches per
+step. ``chip_smoke.py`` reads this table: it builds and
 checks every ``ported`` row on the card, zeroes the launch counters just
 before each path it drives and reads them just after, and expects every
 row to launch on each of its paths (on a stepped path, exactly
@@ -42,8 +45,9 @@ class KernelEntry:
     paths: Tuple[str, ...] = ()          # main paths that launch it
     #: launches per step on each stepped path that launches it: ``train``
     #: and ``longctx`` (the 12-layer GPT-2-small-class LM at 1 024 and
-    #: 32 768 tokens, remat off) and ``finetune`` (BERT-base's
-    #: classifier); ``serve`` runs no steps
+    #: 32 768 tokens, remat off), ``finetune`` (BERT-base's classifier),
+    #: ``dp`` and ``dp_packed`` (the train LM data-parallel over one
+    #: rank); ``serve`` runs no steps
     per_step: Dict[str, int] = field(default_factory=dict)
 
     def _resolve(self, ref: str) -> Callable:
@@ -65,6 +69,18 @@ class KernelEntry:
 
 _CK = "deeplearning4j_tpu_torch.ops.cuda_kernels"
 _NORM = "deeplearning4j_tpu_torch.ops.fused_norms"
+#: the data-parallel paths, which run the train LM's step
+_DP = ("dp", "dp_packed")
+#: parameter leaves of the train LM (tied: the embedding; 10 a block of
+#: 12; the final norm's gamma; the head's bias), ``len(list(tree.leaves(
+#: net.params)))``, held by ``tests/test_torch_threshold_codec.py`` and
+#: counted again by ``chip_smoke.py``
+LM_LEAVES = 1 + 12 * 10 + 1 + 1
+
+
+def _dp(n: int) -> Dict[str, int]:
+    """The train step's count ``n`` on both data-parallel paths."""
+    return {path: n for path in _DP}
 
 KERNELS: Tuple[KernelEntry, ...] = (
     KernelEntry(
@@ -75,24 +91,25 @@ KERNELS: Tuple[KernelEntry, ...] = (
         port=f"{_CK}:flash_attention",
         plain=f"{_CK}:flash_attention_reference",
         # once a block
-        paths=("serve", "train", "finetune", "longctx"),
-        per_step={"train": 12, "finetune": 12, "longctx": 12}),
+        paths=("serve", "train", "finetune", "longctx", *_DP),
+        per_step={"train": 12, "finetune": 12, "longctx": 12,
+                  **_dp(12)}),
     KernelEntry(
         "K2", "rms_norm_fwd", f"{_FN}:111", f"{_FN}:rms_norm", "ported",
         "serving", route="triton",
         source="deeplearning4j_tpu_torch/ops/fused_norms.py",
         port=f"{_NORM}:rms_norm", plain=f"{_NORM}:rms_norm_reference",
         # ln1 of 12 blocks, the final norm
-        paths=("serve", "train", "longctx"),
-        per_step={"train": 13, "longctx": 13}),
+        paths=("serve", "train", "longctx", *_DP),
+        per_step={"train": 13, "longctx": 13, **_dp(13)}),
     KernelEntry(
         "K3", "flash_attention_bwd_fused", f"{_PK}:488",
         f"{_PK}:_flash_bwd", "ported", "training", route="cuda",
         source="deeplearning4j_tpu_torch/csrc/flash_attention_bwd.cu",
         port=f"{_CK}:flash_attention_bwd",
         plain=f"{_CK}:flash_attention_bwd_reference",
-        paths=("train", "finetune"),
-        per_step={"train": 12, "finetune": 12}),          # once a block
+        paths=("train", "finetune", *_DP),
+        per_step={"train": 12, "finetune": 12, **_dp(12)}),  # once a block
     KernelEntry(
         "K4", "flash_attention_bwd_dq", f"{_PK}:418", f"{_PK}:_flash_bwd",
         "ported", "long-context", route="cuda",
@@ -113,16 +130,16 @@ KERNELS: Tuple[KernelEntry, ...] = (
         source="deeplearning4j_tpu_torch/ops/fused_norms.py",
         port=f"{_NORM}:rms_norm_bwd",
         plain=f"{_NORM}:rms_norm_bwd_reference",
-        paths=("train", "longctx"),
-        per_step={"train": 25, "longctx": 25}),           # all 25 norms
+        paths=("train", "longctx", *_DP),
+        per_step={"train": 25, "longctx": 25, **_dp(25)}),  # all 25 norms
     KernelEntry(
         "K7", "add_rms_norm_fwd", f"{_FN}:218", f"{_FN}:add_rms_norm",
         "ported", "training", route="triton",
         source="deeplearning4j_tpu_torch/ops/fused_norms.py",
         port=f"{_NORM}:add_rms_norm",
         plain=f"{_NORM}:add_rms_norm_reference",
-        paths=("train", "longctx"),
-        per_step={"train": 12, "longctx": 12}),           # once a block
+        paths=("train", "longctx", *_DP),
+        per_step={"train": 12, "longctx": 12, **_dp(12)}),  # once a block
     KernelEntry(
         "K8", "layer_norm_fwd", f"{_FN}:298", f"{_FN}:layer_norm",
         "ported", "encoder", route="triton",
@@ -137,10 +154,22 @@ KERNELS: Tuple[KernelEntry, ...] = (
         port=f"{_NORM}:layer_norm_bwd",
         plain=f"{_NORM}:layer_norm_bwd_reference", paths=("finetune",),
         per_step={"finetune": 26}),                       # all 26 norms
-    KernelEntry("K10", "threshold_encode", f"{_PK}:843",
-                f"{_PK}:threshold_encode", "todo", "parallel"),
-    KernelEntry("K11", "threshold_decode", f"{_PK}:854",
-                f"{_PK}:threshold_decode", "todo", "parallel"),
+    KernelEntry(
+        "K10", "threshold_encode", f"{_PK}:843", f"{_PK}:threshold_encode",
+        "ported", "data-parallel", route="cuda",
+        source="deeplearning4j_tpu_torch/csrc/threshold_codec.cu",
+        port=f"{_CK}:threshold_encode",
+        plain=f"{_CK}:threshold_encode_reference",
+        # once a gradient leaf
+        paths=("dp_packed",), per_step={"dp_packed": LM_LEAVES}),
+    KernelEntry(
+        "K11", "threshold_decode", f"{_PK}:854", f"{_PK}:threshold_decode",
+        "ported", "data-parallel", route="cuda",
+        source="deeplearning4j_tpu_torch/csrc/threshold_codec.cu",
+        port=f"{_CK}:threshold_decode",
+        plain=f"{_CK}:threshold_decode_reference",
+        # once a gradient leaf and rank (one rank on the card)
+        paths=("dp_packed",), per_step={"dp_packed": LM_LEAVES}),
 )
 
 
@@ -150,5 +179,5 @@ def ported() -> Tuple[KernelEntry, ...]:
 
 def on_path(path: str) -> Tuple[KernelEntry, ...]:
     """The ported rows a main path (``serve``, ``train``, ``finetune``,
-    ``longctx``) launches."""
+    ``longctx``, ``dp``, ``dp_packed``) launches."""
     return tuple(e for e in ported() if path in e.paths)

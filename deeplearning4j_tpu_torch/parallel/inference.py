@@ -1,6 +1,6 @@
 """Serving errors shared by the gateway (port of the exception classes
 of ``deeplearning4j_tpu/parallel/inference.py``; ``ParallelInference``
-itself comes with the ``parallel/`` slice)."""
+itself comes with a later serving slice)."""
 from __future__ import annotations
 
 

@@ -81,7 +81,7 @@ class CausalTransformerLM:
         if sequence_parallel is not None:
             raise NotImplementedError(
                 f"sequence_parallel={sequence_parallel!r}: sequence-"
-                "parallel training comes with the parallel/ slice")
+                "parallel training comes with the sequence-parallel slice")
         if serve_quant is not None:
             raise ValueError(f"serve_quant={serve_quant!r}: int8 "
                              "weight-only serving is not ported yet "

@@ -349,5 +349,6 @@ def test_config_builder_flows_defaults_and_ties():
 def test_sequence_parallel_attention_is_refused():
     layer = pl.MultiHeadAttention(n_in=8, n_out=8, n_heads=2,
                                   sequence_parallel="ring")
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    with pytest.raises(NotImplementedError,
+                       match="sequence-parallel slice"):
         layer.init(torch.Generator(), (4, 8))

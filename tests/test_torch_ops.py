@@ -30,8 +30,8 @@ from deeplearning4j_tpu.ops import pallas_kernels as jax_pk
 from deeplearning4j_tpu_torch.nn.layers.attention import (
     _use_flash, repeat_kv_heads, rotary_embedding, scaled_dot_attention)
 from deeplearning4j_tpu_torch.ops import cuda_kernels, fused_norms
-from deeplearning4j_tpu_torch.ops.kernel_registry import (KERNELS, on_path,
-                                                          ported)
+from deeplearning4j_tpu_torch.ops.kernel_registry import (
+    KERNELS, LM_LEAVES, on_path, ported)
 
 F32_NORM_TOL = 1e-5
 F32_ATTN_TOL = 2e-5
@@ -231,15 +231,14 @@ def test_use_flash_gate_keeps_semantic_refusals():
 def test_registry_lists_every_tpu_kernel():
     keys = [e.key for e in KERNELS]
     assert keys == [f"K{i}" for i in range(1, 12)]
-    assert {e.key for e in ported()} == {"K1", "K2", "K3", "K4", "K5",
-                                         "K6", "K7", "K8", "K9"}
+    assert {e.key for e in ported()} == set(keys)
     for e in ported():
         assert e.route in ("cuda", "triton")
         assert callable(e.plain_fn())
         assert isinstance(e.launches(), int)
         # every ported row names the main paths that launch it
         assert e.paths and set(e.paths) <= {"serve", "train", "finetune",
-                                            "longctx"}
+                                            "longctx", "dp", "dp_packed"}
         # the stepped phases' expected launches per step: one positive
         # count for each stepped path of the row, none for serve
         stepped = set(e.paths) - {"serve"}
@@ -255,6 +254,13 @@ def test_registry_lists_every_tpu_kernel():
     assert {e.key: e.per_step["longctx"]
             for e in on_path("longctx")} == {"K1": 12, "K2": 13, "K4": 12,
                                              "K5": 12, "K6": 25, "K7": 12}
+    # data-parallel: the train step's kernels; the packed exchange adds
+    # the codec, once a gradient leaf (and rank, one on the card)
+    train = {e.key: e.per_step["train"] for e in on_path("train")}
+    assert {e.key: e.per_step["dp"] for e in on_path("dp")} == train
+    assert {e.key: e.per_step["dp_packed"]
+            for e in on_path("dp_packed")} == {**train, "K10": LM_LEAVES,
+                                               "K11": LM_LEAVES}
     for e in KERNELS:
         if e.status == "todo":
             assert e.port is None and e.route is None and not e.paths

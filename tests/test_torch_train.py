@@ -209,7 +209,8 @@ def test_params_from_jax_checks_the_tree():
 
 
 def test_unported_options_raise_naming_the_slice():
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    with pytest.raises(NotImplementedError,
+                       match="sequence-parallel slice"):
         GPTNano(**KW, sequence_parallel="ring")
 
     def net_with(**layer_kw):

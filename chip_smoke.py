@@ -13,7 +13,9 @@ Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
 1. device — card name, count, and ``nvidia-smi`` name/power limit; then
    every ported CUDA kernel of ``ops/kernel_registry.py`` is built from
    the checkout's sources (one ``nvcc`` per CUDA source, all started
-   together), whatever the phases;
+   together), whatever the phases, and ptxas' registers, spills and
+   stack are printed for every kernel instantiation (with the dynamic
+   shared memory of the tensor-core ones);
 2. serve — the full-width GPT-2-small-class LM (vocab 50257, hidden 768,
    12 layers, 6 heads of 128, SwiGLU 8/3, tied embeddings, bfloat16,
    random weights from a seed) behind ``ServingGateway(max_slots=32,
@@ -78,14 +80,19 @@ Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
    residuals (where the codes agree, to 1e-3 of the leaf's largest
    gradient);
 13. kernels — holds each ported kernel against its plain PyTorch version
-   on the card at its main paths' shapes, in bfloat16 and float32, and
-   times the kernel, the plain version and a PyTorch library call that
-   computes the same function (a yardstick the port never calls). The
-   split pair is also held against K3 at the long-context shape, and
-   K4's dq must be the same to the bit over two runs; K10 and K11 are
-   held to the bit (words, residuals, decoded values, and four emulated
-   ranks' decode-sum). The CUDA attention kernels (K1, K3, K4, K5,
-   milliseconds each at these shapes) are timed by CUDA events around a
+   on the card at its main paths' shapes, in bfloat16 (for K1 and K4 the
+   tensor-core kernels of ``csrc/flash_mma.cuh``) and float32 (their
+   CUDA-core kernels), including operands whose base and strides are not
+   whole 16-byte chunks, and times the kernel, the plain version and a
+   PyTorch library call that computes the same function (a yardstick the
+   port never calls). K1 is timed at the serve, train, fine-tune and
+   long-context shapes beside SDPA, K4 at the train and long-context
+   shapes beside SDPA's backward, each with its achieved TFLOP/s and
+   share of its bound. The split pair is also held against K3 at the
+   long-context shape, and K4's dq must be the same to the bit over two
+   runs; K10 and K11 are held to the bit (words, residuals, decoded
+   values, and four emulated ranks' decode-sum). K3 and K5
+   (milliseconds each at these shapes) are timed by CUDA events around a
    run of launches; everything else by the replay of a CUDA graph of 20
    calls, which keeps the host's launch path out of the time. For the
    small norm kernels (K2, K6, K7, K8, K9) the host-side time per launch
@@ -265,7 +272,10 @@ def phase_device(state):
 
 # -- the builds; phase 10, kernels -----------------------------------------
 def _build_all():
-    """Build every ported CUDA library at once, one nvcc each."""
+    """Build every ported CUDA library at once, one nvcc each, and print
+    ptxas' report for each kernel instantiation: registers, spills and
+    stack, and for the tensor-core kernels the dynamic shared memory
+    their launcher asks for."""
     from pathlib import Path
     from deeplearning4j_tpu_torch.ops import cuda_build, kernel_registry
     # a CUDA row's library is named after its source file
@@ -277,19 +287,70 @@ def _build_all():
                 for name, srcs in libs.items()}
         for name, fut in futs.items():
             path = fut.result()
-            rep = path.with_suffix(".log").read_text().splitlines()
             log(f"built {name} -> {path.name} "
                 f"({time.perf_counter() - t0:.1f}s)")
-            for line in rep:
-                if "registers" in line or "smem" in line or "spill" in line:
-                    log(f"  ptxas: {line.strip()}")
+            for line in _ptxas_report(path.with_suffix(".log").read_text()):
+                log(f"  ptxas {name}: {line}")
 
 
-def _flash_case(dt, tb, h, h_kv, causal, masked, seed):
+def _ptxas_report(text: str):
+    """One line per kernel of an ``nvcc -Xptxas -v`` log: its demangled
+    name, registers, spill stores and loads, stack frame; for the bf16
+    tensor-core kernels (``fmma::``, ``csrc/flash_mma.cuh``) also their
+    dynamic shared memory, 2 * (64 * D * resident + 4 * 64 * D) + 512
+    bytes (Q, and for the dq pass dO, resident; two stages of K and V;
+    the stages' key masks)."""
+    import re
+    kernels, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            kernels[name] = {}
+            continue
+        if name is None:
+            continue
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("stack", r"(\d+) bytes stack frame")):
+            m = re.search(pat, line)
+            if m:
+                kernels[name][key] = int(m.group(1))
+    try:
+        demangled = subprocess.run(
+            ["c++filt"], input="\n".join(kernels), capture_output=True,
+            text=True, timeout=60).stdout.splitlines()
+    except OSError:
+        demangled = list(kernels)
+    lines = []
+    for raw, pretty in zip(kernels, demangled):
+        stats = kernels[raw]
+        short = pretty.replace("(anonymous namespace)::", "")
+        short = short.removeprefix("void ").split("(")[0]
+        line = (f"{short}: registers={stats.get('registers')} "
+                f"spill_stores={stats.get('spill_stores')} "
+                f"spill_loads={stats.get('spill_loads')} "
+                f"stack={stats.get('stack')}")
+        m = re.search(r"fmma::(\w+)<(\d+)[,>]", short)
+        if m:
+            d, resident = int(m.group(2)), 2 if "dq" in m.group(1) else 1
+            line += (f" dynamic_smem="
+                     f"{2 * (64 * d * resident + 4 * 64 * d) + 512}")
+        lines.append(line)
+    return lines
+
+
+def _flash_case(dt, tb, h, h_kv, causal, masked, seed, unaligned=False):
+    """q, k, v [1, tb, heads, 128] and a key mask (``masked``) on the
+    card; ``unaligned``: each a view one element into a [.., 129] tensor,
+    so that its base and strides are not whole 16-byte chunks and the
+    tensor-core kernels fill their tiles by element copies."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
-    mk = lambda hh: torch.randn((1, tb, hh, 128), generator=g,
-                                device="cuda").to(dt)
+    extra = 1 if unaligned else 0
+    mk = lambda hh: torch.randn((1, tb, hh, 128 + extra), generator=g,
+                                device="cuda").to(dt)[..., extra:]
     q, k, v = mk(h), mk(h_kv), mk(h_kv)
     mask = None
     if masked:
@@ -309,6 +370,12 @@ def _flash_flops(tb, h, causal, mask):
     return 4 * pairs * 128 * h
 
 
+def _rate(flops: float, ms: float, b_ms: float) -> str:
+    """A kernel's achieved TFLOP/s and the share of its bound it
+    reaches (bound time over its time)."""
+    return f"tflops={flops / ms / 1e9:.1f} bound_share={b_ms / ms:.3f}"
+
+
 def phase_kernels(state):
     import torch
     import torch.nn.functional as F
@@ -319,28 +386,39 @@ def phase_kernels(state):
     card = state["card"]
     rows = {}
 
-    # K1 flash attention forward
+    # K1 flash attention forward: bf16 is the tensor-core kernel, f32 the
+    # CUDA-core one; both timed by CUDA-graph replay, as SDPA is
     e = ents["K1"]
     flash, plain = e.port_fn(), e.plain_fn()
-    cases = [(tb, 6, 6, True, False) for tb in (16, 200, 1024, 2048)]
-    cases += [(200, 6, 2, True, False), (2048, 6, 2, True, False),
-              (200, 6, 6, False, True), (1024, 6, 6, False, True)]
+    # (tb, h, h_kv, causal, masked, unaligned)
+    cases = [(tb, 6, 6, True, False, False)
+             for tb in (16, 200, 1024, 2048)]
+    cases += [(200, 6, 2, True, False, False),
+              (2048, 6, 2, True, False, False),
+              (200, 6, 6, False, True, False),
+              (1024, 6, 6, False, True, False),
+              (333, 6, 3, True, False, True),
+              (200, 6, 6, False, True, True)]
     for dname in ("bfloat16", "float32"):
         dt = getattr(torch, dname)
-        for i, (tb, h, h_kv, causal, masked) in enumerate(cases):
-            q, k, v, mask = _flash_case(dt, tb, h, h_kv, causal, masked, i)
+        for i, (tb, h, h_kv, causal, masked, unal) in enumerate(cases):
+            q, k, v, mask = _flash_case(dt, tb, h, h_kv, causal, masked, i,
+                                        unal)
             out = flash(q, k, v, causal=causal, mask=mask)
             ref = plain(q, k, v, causal=causal, mask=mask)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             ok = err <= FLASH_TOL[dname] and torch.isfinite(out).all()
             line = (f"K1 flash {dname} Tb={tb} H={h} Hkv={h_kv} "
-                    f"causal={causal} mask={masked}: max_abs_err={err:.3e}"
-                    f" tol={FLASH_TOL[dname]:.0e}")
-            t_k = time_ms(lambda: flash(q, k, v, causal=causal, mask=mask))
+                    f"causal={causal} mask={masked} unaligned={unal}: "
+                    f"max_abs_err={err:.3e} tol={FLASH_TOL[dname]:.0e}")
+            t_k = device_ms(lambda: flash(q, k, v, causal=causal, mask=mask))
             t_p = device_ms(lambda: plain(q, k, v, causal=causal,
                                           mask=mask), iters=5)
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            # the yardstick on [B, H, T, D] views (SDPA's kernels refuse
+            # the unaligned views: those cases give it dense copies)
+            qt, kt, vt = ((x.contiguous() if unal else x).transpose(1, 2)
+                          for x in (q, k, v))
             lib_kw = {"enable_gqa": True} if h != h_kv else {}
             if mask is not None:
                 lib_kw["attn_mask"] = mask.bool()[:, None, None, :]
@@ -350,11 +428,14 @@ def phase_kernels(state):
                       ) * q.element_size()
             if mask is not None:
                 nbytes += mask.numel() * mask.element_size()
+            flops = _flash_flops(tb, h, causal, mask)
             b_ms, b_by = bound_ms(
-                _flash_flops(tb, h, causal, mask), nbytes,
+                flops, nbytes,
                 PEAK_BF16_FLOPS if dname == "bfloat16" else PEAK_F32_FLOPS)
             line += (f" kernel_ms={t_k:.4f} plain_ms={t_p:.4f} "
-                     f"sdpa_ms={t_l:.4f} bound_ms={b_ms:.5f}({b_by}) {card}")
+                     f"sdpa_ms={t_l:.4f} kernel/sdpa={t_k / t_l:.2f} "
+                     f"bound_ms={b_ms:.5f}({b_by}) "
+                     f"{_rate(flops, t_k, b_ms)} {card}")
             if (dname, tb, h_kv, masked) == ("bfloat16", 2048, 6, False):
                 rows["K1"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
                                   bound_ms=b_ms, bound_by=b_by)
@@ -435,17 +516,19 @@ def _lengths_mask(b, t, g):
 
 
 def _flash_bwd_case(dt, b, t, h, h_kv, causal, masked, seed, d=128,
-                    tk=None):
+                    tk=None, unaligned=False):
     """Inputs of one backward case: q, k, v, the output gradient and the
     key mask (``masked``: False, True for a random 70 % of the keys, or
     "lengths" for padded rows), with the forward's out and lse from
-    K1; ``tk`` keys (default ``t``)."""
+    K1; ``tk`` keys (default ``t``); ``unaligned`` as for
+    :func:`_flash_case`."""
     import torch
     from deeplearning4j_tpu_torch.ops.cuda_kernels import flash_attention
     tk = tk or t
     g = torch.Generator(device="cuda").manual_seed(seed)
-    mk = lambda n, hh: torch.randn((b, n, hh, d), generator=g,
-                                   device="cuda").to(dt)
+    extra = 1 if unaligned else 0
+    mk = lambda n, hh: torch.randn((b, n, hh, d + extra), generator=g,
+                                   device="cuda").to(dt)[..., extra:]
     q, k, v, do = mk(t, h), mk(tk, h_kv), mk(tk, h_kv), mk(t, h)
     mask = None
     if masked == "lengths":
@@ -522,6 +605,7 @@ def _check_flash_bwd(e, rows, card):
     del ref_out, ref_lse, ref
     rows["K1_err"] = max(rows["K1_err"], o_err)
     rows["K3_err"] = max(err_max, *errs)
+    _time_k1_causal(q, k, v, "train", card)
     t_k = time_ms(lambda: bwd(q, k, v, out, lse, do, causal=True),
                   iters=10)
     t_p = time_ms(lambda: plain(q, k, v, out, lse, do, causal=True),
@@ -545,9 +629,29 @@ def _check_flash_bwd(e, rows, card):
     b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
     log(f"K3 flash_bwd bfloat16 [{b},{t},{h},128] causal: "
         f"kernel_ms={t_k:.4f} plain_ms={t_p:.4f} "
-        f"sdpa_bwd_ms={t_l:.4f} bound_ms={b_ms:.5f}({b_by}) {card}")
+        f"sdpa_bwd_ms={t_l:.4f} bound_ms={b_ms:.5f}({b_by}) "
+        f"{_rate(flops, t_k, b_ms)} {card}")
     rows["K3"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
                       bound_ms=b_ms, bound_by=b_by)
+
+
+def _time_k1_causal(q, k, v, path: str, card, iters: int = 20) -> None:
+    """K1 at a causal training shape against SDPA, both by CUDA-graph
+    replay, with K1's achieved TFLOP/s and share of its bound."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.ops.cuda_kernels import flash_attention
+    b, t, h, d = q.shape
+    t_k = device_ms(lambda: flash_attention(q, k, v, causal=True),
+                    iters=iters)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    t_l = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), iters=iters)
+    flops = 4 * d * b * h * t * (t + 1) / 2
+    b_ms, b_by = bound_ms(flops, 4 * q.numel() * q.element_size(),
+                          PEAK_BF16_FLOPS)
+    log(f"K1 flash bfloat16 [{b},{t},{h},{d}] causal ({path}): kernel_ms="
+        f"{t_k:.4f} sdpa_ms={t_l:.4f} kernel/sdpa={t_k / t_l:.2f} "
+        f"bound_ms={b_ms:.5f}({b_by}) {_rate(flops, t_k, b_ms)} {card}")
 
 
 def _check_flash_finetune(e1, e3, rows, card):
@@ -599,7 +703,7 @@ def _check_flash_finetune(e1, e3, rows, card):
                                                    attn_mask=am)
                 torch.autograd.grad(o, (qt, kt, vt), dot)
 
-            t_k1 = time_ms(lambda: flash(q, k, v, mask=mask))
+            t_k1 = device_ms(lambda: flash(q, k, v, mask=mask))
             t_k3 = time_ms(lambda: bwd(q, k, v, out, lse, do, mask=mask),
                            iters=10)
             t_l1 = device_ms(sdpa_fwd)
@@ -612,7 +716,9 @@ def _check_flash_finetune(e1, e3, rows, card):
                                8 * q.numel() * el + lse.numel() * 4,
                                PEAK_BF16_FLOPS)
             line += (f"; K1 kernel_ms={t_k1:.4f} sdpa_ms={t_l1:.4f} "
-                     f"bound_ms={b1:.5f}({by1}); K3 kernel_ms={t_k3:.4f} "
+                     f"kernel/sdpa={t_k1 / t_l1:.2f} bound_ms={b1:.5f}"
+                     f"({by1}) {_rate(4 * d * h * live, t_k1, b1)}; K3 "
+                     f"kernel_ms={t_k3:.4f} "
                      f"sdpa_bwd_ms={t_l3:.4f} bound_ms={b3:.5f}({by3})")
         log(f"{line} {card}")
         if not (o_err <= FLASH_TOL[dname] and lse_err <= LSE_TOL
@@ -624,17 +730,22 @@ def _check_flash_finetune(e1, e3, rows, card):
 
 
 # the split pair's cases: (b, tq, tk, h, h_kv, causal, masked, d,
-# offsets); the first two are the train and long-context paths' shapes
+# offsets, unaligned); the first two are the train and long-context
+# paths' shapes
 SPLIT_CASES = [
-    (TRAIN_B, TRAIN_T, TRAIN_T, 6, 6, True, False, 128, None),
-    (LONGCTX_B, LONGCTX_T, LONGCTX_T, 6, 6, True, False, 128, None),
+    (TRAIN_B, TRAIN_T, TRAIN_T, 6, 6, True, False, 128, None, False),
+    (LONGCTX_B, LONGCTX_T, LONGCTX_T, 6, 6, True, False, 128, None, False),
     (BERT_B, BERT_T, BERT_T, BERT_HEADS, BERT_HEADS, False, "lengths",
-     BERT_D, None),
-    (1, 2048, 2048, 6, 2, True, False, 128, None),          # GQA
-    (2, 300, 1000, 6, 2, True, True, 64, None),     # Tq < Tk, key mask
+     BERT_D, None, False),
+    (1, 2048, 2048, 6, 2, True, False, 128, None, False),          # GQA
+    (2, 300, 1000, 6, 2, True, True, 64, None, False),  # Tq < Tk, key mask
     # ring-style offsets: row i sees key j when 200 + j <= 100 + i, so
     # the first 100 rows see no key
-    (1, 1000, 1000, 6, 2, True, False, 128, (100, 200)),
+    (1, 1000, 1000, 6, 2, True, False, 128, (100, 200), False),
+    # element copies instead of 16-byte ones; head dims 32 and 16
+    (1, 333, 333, 6, 3, True, False, 128, None, True),
+    (2, 130, 130, 4, 2, True, True, 32, None, False),
+    (1, 130, 130, 4, 4, False, False, 16, None, False),
 ]
 
 
@@ -656,10 +767,11 @@ def _check_flash_split(ents, rows, card):
     timed = {}
     for dname in ("bfloat16", "float32"):
         dt = getattr(torch, dname)
-        for i, (b, tq, tk, h, h_kv, causal, masked, d, offs) in \
+        for i, (b, tq, tk, h, h_kv, causal, masked, d, offs, unal) in \
                 enumerate(SPLIT_CASES):
             q, k, v, out, lse, do, mask = _flash_bwd_case(
-                dt, b, tq, h, h_kv, causal, masked, 500 + i, d=d, tk=tk)
+                dt, b, tq, h, h_kv, causal, masked, 500 + i, d=d, tk=tk,
+                unaligned=unal)
             kw = dict(causal=causal, mask=mask, offsets=offs)
             dq = dq_k(q, k, v, out, lse, do, **kw)
             dk, dv = dkv_k(q, k, v, out, lse, do, **kw)
@@ -674,7 +786,7 @@ def _check_flash_split(ents, rows, card):
                   and all(bool(torch.isfinite(a).all()) for a in got))
             line = (f"K4+K5 flash_bwd_split {dname} [{b},{tq},{h},{d}] "
                     f"Tk={tk} Hkv={h_kv} causal={causal} mask={masked} "
-                    f"offsets={offs}: max_abs_err(dq,dk,dv)="
+                    f"offsets={offs} unaligned={unal}: max_abs_err(dq,dk,dv)="
                     f"{','.join(f'{x:.3e}' for x in abs_errs)} rel="
                     f"{rel:.3e} tol={K3_TOL[dname]:.0e}")
             errs["K4"] = max(errs["K4"], abs_errs[0])
@@ -682,8 +794,8 @@ def _check_flash_split(ents, rows, card):
             del ref
             if (dname, i) == ("bfloat16", 1):
                 line += "; " + _check_longctx_pair(
-                    ents["K1"].port_fn(), bwd, dq_k,
-                    flash_attention_reference, q, k, v, out, lse, do, got)
+                    bwd, dq_k, flash_attention_reference, q, k, v, out, lse,
+                    do, got, card)
             log(f"{line} {card}")
             if not ok:
                 raise AssertionError(f"K4 or K5 disagrees with its plain "
@@ -702,22 +814,15 @@ def _check_flash_split(ents, rows, card):
                       bound_ms=b5, bound_by=by5)
 
 
-def _check_longctx_pair(fwd, bwd, dq_k, fwd_plain, q, k, v, out, lse, do,
-                        got) -> str:
-    """At the long-context shape: K1's out and lse (from
-    ``_flash_bwd_case``) against the plain forward, and K1 timed beside
-    SDPA; the split pair's ``got`` against K3 on the same inputs, and
+def _check_longctx_pair(bwd, dq_k, fwd_plain, q, k, v, out, lse, do,
+                        got, card) -> str:
+    """At the long-context shape: K1 timed beside SDPA, and its out and
+    lse (from ``_flash_bwd_case``) against the plain forward; the split
+    pair's ``got`` against K3 on the same inputs, and
     K4's dq over a second run. Raises on a disagreement; returns the log
     line's part."""
     import torch
-    import torch.nn.functional as F
-    b, t, h, d = q.shape
-    t1 = time_ms(lambda: fwd(q, k, v, causal=True), iters=3, warm=1)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    t1_l = device_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), iters=5)
-    b1 = bound_ms(4 * d * b * h * t * (t + 1) / 2,
-                  4 * q.numel() * q.element_size(), PEAK_BF16_FLOPS)
+    _time_k1_causal(q, k, v, "longctx", card, iters=5)
     ref_out, ref_lse = fwd_plain(q, k, v, causal=True, return_lse=True)
     torch.cuda.synchronize()
     o_err = (out.float() - ref_out.float()).abs().max().item()
@@ -731,8 +836,7 @@ def _check_longctx_pair(fwd, bwd, dq_k, fwd_plain, q, k, v, out, lse, do,
     same = bool(torch.equal(dq2, got[0]))
     part = (f"K1 out max_abs_err={o_err:.3e} tol="
             f"{FLASH_TOL['bfloat16']:.0e} lse max_abs_err={lse_err:.3e} "
-            f"tol={LSE_TOL:.0e} kernel_ms={t1:.4f} sdpa_ms={t1_l:.4f} "
-            f"bound_ms={b1[0]:.5f}({b1[1]}); split vs K3 rel={rel3:.3e} "
+            f"tol={LSE_TOL:.0e}; split vs K3 rel={rel3:.3e} "
             f"tol={K3_TOL['bfloat16']:.0e}; K4 dq bit-identical over two "
             f"runs={same}")
     if not (o_err <= FLASH_TOL["bfloat16"] and lse_err <= LSE_TOL
@@ -746,9 +850,11 @@ def _time_split(bwd, dq_k, dkv_k, dq_p, dkv_p, q, k, v, out, lse, do,
     """K4 and K5 alone (Delta computed once beforehand), the pair as the
     path calls it (Delta + K4 + K5), K3, the two plain versions and
     SDPA's backward (forward + backward − forward) on the same causal
-    bf16 inputs. Bounds: the live (query, key) pairs times 2·D flops a
-    product — K4 3 (s, dp, dq), K5 4 (s, dp, dv, dk), the backward 5 —
-    or each input read and each output written once."""
+    bf16 inputs; K4 and SDPA by CUDA-graph replay, the rest by CUDA
+    events around their launches. Bounds: the live (query, key) pairs
+    times 2·D flops a product — K4 3 (s, dp, dq), K5 4 (s, dp, dv, dk),
+    the backward 5 — or each input read and each output written
+    once."""
     import torch
     import torch.nn.functional as F
     from deeplearning4j_tpu_torch.ops.cuda_kernels import _delta_reference
@@ -757,8 +863,8 @@ def _time_split(bwd, dq_k, dkv_k, dq_p, dkv_p, q, k, v, out, lse, do,
     iters, p_iters = (3, 1) if long else (10, 3)
     delta = _delta_reference(out, do)
     kw = dict(causal=True, delta=delta)
-    t4 = dict(k=time_ms(lambda: dq_k(q, k, v, out, lse, do, **kw),
-                        iters=iters, warm=1),
+    t4 = dict(k=device_ms(lambda: dq_k(q, k, v, out, lse, do, **kw),
+                          iters=iters, warm=1),
               p=time_ms(lambda: dq_p(q, k, v, out, lse, do, **kw),
                         iters=p_iters, warm=1))
     t5 = dict(k=time_ms(lambda: dkv_k(q, k, v, out, lse, do, **kw),
@@ -796,10 +902,12 @@ def _time_split(bwd, dq_k, dkv_k, dq_p, dkv_p, q, k, v, out, lse, do,
                   PEAK_BF16_FLOPS)
     log(f"K4 flash_bwd_dq bfloat16 [{b},{t},{h},{d}] causal: kernel_ms="
         f"{t4['k']:.4f} plain_ms={t4['p']:.4f} sdpa_bwd_ms={t_l:.4f} "
-        f"bound_ms={b4[0]:.5f}({b4[1]}) {card}")
+        f"kernel/sdpa_bwd={t4['k'] / t_l:.2f} bound_ms={b4[0]:.5f}"
+        f"({b4[1]}) {_rate(3 * 2 * d * pairs, t4['k'], b4[0])} {card}")
     log(f"K5 flash_bwd_dkv bfloat16 [{b},{t},{h},{d}] causal: kernel_ms="
         f"{t5['k']:.4f} plain_ms={t5['p']:.4f} sdpa_bwd_ms={t_l:.4f} "
-        f"bound_ms={b5[0]:.5f}({b5[1]}) {card}")
+        f"kernel/sdpa_bwd={t5['k'] / t_l:.2f} bound_ms={b5[0]:.5f}"
+        f"({b5[1]}) {_rate(4 * 2 * d * pairs, t5['k'], b5[0])} {card}")
     log(f"K3 vs K4+K5 bfloat16 [{b},{t},{h},{d}] causal: K3_ms="
         f"{t_k3:.4f} delta+K4+K5_ms={t_pair:.4f} K4+K5_ms="
         f"{t4['k'] + t5['k']:.4f} split/K3={t_pair / t_k3:.3f} "

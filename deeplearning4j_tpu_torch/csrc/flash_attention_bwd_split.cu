@@ -11,35 +11,46 @@
 // What bounds them on this card: at the long-context path's shape (q, k,
 // v, o, dO [1, 32768, 6, 128] bf16, causal; 3.2e9 live (query, key) pairs
 // over the heads) K4 does 3 products of 2*D flops a pair (s, dp, dq) and
-// K5 4 (s, dp, dv, dk), about 7.7 and 10.3 TFLOP, against ~0.3 GB of
+// K5 4 (s, dp, dv, dk), about 2.5 and 3.3 TFLOP, against ~0.3 GB of
 // operands: the bound is the tensor cores (~2.5 and ~3.3 ms at 989
-// TFLOP/s). This first version does its products on the CUDA cores in
-// f32 (no wgmma, no TMA), like K1 and K3, so in practice it is bound by
-// the shared-memory traffic of those scalar products, far above either
-// bound; tensor cores come in a later change. The design answers the
-// TPU kernels' sequential grids and K3's atomics:
-//  - K4 gives a block one (batch, query head, 64-row query tile), keeps
-//    Q, dO and the tile's dq accumulator on the chip, and loops over the
-//    key tiles up to the causal diagonal (tiles past it are never read),
-//    skipping tiles whose keys are all masked. dq gathers every key
-//    tile's share inside one block, in a fixed order: no atomics, so dq
-//    is the same to the bit from run to run (K3's is not);
+// TFLOP/s).
+//  - K4 in bf16 is flash_bwd_dq_mma_kernel, the tensor-core loop of
+//    flash_mma.cuh: one block per (batch, query head, 64-row query
+//    tile), Q and dO resident in swizzled shared memory, lse and Delta
+//    in registers, K/V tiles of 64 keys streamed through a two-stage
+//    cp.async ring up to the causal diagonal (tiles past it never read,
+//    tiles of dead keys skipped), one barrier a tile. Each tile: S =
+//    Q.K^T and dP = dO.V^T on mma.sync, P = exp2(S * scale * log2 e -
+//    lse * log2 e) by one FFMA and ex2, dS = P * (dP - Delta) rounded to
+//    bf16 in registers (the TPU kernel's rounding), dq += dS.K with K
+//    read transposed; dq is scaled once at the end. dq gathers every key
+//    tile's share inside one block in a fixed order: no atomics, so dq
+//    is the same to the bit from run to run (K3's is not). 98 KB of
+//    shared memory at D = 128: two blocks an SM. wgmma, TMA and warp
+//    specialisation are what is left beyond it.
+//  - K4 in f32 (the long-context agree phase, card vs CPU, whose 1e-3
+//    gradient band a TF32 product would not hold) keeps the CUDA-core
+//    flash_bwd_dq_kernel below, f32 throughout.
 //  - K5 is K3's key-side pass without dq (flash_bwd_kv_kernel with DQ
-//    off, flash_bwd_common.cuh): one block per (batch, kv head, 64-key
-//    tile), looping over the group's query heads and the live query
-//    tiles, so dk/dv come out already summed onto the kv head (the TPU
-//    path's per-head outputs and `_reduce_kv_rows`, in a fixed order);
+//    off, flash_bwd_common.cuh), on the CUDA cores in f32: one block per
+//    (batch, kv head, 64-key tile), looping over the group's query heads
+//    and the live query tiles, so dk/dv come out already summed onto the
+//    kv head (the TPU path's per-head outputs and `_reduce_kv_rows`, in
+//    a fixed order);
 //  - Delta = rowsum(dO * O) is computed once per call by the pre-pass
 //    (`dl4j_flash_attention_bwd_delta`) and read by both.
 // Both take the TPU kernels' two causal offsets (q_off, k_off): the
 // single-device path passes (Tk - Tq, 0), the ring entries global ones.
 #include "flash_bwd_common.cuh"
+#include "flash_mma.cuh"
+
+#include <type_traits>
 
 namespace {
 
-// Thread t owns query rows 4*(t/16) .. 4*(t/16)+3 of the tile; for those
-// rows it computes score columns (t%16) + 16*c and dq channels
-// (t%16) + 16*j.
+// The CUDA-core dq pass (f32). Thread t owns query rows 4*(t/16) ..
+// 4*(t/16)+3 of the tile; for those rows it computes score columns
+// (t%16) + 16*c and dq channels (t%16) + 16*j.
 template <typename T, int D>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -199,6 +210,137 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+}  // namespace
+
+namespace fmma {
+
+// The bf16 tensor-core dq pass (flash_mma.cuh). Warp w owns rows 16w ..
+// 16w + 15 of the 64-row query tile; lane (g = lane / 4, t4 = lane % 4)
+// holds rows g and g + 8 of them, for every 8-key n-tile keys 2*t4,
+// 2*t4 + 1, and for every 8-channel tile of dq the same columns.
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 2)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
+                        const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        const float* __restrict__ km, bf16* __restrict__ dq,
+                        int Tq, int Tk, int H, int groups, long long sqb,
+                        long long sqt, long long sqh, long long skb,
+                        long long skt, long long skh, long long svb,
+                        long long svt, long long svh, long long sdb,
+                        long long sdt, long long sdh, int causal, int q_off,
+                        int k_off, float scale, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // [BQ][D]
+  bf16* dOs = Qs + BQ * D;                        // [BQ][D]
+  bf16* Ks = dOs + BQ * D;                        // [2][BK][D]
+  bf16* Vs = Ks + 2 * BK * D;                     // [2][BK][D]
+  float* Ms = reinterpret_cast<float*>(Vs + 2 * BK * D);   // [2][BK]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int t4 = lane & 3;
+  // the last query tile first: under causal masking it has the most key
+  // tiles, and the light ones then fill the last wave
+  const int q0 = (int)(gridDim.x - 1 - blockIdx.x) * BQ;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / groups;
+  const int rw = warp * 16;              // the warp's first row in the tile
+  const int row0 = q0 + rw + (lane >> 2);   // this thread's rows: +0, +8
+  const float scale_log2 = scale * LOG2E;
+
+  const bf16* qb = q + b * sqb + h * sqh;
+  const bf16* db = dout + b * sdb + h * sdh;
+  const bf16* kb = k + b * skb + hk * skh;
+  const bf16* vb = v + b * svb + hk * svh;
+  const float* kmb = km == nullptr ? nullptr : km + (long long)b * Tk;
+  const int nkt = key_tiles(q0, Tq, Tk, causal, q_off, k_off);
+
+  load_tile<D, BQ>(Qs, qb, sqt, q0, Tq, vec);
+  load_tile<D, BQ>(dOs, db, sdt, q0, Tq, vec);
+  if (nkt > 0) {
+    load_tile<D, BK>(Ks, kb, skt, 0, Tk, vec);
+    load_tile<D, BK>(Vs, vb, svt, 0, Tk, vec);
+    load_mask(Ms, kmb, 0, Tk);
+  }
+  cp_async_commit();
+
+  // this thread's rows' lse (0 where not finite) in log2 units, and Delta
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    const long long at = ((long long)b * H + h) * Tq + row;
+    const float lv = row < Tq ? lse[at] : 0.f;
+    lse2[i] = isfinite(lv) ? lv * LOG2E : 0.f;
+    dlt[i] = row < Tq ? delta[at] : 0.f;
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int st = kt & 1, k0 = kt * BK;
+    cp_async_wait<0>();   // this tile (and, at kt = 0, Q and dO) landed
+    const float* ms = Ms + st * BK;
+    // one barrier a tile: this tile visible to all, and every warp done
+    // with the previous tile, whose stage the next tile then refills
+    const bool any =
+        __syncthreads_or(threadIdx.x < BK && ms[threadIdx.x] > 0.f) != 0;
+    if (kt + 1 < nkt) {   // the next tile into the other stage
+      load_tile<D, BK>(Ks + (st ^ 1) * BK * D, kb, skt, k0 + BK, Tk, vec);
+      load_tile<D, BK>(Vs + (st ^ 1) * BK * D, vb, svt, k0 + BK, Tk, vec);
+      load_mask(Ms + (st ^ 1) * BK, kmb, k0 + BK, Tk);
+    }
+    cp_async_commit();
+    // block-uniform: a tile of dead keys adds nothing to dq
+    if (any) {
+      const bf16* kt_s = Ks + st * BK * D;
+      const bf16* vt_s = Vs + st * BK * D;
+      float s[BK / 8][4], dp[BK / 8][4];
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D; kk += 16) {
+        uint32_t a[4];
+        load_a<D>(a, Qs, rw, kk);
+        mma_abt_kstep<D, BK>(s, a, kt_s, 0, kk);
+        load_a<D>(a, dOs, rw, kk);
+        mma_abt_kstep<D, BK>(dp, a, vt_s, 0, kk);
+      }
+      // warp-uniform: every key of the tile live for every row of the warp
+      const bool full = kmb == nullptr && k0 + BK <= Tk &&
+                        (!causal || k_off + k0 + BK - 1 <= q_off + q0 + rw);
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const bool live =
+              full || live_key(ms, n * 8 + 2 * t4 + (e & 1), k0,
+                               row0 + 8 * i, causal, q_off, k_off);
+          const float p =
+              live ? ex2(fmaf(s[n][e], scale_log2, -lse2[i])) : 0.f;
+          s[n][e] = p * (dp[n][e] - dlt[i]);   // dS, without the scale
+        }
+      uint32_t ds[BK / 16][4];
+      to_a_frags<BK>(ds, s);
+      mma_ab<D, BK>(acc, ds, kt_s, 0);
+    }
+  }
+  cp_async_wait<0>();   // no copy left in flight (nkt = 0: Q's and dO's)
+  const float mul[2] = {scale, scale};   // dS carries no scale: once here
+  store_rows<D>(dq, acc, mul, b, row0, Tq, H, h);
+}
+
+}  // namespace fmma
+
+namespace {
+
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta, *km;
   void *dq, *dk, *dv;
@@ -211,20 +353,37 @@ struct Args {
 
 template <typename T, int D>
 int launch_dq(const Args& a) {
-  constexpr size_t smem = sizeof(float) * (2 * BQ * (D + 1) +
-                                           2 * BK * (D + 1) +
-                                           BQ * (BK + 1) + 2 * BQ + BK);
-  auto kern = flash_bwd_dq_kernel<T, D>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
   const dim3 grid((a.Tq + BQ - 1) / BQ, a.H, a.B);
-  kern<<<grid, NTHREADS, smem, a.stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,
-      (const float*)a.lse, (const float*)a.delta, (const float*)a.km,
-      (T*)a.dq, a.Tq, a.Tk, a.H, a.H / a.Hkv, a.sq[0], a.sq[1], a.sq[2],
-      a.sk[0], a.sk[1], a.sk[2], a.sv[0], a.sv[1], a.sv[2], a.sd[0],
-      a.sd[1], a.sd[2], a.causal, a.q_off, a.k_off, a.scale);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    constexpr size_t smem = fmma::smem_bytes<D>(2);
+    static const cudaError_t attr =
+        fmma::set_smem_attr(fmma::flash_bwd_dq_mma_kernel<D>, smem);
+    if (attr != cudaSuccess) return (int)attr;
+    const int vec = fmma::vec_ok(a.q, a.sq[0], a.sq[1], a.sq[2]) &&
+                    fmma::vec_ok(a.k, a.sk[0], a.sk[1], a.sk[2]) &&
+                    fmma::vec_ok(a.v, a.sv[0], a.sv[1], a.sv[2]) &&
+                    fmma::vec_ok(a.dout, a.sd[0], a.sd[1], a.sd[2]);
+    fmma::flash_bwd_dq_mma_kernel<D><<<grid, fmma::NTHREADS, smem,
+                                       a.stream>>>(
+        (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,
+        (const float*)a.lse, (const float*)a.delta, (const float*)a.km,
+        (T*)a.dq, a.Tq, a.Tk, a.H, a.H / a.Hkv, a.sq[0], a.sq[1], a.sq[2],
+        a.sk[0], a.sk[1], a.sk[2], a.sv[0], a.sv[1], a.sv[2], a.sd[0],
+        a.sd[1], a.sd[2], a.causal, a.q_off, a.k_off, a.scale, vec);
+  } else {
+    constexpr size_t smem = sizeof(float) * (2 * BQ * (D + 1) +
+                                             2 * BK * (D + 1) +
+                                             BQ * (BK + 1) + 2 * BQ + BK);
+    static const cudaError_t attr =
+        fmma::set_smem_attr(flash_bwd_dq_kernel<T, D>, smem);
+    if (attr != cudaSuccess) return (int)attr;
+    flash_bwd_dq_kernel<T, D><<<grid, NTHREADS, smem, a.stream>>>(
+        (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,
+        (const float*)a.lse, (const float*)a.delta, (const float*)a.km,
+        (T*)a.dq, a.Tq, a.Tk, a.H, a.H / a.Hkv, a.sq[0], a.sq[1], a.sq[2],
+        a.sk[0], a.sk[1], a.sk[2], a.sv[0], a.sv[1], a.sv[2], a.sd[0],
+        a.sd[1], a.sd[2], a.causal, a.q_off, a.k_off, a.scale);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -232,9 +391,8 @@ template <typename T, int D>
 int launch_dkv(const Args& a) {
   const size_t smem = kv_smem_bytes<D>();
   auto kern = flash_bwd_kv_kernel<T, D, false>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  static const cudaError_t attr = fmma::set_smem_attr(kern, smem);
+  if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((a.Tk + BK - 1) / BK, a.Hkv, a.B);
   kern<<<grid, NTHREADS, smem, a.stream>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,

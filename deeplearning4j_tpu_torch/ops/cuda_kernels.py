@@ -7,7 +7,11 @@ Counterpart of ``deeplearning4j_tpu/ops/pallas_kernels.py``. Kernels:
   ``_flash_kernel``). For a CUDA tensor it launches the kernel; for a
   CPU tensor it runs the plain version, :func:`flash_attention_reference`
   (the port of the JAX ``_reference_scan``). There is no other route: a
-  CUDA input the kernel does not take raises.
+  CUDA input the kernel does not take raises. The C entry picks the
+  kernel by dtype: bf16 runs the tensor-core loop of
+  ``csrc/flash_mma.cuh`` (``mma.sync`` on bf16 tiles loaded by
+  ``cp.async``, P rounded to bf16 before P·V as the TPU kernel rounds
+  it), f32 the CUDA-core kernel, f32 throughout.
 - :func:`flash_attention_bwd` — the backward: dq, dk, dv from q, k, v,
   the output, its gradient and the saved row logsumexp. It makes the
   JAX ``_flash_bwd``'s choice on the same padded shapes
@@ -17,10 +21,11 @@ Counterpart of ``deeplearning4j_tpu/ops/pallas_kernels.py``. Kernels:
   :func:`flash_attention_bwd_reference`, the port of the JAX
   ``_reference_bwd_block``) up to ~24k query rows, past that the split
   pair of ``csrc/flash_attention_bwd_split.cu``:
-  :func:`flash_attention_bwd_dq` (replacing ``_flash_bwd_dq_kernel``)
-  and :func:`flash_attention_bwd_dkv` (replacing
-  ``_flash_bwd_dkv_kernel``), with the blockwise plain versions
-  :func:`flash_attention_bwd_dq_reference` and
+  :func:`flash_attention_bwd_dq` (replacing ``_flash_bwd_dq_kernel``;
+  bf16 on the same tensor-core loop as the forward, dS rounded to bf16
+  before dS·K, f32 on the CUDA cores) and :func:`flash_attention_bwd_dkv`
+  (replacing ``_flash_bwd_dkv_kernel``), with the blockwise plain
+  versions :func:`flash_attention_bwd_dq_reference` and
   :func:`flash_attention_bwd_dkv_reference`.
 
 - :func:`threshold_encode` and :func:`threshold_decode` — the codec of

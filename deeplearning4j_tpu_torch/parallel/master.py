@@ -20,9 +20,9 @@ semantics:
    exchanged and every replica applies every replica's update, residuals
    kept locally (the wrapper's ENCODED mode).
 
-``make_global_batch`` has no counterpart: in the per-process model every
-rank holds the global batch and takes its own rows (``ParallelWrapper.
-fit``), so nothing assembles a global device array. Evaluation
+``make_global_batch`` has no counterpart: in the per-process model each
+rank feeds its own batch (``ParallelWrapper.fit``, the JAX package's
+multi-process rule), so nothing assembles a global device array. Evaluation
 (``evaluate``, ``do_evaluation``, ``merge_across_processes``) needs the
 ``eval_/`` classes, which come with the MultiLayerNetwork-core slice.
 """
@@ -192,7 +192,8 @@ class SparkDl4jMultiLayer:
     """Reference ``SparkDl4jMultiLayer`` facade: distributed fit of a
     MultiLayerNetwork under a TrainingMaster strategy. Every process
     calls ``initialize_distributed()`` first (the spark-submit
-    replacement) and then ``fit`` with the same global batches."""
+    replacement) and then ``fit`` with its own batches: wrap a global
+    source in ``ShardedDataSetIterator``."""
 
     def __init__(self, net, training_master: TrainingMaster,
                  mesh=None):
@@ -203,8 +204,9 @@ class SparkDl4jMultiLayer:
         self.stats: list = []
 
     def fit(self, iterator, epochs: int = 1):
-        """Distributed fit: every rank iterates the same global batches
-        and trains on its rows of each (``ParallelWrapper.fit``)."""
+        """Distributed fit: every rank iterates its own batches, the
+        ranks agreeing the step count and the batch size
+        (``ParallelWrapper.fit``)."""
         net = self.wrapper.fit(iterator, epochs=epochs)
         if getattr(self.master, "collect_training_stats", False):
             self.stats.append({"iterations": net.iteration,
@@ -212,7 +214,7 @@ class SparkDl4jMultiLayer:
         return net
 
     def fit_datasets(self, datasets, epochs: int = 1):
-        """Fit from an explicit list of DataSets (reference
+        """Fit from an explicit list of this rank's DataSets (reference
         ``fit(RDD<DataSet>)``)."""
         return self.fit(list(datasets), epochs=epochs)
 

@@ -12,8 +12,8 @@ from the networks' shared ``loss_and_grads`` and ``apply_updates``
 (``nn/multilayer.py``), as the JAX step variants compose
 ``_local_grads``/``_apply_update``:
 
- - SYNC (default): this rank's rows of the batch, then the gradient mean
-   over the ``data`` group;
+ - SYNC (default): this rank's batch, then the gradient mean over the
+   ``data`` group;
  - ENCODED: per-rank gradients through
    ``EncodedGradientsAccumulator.exchange`` (residuals and τ stay on the
    rank), the decoded mean applied;
@@ -23,12 +23,14 @@ from the networks' shared ``loss_and_grads`` and ``apply_updates``
  - ASYNC: each replica applies its own encoded update at once and its
    peers' one step late (``exchange_async``).
 
-``fit`` takes the GLOBAL batch on every rank, as the JAX wrapper does in
-one process: rank r keeps rows ``[r·B/n, (r+1)·B/n)`` (the rows
-``P("data")`` gives device r) and the reported loss is the mean over
-ranks. The first step broadcasts rank 0's params and optimizer state, the
-counterpart of JAX's replicated placement. After AVERAGING and ASYNC,
-``fit`` folds the replicas back (``_sync_back``).
+``fit`` takes THIS rank's batches, the JAX package's multi-process rule
+(``wrapper.py`` ``_fit_epochs``): a global source is dealt out by
+``ShardedDataSetIterator``. Over more than one rank, ``fit`` first
+agrees the per-epoch step count and the batch size as minima over the
+group, so that every rank runs the same collectives. The reported loss
+is the mean over ranks. The first step broadcasts rank 0's params and
+optimizer state, the counterpart of JAX's replicated placement. After
+AVERAGING and ASYNC, ``fit`` folds the replicas back (``_sync_back``).
 
 Not in this slice (each raises ``NotImplementedError`` naming its
 slice): ``sharded_update``/``gather_overlap`` (ZeRO), the numerics
@@ -41,6 +43,7 @@ import logging
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from deeplearning4j_tpu_torch import obs, tree
 from deeplearning4j_tpu_torch.nn.layers.base import fold_in
@@ -92,7 +95,6 @@ class ParallelWrapper:
                              f"got {self.mesh}")
         self.group = self.mesh.group("data")
         self.n = self.mesh.size("data")
-        self.rank = self.mesh.index("data")
         self.mode = mode
         self.averaging_frequency = averaging_frequency
         # reference ParallelWrapper.Builder#averageUpdaters (default
@@ -275,34 +277,68 @@ class ParallelWrapper:
             _later("the numerics observatory's diagnostic steps",
                    "observatories")
 
+    def _agree(self, iterator):
+        """(steps per epoch, batch size) agreed over the group: the
+        minimum of every rank's ``len(iterator)`` and of the size of its
+        first batch (the JAX ``_fit_epochs``'s multi-process rule, one
+        ``all_reduce(MIN)`` on the CPU side of the group)."""
+        try:
+            n_local = len(iterator)
+        except TypeError:
+            raise ValueError(
+                "multi-rank ParallelWrapper.fit needs a sized iterator "
+                "(len()) so all ranks can agree on the step count") \
+                from None
+        first = next(iter(iterator), None)
+        b_local = (0 if first is None else
+                   (first.features if hasattr(first, "features")
+                    else first[0]).shape[0])
+        mins = torch.tensor([n_local, b_local], dtype=torch.int64)
+        dist.all_reduce(mins, op=dist.ReduceOp.MIN, group=self.group)
+        n_steps, b = (int(v) for v in mins)
+        if b == 0 and n_steps > 0:
+            raise ValueError("a rank's first batch is empty: the ranks "
+                             "cannot agree on a batch size")
+        return n_steps, b
+
     def fit(self, iterator, epochs: int = 1):
-        """Reference: ParallelWrapper.fit(DataSetIterator). Every rank
-        iterates the same global batches (DataSet-like elements or
-        ``(x, y)`` tuples); a batch is trimmed to a multiple of the rank
-        count and each rank trains on its rows. Returns the net."""
+        """Reference: ParallelWrapper.fit(DataSetIterator). The iterator
+        yields this rank's batches (DataSet-like elements or ``(x, y)``
+        tuples; ``ShardedDataSetIterator`` deals a global source out
+        over the ranks). At world size 1 every batch trains whole. Over
+        more ranks, before the first step the ranks agree the per-epoch
+        step count (the iterator must be sized; else ``ValueError``) and
+        the batch size, each as the minimum over the group (of
+        ``len(iterator)`` and of the first batch's size); every batch is
+        cut to the agreed size, one smaller raises ``ValueError``, and
+        every rank stops an epoch at the agreed count, so their
+        collectives stay in step. Returns the net."""
         net = self.net
         self._check_fit()
         if not self._placed:
             self._place()
+        n_steps, b = (None, None) if self.n == 1 else self._agree(iterator)
         for _ in range(epochs):
             if hasattr(iterator, "reset"):
                 iterator.reset()
-            for ds in iterator:
+            for i, ds in enumerate(iterator):
+                if n_steps is not None and i >= n_steps:
+                    break                # stay in lockstep with the group
                 t0 = obs.now()
                 x, y = ((ds.features, ds.labels) if hasattr(ds, "features")
                         else ds)
-                bsz = x.shape[0]
-                b = bsz - bsz % self.n
-                if b == 0:
-                    _LOG.warning(
-                        "ParallelWrapper: dropping batch of %d examples "
-                        "(< %d workers); use batch sizes divisible by "
-                        "the worker count", bsz, self.n)
+                if b is None and x.shape[0] == 0:
+                    _LOG.warning("ParallelWrapper: dropping an empty batch")
                     continue
-                # this rank's rows: block r of the b rows, as P("data")
-                lo, hi = (self.rank * b // self.n,
-                          (self.rank + 1) * b // self.n)
-                x, y = net._as_input(x[lo:hi]), net._as_input(y[lo:hi])
+                if b is not None:
+                    if x.shape[0] < b:
+                        raise ValueError(
+                            f"batch of {x.shape[0]} smaller than the "
+                            f"agreed per-rank size {b}: multi-rank "
+                            "training needs uniform batches (drop or pad "
+                            "the ragged remainder)")
+                    x, y = x[:b], y[:b]
+                x, y = net._as_input(x), net._as_input(y)
                 rng = fold_in(net.conf.seed, net.iteration)
                 t1 = obs.now()
                 loss = self._step(x, y, rng)

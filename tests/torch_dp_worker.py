@@ -7,11 +7,15 @@ starts one process per rank). Imports ``torch`` and the port only, never
 JOB ``dp2`` (world 2) runs the accumulator's ``exchange``,
 ``exchange_async`` and ``exchange_packed`` on the per-rank gradients of
 ``DIR/inputs.npz``, ``ParallelWrapper`` in its four modes on GPTNano from
-the carried-across weights there, the training masters and the Spark
-facade, and every refused option; JOB ``mesh4`` (world 4) builds a
-{"slice": 2, "data": 2} mesh and runs ``exchange_hierarchical``. Each
-rank writes ``DIR/JOB-rank<R>.npz`` (arrays) and ``.json`` (losses,
-messages). The process group comes up through a file under ``DIR``.
+the carried-across weights there (rank r fed its rows of each global
+batch), the training masters and the Spark facade, and every refused
+option; JOB ``mesh4`` (world 4) builds a {"slice": 2, "data": 2} mesh and
+runs ``exchange_hierarchical``; JOB ``fit2`` (world 2) trains the dense
+net of ``tests/test_multiprocess.py`` through ``SparkDl4jMultiLayer`` on
+its ``ShardedDataSetIterator`` shard of 7 batches (uneven: 4 and 3), then
+calls ``fit`` on an unsized iterator. Each rank writes
+``DIR/JOB-rank<R>.npz`` (arrays) and ``.json`` (losses, messages). The
+process group comes up through a file under ``DIR``.
 """
 import json
 import os
@@ -83,19 +87,24 @@ def nano_net(inp):
         tree.map_(lambda t: t.numpy(), nested(inp, "weights")))
 
 
-def batches(inp):
-    return [DataSet(inp[f"x{i}"], inp[f"y{i}"]) for i in range(3)]
+def batches(inp, rank, world=2):
+    """Rank ``rank``'s rows of the three global batches: the block of
+    rows ``P("data")`` gives device ``rank`` in the JAX wrapper."""
+    rows = lambda a: a[rank * len(a) // world:(rank + 1) * len(a) // world]
+    return [DataSet(rows(inp[f"x{i}"]), rows(inp[f"y{i}"]))
+            for i in range(3)]
 
 
 def run_wrappers(inp, mesh, res, log):
     """Each mode, one ``fit`` call a batch (the loss of every step), then
     the Spark facade over both masters in one ``fit`` call."""
+    rank = mesh.index("data")
     for mode in MODES:
         net = nano_net(inp)
         w = ParallelWrapper(net, mode=mode, averaging_frequency=2,
                             mesh=mesh)
         losses = []
-        for ds in batches(inp):
+        for ds in batches(inp, rank):
             w.fit([ds])
             losses.append(net.score())
         log[f"wrapper/{mode}/losses"] = losses
@@ -112,7 +121,7 @@ def run_wrappers(inp, mesh, res, log):
                       .averaging_frequency(2).collect_training_stats()
                       .build())):
         spark = SparkDl4jMultiLayer(nano_net(inp), tm, mesh)
-        net = spark.fit_datasets(batches(inp))
+        net = spark.fit_datasets(batches(inp, rank))
         log[f"spark/{name}/score"] = spark.score()
         log[f"spark/{name}/stats"] = spark.stats
         put(res, f"spark/{name}/params", net.params)
@@ -122,6 +131,7 @@ def refusals(inp, mesh):
     """The message of every option this slice refuses."""
     from deeplearning4j_tpu_torch.zoo.bert import BertTiny
     net = nano_net(inp)
+    data = batches(inp, mesh.index("data"))
     out = {}
 
     def expect(name, fn):
@@ -146,16 +156,15 @@ def refusals(inp, mesh):
                               "checkpoint_target") else ({},)
         expect(meth, lambda m=meth, a=args: getattr(w, m)(*a))
     w.elastic = object()
-    expect("elastic", lambda: w.fit(batches(inp)))
+    expect("elastic", lambda: w.fit(data))
     w.elastic = None
     net._numerics = object()
-    expect("numerics", lambda: w.fit(batches(inp)))
+    expect("numerics", lambda: w.fit(data))
     del net._numerics
     spark = SparkDl4jMultiLayer(nano_net(inp), SharedTrainingMaster(), mesh)
-    expect("evaluate", lambda: spark.evaluate(batches(inp)))
-    expect("evaluate_regression",
-           lambda: spark.evaluate_regression(batches(inp)))
-    expect("do_evaluation", lambda: spark.do_evaluation(batches(inp)))
+    expect("evaluate", lambda: spark.evaluate(data))
+    expect("evaluate_regression", lambda: spark.evaluate_regression(data))
+    expect("do_evaluation", lambda: spark.do_evaluation(data))
     expect("merge_across_processes",
            lambda: master_mod.merge_across_processes([]))
     expect("elastic_init", mesh_mod.initialize_distributed_elastic)
@@ -167,6 +176,47 @@ def refusals(inp, mesh):
     return out
 
 
+def run_sharded_fit(mesh, log):
+    """The fit half of ``tests/test_multiprocess.py``'s worker: the same
+    dense net and data, 7 batches of 64 dealt round-robin to the 2 ranks
+    (4 and 3), ``ParameterAveragingTrainingMaster(64)`` averaging every 2
+    steps, 8 epochs. Then ``fit`` on an iterator without ``len``."""
+    from deeplearning4j_tpu_torch.nn.config import (InputType,
+                                                    NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+    from deeplearning4j_tpu_torch.nn import updaters as upd
+    from deeplearning4j_tpu_torch.parallel import ShardedDataSetIterator
+    conf = (NeuralNetConfiguration.builder().seed(42)
+            .updater(upd.Adam(learning_rate=0.05)).list()
+            .layer(DenseLayer(n_out=16, activation="tanh"))
+            .layer(OutputLayer(n_out=2, activation="softmax",
+                               loss="mcxent"))
+            .set_input_type(InputType.feed_forward(4)).build())
+    net = MultiLayerNetwork(conf).init(device="cpu")
+    rng = np.random.default_rng(0)          # the same data on every rank
+    x = rng.standard_normal((448, 4)).astype(np.float32)
+    y = np.eye(2, dtype=np.float32)[(x.sum(1) > 0).astype(int)]
+    data = [DataSet(x[i:i + 64], y[i:i + 64]) for i in range(0, 448, 64)]
+    master = (ParameterAveragingTrainingMaster.Builder(64)
+              .averaging_frequency(2).build())
+    trainer = SparkDl4jMultiLayer(net, master, mesh)
+    shard = ShardedDataSetIterator(data)
+    log["fit2/shard"] = [shard.shard_index, shard.num_shards, len(shard)]
+    trainer.fit(shard, epochs=8)
+    log["fit2/score"] = trainer.score()
+    log["fit2/iteration"] = net.iteration
+    res = {}
+    put(res, "fit2/params", net.params)
+    try:
+        trainer.fit(iter(data))
+    except ValueError as e:
+        log["fit2/unsized"] = f"ValueError: {e}"
+    else:
+        log["fit2/unsized"] = "no error"
+    return res
+
+
 def main():
     job, rank, world, out_dir = (sys.argv[1], int(sys.argv[2]),
                                  int(sys.argv[3]), sys.argv[4])
@@ -175,13 +225,16 @@ def main():
                            rank)
     res, log = {}, {"backend": torch.distributed.get_backend(),
                     "rank": torch.distributed.get_rank()}
-    inp = dict(np.load(os.path.join(out_dir, "inputs.npz")))
+    if job != "fit2":
+        inp = dict(np.load(os.path.join(out_dir, "inputs.npz")))
     if job == "dp2":
         mesh = data_parallel_mesh()
         log["mesh"] = [mesh.size(), mesh.index("data")]
         run_exchanges(inp, rank, mesh.group("data"), res)
         run_wrappers(inp, mesh, res, log)
         log["refused"] = refusals(inp, mesh)
+    elif job == "fit2":
+        res = run_sharded_fit(data_parallel_mesh(), log)
     else:
         mesh = make_mesh({"slice": 2, "data": 2})
         log["mesh"] = {a: [mesh.index(a), torch.distributed

@@ -80,26 +80,28 @@ Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
    residuals (where the codes agree, to 1e-3 of the leaf's largest
    gradient);
 13. kernels — holds each ported kernel against its plain PyTorch version
-   on the card at its main paths' shapes, in bfloat16 (for K1 and K4 the
-   tensor-core kernels of ``csrc/flash_mma.cuh``) and float32 (their
-   CUDA-core kernels), including operands whose base and strides are not
-   whole 16-byte chunks, and times the kernel, the plain version and a
-   PyTorch library call that computes the same function (a yardstick the
-   port never calls). K1 is timed at the serve, train, fine-tune and
-   long-context shapes beside SDPA, K4 at the train and long-context
-   shapes beside SDPA's backward, each with its achieved TFLOP/s and
-   share of its bound. The split pair is also held against K3 at the
-   long-context shape, and K4's dq must be the same to the bit over two
-   runs; K10 and K11 are held to the bit (words, residuals, decoded
-   values, and four emulated ranks' decode-sum). K3 and K5
-   (milliseconds each at these shapes) are timed by CUDA events around a
-   run of launches; everything else by the replay of a CUDA graph of 20
-   calls, which keeps the host's launch path out of the time. For the
-   small norm kernels (K2, K6, K7, K8, K9) the host-side time per launch
-   (CUDA events around 20 launches) is printed beside it as
-   ``host_ms``. This phase runs last, so that nothing it leaves behind
-   in the process can slow the host-bound serve step (``PERF.md``
-   records such a slowdown, cause not isolated).
+   on the card at its main paths' shapes, in bfloat16 (for K1, K3, K4
+   and K5 the tensor-core kernels of ``csrc/flash_mma.cuh``) and float32
+   (their CUDA-core kernels), including operands whose base and strides
+   are not whole 16-byte chunks, and times the kernel, the plain version
+   and a PyTorch library call that computes the same function (a
+   yardstick the port never calls). K1 is timed at the serve, train,
+   fine-tune and long-context shapes beside SDPA, K3, K4 and K5 at the
+   train and long-context shapes (K3 also at the fine-tune shape) beside
+   SDPA's backward, each with its achieved TFLOP/s and share of its
+   bound (for K3, K5 in bf16 the key-stationary tensor-core loop of
+   ``csrc/flash_mma.cuh``). At the long-context shape the split pair is
+   also held against K3, and K4's dq and K5's dk, dv must be the same to
+   the bit over two runs; K10 and K11 are held to the bit (words,
+   residuals, decoded values, and four emulated ranks' decode-sum). The
+   kernels and SDPA are timed by the replay of a CUDA graph of their
+   calls (20 for the small ones), which keeps the host's launch path out
+   of the time; the plain versions of K3, K4 and K5 by CUDA events
+   around their calls. For the small norm kernels (K2, K6, K7, K8, K9)
+   the host-side time per launch (CUDA events around 20 launches) is
+   printed beside it as ``host_ms``. This phase runs last, so that
+   nothing it leaves behind in the process can slow the host-bound serve
+   step (``PERF.md`` records such a slowdown, cause not isolated).
 
 Each main path (serve, train, finetune, longctx, dp, dp_packed) zeroes
 the launch counters of the kernels just before it runs and reads them
@@ -297,9 +299,12 @@ def _ptxas_report(text: str):
     """One line per kernel of an ``nvcc -Xptxas -v`` log: its demangled
     name, registers, spill stores and loads, stack frame; for the bf16
     tensor-core kernels (``fmma::``, ``csrc/flash_mma.cuh``) also their
-    dynamic shared memory, 2 * (64 * D * resident + 4 * 64 * D) + 512
-    bytes (Q, and for the dq pass dO, resident; two stages of K and V;
-    the stages' key masks)."""
+    dynamic shared memory: for the query-stationary ones 2 * (64 * D *
+    resident + 4 * 64 * D) + 512 bytes (Q, and for the dq pass dO,
+    resident; two stages of K and V; the stages' key masks), for the
+    key-stationary ``flash_bwd_kv_mma_kernel<D, DQ>`` 2 * 6 * 64 * D +
+    1024 bytes (K and V resident, two stages of Q and dO, two of lse and
+    Delta) and, with DQ, 8192 more (the dS^T tile)."""
     import re
     kernels, name = {}, None
     for line in text.splitlines():
@@ -332,8 +337,12 @@ def _ptxas_report(text: str):
                 f"spill_stores={stats.get('spill_stores')} "
                 f"spill_loads={stats.get('spill_loads')} "
                 f"stack={stats.get('stack')}")
-        m = re.search(r"fmma::(\w+)<(\d+)[,>]", short)
-        if m:
+        m = re.search(r"fmma::(\w+)<(\d+)(?:, (\w+))?>", short)
+        if m and m.group(1) == "flash_bwd_kv_mma_kernel":
+            d, with_dq = int(m.group(2)), m.group(3) == "true"
+            line += (f" dynamic_smem="
+                     f"{2 * 6 * 64 * d + 1024 + (8192 if with_dq else 0)}")
+        elif m:
             d, resident = int(m.group(2)), 2 if "dq" in m.group(1) else 1
             line += (f" dynamic_smem="
                      f"{2 * (64 * d * resident + 4 * 64 * d) + 512}")
@@ -606,8 +615,8 @@ def _check_flash_bwd(e, rows, card):
     rows["K1_err"] = max(rows["K1_err"], o_err)
     rows["K3_err"] = max(err_max, *errs)
     _time_k1_causal(q, k, v, "train", card)
-    t_k = time_ms(lambda: bwd(q, k, v, out, lse, do, causal=True),
-                  iters=10)
+    t_k = device_ms(lambda: bwd(q, k, v, out, lse, do, causal=True),
+                    iters=10)
     t_p = time_ms(lambda: plain(q, k, v, out, lse, do, causal=True),
                   iters=3, warm=1)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
@@ -629,8 +638,8 @@ def _check_flash_bwd(e, rows, card):
     b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
     log(f"K3 flash_bwd bfloat16 [{b},{t},{h},128] causal: "
         f"kernel_ms={t_k:.4f} plain_ms={t_p:.4f} "
-        f"sdpa_bwd_ms={t_l:.4f} bound_ms={b_ms:.5f}({b_by}) "
-        f"{_rate(flops, t_k, b_ms)} {card}")
+        f"sdpa_bwd_ms={t_l:.4f} kernel/sdpa_bwd={t_k / t_l:.2f} "
+        f"bound_ms={b_ms:.5f}({b_by}) {_rate(flops, t_k, b_ms)} {card}")
     rows["K3"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
                       bound_ms=b_ms, bound_by=b_by)
 
@@ -704,8 +713,8 @@ def _check_flash_finetune(e1, e3, rows, card):
                 torch.autograd.grad(o, (qt, kt, vt), dot)
 
             t_k1 = device_ms(lambda: flash(q, k, v, mask=mask))
-            t_k3 = time_ms(lambda: bwd(q, k, v, out, lse, do, mask=mask),
-                           iters=10)
+            t_k3 = device_ms(lambda: bwd(q, k, v, out, lse, do,
+                                         mask=mask), iters=10)
             t_l1 = device_ms(sdpa_fwd)
             t_l3 = device_ms(sdpa_fwd_bwd) - t_l1
             el = q.element_size()
@@ -719,7 +728,9 @@ def _check_flash_finetune(e1, e3, rows, card):
                      f"kernel/sdpa={t_k1 / t_l1:.2f} bound_ms={b1:.5f}"
                      f"({by1}) {_rate(4 * d * h * live, t_k1, b1)}; K3 "
                      f"kernel_ms={t_k3:.4f} "
-                     f"sdpa_bwd_ms={t_l3:.4f} bound_ms={b3:.5f}({by3})")
+                     f"sdpa_bwd_ms={t_l3:.4f} kernel/sdpa_bwd="
+                     f"{t_k3 / t_l3:.2f} bound_ms={b3:.5f}({by3}) "
+                     f"{_rate(10 * d * h * live, t_k3, b3)}")
         log(f"{line} {card}")
         if not (o_err <= FLASH_TOL[dname] and lse_err <= LSE_TOL
                 and rel <= K3_TOL[dname] and finite):
@@ -754,8 +765,9 @@ def _check_flash_split(ents, rows, card):
     bfloat16 and float32, with K3's tolerances. At the long-context shape
     [1, 32768, 6, 128] bf16 causal: K1's out and lse against its plain
     version, the split pair against K3 on the same inputs, K4's dq the
-    same to the bit over two runs. Then K4, K5, K4 + K5 and K3 timed at
-    both causal shapes, with the plain versions and SDPA's backward."""
+    same to the bit over two runs, and K5's dk and dv too. Then K4, K5,
+    K4 + K5 and K3 timed at both causal shapes, with the plain versions
+    and SDPA's backward."""
     import torch
     from deeplearning4j_tpu_torch.ops.cuda_kernels import (
         flash_attention_reference)
@@ -794,8 +806,8 @@ def _check_flash_split(ents, rows, card):
             del ref
             if (dname, i) == ("bfloat16", 1):
                 line += "; " + _check_longctx_pair(
-                    bwd, dq_k, flash_attention_reference, q, k, v, out, lse,
-                    do, got, card)
+                    bwd, dq_k, dkv_k, flash_attention_reference, q, k, v,
+                    out, lse, do, got, card)
             log(f"{line} {card}")
             if not ok:
                 raise AssertionError(f"K4 or K5 disagrees with its plain "
@@ -814,13 +826,13 @@ def _check_flash_split(ents, rows, card):
                       bound_ms=b5, bound_by=by5)
 
 
-def _check_longctx_pair(bwd, dq_k, fwd_plain, q, k, v, out, lse, do,
-                        got, card) -> str:
+def _check_longctx_pair(bwd, dq_k, dkv_k, fwd_plain, q, k, v, out, lse,
+                        do, got, card) -> str:
     """At the long-context shape: K1 timed beside SDPA, and its out and
     lse (from ``_flash_bwd_case``) against the plain forward; the split
-    pair's ``got`` against K3 on the same inputs, and
-    K4's dq over a second run. Raises on a disagreement; returns the log
-    line's part."""
+    pair's ``got`` against K3 on the same inputs, and K4's dq and K5's
+    dk, dv over a second run (each must be the same to the bit). Raises
+    on a disagreement; returns the log line's part."""
     import torch
     _time_k1_causal(q, k, v, "longctx", card, iters=5)
     ref_out, ref_lse = fwd_plain(q, k, v, causal=True, return_lse=True)
@@ -831,16 +843,18 @@ def _check_longctx_pair(bwd, dq_k, fwd_plain, q, k, v, out, lse, do,
     with _fused_budget(1 << 62):
         fused = bwd(q, k, v, out, lse, do, causal=True)
     dq2 = dq_k(q, k, v, out, lse, do, causal=True)
+    dk2, dv2 = dkv_k(q, k, v, out, lse, do, causal=True)
     torch.cuda.synchronize()
     rel3 = max(_rel_err(a, r) for a, r in zip(got, fused))
-    same = bool(torch.equal(dq2, got[0]))
+    same4 = bool(torch.equal(dq2, got[0]))
+    same5 = bool(torch.equal(dk2, got[1]) and torch.equal(dv2, got[2]))
     part = (f"K1 out max_abs_err={o_err:.3e} tol="
             f"{FLASH_TOL['bfloat16']:.0e} lse max_abs_err={lse_err:.3e} "
             f"tol={LSE_TOL:.0e}; split vs K3 rel={rel3:.3e} "
             f"tol={K3_TOL['bfloat16']:.0e}; K4 dq bit-identical over two "
-            f"runs={same}")
+            f"runs={same4}; K5 dk, dv bit-identical over two runs={same5}")
     if not (o_err <= FLASH_TOL["bfloat16"] and lse_err <= LSE_TOL
-            and rel3 <= K3_TOL["bfloat16"] and same):
+            and rel3 <= K3_TOL["bfloat16"] and same4 and same5):
         raise AssertionError(f"long-context check failed: {part}")
     return part
 
@@ -850,11 +864,11 @@ def _time_split(bwd, dq_k, dkv_k, dq_p, dkv_p, q, k, v, out, lse, do,
     """K4 and K5 alone (Delta computed once beforehand), the pair as the
     path calls it (Delta + K4 + K5), K3, the two plain versions and
     SDPA's backward (forward + backward − forward) on the same causal
-    bf16 inputs; K4 and SDPA by CUDA-graph replay, the rest by CUDA
-    events around their launches. Bounds: the live (query, key) pairs
-    times 2·D flops a product — K4 3 (s, dp, dq), K5 4 (s, dp, dv, dk),
-    the backward 5 — or each input read and each output written
-    once."""
+    bf16 inputs; the kernels and SDPA by CUDA-graph replay, the plain
+    versions by CUDA events around their calls. Bounds: the live (query,
+    key) pairs times 2·D flops a product — K4 3 (s, dp, dq), K5 4 (s,
+    dp, dv, dk), the backward 5 — or each input read and each output
+    written once."""
     import torch
     import torch.nn.functional as F
     from deeplearning4j_tpu_torch.ops.cuda_kernels import _delta_reference
@@ -867,16 +881,16 @@ def _time_split(bwd, dq_k, dkv_k, dq_p, dkv_p, q, k, v, out, lse, do,
                           iters=iters, warm=1),
               p=time_ms(lambda: dq_p(q, k, v, out, lse, do, **kw),
                         iters=p_iters, warm=1))
-    t5 = dict(k=time_ms(lambda: dkv_k(q, k, v, out, lse, do, **kw),
-                        iters=iters, warm=1),
+    t5 = dict(k=device_ms(lambda: dkv_k(q, k, v, out, lse, do, **kw),
+                          iters=iters, warm=1),
               p=time_ms(lambda: dkv_p(q, k, v, out, lse, do, **kw),
                         iters=p_iters, warm=1))
     with _fused_budget(0):
-        t_pair = time_ms(lambda: bwd(q, k, v, out, lse, do, causal=True),
-                         iters=iters, warm=1)
+        t_pair = device_ms(lambda: bwd(q, k, v, out, lse, do,
+                                       causal=True), iters=iters, warm=1)
     with _fused_budget(1 << 62):
-        t_k3 = time_ms(lambda: bwd(q, k, v, out, lse, do, causal=True),
-                       iters=iters, warm=1)
+        t_k3 = device_ms(lambda: bwd(q, k, v, out, lse, do, causal=True),
+                         iters=iters, warm=1)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     dot = do.transpose(1, 2)
@@ -911,8 +925,9 @@ def _time_split(bwd, dq_k, dkv_k, dq_p, dkv_p, q, k, v, out, lse, do,
     log(f"K3 vs K4+K5 bfloat16 [{b},{t},{h},{d}] causal: K3_ms="
         f"{t_k3:.4f} delta+K4+K5_ms={t_pair:.4f} K4+K5_ms="
         f"{t4['k'] + t5['k']:.4f} split/K3={t_pair / t_k3:.3f} "
-        f"sdpa_bwd_ms={t_l:.4f} backward bound_ms={b3[0]:.5f}({b3[1]}) "
-        f"{card}")
+        f"sdpa_bwd_ms={t_l:.4f} K3/sdpa_bwd={t_k3 / t_l:.2f} backward "
+        f"bound_ms={b3[0]:.5f}({b3[1]}) K3 "
+        f"{_rate(5 * 2 * d * pairs, t_k3, b3[0])} {card}")
     return t4, t5, t_l, b4, b5
 
 

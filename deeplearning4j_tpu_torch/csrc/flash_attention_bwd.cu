@@ -11,28 +11,44 @@
 // o, dO [16, 1024, 6, 128] bf16, causal) the work is 5 products of
 // 2*D flops per live (query, key) pair and head (s, dp, dv, dk, dq),
 // about 64 GFLOP, against ~126 MB of operands read and written once: the
-// bound is the tensor cores (~0.065 ms at 989 TFLOP/s). This first
-// version does its products on the CUDA cores in f32 (no wgmma, no TMA),
-// so in practice it is bound by the shared-memory traffic of those
-// scalar products, far above either bound; tensor cores come in a later
-// change. Its design answers the bytes side and the TPU kernel's
-// sequential grid:
-//  - one block per (batch, kv head, 64-key tile) keeps the tile's K, V
-//    and its dk/dv accumulators on the chip while it loops over the q
-//    tiles, starting at the causal diagonal (dead tiles are never read);
-//  - the loop runs over every query head of the kv head's group inside
-//    the block, so dk/dv come out already reduced onto the kv head (the
-//    TPU path's `_reduce_kv_rows`) with no atomics;
+// bound is the tensor cores (~0.065 ms at 989 TFLOP/s). Two kernels
+// behind one entry, picked by dtype:
+//  - bf16, the model's paths: flash_bwd_kv_mma_kernel<D, true>, the
+//    key-stationary tensor-core loop of flash_mma.cuh shared with K5.
+//    One block per (batch, kv head, 64-key tile), key tile 0 of every
+//    head first; K and V resident in swizzled shared memory, each warp
+//    owning 16 keys and their dk and dv (f32) in registers; Q, dO, lse
+//    and Delta of each query tile from the causal diagonal on stream
+//    through a two-stage cp.async ring, one barrier a tile. S^T, dP^T,
+//    dv and dk run on mma.sync as in K5, with P^T and dS^T rounded to
+//    bf16 in registers (the TPU kernel's rounding). The loop runs over
+//    every query head of the kv head's group inside the block, so dk/dv
+//    come out already summed onto the kv head (the TPU path's
+//    `_reduce_kv_rows`) in a fixed order, with no atomics.
 //  - dq gathers contributions from every key tile, which Hopper runs in
-//    no order: they go by atomicAdd into an f32 [B, Tq, H, D] buffer
-//    (the TPU kernel's full-length VMEM scratch), scaled and cast to the
-//    storage type by a last small kernel. The order of those atomics
-//    changes from run to run, so dq may differ in its last bits.
+//    no order. Each tile the warps write their bf16 dS^T rows to a
+//    shared 64 x 64 tile; after a barrier each warp multiplies 16 query
+//    rows of dS (read transposed) by K on mma.sync and adds them into an
+//    f32 [B, Tq, H, D] buffer (the TPU kernel's full-length VMEM
+//    scratch) by float4 atomics, four adjacent columns a lane; a last
+//    small kernel scales it and casts it to the storage type. The order
+//    of those atomics changes from run to run, so dq may differ in its
+//    last bits; dk and dv do not. 105 KB of shared memory at D = 128:
+//    two blocks an SM. wgmma, TMA and warp specialisation are what is
+//    left beyond mma.sync.
+//  - f32, the agree phases' card-vs-CPU checks: the CUDA-core
+//    flash_bwd_kv_kernel<float, D, true> of flash_bwd_common.cuh, f32
+//    throughout, with scalar dq atomics. A TF32 tensor-core product
+//    keeps ~3 decimal digits and would not hold those checks' 1e-5 loss
+//    and 1e-3 gradient bands.
 //
-// The key-side tile loop (flash_bwd_kv_kernel with DQ on), the Delta
-// pre-pass and the semantics carried from the TPU kernel live in
-// flash_bwd_common.cuh, shared with the split pair K4, K5.
+// The Delta pre-pass, the f32 kernel and the semantics carried from the
+// TPU kernel live in flash_bwd_common.cuh, shared with the split pair
+// K4, K5.
 #include "flash_bwd_common.cuh"
+#include "flash_mma.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -65,20 +81,27 @@ int launch(const Args& a) {
                                    a.so, a.sd, a.stream);
   if (e != cudaSuccess) return (int)e;
 
-  const size_t smem = kv_smem_bytes<D>();
-  auto kern = flash_bwd_kv_kernel<T, D, true>;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((a.Tk + BK - 1) / BK, a.Hkv, a.B);
-  kern<<<grid, NTHREADS, smem, a.stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,
-      (const float*)a.lse, (const float*)a.delta, (const float*)a.km,
-      (float*)a.dq_acc, (T*)a.dk, (T*)a.dv, a.Tq, a.Tk, a.H, a.Hkv,
-      a.H / a.Hkv, a.sq[0], a.sq[1], a.sq[2], a.sk[0], a.sk[1], a.sk[2],
-      a.sv[0], a.sv[1], a.sv[2], a.sd[0], a.sd[1], a.sd[2], a.causal,
-      a.q_off, 0, a.scale);
-  e = cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    e = fmma::launch_bwd_kv_mma<D, true>(
+        a.q, a.k, a.v, a.dout, (const float*)a.lse, (const float*)a.delta,
+        (const float*)a.km, (float*)a.dq_acc, a.dk, a.dv, a.B, a.Tq, a.Tk,
+        a.H, a.Hkv, a.sq, a.sk, a.sv, a.sd, a.causal, a.q_off, 0, a.scale,
+        a.stream);
+  } else {
+    constexpr size_t smem = kv_smem_bytes<D>();
+    static const cudaError_t attr =
+        fmma::set_smem_attr(flash_bwd_kv_kernel<T, D, true>, smem);
+    if (attr != cudaSuccess) return (int)attr;
+    const dim3 grid((a.Tk + BK - 1) / BK, a.Hkv, a.B);
+    flash_bwd_kv_kernel<T, D, true><<<grid, NTHREADS, smem, a.stream>>>(
+        (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,
+        (const float*)a.lse, (const float*)a.delta, (const float*)a.km,
+        (float*)a.dq_acc, (T*)a.dk, (T*)a.dv, a.Tq, a.Tk, a.H, a.Hkv,
+        a.H / a.Hkv, a.sq[0], a.sq[1], a.sq[2], a.sk[0], a.sk[1], a.sk[2],
+        a.sv[0], a.sv[1], a.sv[2], a.sd[0], a.sd[1], a.sd[2], a.causal,
+        a.q_off, 0, a.scale);
+    e = cudaGetLastError();
+  }
   if (e != cudaSuccess) return (int)e;
 
   long long blocks = (n + NTHREADS - 1) / NTHREADS;

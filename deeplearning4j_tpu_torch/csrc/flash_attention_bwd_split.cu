@@ -26,19 +26,31 @@
 //    read transposed; dq is scaled once at the end. dq gathers every key
 //    tile's share inside one block in a fixed order: no atomics, so dq
 //    is the same to the bit from run to run (K3's is not). 98 KB of
-//    shared memory at D = 128: two blocks an SM. wgmma, TMA and warp
-//    specialisation are what is left beyond it.
+//    shared memory at D = 128: two blocks an SM.
 //  - K4 in f32 (the long-context agree phase, card vs CPU, whose 1e-3
 //    gradient band a TF32 product would not hold) keeps the CUDA-core
 //    flash_bwd_dq_kernel below, f32 throughout.
-//  - K5 is K3's key-side pass without dq (flash_bwd_kv_kernel with DQ
-//    off, flash_bwd_common.cuh), on the CUDA cores in f32: one block per
-//    (batch, kv head, 64-key tile), looping over the group's query heads
-//    and the live query tiles, so dk/dv come out already summed onto the
-//    kv head (the TPU path's per-head outputs and `_reduce_kv_rows`, in
-//    a fixed order);
+//  - K5 in bf16 is flash_bwd_kv_mma_kernel<D, false>, the key-stationary
+//    tensor-core loop of flash_mma.cuh: one block per (batch, kv head,
+//    64-key tile), key tile 0 of every head first (under causal masking
+//    it walks the most query tiles), K and V resident in swizzled shared
+//    memory, each warp owning 16 keys and their dk and dv (f32) in
+//    registers. It walks the kv head's query heads and, for each, the
+//    query tiles from the causal diagonal on, streaming Q, dO, lse and
+//    Delta through a two-stage cp.async ring, one barrier a tile. Each
+//    tile, in passes of 32 query columns at D = 128 (registers): S^T =
+//    K.Q^T and dP^T = V.dO^T on mma.sync, P^T = exp2 by one FFMA, dS^T
+//    = P^T (dP^T - Delta), both rounded to bf16 in registers (the TPU
+//    kernel's rounding), dv += P^T.dO and dk += dS^T.Q with dO and Q
+//    read transposed. dk/dv come out summed onto the kv head in a fixed
+//    order (the TPU path's per-head outputs and `_reduce_kv_rows`), dk
+//    scaled once, with no atomics: the same to the bit run to run. 97 KB
+//    of shared memory at D = 128: two blocks an SM.
+//  - K5 in f32 keeps K3's CUDA-core key-side pass without dq
+//    (flash_bwd_kv_kernel with DQ off, flash_bwd_common.cuh).
 //  - Delta = rowsum(dO * O) is computed once per call by the pre-pass
 //    (`dl4j_flash_attention_bwd_delta`) and read by both.
+// wgmma, TMA and warp specialisation are what is left beyond mma.sync.
 // Both take the TPU kernels' two causal offsets (q_off, k_off): the
 // single-device path passes (Tk - Tq, 0), the ring entries global ones.
 #include "flash_bwd_common.cuh"
@@ -389,19 +401,27 @@ int launch_dq(const Args& a) {
 
 template <typename T, int D>
 int launch_dkv(const Args& a) {
-  const size_t smem = kv_smem_bytes<D>();
-  auto kern = flash_bwd_kv_kernel<T, D, false>;
-  static const cudaError_t attr = fmma::set_smem_attr(kern, smem);
-  if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((a.Tk + BK - 1) / BK, a.Hkv, a.B);
-  kern<<<grid, NTHREADS, smem, a.stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,
-      (const float*)a.lse, (const float*)a.delta, (const float*)a.km,
-      nullptr, (T*)a.dk, (T*)a.dv, a.Tq, a.Tk, a.H, a.Hkv, a.H / a.Hkv,
-      a.sq[0], a.sq[1], a.sq[2], a.sk[0], a.sk[1], a.sk[2], a.sv[0],
-      a.sv[1], a.sv[2], a.sd[0], a.sd[1], a.sd[2], a.causal, a.q_off,
-      a.k_off, a.scale);
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return (int)fmma::launch_bwd_kv_mma<D, false>(
+        a.q, a.k, a.v, a.dout, (const float*)a.lse, (const float*)a.delta,
+        (const float*)a.km, nullptr, a.dk, a.dv, a.B, a.Tq, a.Tk, a.H,
+        a.Hkv, a.sq, a.sk, a.sv, a.sd, a.causal, a.q_off, a.k_off, a.scale,
+        a.stream);
+  } else {
+    constexpr size_t smem = kv_smem_bytes<D>();
+    static const cudaError_t attr =
+        fmma::set_smem_attr(flash_bwd_kv_kernel<T, D, false>, smem);
+    if (attr != cudaSuccess) return (int)attr;
+    const dim3 grid((a.Tk + BK - 1) / BK, a.Hkv, a.B);
+    flash_bwd_kv_kernel<T, D, false><<<grid, NTHREADS, smem, a.stream>>>(
+        (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,
+        (const float*)a.lse, (const float*)a.delta, (const float*)a.km,
+        nullptr, (T*)a.dk, (T*)a.dv, a.Tq, a.Tk, a.H, a.Hkv, a.H / a.Hkv,
+        a.sq[0], a.sq[1], a.sq[2], a.sk[0], a.sk[1], a.sk[2], a.sv[0],
+        a.sv[1], a.sv[2], a.sd[0], a.sd[1], a.sd[2], a.causal, a.q_off,
+        a.k_off, a.scale);
+    return (int)cudaGetLastError();
+  }
 }
 
 // K5 (DKV) or K4, by head dim and dtype.

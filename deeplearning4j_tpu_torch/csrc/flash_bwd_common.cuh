@@ -1,7 +1,9 @@
 // Pieces shared by the flash-attention backward kernels: the fused K3
 // (flash_attention_bwd.cu) and the split pair K4, K5
-// (flash_attention_bwd_split.cu). ops/cuda_build.py hashes this header
-// into the key of every library, so an edit rebuilds both.
+// (flash_attention_bwd_split.cu): the Delta pre-pass, and the f32
+// CUDA-core key-side pass that K3 and K5 run on f32 inputs (bf16 inputs
+// take the tensor-core loops of flash_mma.cuh). ops/cuda_build.py hashes
+// this header into the key of every library, so an edit rebuilds both.
 //
 // Semantics carried from the TPU kernels (`_flash_bwd_p_ds` of
 // deeplearning4j_tpu/ops/pallas_kernels.py):
@@ -16,8 +18,10 @@
 //  - ds = p * (dp - Delta) carries no scale; dq and dk are scaled once at
 //    write-out, dv is not.
 // Layout [B, T, H, D] read through strides (D contiguous), GQA query head
-// h reads kv head h / groups. Math is f32 throughout (inputs are upcast
-// on load); each output is rounded once to its storage type.
+// h reads kv head h / groups. The kernels here are f32 throughout (the
+// pre-pass upcasts bf16 on load); the bf16 kernels of flash_mma.cuh keep
+// the same semantics with bf16 operands and f32 sums. Each output is
+// rounded once to its storage type.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -98,7 +102,7 @@ constexpr size_t kv_smem_bytes() {
                           2 * BQ * (BK + 1) + 2 * BQ + BK);
 }
 
-// The key-side pass: one block per (batch, kv head, 64-key tile) keeps
+// The f32 key-side pass: one block per (batch, kv head, 64-key tile) keeps
 // the tile's K, V and its dk/dv accumulators on the chip while it loops
 // over every query head of the kv head's group and, for each, over the
 // live query tiles from the causal diagonal on. dk/dv come out already

@@ -22,11 +22,15 @@ Counterpart of ``deeplearning4j_tpu/ops/pallas_kernels.py``. Kernels:
   ``_reference_bwd_block``) up to ~24k query rows, past that the split
   pair of ``csrc/flash_attention_bwd_split.cu``:
   :func:`flash_attention_bwd_dq` (replacing ``_flash_bwd_dq_kernel``;
-  bf16 on the same tensor-core loop as the forward, dS rounded to bf16
-  before dS·K, f32 on the CUDA cores) and :func:`flash_attention_bwd_dkv`
+  bf16 on the same query-stationary tensor-core loop as the forward, dS
+  rounded to bf16 before dS·K) and :func:`flash_attention_bwd_dkv`
   (replacing ``_flash_bwd_dkv_kernel``), with the blockwise plain
   versions :func:`flash_attention_bwd_dq_reference` and
-  :func:`flash_attention_bwd_dkv_reference`.
+  :func:`flash_attention_bwd_dkv_reference`. The fused kernel and the
+  dk/dv pass share the key-stationary tensor-core loop of
+  ``csrc/flash_mma.cuh`` in bf16 (P and dS rounded to bf16 before Pᵀ·dO,
+  dSᵀ·Q and dS·K); every backward kernel runs f32 inputs on the CUDA
+  cores, f32 throughout.
 
 - :func:`threshold_encode` and :func:`threshold_decode` — the codec of
   the packed gradient exchange (``csrc/threshold_codec.cu``, replacing

@@ -321,8 +321,9 @@ def test_cuda_build_key_covers_the_shared_headers(tmp_path, monkeypatch):
 
 
 def test_the_real_cuda_sources_share_one_header():
-    """K3 and the split pair K4/K5 include the one backward header, K1
-    and K4 the one tensor-core header; the build key hashes both."""
+    """K3 and the split pair K4/K5 include the one backward header, K1,
+    K3 and K4/K5 the one tensor-core header; the build key hashes
+    both."""
     from deeplearning4j_tpu_torch.ops import cuda_build
     headers = sorted(p.name for p in cuda_build.CSRC_DIR.glob("*.cuh"))
     assert headers == ["flash_bwd_common.cuh", "flash_mma.cuh"]
@@ -330,6 +331,7 @@ def test_the_real_cuda_sources_share_one_header():
             ("flash_bwd_common.cuh", ("flash_attention_bwd.cu",
                                       "flash_attention_bwd_split.cu")),
             ("flash_mma.cuh", ("flash_attention.cu",
+                               "flash_attention_bwd.cu",
                                "flash_attention_bwd_split.cu"))):
         for src in sources:
             text = (cuda_build.CSRC_DIR / src).read_text()

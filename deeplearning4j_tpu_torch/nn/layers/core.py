@@ -122,8 +122,8 @@ class EmbeddingSequenceLayer(EmbeddingLayer):
 @dataclass
 class LayerNormalization(Layer):
     """Layer norm over the trailing axis, through
-    ``ops.fused_norms.layer_norm``: the Triton kernels (forward K8,
-    backward K9) on the card, the plain versions on the CPU."""
+    ``ops.fused_norms.layer_norm``: the kernels (forward K8 in Triton,
+    backward K9 in CUDA) on the card, the plain versions on the CPU."""
     eps: float = fused_norms.LAYERNORM_EPS
 
     def init(self, gen, input_shape, dtype=torch.float32):
@@ -142,8 +142,8 @@ class LayerNormalization(Layer):
 class RMSNorm(Layer):
     """Root-mean-square norm over the trailing axis (no mean
     subtraction, no bias), through ``ops.fused_norms.rms_norm``: the
-    Triton kernels (forward K2, backward K6) on the card, the plain
-    versions on the CPU."""
+    kernels (forward K2 in Triton, backward K6 in CUDA) on the card, the
+    plain versions on the CPU."""
     eps: float = RMSNORM_EPS
 
     def init(self, gen, input_shape, dtype=torch.float32):

@@ -88,6 +88,10 @@ _LIBS = {
     "threshold_codec": (("threshold_codec.cu",), {
         "dl4j_threshold_encode": [_P] * 4 + [_LL, _LL, _P],
         "dl4j_threshold_decode": [_P] * 3 + [_LL, _P]}),
+    # K6 and K9, bound in ops/fused_norms.py
+    "norm_bwd": (("norm_bwd.cu",), {
+        "dl4j_norm_bwd_grid": [_I] * 4 + [_P],
+        "dl4j_norm_bwd": [_I] * 4 + [_P] * 7 + [_LL, _I, _F, _I, _I, _P]}),
 }
 
 

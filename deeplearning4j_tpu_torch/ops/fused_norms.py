@@ -1,43 +1,46 @@
-"""RMSNorm and LayerNorm kernels for Hopper in Triton, and their plain
-versions.
+"""RMSNorm and LayerNorm kernels for Hopper — three in Triton, the two
+backwards in CUDA C++ — and their plain versions.
 
-Counterpart of ``deeplearning4j_tpu/ops/fused_norms.py``. Five Triton
-kernels, each beside its plain PyTorch version:
+Counterpart of ``deeplearning4j_tpu/ops/fused_norms.py``. Five kernels,
+each beside its plain PyTorch version:
 
-- K2, RMSNorm forward (TPU kernel ``_rms_fwd_kernel``): one program per
-  row, the whole row in one block (``BLOCK = next_pow2(F)``, masked
-  lanes), f32 math with γ upcast, the output in x's dtype;
-- K6, RMSNorm backward (``_rms_bwd_kernel``): programs over row blocks;
-  each recomputes rstd from x (no saved residual), writes
-  dx = (g·γ − x·c·rstd²)·rstd with c = mean(g·γ·x), and an f32 partial
-  dγ over its rows; a second launch sums the partials in a fixed order,
-  so dγ is deterministic (the TPU kernel's sequential ``+=`` over its
-  grid). Plain version :func:`rms_norm_bwd_reference`;
-- K7, residual add + RMSNorm forward (``_add_rms_fwd_kernel``): one
-  program per row, s = x + d in f32, s stored in x's dtype, the norm
+- K2, RMSNorm forward (TPU kernel ``_rms_fwd_kernel``; Triton): one
+  program per row, the whole row in one block (``BLOCK = next_pow2(F)``,
+  masked lanes), f32 math with γ upcast, the output in x's dtype;
+- K6, RMSNorm backward (``_rms_bwd_kernel``; CUDA, ``csrc/norm_bwd.cu``):
+  rstd recomputed from x (no saved residual),
+  dx = (g·γ − x·c·rstd²)·rstd with c = mean(g·γ·x), and dγ summed over
+  the rows on chip in a fixed order, so that it is the same to the bit
+  from call to call (the TPU kernel's sequential ``+=`` over its grid).
+  Plain version :func:`rms_norm_bwd_reference`;
+- K7, residual add + RMSNorm forward (``_add_rms_fwd_kernel``; Triton):
+  one program per row, s = x + d in f32, s stored in x's dtype, the norm
   taken from the f32 s. Plain version :func:`add_rms_norm_reference`;
-- K8, LayerNorm forward (``_ln_fwd_kernel``): one program per row as
-  K2; the mean first, then the variance of the CENTRED row (two passes
-  over registers, as the TPU kernel does: E[x²] − E[x]² cancels on
-  bf16-sized data), y = (x − μ)/sqrt(var + eps)·γ + β in f32, stored in
-  x's dtype. The TPU kernel's padding of F to 128 lanes is the masking
+- K8, LayerNorm forward (``_ln_fwd_kernel``; Triton): one program per row
+  as K2; the mean first, then the variance of the CENTRED row (two
+  passes over registers, as the TPU kernel does: E[x²] − E[x]² cancels
+  on bf16-sized data), y = (x − μ)/sqrt(var + eps)·γ + β in f32, stored
+  in x's dtype. The TPU kernel's padding of F to 128 lanes is the masking
   of the lanes past F. Plain version :func:`layer_norm_reference`;
-- K9, LayerNorm backward (``_ln_bwd_kernel``): programs over runs of
-  whole rows, as K6; each recomputes μ and rstd from x (only x and γ
-  are saved), writes dx = (g − mean(g) − x̂·mean(g·x̂))·rstd with
-  g = dy·γ, and f32 partials of dγ = Σ dy·x̂ and dβ = Σ dy side by side
-  in one [programs, 2F] buffer; K6's reduce launch sums them in a fixed
-  order. Plain version :func:`layer_norm_bwd_reference`.
+- K9, LayerNorm backward (``_ln_bwd_kernel``; CUDA, the second
+  instantiation of K6's kernel): μ and rstd recomputed from x (only x
+  and γ are saved), dx = (g − mean(g) − x̂·mean(g·x̂))·rstd with g = dy·γ,
+  and dγ = Σ dy·x̂ and dβ = Σ dy side by side in one [2F] buffer, summed
+  as K6's dγ. Plain version :func:`layer_norm_bwd_reference`.
 
 All five are bound by bytes (a few flops per element read): each reads
 its rows once and writes them once, the least traffic the function
-allows. :func:`rms_norm`, :func:`add_rms_norm` and :func:`layer_norm` are
-differentiable through :class:`_RmsNormFn` (forward K2, backward K6),
-:class:`_AddRmsNormFn` (forward K7, backward K6 on the stored sum plus
-the residual stream's own gradient) and :class:`_LayerNormFn` (forward
-K8, backward K9). For a CUDA tensor a wrapper launches its kernel; for a
-CPU tensor it runs the plain version; a CUDA input a kernel does not
-take raises.
+allows. The CUDA kernel's design (a persistent grid, a warp a row fed by
+1-D TMA, dγ and dβ reduced through a thread-block cluster's shared
+memory and finished by the last cluster) is set out in
+``csrc/norm_bwd.cu``; its wrapper here computes the grid, the row
+partition and the scratch. :func:`rms_norm`, :func:`add_rms_norm` and
+:func:`layer_norm` are differentiable through :class:`_RmsNormFn`
+(forward K2, backward K6), :class:`_AddRmsNormFn` (forward K7, backward
+K6 on the stored sum plus the residual stream's own gradient) and
+:class:`_LayerNormFn` (forward K8, backward K9). For a CUDA tensor a
+wrapper launches its kernel; for a CPU tensor it runs the plain version;
+a CUDA input a kernel does not take raises.
 
 The plain forward versions compute in x's own dtype, as the JAX
 package's gate-off expressions do, so in bfloat16 they differ from the
@@ -47,12 +50,15 @@ compute the kernels' formulas in f32.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
+import math
 import types
 
 import torch
 
 from deeplearning4j_tpu_torch.obs import devtime
+from deeplearning4j_tpu_torch.ops import cuda_kernels
 
 #: default trailing-axis epsilon (same constant as the JAX package's
 #: ``fused_norms.RMSNORM_EPS`` and ``nn.layers.core.RMSNORM_EPS``)
@@ -63,8 +69,6 @@ LAYERNORM_EPS = 1e-5
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 #: widest row one program holds (the whole row sits in registers)
 _MAX_F = 16384
-#: K6's programs: at most this many, each over a run of whole rows
-_BWD_PROGRAMS = 1024
 
 
 def rms_norm_reference(x, gamma, eps: float = RMSNORM_EPS):
@@ -145,48 +149,6 @@ def _triton_kernels():
                  y.to(o_ptr.dtype.element_ty), mask=live)
 
     @triton.jit
-    def rms_bwd(x_ptr, g_ptr, dy_ptr, dx_ptr, part_ptr, R, F, rows_per,
-                eps, BLOCK: tl.constexpr):
-        pid = tl.program_id(0)
-        cols = tl.arange(0, BLOCK)
-        live = cols < F
-        g = tl.load(g_ptr + cols, mask=live, other=0.0).to(tl.float32)
-        dg = tl.zeros((BLOCK,), tl.float32)
-        r0 = pid * rows_per
-        r1 = tl.minimum(r0 + rows_per, R)
-        for r in range(r0, r1):
-            off = r.to(tl.int64) * F + cols
-            x = tl.load(x_ptr + off, mask=live, other=0.0).to(tl.float32)
-            dy = tl.load(dy_ptr + off, mask=live,
-                         other=0.0).to(tl.float32)
-            rstd = tl.rsqrt(tl.sum(x * x, axis=0) / F + eps)
-            gg = dy * g
-            c = tl.sum(gg * x, axis=0) / F
-            dx = (gg - x * (c * rstd * rstd)) * rstd
-            tl.store(dx_ptr + off, dx.to(dx_ptr.dtype.element_ty),
-                     mask=live)
-            dg += dy * x * rstd
-        tl.store(part_ptr + pid.to(tl.int64) * F + cols, dg, mask=live)
-
-    @triton.jit
-    def rms_bwd_reduce(part_ptr, dg_ptr, n_part, F,
-                       BLOCK_P: tl.constexpr, BLOCK_C: tl.constexpr):
-        # the partials' columns summed in a fixed order (dγ of K6; dγ
-        # and dβ side by side for K9): a tree within each BLOCK_P-row
-        # chunk, chunks in sequence
-        cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
-        live = cols < F
-        acc = tl.zeros((BLOCK_C,), tl.float32)
-        for p0 in range(0, n_part, BLOCK_P):
-            rows = p0 + tl.arange(0, BLOCK_P)
-            m = (rows[:, None] < n_part) & live[None, :]
-            blk = tl.load(part_ptr + rows[:, None].to(tl.int64) * F
-                          + cols[None, :], mask=m, other=0.0)
-            acc += tl.sum(blk, axis=0)
-        tl.store(dg_ptr + cols, acc.to(dg_ptr.dtype.element_ty),
-                 mask=live)
-
-    @triton.jit
     def add_rms_fwd(x_ptr, d_ptr, g_ptr, y_ptr, s_ptr, F, eps,
                     BLOCK: tl.constexpr):
         row = tl.program_id(0).to(tl.int64)
@@ -219,46 +181,13 @@ def _triton_kernels():
         y = xc / tl.sqrt(var + eps) * g + b
         tl.store(y_ptr + off, y.to(y_ptr.dtype.element_ty), mask=live)
 
-    @triton.jit
-    def ln_bwd(x_ptr, g_ptr, dy_ptr, dx_ptr, part_ptr, R, F, rows_per, eps,
-               BLOCK: tl.constexpr):
-        pid = tl.program_id(0)
-        cols = tl.arange(0, BLOCK)
-        live = cols < F
-        g = tl.load(g_ptr + cols, mask=live, other=0.0).to(tl.float32)
-        dg = tl.zeros((BLOCK,), tl.float32)
-        db = tl.zeros((BLOCK,), tl.float32)
-        r0 = pid * rows_per
-        r1 = tl.minimum(r0 + rows_per, R)
-        for r in range(r0, r1):
-            off = r.to(tl.int64) * F + cols
-            x = tl.load(x_ptr + off, mask=live, other=0.0).to(tl.float32)
-            dy = tl.load(dy_ptr + off, mask=live,
-                         other=0.0).to(tl.float32)
-            xc = tl.where(live, x - tl.sum(x, axis=0) / F, 0.0)
-            rstd = tl.rsqrt(tl.sum(xc * xc, axis=0) / F + eps)
-            xhat = xc * rstd
-            gh = dy * g                       # 0 past F (dy loads 0)
-            m1 = tl.sum(gh, axis=0) / F
-            m2 = tl.sum(gh * xhat, axis=0) / F
-            dx = (gh - m1 - xhat * m2) * rstd
-            tl.store(dx_ptr + off, dx.to(dx_ptr.dtype.element_ty),
-                     mask=live)
-            dg += dy * xhat
-            db += dy
-        # this program's partials: dγ in [0, F), dβ in [F, 2F) of its row
-        base = part_ptr + pid.to(tl.int64) * 2 * F
-        tl.store(base + cols, dg, mask=live)
-        tl.store(base + F + cols, db, mask=live)
-
     return types.SimpleNamespace(
-        triton=triton, rms_fwd=rms_fwd, rms_bwd=rms_bwd,
-        bwd_reduce=rms_bwd_reduce, add_rms_fwd=add_rms_fwd, ln_fwd=ln_fwd,
-        ln_bwd=ln_bwd)
+        triton=triton, rms_fwd=rms_fwd, add_rms_fwd=add_rms_fwd,
+        ln_fwd=ln_fwd)
 
 
 def _check(name: str, x, gamma, *rows, beta=None) -> int:
-    """Raise on anything the Triton kernels do not take; returns F."""
+    """Raise on anything the kernels do not take; returns F."""
     if x.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"{name} kernel takes {_KERNEL_DTYPES}, not "
                          f"{x.dtype}")
@@ -286,22 +215,6 @@ def _warps(block: int) -> int:
     return 4 if block <= 2048 else 8
 
 
-def _row_runs(triton, rows: int):
-    """(rows per program, programs) of a backward kernel: at most
-    ``_BWD_PROGRAMS`` programs, each over a run of whole rows."""
-    rows_per = triton.cdiv(rows, min(rows, _BWD_PROGRAMS))
-    return rows_per, triton.cdiv(rows, rows_per)
-
-
-def _reduce_partials(k, part, out) -> None:
-    """``out`` = the column sums of the f32 partials ``part`` [programs,
-    C], in a fixed order, cast to ``out``'s dtype (one launch)."""
-    n_prog, c = part.shape
-    k.bwd_reduce[(k.triton.cdiv(c, 32),)](part, out, n_prog, c,
-                                          BLOCK_P=64, BLOCK_C=32,
-                                          num_warps=4)
-
-
 def _rms_triton(x, gamma, eps: float):
     f = _check("rms_norm", x, gamma)
     x2 = x.reshape(-1, f)
@@ -316,27 +229,6 @@ def _rms_triton(x, gamma, eps: float):
                                num_warps=_warps(block))
         rms_norm.launches += 1
     return out.reshape(x.shape)
-
-
-def _rms_bwd_triton(x, gamma, dy, eps: float):
-    f = _check("rms_norm_bwd", x, gamma, dy)
-    x2, dy2 = x.reshape(-1, f), dy.reshape(-1, f)
-    rows = x2.shape[0]
-    dx = torch.empty_like(x2)
-    dg = torch.empty((f,), dtype=gamma.dtype, device=x.device)
-    if not rows:
-        return dx.reshape(x.shape), dg.zero_()
-    k = _triton_kernels()
-    rows_per, n_prog = _row_runs(k.triton, rows)
-    part = torch.empty((n_prog, f), dtype=torch.float32, device=x.device)
-    block = k.triton.next_power_of_2(f)
-    with torch.cuda.device(x.device):
-        k.rms_bwd[(n_prog,)](x2, gamma, dy2, dx, part, rows, f, rows_per,
-                             float(eps), BLOCK=block,
-                             num_warps=_warps(block))
-        _reduce_partials(k, part, dg)
-    rms_norm_bwd.launches += 1
-    return dx.reshape(x.shape), dg
 
 
 def _add_rms_triton(x, delta, gamma, eps: float):
@@ -370,27 +262,143 @@ def _ln_triton(x, gamma, beta, eps: float):
     return y.reshape(x.shape)
 
 
-def _ln_bwd_triton(x, gamma, dy, eps: float):
-    f = _check("layer_norm_bwd", x, gamma, dy)
+# ---------------------------------------------------------------------------
+# K6 and K9: the CUDA kernel of csrc/norm_bwd.cu
+# ---------------------------------------------------------------------------
+_NORM_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: warps a block of ``csrc/norm_bwd.cu``: on its warp paths a block
+#: takes this many rows at once, a warp a row
+_NORM_WARPS = 8
+#: widest row of the warp paths (at most 32 elements a lane in registers)
+_WARP_MAX_F = 1024
+#: the kernel's paths (``PATH_*`` in ``csrc/norm_bwd.cu``): a block a
+#: row, by elements or by 16-byte chunks; a warp a row, by elements, by
+#: 16-byte chunks, or by TMA row copies into a ring
+(_PATH_BLOCK, _PATH_BLOCK_VEC, _PATH_WARP, _PATH_WARP_VEC,
+ _PATH_WARP_TMA) = range(5)
+#: rows a warp (on a full grid) from which the TMA ring takes over from
+#: 16-byte register loads, for RMSNorm (False) and LayerNorm (True): a
+#: ring prefetches a warp's next rows, so it needs at least 2; measured
+#: on the H100 (``tools/torch_norm_bwd_timing.py``), the ring is a few
+#: per cent ahead on LayerNorm's rows (three reductions a row) and a few
+#: per cent behind on RMSNorm's (one), at every main-path row count
+_TMA_ROWS_PER_WARP = {False: math.inf, True: 2}
+#: (device, dtype, LayerNorm, path, F) -> (co-resident blocks, cluster
+#: size), from the occupancy API once per configuration
+_GRID_LIMITS = {}
+#: (device, stream) -> the int32 tickets [8] of the kernel's finish, one
+#: per cluster rank: 0 between launches (each finishing block resets its
+#: own), so one set per stream, whose launches run in order
+_TICKETS = {}
+
+
+def _row_partition(rows: int, grid: int):
+    """The rows each block of the kernel takes, as ``[(start, end)]`` in
+    block order: block b the contiguous run ``[b·rows // grid,
+    (b+1)·rows // grid)`` — the kernel's own formula, a function of
+    (rows, grid) alone, so that every sum of dγ and dβ runs in the same
+    order from call to call."""
+    return [(b * rows // grid, (b + 1) * rows // grid)
+            for b in range(grid)]
+
+
+def _bwd_grid(rows: int, unit: int, max_blocks: int, cluster: int) -> int:
+    """Blocks of one launch: enough for ``rows`` at ``unit`` rows a block
+    at once, at most the co-resident ``max_blocks``, a whole number of
+    clusters."""
+    blocks = -(-rows // unit)
+    want = -(-blocks // cluster) * cluster
+    return max(cluster, min(max_blocks, want))
+
+
+def _norm_path(f: int, *rows) -> int:
+    """The kernel's path for these rows: a warp a row up to
+    ``_WARP_MAX_F`` features, a block a row past it; 16-byte accesses
+    (on the warp path TMA row copies, which :func:`_norm_bwd_cuda` trades
+    for 16-byte register loads by ``_TMA_ROWS_PER_WARP``) when the rows
+    are whole 16-byte chunks on 16-byte bases."""
+    chunks = (f * rows[0].element_size() % 16 == 0
+              and all(r.data_ptr() % 16 == 0 for r in rows))
+    if f <= _WARP_MAX_F:
+        return _PATH_WARP_TMA if chunks else _PATH_WARP
+    return _PATH_BLOCK_VEC if chunks else _PATH_BLOCK
+
+
+def _grid_limits(lib, x, ln: bool, path: int, f: int):
+    key = (x.device.index, x.dtype, ln, path, f)
+    hit = _GRID_LIMITS.get(key)
+    if hit is None:
+        res = (ctypes.c_int * 2)()
+        err = lib.dl4j_norm_bwd_grid(_NORM_DTYPES[x.dtype], int(ln), path,
+                                     f, ctypes.addressof(res))
+        cuda_kernels._raise_on(lib, err, "norm_bwd grid query",
+                               "configuration refused")
+        hit = _GRID_LIMITS[key] = (res[0], res[1])
+    return hit
+
+
+def _tickets(device, stream: int):
+    key = (device.index, stream)
+    t = _TICKETS.get(key)
+    if t is None:
+        t = _TICKETS[key] = torch.zeros(8, dtype=torch.int32, device=device)
+    return t
+
+
+def _norm_bwd_cuda(name: str, x, gamma, dy, eps: float, ln: bool):
+    """Launch K6 (``ln`` False: dx, dγ) or K9 (dx, dγ, dβ) of
+    ``csrc/norm_bwd.cu``; returns dx and the [F] or [2F] buffer of dγ
+    (then dβ) in γ's dtype, or None for it when there are no rows (no
+    launch)."""
+    f = _check(name, x, gamma, dy)
     x2, dy2 = x.reshape(-1, f), dy.reshape(-1, f)
     rows = x2.shape[0]
     dx = torch.empty_like(x2)
-    dgb = torch.empty((2 * f,), dtype=gamma.dtype, device=x.device)
+    ncol = 2 * f if ln else f
     if not rows:
-        dgb.zero_()
-        return dx.reshape(x.shape), dgb[:f], dgb[f:]
-    k = _triton_kernels()
-    rows_per, n_prog = _row_runs(k.triton, rows)
-    part = torch.empty((n_prog, 2 * f), dtype=torch.float32,
+        return dx.reshape(x.shape), None
+    if x.device.index != torch.cuda.current_device():
+        with torch.cuda.device(x.device):
+            return _norm_bwd_cuda(name, x, gamma, dy, eps, ln)
+    out = torch.empty((ncol,), dtype=gamma.dtype, device=x.device)
+    lib = cuda_kernels._lib("norm_bwd")
+    path = _norm_path(f, x2, dy2, dx)
+    max_blocks, cluster = _grid_limits(lib, x2, ln, path, f)
+    if (path == _PATH_WARP_TMA
+            and rows < _TMA_ROWS_PER_WARP[ln] * _NORM_WARPS * max_blocks):
+        path = _PATH_WARP_VEC
+        max_blocks, cluster = _grid_limits(lib, x2, ln, path, f)
+    grid = _bwd_grid(rows, _NORM_WARPS if path >= _PATH_WARP else 1,
+                     max_blocks, cluster)
+    part = torch.empty((grid // cluster, ncol), dtype=torch.float32,
                        device=x.device)
-    block = k.triton.next_power_of_2(f)
-    with torch.cuda.device(x.device):
-        k.ln_bwd[(n_prog,)](x2, gamma, dy2, dx, part, rows, f, rows_per,
-                            float(eps), BLOCK=block,
-                            num_warps=_warps(block))
-        _reduce_partials(k, part, dgb)
-    layer_norm_bwd.launches += 1
-    return dx.reshape(x.shape), dgb[:f], dgb[f:]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.dl4j_norm_bwd(
+        _NORM_DTYPES[x.dtype], _NORM_DTYPES[gamma.dtype], int(ln), path,
+        x2.data_ptr(), dy2.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
+        part.data_ptr(), _tickets(x.device, stream).data_ptr(),
+        out.data_ptr(), rows, f, float(eps), grid, cluster, stream)
+    cuda_kernels._raise_on(lib, err, name, "arguments refused")
+    return dx.reshape(x.shape), out
+
+
+def _rms_bwd_cuda(x, gamma, dy, eps: float):
+    dx, dg = _norm_bwd_cuda("rms_norm_bwd", x, gamma, dy, eps, False)
+    if dg is None:
+        return dx, torch.zeros((x.shape[-1],), dtype=gamma.dtype,
+                               device=x.device)
+    rms_norm_bwd.launches += 1
+    return dx, dg
+
+
+def _ln_bwd_cuda(x, gamma, dy, eps: float):
+    dx, dgb = _norm_bwd_cuda("layer_norm_bwd", x, gamma, dy, eps, True)
+    f = x.shape[-1]
+    if dgb is None:
+        dgb = torch.zeros((2 * f,), dtype=gamma.dtype, device=x.device)
+    else:
+        layer_norm_bwd.launches += 1
+    return dx, dgb[:f], dgb[f:]
 
 
 def _wants_grad(*xs) -> bool:
@@ -475,11 +483,11 @@ def rms_norm(x, gamma, eps: float = RMSNORM_EPS):
 
 def rms_norm_bwd(x, gamma, dy, eps: float = RMSNORM_EPS):
     """(dx, dγ) of :func:`rms_norm` for the output gradient ``dy``: the
-    Triton kernel K6 for a CUDA tensor, :func:`rms_norm_bwd_reference`
-    for a CPU tensor."""
+    CUDA kernel K6 (``csrc/norm_bwd.cu``) for a CUDA tensor,
+    :func:`rms_norm_bwd_reference` for a CPU tensor."""
     with devtime.scope("ops.rms_norm_bwd"):
         if x.is_cuda:
-            return _rms_bwd_triton(x, gamma, dy, eps)
+            return _rms_bwd_cuda(x, gamma, dy, eps)
         return rms_norm_bwd_reference(x, gamma, dy, eps)
 
 
@@ -510,15 +518,15 @@ def layer_norm(x, gamma, beta, eps: float = LAYERNORM_EPS):
 
 def layer_norm_bwd(x, gamma, dy, eps: float = LAYERNORM_EPS):
     """(dx, dγ, dβ) of :func:`layer_norm` for the output gradient ``dy``:
-    the Triton kernel K9 for a CUDA tensor,
+    the CUDA kernel K9 (``csrc/norm_bwd.cu``) for a CUDA tensor,
     :func:`layer_norm_bwd_reference` for a CPU tensor."""
     with devtime.scope("ops.layer_norm_bwd"):
         if x.is_cuda:
-            return _ln_bwd_triton(x, gamma, dy, eps)
+            return _ln_bwd_cuda(x, gamma, dy, eps)
         return layer_norm_bwd_reference(x, gamma, dy, eps)
 
 
-#: launches of the Triton kernels (the counts the smoke run reads)
+#: launches of the kernels (the counts the smoke run reads)
 rms_norm.launches = 0
 rms_norm_bwd.launches = 0
 add_rms_norm.launches = 0

@@ -126,8 +126,8 @@ KERNELS: Tuple[KernelEntry, ...] = (
         paths=("longctx",), per_step={"longctx": 12}),    # once a block
     KernelEntry(
         "K6", "rms_norm_bwd", f"{_FN}:119", f"{_FN}:_rms_bwd_call",
-        "ported", "training", route="triton",
-        source="deeplearning4j_tpu_torch/ops/fused_norms.py",
+        "ported", "training", route="cuda",
+        source="deeplearning4j_tpu_torch/csrc/norm_bwd.cu",
         port=f"{_NORM}:rms_norm_bwd",
         plain=f"{_NORM}:rms_norm_bwd_reference",
         paths=("train", "longctx", *_DP),
@@ -149,8 +149,8 @@ KERNELS: Tuple[KernelEntry, ...] = (
         paths=("finetune",), per_step={"finetune": 26}),
     KernelEntry(
         "K9", "layer_norm_bwd", f"{_FN}:312", f"{_FN}:_ln_bwd_call",
-        "ported", "encoder", route="triton",
-        source="deeplearning4j_tpu_torch/ops/fused_norms.py",
+        "ported", "encoder", route="cuda",
+        source="deeplearning4j_tpu_torch/csrc/norm_bwd.cu",
         port=f"{_NORM}:layer_norm_bwd",
         plain=f"{_NORM}:layer_norm_bwd_reference", paths=("finetune",),
         per_step={"finetune": 26}),                       # all 26 norms

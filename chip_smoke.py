@@ -93,7 +93,9 @@ Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
    ``csrc/flash_mma.cuh``). At the long-context shape the split pair is
    also held against K3, and K4's dq and K5's dk, dv must be the same to
    the bit over two runs; K10 and K11 are held to the bit (words,
-   residuals, decoded values, and four emulated ranks' decode-sum). The
+   residuals, decoded values, and four emulated ranks' decode-sum), K11
+   also at every leaf shape of the packed step and at ragged sizes, and
+   it fails over ``K11_BAR_MS`` at the embedding leaf. The
    kernels and SDPA are timed by the replay of a CUDA graph of their
    calls (20 for the small ones), which keeps the host's launch path out
    of the time; the plain versions of K3, K4 and K5 by CUDA events
@@ -1052,7 +1054,6 @@ def _check_codec(e10, e11, rows, card):
         if (shape, dname) != ((10001,), "bfloat16"):
             t10 = device_ms(lambda: enc(grad, tau))
             p10 = device_ms(lambda: enc_p(grad, tau), iters=5)
-            t11 = device_ms(lambda: dec(words, tau, n, shape))
             p11 = device_ms(lambda: dec_p(words, tau, n, shape), iters=5)
             # K10: g read, residual written (f32), words written; K11:
             # the words it needs read, n f32 written; a compare, a select
@@ -1060,13 +1061,13 @@ def _check_codec(e10, e11, rows, card):
             b10 = bound_ms(3 * n, 4 * n + 4 * n + 4 * c, PEAK_F32_FLOPS)
             b11 = bound_ms(2 * n, 4 * -(-n // 16) + 4 * n, PEAK_F32_FLOPS)
             line += (f"; K10 kernel_ms={t10:.4f} plain_ms={p10:.4f} "
-                     f"bound_ms={b10[0]:.5f}({b10[1]}); K11 kernel_ms="
-                     f"{t11:.4f} plain_ms={p11:.4f} bound_ms={b11[0]:.5f}"
-                     f"({b11[1]})")
+                     f"bound_ms={b10[0]:.5f}({b10[1]}); K11 plain_ms="
+                     f"{p11:.4f} bound_ms={b11[0]:.5f}({b11[1]}) (its "
+                     f"kernel ms: the leaf check below)")
             if i == 0:
                 rows["K10"] = dict(ms=t10, plain_ms=p10, library_ms=None,
                                    bound_ms=b10[0], bound_by=b10[1])
-                rows["K11"] = dict(ms=t11, plain_ms=p11, library_ms=None,
+                rows["K11"] = dict(ms=None, plain_ms=p11, library_ms=None,
                                    bound_ms=b11[0], bound_by=b11[1])
         log(f"{line} {card}")
         if not all(same.values()):
@@ -1095,6 +1096,128 @@ def _check_codec(e10, e11, rows, card):
     if not same:
         raise AssertionError("K10/K11 four-rank decode-sum disagrees with "
                              "the plain versions")
+    del grads, words, plain_words, got, ref
+    rows["K11"]["ms"] = _check_decode_leaves(e10, e11, card)
+
+
+# K11 at every gradient leaf shape of the dp_packed step, with its
+# leaves a step (1 + 48 + 36 + 37 + 1 = 123; [2048, 768] has the
+# elements of [768, 2048]); ragged sizes (513 and 65 736 end mid-span,
+# 17 and 10 001 mid-word too); the bar at the embedding leaf: half of
+# its byte bound
+DECODE_LEAVES = (((50257, 768), 1), ((768, 768), 48), ((768, 2048), 36),
+                 ((768,), 37), ((50257,), 1))
+DECODE_RAGGED = (17, 513, 10001, 65736)
+K11_BAR_MS = 0.0980
+
+
+def _decode_c(lib, words, tau, out_ptr, n):
+    """K11's C entry called directly (no launch counted): its return
+    code."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    err = lib.dl4j_threshold_decode(
+        words.data_ptr(), tau.data_ptr(), out_ptr, n,
+        ck.decode_grid(n), torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    return err
+
+
+def _check_decode_leaves(e10, e11, card) -> float:
+    """K11 against its plain version, bit for bit, at every leaf shape of
+    ``DECODE_LEAVES`` and at the ragged sizes of ``DECODE_RAGGED``, where
+    the C entry, called into a larger buffer, must leave every element
+    past the leaf untouched; and the C entry must refuse (-1, nothing
+    written) an output one element off 16-byte alignment. At each leaf
+    shape: the kernel's device ms (CUDA-graph replay of 100 calls), its
+    byte bound and bound share, the write ceiling (``fill_(0.0)`` of an f32
+    buffer of the leaf's size by CUDA-graph replay: a yardstick of the
+    card's write rate in this run, not the same function), the host ms
+    of eager calls, the grid; then the sum over one step's 123 leaves.
+    Fails on the bar at the embedding leaf. Returns the kernel ms
+    there."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    enc, dec, dec_p = e10.port_fn(), e11.port_fn(), e11.plain_fn()
+    lib = ck._lib("threshold_codec")
+    step = dict(kernel=0.0, bound=0.0, fill=0.0)
+    main_ms = None
+    for i, (shape, leaves) in enumerate(DECODE_LEAVES):
+        grad, tau = _codec_grad(shape, 720 + i)
+        n = grad.numel()
+        words, _ = enc(grad, tau)
+        same = _same_bits(dec(words, tau, n, shape),
+                          dec_p(words, tau, n, shape))
+        buf = torch.empty(n, dtype=torch.float32, device="cuda")
+        # 100 calls a reading: the small leaves take ~2 µs
+        kernel = lambda: device_ms(lambda: dec(words, tau, n, shape),
+                                   iters=100)
+        fill = lambda: device_ms(lambda: buf.fill_(0.0), iters=100)
+        # in turns: kernel, ceiling, ceiling, kernel
+        t_k, t_f, t_f2, t_k2 = kernel(), fill(), fill(), kernel()
+        t_k, t_f = (t_k + t_k2) / 2, (t_f + t_f2) / 2
+        t_h = time_ms(lambda: dec(words, tau, n, shape))
+        # the words it needs read, n f32 written; a select an element
+        b_ms, b_by = bound_ms(2 * n, 4 * -(-n // 16) + 4 * n,
+                              PEAK_F32_FLOPS)
+        step["kernel"] += leaves * t_k
+        step["bound"] += leaves * b_ms
+        step["fill"] += leaves * t_f
+        main = shape == (50257, 768)
+        line = (f"K11 decode leaf {list(shape)} x{leaves} a step: "
+                f"bit-identical={same} kernel_ms={t_k:.6f} "
+                f"host_ms={t_h:.4f} bound_ms={b_ms:.4g}({b_by}) "
+                f"bound_share={b_ms / t_k:.3f} write_ceiling_ms={t_f:.6f} "
+                f"kernel/ceiling={t_k / t_f:.2f} grid="
+                f"{ck.decode_grid(n)}x{ck.DECODE_WARPS * 32}"
+                f"{f' bar={K11_BAR_MS}' if main else ''} {card}")
+        log(line)
+        if not same:
+            raise AssertionError(f"K11 disagrees with its plain version: "
+                                 f"{line}")
+        if main:
+            main_ms = t_k
+            if t_k > K11_BAR_MS:
+                raise AssertionError(f"K11 misses its bar at the embedding "
+                                     f"leaf: {line}")
+        del grad, words, buf
+    log(f"K11 one dp_packed step, {sum(c for _, c in DECODE_LEAVES)} "
+        f"leaves (leaf times x leaves): kernel_ms={step['kernel']:.6f} "
+        f"bound_ms={step['bound']:.6f} bound_share="
+        f"{step['bound'] / step['kernel']:.3f} write_ceiling_ms="
+        f"{step['fill']:.6f} {card}")
+    # ragged sizes, into a buffer a span longer than the leaf
+    tau = torch.tensor(1e-3, device="cuda")
+    for i, n in enumerate(DECODE_RAGGED):
+        grad, _ = _codec_grad((n,), 730 + i)
+        words, _ = enc(grad, tau)
+        ref = dec_p(words, tau, n)
+        buf = torch.full((n + ck.SPAN,), 7.0, device="cuda")
+        err = _decode_c(lib, words, tau, buf.data_ptr(), n)
+        same = _same_bits(dec(words, tau, n), ref)
+        into = err == 0 and _same_bits(buf[:n], ref)
+        past = bool((buf[n:] == 7.0).all())
+        line = (f"K11 decode size={n}: bit-identical={same} (C entry "
+                f"rc={err}: bit-identical={into} past_the_end_untouched="
+                f"{past}) {card}")
+        log(line)
+        if not (same and into and past):
+            raise AssertionError(f"K11 disagrees with its plain version: "
+                                 f"{line}")
+        del grad, words, ref, buf
+    # an output one element off 16-byte alignment: refused, not written
+    n = 10001
+    words = torch.zeros(ck.threshold_words(n), dtype=torch.int32,
+                        device="cuda")
+    buf = torch.full((n + 1,), 7.0, device="cuda")
+    err = _decode_c(lib, words, tau, buf.data_ptr() + 4, n)
+    untouched = bool((buf == 7.0).all())
+    line = (f"K11 decode into an out 4 bytes off 16-byte alignment: C "
+            f"entry rc={err} (-1 expected) untouched={untouched} {card}")
+    log(line)
+    if err != -1 or not untouched:
+        raise AssertionError(f"K11 took an unaligned out: {line}")
+    return main_ms
 
 
 def _norm_inputs(dt, n, f, seed):

@@ -39,7 +39,8 @@ Counterpart of ``deeplearning4j_tpu/ops/pallas_kernels.py``. Kernels:
   versions :func:`threshold_encode_reference` and
   :func:`threshold_decode_reference` (the ports of
   ``_jnp_threshold_encode``/``_jnp_threshold_decode``, on the flat
-  layout).
+  layout). The decode gives a warp a span of :data:`SPAN` elements on
+  the grid of :func:`decode_grid`.
 
 :func:`flash_attention` is differentiable: when autograd needs its
 gradient it runs through :class:`_FlashAttentionFn`, whose forward calls
@@ -87,7 +88,7 @@ _LIBS = {
             + [_I] * 3 + [_F, _P]}),
     "threshold_codec": (("threshold_codec.cu",), {
         "dl4j_threshold_encode": [_P] * 4 + [_LL, _LL, _P],
-        "dl4j_threshold_decode": [_P] * 3 + [_LL, _P]}),
+        "dl4j_threshold_decode": [_P] * 3 + [_LL, _LL, _P]}),
     # K6 and K9, bound in ops/fused_norms.py
     "norm_bwd": (("norm_bwd.cu",), {
         "dl4j_norm_bwd_grid": [_I] * 4 + [_P],
@@ -697,6 +698,11 @@ _GROUP = 16          # 16 two-bit codes per int32 word
 #: the JAX entries' grid block width, which rounds the word count up
 _BLOCK_COLS = 32768
 _CODEC_FLOATS = (torch.float32, torch.bfloat16, torch.float16)
+#: K11's launch shape (``csrc/threshold_codec.cu``): warps a block, and
+#: the words (SPAN_WORDS) and elements (SPAN) a warp decodes
+DECODE_WARPS = 4
+SPAN_WORDS = 32
+SPAN = SPAN_WORDS * _GROUP
 
 
 def threshold_words(size: int) -> int:
@@ -792,12 +798,20 @@ def threshold_encode(grad, tau):
         return packed, resid.reshape(shape)
 
 
+def decode_grid(size: int) -> int:
+    """K11's grid for a leaf of ``size`` elements: blocks of
+    :data:`DECODE_WARPS` warps, a warp a span of :data:`SPAN` elements
+    over the whole leaf. 0 for an empty leaf: no launch."""
+    spans = -(-size // SPAN)
+    return -(-spans // DECODE_WARPS)
+
+
 def threshold_decode(packed, tau, size: int, shape=None):
     """Threshold decode (K11, ``csrc/threshold_codec.cu``, replacing
     ``_decode_kernel``): the first ``size`` codes of ``packed`` (int32,
     at least ceil(size / 16) words) → dense f32 ±τ/0, shaped ``shape``
-    when given. A CUDA ``packed`` launches the kernel; a CPU one runs
-    :func:`threshold_decode_reference`."""
+    when given. A CUDA ``packed`` launches the kernel on the grid of
+    :func:`decode_grid`; a CPU one runs :func:`threshold_decode_reference`."""
     with devtime.scope("ops.threshold_decode"):
         if not packed.is_cuda:
             return threshold_decode_reference(packed, tau, size, shape)
@@ -814,8 +828,10 @@ def threshold_decode(packed, tau, size: int, shape=None):
             lib = _lib("threshold_codec")
             err = lib.dl4j_threshold_decode(
                 packed.data_ptr(), t.data_ptr(), out.data_ptr(), size,
+                decode_grid(size),
                 torch.cuda.current_stream(packed.device).cuda_stream)
-            _raise_on(lib, err, "threshold_decode", "grid too large")
+            _raise_on(lib, err, "threshold_decode",
+                      "grid short of the leaf or out not 16-byte aligned")
             threshold_decode.launches += 1
         return out.reshape(shape) if shape is not None else out
 

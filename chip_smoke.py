@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card (H100).
 
-    python3 chip_smoke.py               # phases 1-13 (needs one card)
+    python3 chip_smoke.py               # phases 1-15 (needs one card)
     python3 chip_smoke.py --phases train,train_agree,kernels
     python3 chip_smoke.py --phases finetune,finetune_agree,kernels
     python3 chip_smoke.py --phases longctx,longctx_agree,kernels
     python3 chip_smoke.py --phases dp,dp_packed,dp_agree,kernels
+    python3 chip_smoke.py --phases sp,sp_agree,kernels
     python3 chip_smoke.py --phases profile    # device-time breakdown
 
 Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
@@ -79,7 +80,22 @@ Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
    updates (all but the codes flipped at |g| ≈ τ equal) and the
    residuals (where the codes agree, to 1e-3 of the leaf's largest
    gradient);
-13. kernels — holds each ported kernel against its plain PyTorch version
+13. sp — ``initialize_distributed()`` (this process alone), then
+   ``make_mesh({"seq": 1})`` and ``distributed_context``: the longctx
+   phase's LM built with ``sequence_parallel="zigzag_ring"`` and trained
+   by ``net.fit(x, y)`` on the same 1 x 32 768 batch, 1 warm and 3
+   timed steps. Each layer's attention is the zigzag ring at one rank:
+   four half-chunk block pairs of 16 384 rows a step through
+   ``flash_block_fwd`` (K1) and ``flash_block_bwd`` (K3: the half's rows
+   fit the fused budget), one pair wholly above the diagonal; every loss
+   finite and the last below the first, each kernel launched exactly its
+   registry count per step;
+14. sp_agree — one f32 step (TF32 off) of the train phase's model at
+   B = 2, T = 256 under the seq-1 context for each of ``ring``,
+   ``zigzag_ring`` and ``ulysses``: the card's loss and every gradient
+   against the same step without the context on the card, and against
+   the same step under the context on the CPU;
+15. kernels — holds each ported kernel against its plain PyTorch version
    on the card at its main paths' shapes, in bfloat16 (for K1, K3, K4
    and K5 the tensor-core kernels of ``csrc/flash_mma.cuh``) and float32
    (their CUDA-core kernels), including operands whose base and strides
@@ -95,7 +111,14 @@ Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
    the bit over two runs; K10 and K11 are held to the bit (words,
    residuals, decoded values, and four emulated ranks' decode-sum), K11
    also at every leaf shape of the packed step and at ragged sizes, and
-   it fails over ``K11_BAR_MS`` at the embedding leaf. The
+   it fails over ``K11_BAR_MS`` at the embedding leaf. The ring's block
+   entries ``flash_block_fwd``/``flash_block_bwd`` (K1; K3), and K4 and
+   K5 through their ``offsets``, are held against their plain versions
+   at T_loc = 2048, H = 6, D = 128 for all 16 (rank, source) block pairs
+   of a 4-rank causal ring and the four half-chunk pairs of a 2-rank
+   zigzag ring, bf16 and f32, without and with a ragged key mask, and
+   once with GQA; a block wholly above the diagonal must give exact
+   zeros and a −inf lse. The
    kernels and SDPA are timed by the replay of a CUDA graph of their
    calls (20 for the small ones), which keeps the host's launch path out
    of the time; the plain versions of K3, K4 and K5 by CUDA events
@@ -107,12 +130,13 @@ Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
    byte length is not a multiple of 16 and at wide rows (``NORM_BWD_CASES``),
    their dγ and dβ must be the same to the bit over two calls, and each
    case prints its share of the bound; the phase fails where one is
-   slower than its PyTorch call (but at those off-path rows), or below
-   half of its bound at the main path's shape. This phase runs last, so that
+   slower than its PyTorch call (but at those off-path rows; each side
+   the median of ``NORM_BAR_PAIRS`` alternating turns), or below half of
+   its bound at the main path's shape. This phase runs last, so that
    nothing it leaves behind in the process can slow the host-bound serve
    step (``PERF.md`` records such a slowdown, cause not isolated).
 
-Each main path (serve, train, finetune, longctx, dp, dp_packed) zeroes
+Each main path (serve, train, finetune, longctx, dp, dp_packed, sp) zeroes
 the launch counters of the kernels just before it runs and reads them
 just after; it fails if a kernel the registry lists for that path was
 not launched, and on a stepped path (all but serve) if any ported kernel
@@ -122,10 +146,10 @@ path does not list).
 ``profile`` (not in the default run) prints the device busy time, idle
 share and top kernels of one 2048-bucket prefill, of 8 decode steps with
 32 active slots, of one training step, of one fine-tune step, of one
-long-context step, of one dp_packed step and of its exchange alone, from
-``torch.profiler``. Each window's wall time is taken before the first
-profiled window, and the decode window's wall once more after the last
-one, to show whether profiling changed it.
+long-context step, of one sp step, of one dp_packed step and of its
+exchange alone, from ``torch.profiler``. Each window's wall time is
+taken before the first profiled window, and the decode window's wall
+once more after the last one, to show whether profiling changed it.
 
 Any failed phase exits non-zero before the result lines. The last two
 lines are the ``kernels`` JSON object (when the kernels phase and a path
@@ -138,13 +162,14 @@ import concurrent.futures
 import contextlib
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
 
 PHASES = ("device", "serve", "agree", "train", "train_agree", "finetune",
           "finetune_agree", "longctx", "longctx_agree", "dp", "dp_packed",
-          "dp_agree", "kernels")
+          "dp_agree", "sp", "sp_agree", "kernels")
 
 # published peaks of one H100 SXM (dense): the bound of a kernel is the
 # larger of its operations over the peak rate for their type and its
@@ -212,6 +237,16 @@ BERT_B, BERT_T, BERT_HEADS, BERT_D = 64, 128, 12, 64
 # a step: past 24 576 query rows its backward takes the split pair
 LONGCTX = dict(SERVE, max_len=32768)
 LONGCTX_B, LONGCTX_T = 1, 32768
+# sequence parallelism: the long-context LM, zigzag ring over one rank
+SP = dict(LONGCTX, sequence_parallel="zigzag_ring")
+SP_MODES = ("ring", "zigzag_ring", "ulysses")
+# the ring's block pairs in the kernels phase: T_loc rows a rank, the
+# causal ring of SP_RING ranks, the zigzag ring of SP_ZIGZAG ranks
+SP_T_LOC, SP_RING, SP_ZIGZAG = 2048, 4, 2
+# the K6/K9 library bars: kernel and library call timed in this many
+# alternating turns each (kernel, library, library, kernel, ...) and
+# compared by their medians
+NORM_BAR_PAIRS = 5
 
 
 def log(msg: str) -> None:
@@ -516,6 +551,7 @@ def phase_kernels(state):
     _check_add_norm(ents["K7"], rows, card)
     _check_layer_norm(ents["K8"], ents["K9"], rows, card)
     _check_codec(ents["K10"], ents["K11"], rows, card)
+    _check_flash_blocks(rows, card)
     state["kernel_rows"] = rows
 
 
@@ -1268,14 +1304,27 @@ def _same_bytes(a, b) -> bool:
                             b.contiguous().view(torch.uint8)))
 
 
+def _turns(kernel, library, pairs: int):
+    """``pairs`` readings of each of two timers in alternating turns
+    (kernel, library, library, kernel, kernel, library, ...), so that
+    neither side always runs first: the two lists of readings."""
+    ks, ls = [], []
+    order = ((kernel, ks), (library, ls))
+    for i in range(pairs):
+        for fn, readings in (order if i % 2 == 0 else order[::-1]):
+            readings.append(fn())
+    return ks, ls
+
+
 def _check_norm_bwd_cases(e, rows, card):
     """K6 (RMSNorm) or K9 (LayerNorm) backward against its plain version
     at every shape of ``NORM_BWD_CASES``, bf16 and f32, within the
     unchanged tolerances; dγ (and dβ) the same to the bit over two calls;
     timed beside the plain version and the backward of autograd through
     ``F.rms_norm`` / ``F.layer_norm`` (that call's forward time taken
-    off; kernel and library timed in turns, twice each). The bars of the
-    kernels: at every shape but the off-path rows
+    off; kernel and library timed in ``NORM_BAR_PAIRS`` alternating
+    turns each, :func:`_turns`, and compared by their medians). The bars
+    of the kernels: at every shape but the off-path rows
     (``NORM_BWD_OFF_PATH``) no slower than that library call, and at the
     main path's shape (bf16) at least half of the bound (bound time over
     kernel time)."""
@@ -1323,10 +1372,10 @@ def _check_norm_bwd_cases(e, rows, card):
             kernel = lambda: device_ms(lambda: bwd(x, gamma, dy))
             library = lambda: (device_ms(lambda: torch.autograd.grad(
                 lib_fwd(), leaves, dy)) - device_ms(lib_fwd))
-            # the two sides of the bar in turns (kernel, library, library,
-            # kernel), each the mean of its two readings
-            t_k, t_l, t_l2, t_k2 = kernel(), library(), library(), kernel()
-            t_k, t_l = (t_k + t_k2) / 2, (t_l + t_l2) / 2
+            # the two sides of the bar in alternating turns, each the
+            # median of its readings
+            ks, ls = _turns(kernel, library, NORM_BAR_PAIRS)
+            t_k, t_l = statistics.median(ks), statistics.median(ls)
             # reads x, dy, γ once and writes dx, dγ (and dβ) once; ~10
             # (K6) or ~14 (K9) f32 operations an element
             n_vec = 3 if ln else 2
@@ -1341,7 +1390,9 @@ def _check_norm_bwd_cases(e, rows, card):
                     f"bit-identical_over_two_calls={same} "
                     f"kernel_ms={t_k:.4f} host_ms={t_h:.4f} "
                     f"plain_ms={t_p:.4f} library_ms={t_l:.4f} "
-                    f"kernel/library={t_k / t_l:.2f} "
+                    f"kernel/library={t_k / t_l:.2f} (turns: kernel "
+                    f"{min(ks):.4f}-{max(ks):.4f}, library "
+                    f"{min(ls):.4f}-{max(ls):.4f}) "
                     f"bound_ms={b_ms:.5f}({b_by}) "
                     f"bound_share={b_ms / t_k:.3f}{' main' if main else ''}"
                     f"{' off-path' if off else ''} {card}")
@@ -1845,6 +1896,231 @@ def phase_dp_agree(state):
 
 
 # -- phases 6, 7 -----------------------------------------------------------
+# -- phases 13-14: sequence-parallel ----------------------------------------
+def _seq_mesh(state):
+    """The default process group (as ``_dp_mesh`` makes it: this process
+    alone) and its one-axis ``{"seq": 1}`` mesh, made once per run."""
+    if "seq_mesh" not in state:
+        from deeplearning4j_tpu_torch.parallel import (initialize_distributed,
+                                                       make_mesh)
+        initialize_distributed()
+        state["seq_mesh"] = make_mesh({"seq": 1})
+    return state["seq_mesh"]
+
+
+def phase_sp(state):
+    """The long-context LM with ``sequence_parallel="zigzag_ring"`` under
+    ``distributed_context(make_mesh({"seq": 1}))``: each layer's
+    attention is four half-chunk block pairs through the ring's block
+    entries (K1 forward, K3 backward), at their global offsets."""
+    from deeplearning4j_tpu_torch.parallel import distributed_context
+    with distributed_context(_seq_mesh(state)):
+        _fit_steps(state, "sp", SP, LONGCTX_B, LONGCTX_T, warm=1, steps=3)
+
+
+def _sp_loss_grads(model_kw, dev, x, y, ctx):
+    """One f32 step's loss and gradients (on the host) of
+    ``CausalTransformerLM(**model_kw)`` on ``dev``, under ``ctx`` (a
+    ``distributed_context``, or None)."""
+    import torch
+    from deeplearning4j_tpu_torch import tree
+    from deeplearning4j_tpu_torch.zoo.gpt import CausalTransformerLM
+    net = CausalTransformerLM(**model_kw).init(x.shape[1], device=dev)
+    with ctx if ctx is not None else contextlib.nullcontext():
+        loss, grads, _ = net._loss_and_grads(
+            torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev))
+    return loss.item(), tree.map_(lambda g: g.cpu(), grads)
+
+
+def _compare_steps(a, b):
+    """(relative loss difference, worst gradient's max |d| / max |g|, its
+    name) of two ``_sp_loss_grads`` results, ``b`` the reference."""
+    from deeplearning4j_tpu_torch import tree
+    (la, ga), (lb, gb) = a, b
+    rels = tree.map_with_path(
+        lambda path, x, y: (_rel_err(x, y), ".".join(path)), ga, gb)
+    worst, key = max(tree.leaves(rels))
+    return abs(la - lb) / abs(lb), worst, key
+
+
+def phase_sp_agree(state):
+    """One f32 step (TF32 off) of the train model at B = 2, T = 256 under
+    the seq-1 context in each mode: against the same step without the
+    context on the card (bands: the train_agree ones, ``TRAIN_LOSS_RTOL``
+    and ``TRAIN_GRAD_TOL``; the ring's block pairs at one rank sum the
+    same scores as the local kernel in another grouping, and K3's dq
+    atomics vary in their last bits) and against the same step under the
+    context on the CPU (the same bands, as train_agree)."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import kernel_registry
+    from deeplearning4j_tpu_torch.parallel import distributed_context
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = distributed_context(_seq_mesh(state))
+    x, y = _train_batch(1, 2, 256, TRAIN["vocab_size"])
+    local = _sp_loss_grads(TRAIN, "cuda", x, y, None)
+    for mode in SP_MODES:
+        kw = dict(TRAIN, sequence_parallel=mode)
+        for e in kernel_registry.ported():
+            e.reset()
+        card = _sp_loss_grads(kw, "cuda", x, y, ctx)
+        launches = {e.key: e.launches() for e in kernel_registry.ported()}
+        cpu = _sp_loss_grads(kw, "cpu", x, y, ctx)
+        ok = True
+        for name, ref in (("card without the context", local),
+                          ("CPU under the context", cpu)):
+            loss_rel, worst, key = _compare_steps(card, ref)
+            log(f"sp_agree {mode}: f32 B=2 T=256 one step, card under the "
+                f"seq-1 context vs {name}: loss {card[0]:.6f} vs "
+                f"{ref[0]:.6f} rel={loss_rel:.3e} tol={TRAIN_LOSS_RTOL:.0e};"
+                f" worst gradient {key} max|d|/max|g|={worst:.3e} "
+                f"tol={TRAIN_GRAD_TOL:.0e} {state['card']}")
+            ok = ok and loss_rel <= TRAIN_LOSS_RTOL \
+                and worst <= TRAIN_GRAD_TOL
+        log(f"sp_agree {mode}: card launches {launches} {state['card']}")
+        if not ok:
+            raise AssertionError(f"sp_agree {mode}: the step disagrees")
+        # the attention went through the kernels: K1 forward, K3 backward
+        assert launches["K1"] > 0 and launches["K3"] > 0, launches
+
+
+def _check_flash_blocks(rows, card):
+    """The ring's block entries against their plain versions on the card:
+    ``flash_block_fwd`` (K1) — out within ``FLASH_TOL``, the finite lse
+    within ``LSE_TOL`` and its −inf rows the same — and
+    ``flash_block_bwd`` (K3 at these rows) and K4, K5 through
+    ``offsets`` — dq, dk, dv within ``K3_TOL`` of the largest plain
+    value — from a global out and lse: the rank's diagonal block merged
+    with the pair's (``_merge_blocks``, on the card).
+    Cases: every (rank, source) pair of a ``SP_RING``-rank causal ring
+    at T_loc = ``SP_T_LOC``, H = 6, D = 128, and the four half-chunk
+    pairs of rank 0 of a ``SP_ZIGZAG``-rank zigzag ring (strided halves
+    of the rank's tensors, the lse halves made contiguous); bf16 and
+    f32; no mask and a ragged key mask; GQA (Hkv = 2) at one pair. Then
+    the ``sp`` step's own four half-pairs: the one-rank zigzag ring at
+    T = ``LONGCTX_T`` (halves of 16 384 rows, K3 fused), bf16, no mask,
+    their K3 held against the blockwise plain dq and dk/dv passes (the
+    fused plain version would hold [6, Tq, Tk] f32 matrices). A block
+    wholly above the diagonal must give out and gradients exactly 0 and
+    lse −inf."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    from deeplearning4j_tpu_torch.parallel.ring_attention import (
+        _merge_blocks, zigzag_order)
+    both = ("bfloat16", "float32")
+    # (kind, query block, key block, Hkv, masked, T_loc, zigzag ring size,
+    # dtypes)
+    cases = [("ring", m, src, 6, masked, SP_T_LOC, None, both)
+             for m in range(SP_RING) for src in range(SP_RING)
+             for masked in (False, True)]
+    cases.append(("ring", 2, 1, 2, False, SP_T_LOC, None, both))  # GQA
+    cases += [("zigzag", qi, ki, 6, masked, SP_T_LOC, SP_ZIGZAG, both)
+              for qi in (0, 1) for ki in (0, 1) for masked in (False, True)]
+    cases += [("zigzag", qi, ki, 6, False, LONGCTX_T, 1, ("bfloat16",))
+              for qi in (0, 1) for ki in (0, 1)]              # the sp step
+    errs = {k: 0.0 for k in ("K1", "K3", "K4", "K5")}
+    dead = n_cases = 0
+    for dname in both:
+        dt = getattr(torch, dname)
+        for i, (kind, a, b, h_kv, masked, t, n_zz, dnames) in \
+                enumerate(cases):
+            if dname not in dnames:
+                continue
+            n_cases += 1
+            c = t // 2
+            g = torch.Generator(device="cuda").manual_seed(900 + i)
+            mk = lambda hh: torch.randn((1, t, hh, 128), generator=g,
+                                        device="cuda").to(dt)
+            q, k, v, do = mk(6), mk(h_kv), mk(h_kv), mk(6)
+            mask = None
+            if masked:
+                mask = (torch.rand((1, t), generator=g, device="cuda")
+                        > 0.3).float()
+            if kind == "ring":
+                offs, diag = (a * t, b * t), (a * t, a * t)
+            else:              # half-chunk views of the rank's tensors
+                zz = zigzag_order(n_zz)[:2]             # rank 0's chunks
+                sl = lambda x, j: x[:, j * c:(j + 1) * c]
+                q, do = sl(q, a), sl(do, a)
+                k, v = sl(k, b), sl(v, b)
+                mask = None if mask is None else sl(mask, b)
+                offs, diag = (zz[a] * c, zz[b] * c), (zz[a] * c, zz[a] * c)
+            o_k, l_k = ck.flash_block_fwd(q, k, v, mask, offs, True)
+            # the "global" out and lse the backward takes: the rank's
+            # diagonal block (every row live) merged with this one, so
+            # that no probability of this block exceeds 1
+            out, lse = ck.flash_block_fwd(q, k, v, None, diag, True)
+            if offs != diag:
+                out, lse = _merge_blocks(out.float(), lse, o_k, l_k)
+                out = out.to(dt)
+            o_p, l_p = ck.flash_attention_reference(
+                q, k, v, True, mask, return_lse=True, offsets=offs)
+            k3_before = ck.flash_attention_bwd.launches
+            grads_k = ck.flash_block_bwd(q, k, v, out, lse, do, mask, offs,
+                                         True)
+            fused = ck.flash_attention_bwd.launches == k3_before + 1
+            kw = dict(causal=True, mask=mask, offsets=offs)
+            split_k = (ck.flash_attention_bwd_dq(q, k, v, out, lse, do, **kw),
+                       *ck.flash_attention_bwd_dkv(q, k, v, out, lse, do,
+                                                   **kw))
+            split_p = (ck.flash_attention_bwd_dq_reference(
+                q, k, v, out, lse, do, **kw),
+                *ck.flash_attention_bwd_dkv_reference(q, k, v, out, lse, do,
+                                                      **kw))
+            grads_p = (split_p if t > SP_T_LOC
+                       else ck.flash_attention_bwd_reference(
+                           q, k, v, out, lse, do, True, mask, offs))
+            torch.cuda.synchronize()
+            o_err = (o_k.float() - o_p.float()).abs().max().item()
+            inf_same = bool(torch.equal(torch.isinf(l_k), torch.isinf(l_p)))
+            fin = torch.isfinite(l_p)
+            l_err = ((l_k - l_p).abs()[fin].max().item() if fin.any()
+                     else 0.0)
+            rel3 = max(_rel_err(x, y) for x, y in zip(grads_k, grads_p))
+            rel45 = max(_rel_err(x, y) for x, y in zip(split_k, split_p))
+            is_dead = offs[1] > offs[0] + q.shape[1] - 1
+            exact = True
+            if is_dead:
+                dead += 1
+                exact = (bool(torch.equal(o_k, torch.zeros_like(o_k)))
+                         and bool(torch.isneginf(l_k).all())
+                         and all(bool(torch.equal(x, torch.zeros_like(x)))
+                                 for x in (*grads_k, *split_k)))
+            line = (f"flash blocks {kind} {dname} pair=({a},{b}) offsets="
+                    f"{offs} Tq={q.shape[1]} Hkv={h_kv} mask={masked}"
+                    f"{' dead' if is_dead else ''}: K1 out "
+                    f"max_abs_err={o_err:.3e} tol={FLASH_TOL[dname]:.0e} "
+                    f"lse max_abs_err={l_err:.3e} tol={LSE_TOL:.0e} "
+                    f"-inf rows equal={inf_same}; flash_block_bwd (K3 "
+                    f"launched={fused}) "
+                    f"rel={rel3:.3e}, K4+K5 rel={rel45:.3e} "
+                    f"tol={K3_TOL[dname]:.0e}"
+                    f"{f'; exact zeros and -inf={exact}' if is_dead else ''}"
+                    f" {card}")
+            log(line)
+            if not (o_err <= FLASH_TOL[dname] and l_err <= LSE_TOL
+                    and inf_same and fused and rel3 <= K3_TOL[dname]
+                    and rel45 <= K3_TOL[dname] and exact
+                    and all(bool(torch.isfinite(x).all())
+                            for x in (o_k, *grads_k, *split_k))):
+                raise AssertionError(f"a ring block entry disagrees with "
+                                     f"its plain version: {line}")
+            errs["K1"] = max(errs["K1"], o_err)
+            errs["K3"] = max(errs["K3"], *(
+                (x.float() - y.float()).abs().max().item()
+                for x, y in zip(grads_k, grads_p)))
+            errs["K4"] = max(errs["K4"], (split_k[0].float()
+                                          - split_p[0].float()).abs().max()
+                             .item())
+            errs["K5"] = max(errs["K5"], *(
+                (x.float() - y.float()).abs().max().item()
+                for x, y in zip(split_k[1:], split_p[1:])))
+    log(f"flash blocks: {n_cases} cases, {dead} dead blocks, all "
+        f"within their tolerances {card}")
+    for key, err in errs.items():
+        rows[f"{key}_err"] = max(rows.get(f"{key}_err", 0.0), err)
+
+
 def _finetune_batch(seed: int, b: int, t: int):
     """One padded sentence-pair batch from ``np.random.default_rng(seed)``
     as GLUE fine-tuning feeds it: tokens uniform in 0..30000, lengths
@@ -2013,8 +2289,9 @@ def phase_profile(state):
     longest prompt (bucket 2048), then 8 decode steps with all 32 slots
     active — of one training step of the train phase's model and batch,
     of one fine-tune step of the finetune phase's model and batch, of
-    one step of the longctx phase's model and batch, of one dp_packed
-    step (on the train net) and of its packed exchange alone.
+    one step of the longctx phase's model and batch, of one sp step (the
+    same batch, the zigzag ring at one rank), of one dp_packed step (on
+    the train net) and of its packed exchange alone.
     Every wall time is taken before the first profiled window,
     and the decode window's once more after the last one: a host-bound
     step ran slower after the kernels phase, and this shows whether
@@ -2056,6 +2333,15 @@ def phase_profile(state):
     lx, ly = _train_batch(0, LONGCTX_B, LONGCTX_T, lmodel.vocab_size)
     long_step = lambda: lnet.fit(lx, ly)
     long_step()
+    from deeplearning4j_tpu_torch.parallel import distributed_context
+    snet = CausalTransformerLM(compute_dtype="bfloat16", **SP).init(
+        LONGCTX_T)
+    sp_ctx = distributed_context(_seq_mesh(state))
+
+    def sp_step():
+        with sp_ctx:
+            snet.fit(lx, ly)
+    sp_step()
     # the dp_packed step on the train net, and its exchange alone on one
     # step's gradients
     packed_step, parts = _packed_step(_dp_mesh(state), net, x, y)
@@ -2068,6 +2354,7 @@ def phase_profile(state):
     walls = {"prefill": _wall_ms(lambda: sched.admit(reqs[first])),
              "decode": _wall_ms(decode), "train": _wall_ms(train_step),
              "finetune": _wall_ms(ft_step), "longctx": _wall_ms(long_step),
+             "sp": _wall_ms(sp_step),
              "dp_packed": _wall_ms(packed_step),
              "exchange": _wall_ms(exchange)}
     sched.evict(reqs[first])            # its slot and pages, once more
@@ -2082,6 +2369,8 @@ def phase_profile(state):
                    walls["finetune"], card)
     _device_window(f"longctx step B={LONGCTX_B} T={LONGCTX_T}", long_step,
                    walls["longctx"], card)
+    _device_window(f"sp step (zigzag ring, one rank) B={LONGCTX_B} "
+                   f"T={LONGCTX_T}", sp_step, walls["sp"], card)
     _device_window(f"dp_packed step B={TRAIN_B} T={TRAIN_T}", packed_step,
                    walls["dp_packed"], card)
     _device_window("exchange_packed alone", exchange,

@@ -19,9 +19,11 @@ Not in this slice (each raises ``NotImplementedError``): JSON
 serialisation, per-layer updaters, learning rates, l1/l2 and weight
 decay, frozen layers, constraints, weight noise, listeners, the
 numerics observatory, ``steps_per_loop > 1`` (the JAX package's scanned
-device loop), and an ``RnnOutputLayer`` output: the JAX graph's fused
+device loop), an ``RnnOutputLayer`` output — the JAX graph's fused
 head flattens its [B, T, F] input (``graph.py:290-298``), so the
-reference's BERT MLM head is red and the port does not copy it.
+reference's BERT MLM head is red and the port does not copy it — and
+sequence-parallel layers under a ``distributed_context`` (ROADMAP item
+A4).
 """
 from __future__ import annotations
 
@@ -241,6 +243,23 @@ class ComputationGraph:
     # ------------------------------------------------------------------
     # forward
     # ------------------------------------------------------------------
+    def _check_no_seq_context(self) -> None:
+        """A graph whose layers carry a ``sequence_parallel`` mode is
+        refused under a ``distributed_context``: each rank would hold
+        its shard of the tokens (``parallel/mesh.py``), which the graph
+        does not feed yet (ROADMAP item A4). Outside a context the mode
+        is inert, as in the JAX graph."""
+        from deeplearning4j_tpu_torch.parallel.mesh import active_context
+        if active_context() is None:
+            return
+        for node in self.order:
+            if (node.kind == "layer"
+                    and getattr(node.obj, "sequence_parallel", None)):
+                raise NotImplementedError(
+                    f"node {node.name!r}: a ComputationGraph with "
+                    "sequence-parallel layers under a distributed_context "
+                    "comes with ROADMAP item A4")
+
     def _forward(self, params, state, inputs: Dict[str, torch.Tensor], *,
                  train: bool, rng, masks=None, pre_output: bool = False):
         """Returns (activations by node name, new state). ``rng``: an
@@ -250,6 +269,7 @@ class ComputationGraph:
             raise RuntimeError(
                 "Graph has no parameters — call init() before "
                 "fit()/output() (reference: ComputationGraph.init()).")
+        self._check_no_seq_context()
         acts: Dict[str, torch.Tensor] = dict(inputs)
         new_state = {}
         masks = dict(masks or {})

@@ -2,9 +2,10 @@
 ``scaled_dot_attention``, and the layers of the causal LM's stack.
 
 Port of ``deeplearning4j_tpu/nn/layers/attention.py``: the functions the
-serving path calls, :class:`MultiHeadAttention` (local attention; the
-sequence-parallel modes come with the sequence-parallel slice), the
-pre-RMSNorm :class:`TransformerDecoderBlock`, and BERT's layers — the
+serving path calls, :class:`MultiHeadAttention` (local attention, or
+under a ``parallel.distributed_context`` its ``sequence_parallel`` mode
+on the rank's shard of the sequence, at the rank's global positions),
+the pre-RMSNorm :class:`TransformerDecoderBlock`, and BERT's layers — the
 learned :class:`PositionalEmbeddingLayer`, the pre-LayerNorm
 :class:`TransformerEncoderBlock` and the :class:`ClsTokenPoolLayer`.
 Learned and recurrent attention come with a later slice. Shapes are the
@@ -97,6 +98,24 @@ def scaled_dot_attention(q, k, v, mask=None, causal=False):
     return torch.einsum("bhqk,bkhd->bqhd", w, v)
 
 
+def _at_positions(fn, x, segments):
+    """``fn(run, offset)`` over each contiguous run of the rank's tokens
+    (``segments``: ``(global offset, length)`` pairs along axis 1, or
+    None for the whole sequence from position 0), concatenated."""
+    if segments is None:
+        return fn(x, 0)
+    runs, at = [], 0
+    for off, ln in segments:
+        runs.append(fn(x[:, at:at + ln], off))
+        at += ln
+    return runs[0] if len(runs) == 1 else torch.cat(runs, dim=1)
+
+
+def _local_segments(mode, t_loc: int):
+    from deeplearning4j_tpu_torch.parallel.mesh import local_segments
+    return local_segments(mode, t_loc)
+
+
 def _split_heads(x, n_heads):
     b, t, f = x.shape
     return x.reshape(b, t, n_heads, f // n_heads)
@@ -112,9 +131,17 @@ def _merge_heads(x):
 class MultiHeadAttention(Layer):
     """Self multi-head attention projection block (reference
     multi_head_dot_product_attention op). Grouped-query attention via
-    ``n_kv_heads``, rotary embeddings via ``rope``. Local attention
-    only: ``sequence_parallel`` modes come with the
-    sequence-parallel slice."""
+    ``n_kv_heads``, rotary embeddings via ``rope``.
+
+    ``sequence_parallel``: ``"ring"`` | ``"zigzag_ring"`` |
+    ``"ulysses"`` | ``None``. Under an active
+    ``parallel.distributed_context`` the layer takes THIS rank's shard
+    of the sequence (the per-process rule of ``parallel/mesh.py``: the
+    contiguous chunk, or the zigzag half-chunks) and runs the mode's
+    distributed attention over the context's axis; RoPE rotates each
+    token at its global position. Outside a context the attention is
+    local, so one configuration runs on one card and on many. An
+    unknown mode raises ``ValueError`` even with no context."""
     n_in: Optional[int] = None
     n_out: int = 0
     n_heads: int = 1
@@ -125,15 +152,49 @@ class MultiHeadAttention(Layer):
     rope: bool = False                 # rotary position embeddings
     rope_theta: float = 10000.0
 
-    def _check(self):
-        if self.sequence_parallel is not None:
-            raise NotImplementedError(
-                f"sequence_parallel={self.sequence_parallel!r}: the "
-                "ring/zigzag/Ulysses attention comes with the "
-                "sequence-parallel slice (local attention only)")
+    _SP_MODES = (None, "ring", "ulysses", "zigzag_ring")
+
+    def _context(self):
+        """The active distributed context when this layer runs
+        sequence-parallel, else None; an unknown mode raises."""
+        if self.sequence_parallel not in self._SP_MODES:
+            # reject typos even on one card, where no context is active
+            raise ValueError(
+                f"unknown sequence_parallel mode "
+                f"{self.sequence_parallel!r} (ring|ulysses|zigzag_ring)")
+        if self.sequence_parallel is None:
+            return None
+        from deeplearning4j_tpu_torch.parallel.mesh import active_context
+        return active_context()
+
+    def _attend(self, q, k, v, mask, ctx):
+        """``k``/``v`` may carry fewer heads than ``q`` (GQA): the ring
+        paths keep the small kv on the wire and the flash kernels read
+        one kv block per head group; only Ulysses (the head-axis
+        all-to-all) needs the broadcast."""
+        if ctx is None:
+            return scaled_dot_attention(q, k, v, mask, self.causal)
+        kw = dict(axis_name=ctx.axis_name, mask=mask)
+        if self.sequence_parallel == "ring":
+            from deeplearning4j_tpu_torch.parallel.ring_attention import \
+                ring_self_attention
+            return ring_self_attention(q, k, v, ctx.mesh,
+                                       causal=self.causal, **kw)
+        if self.sequence_parallel == "ulysses":
+            from deeplearning4j_tpu_torch.parallel.ulysses import \
+                ulysses_self_attention
+            n_heads = q.shape[2]
+            return ulysses_self_attention(
+                q, repeat_kv_heads(k, n_heads), repeat_kv_heads(v, n_heads),
+                ctx.mesh, causal=self.causal, **kw)
+        if not self.causal:
+            raise ValueError("zigzag_ring is causal-only")
+        # the rank's shard is already in the zigzag layout: no permute
+        from deeplearning4j_tpu_torch.parallel.ring_attention import \
+            zigzag_ring_self_attention
+        return zigzag_ring_self_attention(q, k, v, ctx.mesh, **kw)
 
     def init(self, gen, input_shape, dtype=torch.float32):
-        self._check()
         n_in = self.n_in or input_shape[-1]
         n_out = self.n_out or n_in
         if n_out % self.n_heads:
@@ -154,15 +215,18 @@ class MultiHeadAttention(Layer):
         return params, {}, (input_shape[0], n_out)
 
     def apply(self, params, state, x, *, train=False, rng=None, mask=None):
-        self._check()
+        ctx = self._context()
         n_kv = self.n_kv_heads or self.n_heads
         q = _split_heads(x @ params["Wq"], self.n_heads)
         k = _split_heads(x @ params["Wk"], n_kv)
         v = _split_heads(x @ params["Wv"], n_kv)
         if self.rope:
-            q = rotary_embedding(q, self.rope_theta)
-            k = rotary_embedding(k, self.rope_theta)
-        o = _merge_heads(scaled_dot_attention(q, k, v, mask, self.causal))
+            segs = (None if ctx is None else
+                    _local_segments(self.sequence_parallel, x.shape[1]))
+            rope = lambda t, off: rotary_embedding(t, self.rope_theta, off)
+            q = _at_positions(rope, q, segs)
+            k = _at_positions(rope, k, segs)
+        o = _merge_heads(self._attend(q, k, v, mask, ctx))
         if self.project_out:
             o = o @ params["Wo"] + params["bo"]
         if mask is not None:
@@ -242,8 +306,12 @@ class TransformerDecoderBlock(Layer):
 @dataclass
 class PositionalEmbeddingLayer(Layer):
     """Learned positional embeddings added to [B, T, F] (BERT-style),
-    drawn N(0, 0.02²)."""
+    drawn N(0, 0.02²). Inside a sequence-parallel network's forward
+    (the context's ``layout`` set) the rows are those of the rank's
+    global positions."""
     max_len: int = 512
+    #: its rows are the rank's global positions under the context
+    mixes_positions = False
 
     def init(self, gen, input_shape, dtype=torch.float32):
         t, f = input_shape
@@ -252,8 +320,14 @@ class PositionalEmbeddingLayer(Layer):
         return params, {}, tuple(input_shape)
 
     def apply(self, params, state, x, *, train=False, rng=None, mask=None):
-        t = x.shape[1]
-        return x + params["pos"][None, :t, :], state
+        from deeplearning4j_tpu_torch.parallel.mesh import active_context
+        ctx = active_context()
+        segs = (None if ctx is None
+                else _local_segments(ctx.layout, x.shape[1]))
+        pos = params["pos"]
+        rows = (pos[:x.shape[1]] if segs is None else
+                torch.cat([pos[off:off + ln] for off, ln in segs]))
+        return x + rows[None], state
 
 
 @register_layer
@@ -317,6 +391,9 @@ class ClsTokenPoolLayer(Layer):
     tanh pooler dense (BERT's pooler). Ends the sequence mask."""
     n_out: int = 0                 # 0: no pooler dense, raw CLS vector
     pooler: bool = False
+    #: pools the sequence: under a sequence-parallel context with
+    #: GlobalPoolingLayer and conv.py
+    mixes_positions = "ROADMAP item A10"
 
     def init(self, gen, input_shape, dtype=torch.float32):
         t, f = input_shape

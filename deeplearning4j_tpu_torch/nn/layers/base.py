@@ -69,6 +69,14 @@ class Layer:
     constraints: Optional[list] = None       # post-update constraints
     weight_noise: Optional[Any] = None       # train-time weight noise
 
+    #: whether an output position depends on other positions (attention,
+    #: pooling, a scan). Under a sequence-parallel context a rank holds
+    #: only its shard of the sequence (``parallel/mesh.py``), so a
+    #: network refuses such a layer unless it has a ``sequence_parallel``
+    #: mode; a string names the ROADMAP item that brings it there.
+    #: False on the layers that act on each position alone.
+    mixes_positions = True
+
     def init(self, gen, input_shape, dtype=torch.float32):
         raise NotImplementedError
 

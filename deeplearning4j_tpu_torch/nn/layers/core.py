@@ -27,6 +27,9 @@ class DenseLayer(Layer):
     n_out: int = 0
     has_layer_norm: bool = False
     has_bias: bool = True
+    #: flattens a [B, T, F] input: under a sequence-parallel context the
+    #: pooling layer ahead of it comes with GlobalPoolingLayer and conv.py
+    mixes_positions = "ROADMAP item A10"
 
     def init(self, gen, input_shape, dtype=torch.float32):
         if self.has_layer_norm:
@@ -67,6 +70,7 @@ class DropoutLayer(Layer):
     """Standalone dropout (reference DropoutLayer). ``dropout`` is the
     drop probability (0.5 when unset); inverted dropout, scaled at train
     time."""
+    mixes_positions = False
 
     def __post_init__(self):
         if self.dropout is None:
@@ -86,6 +90,7 @@ class EmbeddingLayer(Layer):
     n_in: Optional[int] = None     # vocab size
     n_out: int = 0
     has_bias: bool = False
+    mixes_positions = False
 
     def init(self, gen, input_shape, dtype=torch.float32):
         params = {"W": winit.get(self.weight_init or "xavier")(
@@ -125,6 +130,7 @@ class LayerNormalization(Layer):
     ``ops.fused_norms.layer_norm``: the kernels (forward K8 in Triton,
     backward K9 in CUDA) on the card, the plain versions on the CPU."""
     eps: float = fused_norms.LAYERNORM_EPS
+    mixes_positions = False
 
     def init(self, gen, input_shape, dtype=torch.float32):
         c = input_shape[-1]
@@ -145,6 +151,7 @@ class RMSNorm(Layer):
     kernels (forward K2 in Triton, backward K6 in CUDA) on the card, the
     plain versions on the CPU."""
     eps: float = RMSNORM_EPS
+    mixes_positions = False
 
     def init(self, gen, input_shape, dtype=torch.float32):
         c = input_shape[-1]

@@ -18,6 +18,8 @@ from deeplearning4j_tpu_torch.nn.layers.core import DenseLayer, OutputLayer
 class BaseRecurrentLayer(Layer):
     """Common recurrent machinery: a recurrent layer returns (y[B,T,H],
     its final carries) so truncated BPTT can resume from them."""
+    #: scans the sequence
+    mixes_positions = "ROADMAP item A11"
 
 
 @register_layer
@@ -25,6 +27,7 @@ class BaseRecurrentLayer(Layer):
 class RnnOutputLayer(OutputLayer):
     """Per-timestep dense + loss head over [B, T, F] (reference
     RnnOutputLayer)."""
+    mixes_positions = False
 
     def init(self, gen, input_shape, dtype=torch.float32):
         n_in = self.n_in or input_shape[-1]

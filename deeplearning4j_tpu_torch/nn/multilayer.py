@@ -22,9 +22,24 @@ layers, constraints, weight noise, the numerics observatory. A
 ``steps_per_loop`` group runs its steps one after another (the JAX
 package scans them in one program; the results are the same); a CUDA
 graph over the group is later work.
+
+Under a ``parallel.distributed_context`` a network whose layers carry a
+``sequence_parallel`` mode trains and infers sequence-parallel, by the
+per-process rule of ``parallel/mesh.py``: every rank is given the same
+global batch and keeps its own tokens of the inputs, labels and masks;
+its loss over them is its share of the global loss, and the loss and
+the gradients are summed over the ``seq`` group before the update;
+``output`` gathers the shards back. Layers that mix positions
+(``Layer.mixes_positions``) other than the sequence-parallel attention
+are refused under the context (:func:`_check_seq_layer`). Past one rank
+each rank draws its own shard's dropout masks, so the masks are not
+those of a one-card run (nor the JAX package's, whose generator
+differs). A network without such a mode ignores the context, as the
+JAX network does.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -60,6 +75,45 @@ _UNPORTED_LAYER_OPTIONS = (
 
 def _lname(i: int) -> str:
     return f"layer_{i}"
+
+
+def _mesh():
+    """``parallel/mesh.py`` (imported at the call: ``parallel`` imports
+    this module)."""
+    from deeplearning4j_tpu_torch.parallel import mesh
+    return mesh
+
+
+def _check_seq_layer(i: int, layer: Layer) -> None:
+    """Raise ``NotImplementedError`` unless ``layer`` runs on the rank's
+    shard of the sequence: it has a ``sequence_parallel`` mode, or it
+    does not mix positions (``Layer.mixes_positions``)."""
+    why = layer.mixes_positions
+    if why and not hasattr(layer, "sequence_parallel"):
+        raise NotImplementedError(
+            f"layer_{i} ({type(layer).__name__}) mixes positions, so it "
+            "cannot run on a rank's shard of the sequence under a "
+            "sequence-parallel context"
+            + (f": it comes there with {why}" if isinstance(why, str)
+               else ""))
+
+
+def _sum_over(group, loss, grads):
+    """The loss and every gradient summed over ``group`` (one all-reduce
+    per dtype of one flat buffer): the same bits on every rank."""
+    leaves = [loss.reshape(1)] + list(tree.leaves(grads))
+    summed = list(leaves)
+    for dtype in dict.fromkeys(t.dtype for t in leaves):
+        idx = [i for i, t in enumerate(leaves) if t.dtype == dtype]
+        flat = torch.cat([leaves[i].reshape(-1) for i in idx])
+        _mesh().all_reduce_sum(flat, group)
+        at = 0
+        for i in idx:
+            n = leaves[i].numel()
+            summed[i] = flat[at:at + n].view_as(leaves[i])
+            at += n
+    it = iter(summed[1:])
+    return summed[0].reshape(()), tree.map_(lambda _: next(it), grads)
 
 
 def loss_and_grads(loss_fn, params):
@@ -284,10 +338,80 @@ class MultiLayerNetwork:
 
     def _loss_and_grads(self, x, y, mask=None, lmask=None, rng=None):
         """(loss, gradient tree, new state) at the current parameters;
-        the gradients have the master parameters' dtype."""
-        return loss_and_grads(
-            lambda p: self._loss_fn(p, self.state, x, y, mask, lmask, rng),
-            self.params)
+        the gradients have the master parameters' dtype. Under a
+        sequence-parallel context ``x``, ``y`` and the masks are the
+        global batch: the rank's tokens are taken here (and, past one rank,
+        its index folded into ``rng``, so that no two shards draw the
+        same dropout masks), and the loss and gradients come back summed
+        over the group."""
+        sp = self._seq_parallel()
+        x, y, mask, lmask = self._shard(sp, x, y, mask, lmask)
+        if sp is not None and sp[0].size > 1 and rng is not None:
+            # each rank draws the dropout masks of its own shard
+            rng = fold_in(rng, sp[0].index)
+        with self._layout(sp):
+            loss, grads, state = loss_and_grads(
+                lambda p: self._loss_fn(p, self.state, x, y, mask, lmask,
+                                        rng), self.params)
+        if sp is not None and sp[0].size > 1:
+            loss, grads = _sum_over(sp[0].group, loss, grads)
+        return loss, grads, state
+
+    # ------------------------------------------------------------------
+    # sequence parallelism
+    # ------------------------------------------------------------------
+    def _seq_parallel(self):
+        """``(context, mode)`` when this network runs sequence-parallel:
+        a ``distributed_context`` is active and its layers carry a
+        ``sequence_parallel`` mode. None otherwise (the context does not
+        touch a network without one). Raises when the layers disagree on
+        the mode, or hold a layer that cannot run on a shard."""
+        ctx = _mesh().active_context()
+        if ctx is None:
+            return None
+        modes = {layer.sequence_parallel for layer in self.layers
+                 if hasattr(layer, "sequence_parallel")}
+        if modes <= {None}:
+            return None
+        if len(modes) > 1:
+            raise ValueError(
+                f"the network's attention layers disagree on "
+                f"sequence_parallel ({sorted(map(str, modes))}): under a "
+                "sequence-parallel context every one takes the same mode")
+        mode = modes.pop()
+        if mode not in _mesh().SP_MODES:
+            raise ValueError(f"unknown sequence_parallel mode {mode!r} "
+                             "(ring|ulysses|zigzag_ring)")
+        for i, layer in enumerate(self.layers):
+            _check_seq_layer(i, layer)
+        return ctx, mode
+
+    @staticmethod
+    def _shard(sp, *arrays):
+        """This rank's tokens (axis 1) of each global array (None stays
+        None) under ``sp = (context, mode)``; the arrays as they are
+        when ``sp`` is None."""
+        if sp is None:
+            return arrays
+        ctx, mode = sp
+        return tuple(None if a is None else _mesh().shard_sequence(
+            a, mode, ctx.size, ctx.index) for a in arrays)
+
+    @staticmethod
+    @contextlib.contextmanager
+    def _layout(sp):
+        """Under ``sp = (context, mode)``, the context's ``layout`` set
+        to ``mode`` around a forward (``PositionalEmbeddingLayer`` reads
+        it); nothing when ``sp`` is None."""
+        if sp is None:
+            yield
+            return
+        ctx, mode = sp
+        prev, ctx.layout = ctx.layout, mode
+        try:
+            yield
+        finally:
+            ctx.layout = prev
 
     # ------------------------------------------------------------------
     # fit
@@ -373,12 +497,19 @@ class MultiLayerNetwork:
         params, state = self.params, self.state
         x = self._as_input(x)
         mask = self._as_input(mask, torch.float32)
+        sp = self._seq_parallel()
+        x, mask = self._shard(sp, x, mask)
         if cd is not None:
             params = dtypes.cast_float_tree(params, cd)
             state = dtypes.cast_float_tree(state, cd)
             x = dtypes.cast_float_tree(x, cd)
-        out, _ = self._forward(params, state, x, train=train, rng=None,
-                               mask=mask)
+        with self._layout(sp):
+            out, _ = self._forward(params, state, x, train=train, rng=None,
+                                   mask=mask)
+        if sp is not None and sp[0].size > 1:
+            ctx, mode = sp
+            out = _mesh().unshard_sequence(
+                _mesh().all_gather(out, ctx.group), mode)
         return out.float() if cd is not None else out
 
     @torch.no_grad()
@@ -388,17 +519,23 @@ class MultiLayerNetwork:
         if dataset is None:
             return self.score_
         loss_name, fused = self._last_loss()
-        out, _ = self._forward(
-            self.params, self.state, self._as_input(dataset.features),
-            train=False, rng=None,
-            mask=self._as_input(getattr(dataset, "features_mask", None),
-                                torch.float32),
-            pre_output_last=fused)
+        x = self._as_input(dataset.features)
+        y = self._as_input(dataset.labels)
+        fmask = self._as_input(getattr(dataset, "features_mask", None),
+                               torch.float32)
+        lmask = self._as_input(getattr(dataset, "labels_mask", None),
+                               torch.float32)
+        sp = self._seq_parallel()
+        x, y, fmask, lmask = self._shard(sp, x, y, fmask, lmask)
+        with self._layout(sp):
+            out, _ = self._forward(self.params, self.state, x, train=False,
+                                   rng=None, mask=fmask,
+                                   pre_output_last=fused)
         kw = {"from_logits": True} if fused else {}
-        loss = losses_mod.get(loss_name)(
-            self._as_input(dataset.labels), out,
-            mask=self._as_input(getattr(dataset, "labels_mask", None),
-                                torch.float32), **kw)
+        loss = losses_mod.get(loss_name)(y, out, mask=lmask, **kw)
+        if sp is not None and sp[0].size > 1:
+            loss = _mesh().all_reduce_sum(loss.reshape(1).contiguous(),
+                                           sp[0].group)
         return float(loss)
 
     def num_params(self) -> int:

@@ -47,9 +47,13 @@ gradient it runs through :class:`_FlashAttentionFn`, whose forward calls
 the forward kernel with the logsumexp and whose backward calls
 :func:`flash_attention_bwd` (the plain versions for CPU tensors).
 
-The ring-composition entries (``flash_block_fwd``/``flash_block_bwd``)
-come with the sequence-parallel slice (``ops/kernel_registry.py`` lists
-the kernels they reach).
+The ring-composition entries :func:`flash_block_fwd` and
+:func:`flash_block_bwd` (the JAX entries of the same names) run one
+(query block, key block) pair of a ring step at GLOBAL offsets ``(q_off,
+k_off)``: K1, and K3 or K4 + K5, on the card; the same plain versions on
+the CPU. K1's and K3's C entries take one causal offset, the rule
+``j <= i + q_off``, which is ``k_off + j <= q_off + i`` at ``q_off −
+k_off``; K4's and K5's take both.
 """
 from __future__ import annotations
 
@@ -238,14 +242,16 @@ def flash_attention(q, k, v, causal: bool = False,
                     mask: Optional[torch.Tensor] = None,
                     block_q: Optional[int] = None,
                     block_k: Optional[int] = None,
-                    return_lse: bool = False):
+                    return_lse: bool = False, offsets=None):
     """Blockwise attention, [B, T, H, D] layout (head axis 2) like
     ``scaled_dot_attention``; ``mask``: optional [B, Tk] key mask.
     ``k``/``v`` may carry FEWER heads than ``q`` (grouped-query
     attention, H divisible by Hkv): query head h reads kv head
     h // (H / Hkv). Tq and Tk may differ; causal then masks against the
-    END-ALIGNED diagonal (query row i attends keys ≤ i + Tk − Tq). A
-    row with no live key returns zeros.
+    END-ALIGNED diagonal (query row i attends keys ≤ i + Tk − Tq), or
+    at the given ``offsets`` ``(q_off, k_off)`` (row i sees key j when
+    k_off + j <= q_off + i; K1 takes the one offset q_off − k_off). A
+    row with no live key returns zeros (and lse −inf).
 
     A CUDA tensor launches the CUDA kernel (tiles fixed at 64: pass
     ``block_q``/``block_k`` only as None or 64). A CPU tensor runs the
@@ -258,6 +264,7 @@ def flash_attention(q, k, v, causal: bool = False,
     if h % h_kv:
         raise ValueError(f"q heads ({h}) not divisible by kv heads "
                          f"({h_kv})")
+    offsets = _offsets(t, k.shape[1], causal, offsets)
     with devtime.scope("ops.flash_attention"):
         if q.is_cuda:
             _check_cuda_inputs(q, k, v, mask, block_q, block_k)
@@ -265,33 +272,34 @@ def flash_attention(q, k, v, causal: bool = False,
                 and (q.requires_grad or k.requires_grad
                      or v.requires_grad)):
             return _FlashAttentionFn.apply(q, k, v, mask, causal,
-                                           block_k or 512)
+                                           block_k or 512, offsets)
         if not q.is_cuda:
             return flash_attention_reference(q, k, v, causal, mask,
-                                             block_k or 512, return_lse)
+                                             block_k or 512, return_lse,
+                                             offsets)
         out, lse = _flash_cuda(q, k, v, mask, causal,
-                               k.shape[1] - t if causal else 0,
-                               return_lse)
+                               offsets[0] - offsets[1], return_lse)
         return (out, lse) if return_lse else out
 
 
 def flash_attention_reference(q, k, v, causal: bool = False, mask=None,
                               block_k: int = 512,
-                              return_lse: bool = False):
+                              return_lse: bool = False, offsets=None):
     """The plain version of :func:`flash_attention` on any device:
     the same [B, T, H, D] arguments, folded to [B·H, T, D] rows (kv rows
     repeated per head group, the key mask per head) and run through
-    :func:`_reference_scan`."""
+    :func:`_reference_scan`. ``offsets``: the causal ``(q_off, k_off)``
+    (default the end-aligned ``(Tk − Tq, 0)``)."""
     b, t, h, d = q.shape
     groups = h // k.shape[2]
-    q_off = k.shape[1] - t if causal else 0
+    q_off, k_off = _offsets(t, k.shape[1], causal, offsets)
     fold = lambda x: x.permute(0, 2, 1, 3).reshape(
         b * x.shape[2], x.shape[1], d)
     expand = lambda x: x.repeat_interleave(groups, dim=0)
     km = (None if mask is None
           else mask.to(torch.float32).repeat_interleave(h, dim=0))
     res = _reference_scan(fold(q), expand(fold(k)), expand(fold(v)), km,
-                          (q_off, 0), causal, block=block_k,
+                          (q_off, k_off), causal, block=block_k,
                           return_lse=return_lse)
     out, lse = res if return_lse else (res, None)
     out = out.reshape(b, h, t, d).permute(0, 2, 1, 3)
@@ -306,16 +314,15 @@ class _FlashAttentionFn(torch.autograd.Function):
     take the plain versions of both."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, causal, block_k):
+    def forward(ctx, q, k, v, mask, causal, block_k, offsets):
         if q.is_cuda:
             out, lse = _flash_cuda(q, k, v, mask, causal,
-                                   k.shape[1] - q.shape[1] if causal
-                                   else 0, True)
+                                   offsets[0] - offsets[1], True)
         else:
             out, lse = flash_attention_reference(q, k, v, causal, mask,
-                                                 block_k, True)
+                                                 block_k, True, offsets)
         ctx.save_for_backward(q, k, v, out, lse, mask)
-        ctx.causal = causal
+        ctx.causal, ctx.offsets = causal, offsets
         return out
 
     @staticmethod
@@ -325,8 +332,9 @@ class _FlashAttentionFn(torch.autograd.Function):
         # kernel reads dO through strides but needs the head dim dense
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
                                          dout.contiguous(),
-                                         causal=ctx.causal, mask=mask)
-        return dq, dk, dv, None, None, None
+                                         causal=ctx.causal, mask=mask,
+                                         offsets=ctx.offsets)
+        return dq, dk, dv, None, None, None, None
 
 
 #: the fused backward's full-length dq scratch budget in f32 bytes, the
@@ -383,12 +391,14 @@ def _check_bwd_inputs(q, k, v, out, lse, dout, mask, delta=None) -> None:
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = False,
-                        mask: Optional[torch.Tensor] = None):
+                        mask: Optional[torch.Tensor] = None, offsets=None):
     """Gradients (dq, dk, dv) of :func:`flash_attention` given its output
     ``out`` [B, Tq, H, D], the f32 row logsumexp ``lse`` [B, H, Tq] it
     returned and the output's gradient ``dout``; ``k``/``v``
     [B, Tk, Hkv, D] (GQA: dk/dv are summed over each kv head's query
-    heads).
+    heads); ``offsets`` the causal ``(q_off, k_off)`` as
+    :func:`flash_attention` takes them (K3 at the one offset
+    q_off − k_off, K4 and K5 at both).
 
     The JAX ``_flash_bwd``'s choice of kernels, made first: the fused
     K3 while its full-length dq scratch fits in ``_FUSED_BWD_DQ_VMEM``
@@ -397,24 +407,29 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = False,
     :func:`flash_attention_bwd_dkv` (K5). A CUDA tensor launches the
     picked kernels; a CPU tensor runs their plain versions
     (:func:`flash_attention_bwd_reference`, or the split pair's)."""
+    offsets = _offsets(q.shape[1], k.shape[1], causal, offsets)
     with devtime.scope("ops.flash_attention_bwd"):
         if q.is_cuda:
             _check_bwd_inputs(q, k, v, out, lse, dout, mask)
         if _split_bwd(q.shape[1], q.shape[-1]):
             delta = (_flash_delta_cuda(out, dout) if q.is_cuda
                      else _delta_reference(out, dout))
-            dq = flash_attention_bwd_dq(q, k, v, out, lse, dout, causal,
-                                        mask, delta=delta)
-            dk, dv = flash_attention_bwd_dkv(q, k, v, out, lse, dout,
-                                             causal, mask, delta=delta)
+            kw = dict(causal=causal, mask=mask, offsets=offsets,
+                      delta=delta)
+            dq = flash_attention_bwd_dq(q, k, v, out, lse, dout, **kw)
+            dk, dv = flash_attention_bwd_dkv(q, k, v, out, lse, dout, **kw)
             return dq, dk, dv
         if not q.is_cuda:
             return flash_attention_bwd_reference(q, k, v, out, lse, dout,
-                                                 causal, mask)
-        return _flash_bwd_cuda(q, k, v, out, lse, dout, mask, causal)
+                                                 causal, mask, offsets)
+        return _flash_bwd_cuda(q, k, v, out, lse, dout, mask, causal,
+                               offsets[0] - offsets[1])
 
 
-def _flash_bwd_cuda(q, k, v, out, lse, dout, mask, causal: bool):
+def _flash_bwd_cuda(q, k, v, out, lse, dout, mask, causal: bool,
+                    q_off: int):
+    """K3. ``q_off``: the causal rule's one offset, row i sees key j
+    when j <= i + q_off."""
     b, t, h, d = q.shape
     tk, h_kv = k.shape[1], k.shape[2]
     dq = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
@@ -440,7 +455,7 @@ def _flash_bwd_cuda(q, k, v, out, lse, dout, mask, causal: bool):
         v.stride(0), v.stride(1), v.stride(2),
         out.stride(0), out.stride(1), out.stride(2),
         dout.stride(0), dout.stride(1), dout.stride(2),
-        int(causal), tk - t if causal else 0, 1.0 / math.sqrt(d), stream)
+        int(causal), int(q_off), 1.0 / math.sqrt(d), stream)
     _raise_on(lib, err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv
@@ -613,20 +628,22 @@ def _reduce_kv(x, b: int, h: int, h_kv: int):
 
 
 def flash_attention_bwd_reference(q, k, v, out, lse, dout,
-                                  causal: bool = False, mask=None):
+                                  causal: bool = False, mask=None,
+                                  offsets=None):
     """The plain version of :func:`flash_attention_bwd`'s fused kernel
     on any device — the port of the JAX ``_reference_bwd_block`` on
     [B, T, H, D]: the kv heads repeated per head group, the whole
     [Tq, Tk] probability matrix recomputed in f32 from the logsumexp
     (lse taken as 0 where it is not finite), dk/dv summed back onto the
-    kv heads. O(Tq·Tk) memory: for tests and the card's comparison only
-    (the split pair's plain versions are blockwise)."""
+    kv heads; ``offsets`` the causal ``(q_off, k_off)`` (default
+    end-aligned). O(Tq·Tk) memory: for tests and the card's comparison
+    only (the split pair's plain versions are blockwise)."""
     b, t, h, d = q.shape
     tk, h_kv = k.shape[1], k.shape[2]
     scale = 1.0 / math.sqrt(d)
     r = _rows(q, k, v, out, lse, dout, mask, None)
     p, ds = _tile_p_ds(r, 0, t, 0, tk, causal,
-                       *_offsets(t, tk, causal, None), scale)
+                       *_offsets(t, tk, causal, offsets), scale)
     dq = torch.einsum("bqk,bkd->bqd", ds, r.k) * scale
     dk = torch.einsum("bqk,bqd->bkd", ds, r.q) * scale
     dv = torch.einsum("bqk,bqd->bkd", p, r.g)
@@ -689,6 +706,44 @@ def flash_attention_bwd_dkv_reference(q, k, v, out, lse, dout,
             dk[:, j0:j1] += torch.einsum("bqk,bqd->bkd", ds, r.q[:, i0:i1])
     return (_unfold(_reduce_kv(dk * scale, b, h, h_kv), b, h_kv, k.dtype),
             _unfold(_reduce_kv(dv, b, h, h_kv), b, h_kv, v.dtype))
+
+
+# ---------------------------------------------------------------------------
+# ring composition: one (query block, key block) pair at global offsets
+# ---------------------------------------------------------------------------
+def _block_offsets(offsets):
+    return (0, 0) if offsets is None else offsets
+
+
+def flash_block_fwd(q, k, v, mask: Optional[torch.Tensor] = None,
+                    offsets=None, causal: bool = False):
+    """One (local query block × one key block) flash forward returning
+    ``(out, lse)`` (the JAX ``flash_block_fwd``): out [B, Tq, H, D] in
+    q's dtype is the softmax-normalised attention of q against ONLY this
+    key block, lse [B, H, Tq] f32 its row logsumexp (-inf, and out 0,
+    for a row with no live key: a block wholly above the diagonal). Two
+    such results merge exactly (``parallel.ring_attention.
+    _merge_blocks``). k, v: [B, Tk, Hkv, D] (GQA: H divisible by Hkv, no
+    head broadcast); mask: [B, Tk] key mask; ``offsets``: the global
+    ``(q_off, k_off)`` of the two blocks (default (0, 0)).
+    :func:`flash_attention` with ``return_lse`` at these offsets: K1 on
+    a CUDA tensor, the plain version on a CPU one."""
+    return flash_attention(q, k, v, causal, mask, return_lse=True,
+                           offsets=_block_offsets(offsets))
+
+
+def flash_block_bwd(q, k, v, out, lse, dout,
+                    mask: Optional[torch.Tensor] = None, offsets=None,
+                    causal: bool = False):
+    """Backward of one (query block, key block) pair given the GLOBAL
+    (all-blocks) ``out`` and ``lse`` [B, H, Tq] (contiguous) and the
+    output's gradient ``dout`` (the JAX ``flash_block_bwd``): returns
+    (dq contribution, dk, dv) in the inputs' dtypes, dk/dv at the kv
+    head count. Arguments as :func:`flash_block_fwd`;
+    :func:`flash_attention_bwd` at these offsets, so its choice of
+    kernels on the block's own query length."""
+    return flash_attention_bwd(q, k, v, out, lse, dout, causal, mask,
+                               offsets=_block_offsets(offsets))
 
 
 # ---------------------------------------------------------------------------

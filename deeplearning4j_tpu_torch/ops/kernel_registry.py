@@ -5,13 +5,16 @@ For each row: the JAX kernel body and its entry point, the port function
 and its plain PyTorch version, the launch counter, the route (``cuda`` or
 ``triton``), the source file, the status — ``ported`` or ``todo`` — the
 main paths that launch it (``serve``, ``train``, ``finetune``,
-``longctx``, ``dp``, ``dp_packed``) and, for each path that runs in
-steps (``train``, ``finetune``, ``longctx``: the LM trained at a
+``longctx``, ``dp``, ``dp_packed``, ``sp``) and, for each path that runs
+in steps (``train``, ``finetune``, ``longctx``: the LM trained at a
 32 768-token context, where the backward takes the split pair K4 + K5
 instead of K3; ``dp``: the train LM through ``ParallelWrapper``'s
 ENCODED mode; ``dp_packed``: the same step with
-``EncodedGradientsAccumulator.exchange_packed``), its launches per
-step. ``chip_smoke.py`` reads this table: it builds and
+``EncodedGradientsAccumulator.exchange_packed``; ``sp``: the long-context
+LM trained with ``sequence_parallel="zigzag_ring"`` under a one-rank
+``{"seq": 1}`` context, whose attention runs four half-chunk block pairs
+a layer through ``flash_block_fwd``/``flash_block_bwd``), its launches
+per step. ``chip_smoke.py`` reads this table: it builds and
 checks every ``ported`` row on the card, zeroes the launch counters just
 before each path it drives and reads them just after, and expects every
 row to launch on each of its paths (on a stepped path, exactly
@@ -47,7 +50,8 @@ class KernelEntry:
     #: and ``longctx`` (the 12-layer GPT-2-small-class LM at 1 024 and
     #: 32 768 tokens, remat off), ``finetune`` (BERT-base's classifier),
     #: ``dp`` and ``dp_packed`` (the train LM data-parallel over one
-    #: rank); ``serve`` runs no steps
+    #: rank), ``sp`` (the long-context LM's zigzag ring at one rank);
+    #: ``serve`` runs no steps
     per_step: Dict[str, int] = field(default_factory=dict)
 
     def _resolve(self, ref: str) -> Callable:
@@ -82,6 +86,14 @@ def _dp(n: int) -> Dict[str, int]:
     """The train step's count ``n`` on both data-parallel paths."""
     return {path: n for path in _DP}
 
+
+#: flash block pairs a layer of the ``sp`` step: the zigzag ring at one
+#: rank runs one ring step of four half-chunk pairs (q half × k half),
+#: one of them wholly above the diagonal; each pair is one K1 launch
+#: forward and, its 16 384 query rows inside the fused budget, one K3
+#: launch backward
+SP_PAIRS = 4
+
 KERNELS: Tuple[KernelEntry, ...] = (
     KernelEntry(
         "K1", "flash_attention_fwd", f"{_PK}:109",
@@ -90,26 +102,28 @@ KERNELS: Tuple[KernelEntry, ...] = (
         source="deeplearning4j_tpu_torch/csrc/flash_attention.cu",
         port=f"{_CK}:flash_attention",
         plain=f"{_CK}:flash_attention_reference",
-        # once a block
-        paths=("serve", "train", "finetune", "longctx", *_DP),
+        # once a block (the sp path: once a block pair)
+        paths=("serve", "train", "finetune", "longctx", *_DP, "sp"),
         per_step={"train": 12, "finetune": 12, "longctx": 12,
-                  **_dp(12)}),
+                  **_dp(12), "sp": SP_PAIRS * 12}),
     KernelEntry(
         "K2", "rms_norm_fwd", f"{_FN}:111", f"{_FN}:rms_norm", "ported",
         "serving", route="triton",
         source="deeplearning4j_tpu_torch/ops/fused_norms.py",
         port=f"{_NORM}:rms_norm", plain=f"{_NORM}:rms_norm_reference",
         # ln1 of 12 blocks, the final norm
-        paths=("serve", "train", "longctx", *_DP),
-        per_step={"train": 13, "longctx": 13, **_dp(13)}),
+        paths=("serve", "train", "longctx", *_DP, "sp"),
+        per_step={"train": 13, "longctx": 13, **_dp(13), "sp": 13}),
     KernelEntry(
         "K3", "flash_attention_bwd_fused", f"{_PK}:488",
         f"{_PK}:_flash_bwd", "ported", "training", route="cuda",
         source="deeplearning4j_tpu_torch/csrc/flash_attention_bwd.cu",
         port=f"{_CK}:flash_attention_bwd",
         plain=f"{_CK}:flash_attention_bwd_reference",
-        paths=("train", "finetune", *_DP),
-        per_step={"train": 12, "finetune": 12, **_dp(12)}),  # once a block
+        paths=("train", "finetune", *_DP, "sp"),
+        # once a block (the sp path: once a block pair)
+        per_step={"train": 12, "finetune": 12, **_dp(12),
+                  "sp": SP_PAIRS * 12}),
     KernelEntry(
         "K4", "flash_attention_bwd_dq", f"{_PK}:418", f"{_PK}:_flash_bwd",
         "ported", "long-context", route="cuda",
@@ -130,16 +144,18 @@ KERNELS: Tuple[KernelEntry, ...] = (
         source="deeplearning4j_tpu_torch/csrc/norm_bwd.cu",
         port=f"{_NORM}:rms_norm_bwd",
         plain=f"{_NORM}:rms_norm_bwd_reference",
-        paths=("train", "longctx", *_DP),
-        per_step={"train": 25, "longctx": 25, **_dp(25)}),  # all 25 norms
+        paths=("train", "longctx", *_DP, "sp"),
+        per_step={"train": 25, "longctx": 25, **_dp(25),
+                  "sp": 25}),                             # all 25 norms
     KernelEntry(
         "K7", "add_rms_norm_fwd", f"{_FN}:218", f"{_FN}:add_rms_norm",
         "ported", "training", route="triton",
         source="deeplearning4j_tpu_torch/ops/fused_norms.py",
         port=f"{_NORM}:add_rms_norm",
         plain=f"{_NORM}:add_rms_norm_reference",
-        paths=("train", "longctx", *_DP),
-        per_step={"train": 12, "longctx": 12, **_dp(12)}),  # once a block
+        paths=("train", "longctx", *_DP, "sp"),
+        per_step={"train": 12, "longctx": 12, **_dp(12),
+                  "sp": 12}),                             # once a block
     KernelEntry(
         "K8", "layer_norm_fwd", f"{_FN}:298", f"{_FN}:layer_norm",
         "ported", "encoder", route="triton",
@@ -179,5 +195,5 @@ def ported() -> Tuple[KernelEntry, ...]:
 
 def on_path(path: str) -> Tuple[KernelEntry, ...]:
     """The ported rows a main path (``serve``, ``train``, ``finetune``,
-    ``longctx``, ``dp``, ``dp_packed``) launches."""
+    ``longctx``, ``dp``, ``dp_packed``, ``sp``) launches."""
     return tuple(e for e in ported() if path in e.paths)

@@ -5,13 +5,19 @@ gloo for CPU tensors. This slice carries the data-parallel trainer —
 masters and the Spark facades — the gradient compression of
 ``compression.py`` with its packed exchange over the CUDA codec (K10,
 K11), the named-axis ``Mesh``, and the serving errors of
-``inference.py``. Sequence parallelism (ring, zigzag, Ulysses,
-``distributed_context``) comes with the sequence-parallel slice; ZeRO,
-``composed.py``, ``pipeline.py``, ``moe.py`` and ``ParallelInference``
-with later ones.
+``inference.py``, and sequence parallelism: ``distributed_context``,
+the ring and zigzag ring of ``ring_attention.py`` over the flash block
+entries (K1, K3, K4, K5) and the Ulysses all-to-all of ``ulysses.py``.
+ZeRO, ``composed.py``, ``pipeline.py``, ``moe.py`` and
+``ParallelInference`` come with later slices.
 """
 from deeplearning4j_tpu_torch.parallel.mesh import (
-    Mesh, data_parallel_mesh, initialize_distributed, make_mesh)
+    Mesh, active_context, context_epoch, data_parallel_mesh,
+    distributed_context, initialize_distributed, make_mesh)
+from deeplearning4j_tpu_torch.parallel.ring_attention import (
+    ring_self_attention, zigzag_permute, zigzag_ring_self_attention,
+    zigzag_unpermute)
+from deeplearning4j_tpu_torch.parallel.ulysses import ulysses_self_attention
 from deeplearning4j_tpu_torch.parallel.compression import (
     AdaptiveThresholdAlgorithm, EncodedGradientsAccumulator, decode_bitmap,
     decode_threshold, encode_bitmap, encode_threshold)
@@ -22,6 +28,9 @@ from deeplearning4j_tpu_torch.parallel.master import (
     TrainingMaster)
 
 __all__ = [
+    "ring_self_attention", "ulysses_self_attention",
+    "zigzag_ring_self_attention", "zigzag_permute", "zigzag_unpermute",
+    "distributed_context", "active_context", "context_epoch",
     "Mesh", "make_mesh", "data_parallel_mesh", "initialize_distributed",
     "ParallelWrapper",
     "EncodedGradientsAccumulator", "encode_threshold", "decode_threshold",

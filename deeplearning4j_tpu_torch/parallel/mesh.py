@@ -19,15 +19,50 @@ JAX's ``replicated``/``batch_sharded`` ``NamedSharding``s have no
 counterpart: each process holds the whole parameter tree (the wrapper
 broadcasts rank 0's at its first step, as JAX places one replicated
 copy) and takes its own rows of a batch. ``enable_cpu_collectives`` has
-none either: gloo is the CPU transport. ``distributed_context`` comes
-with the sequence-parallel slice, and the elastic bring-up with the
-resilience slice.
+none either: gloo is the CPU transport. The elastic bring-up comes with
+the resilience slice.
+
+**Sequence parallelism, the per-process rule.** The JAX package runs one
+SPMD program over global arrays: a layer maps the global [B, T, F] to
+the global [B, T, F], and ``shard_map`` exists only around the
+attention. The port runs one process per card, so under
+:class:`distributed_context` a rank holds only its own tokens, in every
+layer:
+
+- *Layout.* The rank of index ``m`` in a ``seq`` group of ``n`` holds a
+  shard of each sequence: under ``"ring"`` and ``"ulysses"`` the
+  contiguous chunk ``m`` of ``n``; under ``"zigzag_ring"`` chunks
+  ``(m, 2n−1−m)`` of ``2n`` (``ring_attention.zigzag_order``), in that
+  order. Its global positions follow from ``(mode, n, m, T_loc)`` alone
+  (:func:`sequence_segments`); a T not divisible by ``n`` (by ``2n``
+  under zigzag) raises ``ValueError`` (:func:`shard_sequence`).
+- *Positions.* RoPE and ``PositionalEmbeddingLayer`` take the rank's
+  global positions: each contiguous run of its tokens at its own offset
+  (two runs under zigzag).
+- *Data into ``fit``.* ``fit(x, y)`` is called on every rank of the
+  group with the same global [B, T] batch, as the JAX call is; the
+  network keeps the rank's tokens of the inputs, labels and masks, all
+  in the mode's layout. ``output()`` all-gathers the shards over the
+  group and undoes the layout, returning the global activations.
+- *Loss and gradients.* The loss is a batch mean of per-example sums
+  (``ops/losses.py``), so a rank's loss over its own tokens is already
+  its share of the global loss (the divisor, B, is the same on every
+  rank; the labels mask weighs each token). The gradients and the loss
+  are summed over the group before the update, so gradient-norm
+  clipping sees the global norm, ``score()`` is the global loss, and
+  every rank's parameters stay the same to the bit.
+- *Refused.* ``batch_axis``/``head_axis`` and a mesh with any axis but
+  the sequence axis (composed DP × SP × TP, ROADMAP item A3) raise
+  ``NotImplementedError``; so do layers that mix positions other than
+  the sequence-parallel attention (``nn/multilayer.py``), and a
+  ``ComputationGraph`` under the context (item A4).
 """
 from __future__ import annotations
 
 import math
 import os
-from typing import Dict, Optional
+import threading
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -203,3 +238,156 @@ def data_parallel_mesh(n: Optional[int] = None) -> Mesh:
     ``n``, when given, must be the world size (a process outside the
     mesh would have no step to run)."""
     return make_mesh({"data": n if n else -1})
+
+
+# ---------------------------------------------------------------------------
+# the ambient sequence-parallel context (JAX ``parallel/mesh.py:207-262``)
+# ---------------------------------------------------------------------------
+#: the sequence-parallel modes of ``MultiHeadAttention``
+SP_MODES = ("ring", "ulysses", "zigzag_ring")
+
+_TLS = threading.local()
+_CTX_EPOCH = [0]
+
+
+def _stack() -> list:
+    if not hasattr(_TLS, "stack"):
+        _TLS.stack = []
+    return _TLS.stack
+
+
+class distributed_context:
+    """Context manager installing a mesh as the ambient distributed
+    context: layers with a ``sequence_parallel`` setting
+    (``MultiHeadAttention`` and the blocks holding one) route their
+    attention over ``axis_name`` of this mesh while it is active, and a
+    network holding them keeps each rank's tokens (the per-process rule
+    of this module's docstring).
+
+        with distributed_context(make_mesh({"seq": 4})):
+            net.fit(x, y)     # every rank: the same global batch
+
+    Per-thread, as in JAX. ``layout`` is the mode whose layout the
+    running network holds its tokens in (set by the network around its
+    forward; None outside one): ``PositionalEmbeddingLayer`` reads it.
+    ``batch_axis``/``head_axis`` and a mesh with other axes (composed
+    DP × SP × TP) raise ``NotImplementedError``: ROADMAP item A3."""
+
+    def __init__(self, mesh: Mesh, axis_name: str = "seq",
+                 batch_axis: Optional[str] = None,
+                 head_axis: Optional[str] = None):
+        if batch_axis is not None or head_axis is not None:
+            raise NotImplementedError(
+                f"distributed_context(batch_axis={batch_axis!r}, "
+                f"head_axis={head_axis!r}): composed DP x SP x TP "
+                "(parallel/composed.py) comes with ROADMAP item A3")
+        if tuple(mesh.axis_names) != (axis_name,):
+            raise NotImplementedError(
+                f"distributed_context over a mesh with axes "
+                f"{mesh.axis_names} (sequence axis {axis_name!r}): a "
+                "mesh with axes besides the sequence axis (composed "
+                "parallelism) comes with ROADMAP item A3")
+        self.mesh = mesh
+        self.axis_name = axis_name
+        self.batch_axis = batch_axis
+        self.head_axis = head_axis
+        self.layout: Optional[str] = None
+
+    @property
+    def group(self):
+        """The process group of the sequence axis."""
+        return self.mesh.group(self.axis_name)
+
+    @property
+    def size(self) -> int:
+        return self.mesh.size(self.axis_name)
+
+    @property
+    def index(self) -> int:
+        """This rank's index along the sequence axis."""
+        return self.mesh.index(self.axis_name)
+
+    def __enter__(self):
+        _stack().append(self)
+        _CTX_EPOCH[0] += 1
+        return self
+
+    def __exit__(self, *exc):
+        stack = _stack()
+        if self in stack:          # tolerate out-of-order exits
+            stack.remove(self)
+        _CTX_EPOCH[0] += 1
+        return False
+
+
+def active_context() -> Optional[distributed_context]:
+    """The innermost active context of this thread, or None."""
+    stack = _stack()
+    return stack[-1] if stack else None
+
+
+def context_epoch() -> int:
+    """Monotone counter bumped on every context enter/exit (the JAX
+    package keys its jit caches on it; the port has no traces and keeps
+    it for the API)."""
+    return _CTX_EPOCH[0]
+
+
+def sequence_segments(mode: str, n: int, m: int,
+                      t_loc: int) -> Tuple[Tuple[int, int], ...]:
+    """``(global offset, length)`` of each contiguous run of the tokens
+    rank ``m`` of ``n`` holds, in the order it holds them, for a local
+    length ``t_loc``: one run under ``"ring"``/``"ulysses"``, two
+    half-chunks under ``"zigzag_ring"``."""
+    if mode == "zigzag_ring":
+        if t_loc % 2:
+            raise ValueError(f"zigzag_ring: the local length {t_loc} is "
+                             "not two equal half-chunks")
+        c = t_loc // 2
+        return ((m * c, c), ((2 * n - 1 - m) * c, c))
+    if mode not in SP_MODES:
+        raise ValueError(f"unknown sequence_parallel mode {mode!r} "
+                         "(ring|ulysses|zigzag_ring)")
+    return ((m * t_loc, t_loc),)
+
+
+def local_segments(mode: Optional[str], t_loc: int):
+    """:func:`sequence_segments` of this rank under the active context
+    for ``mode``; None with no context or no mode (the tokens are the
+    whole sequence from position 0)."""
+    ctx = active_context()
+    if ctx is None or mode is None:
+        return None
+    return sequence_segments(mode, ctx.size, ctx.index, t_loc)
+
+
+def shard_sequence(x: torch.Tensor, mode: str, n: int, m: int,
+                   axis: int = 1) -> torch.Tensor:
+    """Rank ``m``'s tokens of the global array ``x`` along ``axis``, in
+    the layout of ``mode``. ``ValueError`` unless T divides into ``n``
+    chunks (``2n`` under zigzag), as ``zigzag_permute`` refuses."""
+    t = x.shape[axis]
+    parts = 2 * n if mode == "zigzag_ring" else n
+    if t % parts:
+        raise ValueError(f"T={t} not divisible by {parts} ({mode!r} over "
+                         f"{n} ranks)")
+    segs = sequence_segments(mode, n, m, t // n)
+    if len(segs) == 1:
+        return x.narrow(axis, *segs[0])
+    return torch.cat([x.narrow(axis, off, ln) for off, ln in segs],
+                     dim=axis)
+
+
+def unshard_sequence(shards: Sequence[torch.Tensor], mode: str,
+                     axis: int = 1) -> torch.Tensor:
+    """The global array from every rank's shard (in rank order): the
+    inverse of :func:`shard_sequence`."""
+    n = len(shards)
+    runs = []
+    for m, x in enumerate(shards):
+        at = 0
+        for off, ln in sequence_segments(mode, n, m, x.shape[axis]):
+            runs.append((off, x.narrow(axis, at, ln)))
+            at += ln
+    runs.sort(key=lambda r: r[0])
+    return torch.cat([r[1] for r in runs], dim=axis)

@@ -20,8 +20,12 @@ carries a JAX network's weights across. A trained ``MultiLayerNetwork``
 holds the same tree in ``net.params``, so :meth:`generate` and the
 serving gateway take it as it is.
 
-Sequence-parallel training, int8 weight and KV-cache quantisation and
-beam search come with later slices.
+``sequence_parallel`` (``"ring"``, ``"zigzag_ring"``, ``"ulysses"``)
+reaches every block's attention: under ``parallel.distributed_context``
+``fit`` trains sequence-parallel, each rank on its shard of the tokens
+(``parallel/mesh.py``); outside a context the same model trains locally.
+Decoding (``generate``, the gateway) is local. int8 weight and KV-cache
+quantisation and beam search come with later slices.
 """
 from __future__ import annotations
 
@@ -78,10 +82,6 @@ class CausalTransformerLM:
                  cache_quant: Optional[str] = None,
                  seed: int = 123, updater=None,
                  compute_dtype: Optional[str] = None):
-        if sequence_parallel is not None:
-            raise NotImplementedError(
-                f"sequence_parallel={sequence_parallel!r}: sequence-"
-                "parallel training comes with the sequence-parallel slice")
         if serve_quant is not None:
             raise ValueError(f"serve_quant={serve_quant!r}: int8 "
                              "weight-only serving is not ported yet "

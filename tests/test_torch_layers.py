@@ -347,8 +347,31 @@ def test_config_builder_flows_defaults_and_ties():
 
 
 def test_sequence_parallel_attention_is_refused():
+    """A sequence-parallel attention is refused where it cannot run: an
+    unknown mode even with no context (as in JAX), and the zigzag ring
+    (causal only) on a non-causal layer under a context. A known mode
+    builds, and with no context runs as the local layer."""
+    from deeplearning4j_tpu_torch.parallel.mesh import distributed_context
+
+    class OneRank:               # a {"seq": 1} mesh: nothing is sent
+        axis_names = ("seq",)
+        group = lambda self, axis: None
+        size = lambda self, axis=None: 1
+        index = lambda self, axis: 0
+
+    x = torch.randn(2, 4, 8, generator=torch.Generator().manual_seed(0))
     layer = pl.MultiHeadAttention(n_in=8, n_out=8, n_heads=2,
                                   sequence_parallel="ring")
-    with pytest.raises(NotImplementedError,
-                       match="sequence-parallel slice"):
-        layer.init(torch.Generator(), (4, 8))
+    params, _, _ = layer.init(torch.Generator().manual_seed(1), (4, 8))
+    local = pl.MultiHeadAttention(n_in=8, n_out=8, n_heads=2)
+    assert torch.equal(layer.apply(params, {}, x)[0],
+                       local.apply(params, {}, x)[0])
+    typo = pl.MultiHeadAttention(n_in=8, n_out=8, n_heads=2,
+                                 sequence_parallel="ulyses")
+    with pytest.raises(ValueError, match="sequence_parallel"):
+        typo.apply(params, {}, x)
+    zz = pl.MultiHeadAttention(n_in=8, n_out=8, n_heads=2,
+                               sequence_parallel="zigzag_ring")
+    with distributed_context(OneRank()):
+        with pytest.raises(ValueError, match="causal-only"):
+            zz.apply(params, {}, x)

@@ -238,7 +238,8 @@ def test_registry_lists_every_tpu_kernel():
         assert isinstance(e.launches(), int)
         # every ported row names the main paths that launch it
         assert e.paths and set(e.paths) <= {"serve", "train", "finetune",
-                                            "longctx", "dp", "dp_packed"}
+                                            "longctx", "dp", "dp_packed",
+                                            "sp"}
         # the stepped phases' expected launches per step: one positive
         # count for each stepped path of the row, none for serve
         stepped = set(e.paths) - {"serve"}
@@ -261,6 +262,10 @@ def test_registry_lists_every_tpu_kernel():
     assert {e.key: e.per_step["dp_packed"]
             for e in on_path("dp_packed")} == {**train, "K10": LM_LEAVES,
                                                "K11": LM_LEAVES}
+    # sequence-parallel: the long-context LM's zigzag ring at one rank,
+    # K1 and K3 once a block pair (four a layer), the norms as longctx
+    assert {e.key: e.per_step["sp"] for e in on_path("sp")} == {
+        "K1": 48, "K2": 13, "K3": 48, "K6": 25, "K7": 12}
     for e in KERNELS:
         if e.status == "todo":
             assert e.port is None and e.route is None and not e.paths

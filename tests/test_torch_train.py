@@ -209,9 +209,12 @@ def test_params_from_jax_checks_the_tree():
 
 
 def test_unported_options_raise_naming_the_slice():
-    with pytest.raises(NotImplementedError,
-                       match="sequence-parallel slice"):
-        GPTNano(**KW, sequence_parallel="ring")
+    # sequence parallelism is ported; its composition with data and
+    # tensor parallelism is not
+    GPTNano(**KW, sequence_parallel="ring").init(24, device="cpu")
+    from deeplearning4j_tpu_torch.parallel import distributed_context
+    with pytest.raises(NotImplementedError, match="item A3"):
+        distributed_context(None, batch_axis="data")
 
     def net_with(**layer_kw):
         conf = (NeuralNetConfiguration.builder().list()

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card (H100).
 
-    python3 chip_smoke.py               # phases 1-15 (needs one card)
+    python3 chip_smoke.py               # phases 1-18 (needs one card)
     python3 chip_smoke.py --phases train,train_agree,kernels
     python3 chip_smoke.py --phases finetune,finetune_agree,kernels
     python3 chip_smoke.py --phases longctx,longctx_agree,kernels
     python3 chip_smoke.py --phases dp,dp_packed,dp_agree,kernels
     python3 chip_smoke.py --phases sp,sp_agree,kernels
+    python3 chip_smoke.py --phases zero,zero_agree,dp_graph,kernels
     python3 chip_smoke.py --phases profile    # device-time breakdown
 
 Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
@@ -95,7 +96,27 @@ Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
    ``zigzag_ring`` and ``ulysses``: the card's loss and every gradient
    against the same step without the context on the card, and against
    the same step under the context on the CPU;
-15. kernels — holds each ported kernel against its plain PyTorch version
+15. zero — the train phase's LM and batch through ``ParallelWrapper(net,
+   mesh=data_parallel_mesh(), sharded_update=True)`` on the one-rank
+   group of the dp phases (the ZeRO sharded update: one reduce-scatter a
+   flat gradient leaf, the update on the rank's slice against its 1/N
+   optimizer state, one all-gather a leaf), then the same with
+   ``gather_overlap=True``: each 2 warm and 8 timed steps, the step ms,
+   tokens/s, peak GB and the ``OPT_STATE_BYTES`` reading, every loss
+   finite and the last below the first, the train kernels' launches
+   exactly;
+16. zero_agree — the train model in float32 (TF32 off) at B = 2,
+   T = 256: replicated SYNC, the sharded update and the overlap take two
+   steps each from one gradient and must end bit for bit alike (params
+   and the gathered optimizer state); then one sharded step through
+   ``fit`` on the card against the CPU: the loss and the
+   reduce-scattered gradient in train_agree's bands;
+17. dp_graph — BERT-base's classifier (the finetune phase's model)
+   through ``ParallelWrapper(graph, sharded_update=True)`` on the same
+   group, the fine-tune batch as full-length rows (no masks, so K1 and
+   K3 run unmasked): 2 warm and 8 timed steps, the loss falling, the
+   launches exactly, then one ``output`` whose rows each sum to 1;
+18. kernels — holds each ported kernel against its plain PyTorch version
    on the card at its main paths' shapes, in bfloat16 (for K1, K3, K4
    and K5 the tensor-core kernels of ``csrc/flash_mma.cuh``) and float32
    (their CUDA-core kernels), including operands whose base and strides
@@ -103,15 +124,16 @@ Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
    and a PyTorch library call that computes the same function (a
    yardstick the port never calls). K1 is timed at the serve, train,
    fine-tune and long-context shapes beside SDPA, K3, K4 and K5 at the
-   train and long-context shapes (K3 also at the fine-tune shape) beside
-   SDPA's backward, each with its achieved TFLOP/s and share of its
-   bound (for K3, K5 in bf16 the key-stationary tensor-core loop of
-   ``csrc/flash_mma.cuh``). At the long-context shape the split pair is
-   also held against K3, and K4's dq and K5's dk, dv must be the same to
-   the bit over two runs; K10 and K11 are held to the bit (words,
-   residuals, decoded values, and four emulated ranks' decode-sum), K11
-   also at every leaf shape of the packed step and at ragged sizes, and
-   it fails over ``K11_BAR_MS`` at the embedding leaf. The ring's block
+   train and long-context shapes (K3 also at the fine-tune shape, with a
+   key mask and without) beside SDPA's backward, each with its achieved
+   TFLOP/s and share of its bound (for K3, K5 in bf16 the key-stationary
+   tensor-core loop of ``csrc/flash_mma.cuh``). At the long-context
+   shape the split pair is also held against K3, and K4's dq and K5's
+   dk, dv must be the same to the bit over two runs; K10 and K11 are
+   held to the bit (words, residuals, decoded values, and four emulated
+   ranks' decode-sum), K11 also at every leaf shape of the packed step
+   and at ragged sizes, and it fails over ``K11_BAR_MS`` at the
+   embedding leaf. The ring's block
    entries ``flash_block_fwd``/``flash_block_bwd`` (K1; K3), and K4 and
    K5 through their ``offsets``, are held against their plain versions
    at T_loc = 2048, H = 6, D = 128 for all 16 (rank, source) block pairs
@@ -136,7 +158,8 @@ Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
    nothing it leaves behind in the process can slow the host-bound serve
    step (``PERF.md`` records such a slowdown, cause not isolated).
 
-Each main path (serve, train, finetune, longctx, dp, dp_packed, sp) zeroes
+Each main path (serve, train, finetune, longctx, dp, dp_packed, sp, zero,
+dp_graph) zeroes
 the launch counters of the kernels just before it runs and reads them
 just after; it fails if a kernel the registry lists for that path was
 not launched, and on a stepped path (all but serve) if any ported kernel
@@ -146,10 +169,11 @@ path does not list).
 ``profile`` (not in the default run) prints the device busy time, idle
 share and top kernels of one 2048-bucket prefill, of 8 decode steps with
 32 active slots, of one training step, of one fine-tune step, of one
-long-context step, of one sp step, of one dp_packed step and of its
-exchange alone, from ``torch.profiler``. Each window's wall time is
-taken before the first profiled window, and the decode window's wall
-once more after the last one, to show whether profiling changed it.
+long-context step, of one sp step, of one dp_packed step, of its
+exchange alone, of one zero step and of one dp_graph step, from
+``torch.profiler``. Each window's wall time is taken before the first
+profiled window, and the decode window's wall once more after the last
+one, to show whether profiling changed it.
 
 Any failed phase exits non-zero before the result lines. The last two
 lines are the ``kernels`` JSON object (when the kernels phase and a path
@@ -169,7 +193,8 @@ import time
 
 PHASES = ("device", "serve", "agree", "train", "train_agree", "finetune",
           "finetune_agree", "longctx", "longctx_agree", "dp", "dp_packed",
-          "dp_agree", "sp", "sp_agree", "kernels")
+          "dp_agree", "sp", "sp_agree", "zero", "zero_agree", "dp_graph",
+          "kernels")
 
 # published peaks of one H100 SXM (dense): the bound of a kernel is the
 # larger of its operations over the peak rate for their type and its
@@ -710,79 +735,86 @@ def _time_k1_causal(q, k, v, path: str, card, iters: int = 20) -> None:
 
 def _check_flash_finetune(e1, e3, rows, card):
     """K1 (out and lse) and K3 at the fine-tune shape [64, 128, 12, 64],
-    not causal, keys masked by padded lengths, in bfloat16 and float32,
-    against their plain versions; then both timed against SDPA."""
+    not causal, keys masked by padded lengths (the finetune path) and
+    unmasked (``mask=None``: the dp_graph path's full-length rows), in
+    bfloat16 and float32, against their plain versions; then both timed
+    against SDPA in bfloat16."""
     import torch
     import torch.nn.functional as F
     from deeplearning4j_tpu_torch.ops.cuda_kernels import (
         flash_attention_reference)
     flash, bwd, plain = e1.port_fn(), e3.port_fn(), e3.plain_fn()
     b, t, h, d = BERT_B, BERT_T, BERT_HEADS, BERT_D
-    for dname in ("bfloat16", "float32"):
-        dt = getattr(torch, dname)
-        q, k, v, out, lse, do, mask = _flash_bwd_case(
-            dt, b, t, h, h, False, "lengths", 300, d=d)
-        ref_out, ref_lse = flash_attention_reference(q, k, v, mask=mask,
-                                                     return_lse=True)
-        got = bwd(q, k, v, out, lse, do, mask=mask)
-        ref = plain(q, k, v, out, lse, do, mask=mask)
-        torch.cuda.synchronize()
-        o_err = (out.float() - ref_out.float()).abs().max().item()
-        lse_err = (lse - ref_lse).abs().max().item()
-        errs = [(a.float() - r.float()).abs().max().item()
-                for a, r in zip(got, ref)]
-        rel = max(_rel_err(a, r) for a, r in zip(got, ref))
-        finite = all(bool(torch.isfinite(x).all())
-                     for x in (out, lse, *got))
-        line = (f"K1+K3 {dname} [{b},{t},{h},{d}] key-masked: K1 out "
-                f"max_abs_err={o_err:.3e} tol={FLASH_TOL[dname]:.0e} lse "
-                f"max_abs_err={lse_err:.3e} tol={LSE_TOL:.0e}; K3 "
-                f"max_abs_err(dq,dk,dv)="
-                f"{','.join(f'{x:.3e}' for x in errs)} rel={rel:.3e} "
-                f"tol={K3_TOL[dname]:.0e}")
-        if dname == "bfloat16":
-            live = float(mask.sum()) * t          # (query, key) pairs
-            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                          for x in (q, k, v))
-            am = mask.bool()[:, None, None, :]
-            dot = do.transpose(1, 2)
+    for masked, what in (("lengths", "key-masked"), (False, "unmasked")):
+        for dname in ("bfloat16", "float32"):
+            dt = getattr(torch, dname)
+            q, k, v, out, lse, do, mask = _flash_bwd_case(
+                dt, b, t, h, h, False, masked, 300, d=d)
+            ref_out, ref_lse = flash_attention_reference(
+                q, k, v, mask=mask, return_lse=True)
+            got = bwd(q, k, v, out, lse, do, mask=mask)
+            ref = plain(q, k, v, out, lse, do, mask=mask)
+            torch.cuda.synchronize()
+            o_err = (out.float() - ref_out.float()).abs().max().item()
+            lse_err = (lse - ref_lse).abs().max().item()
+            errs = [(a.float() - r.float()).abs().max().item()
+                    for a, r in zip(got, ref)]
+            rel = max(_rel_err(a, r) for a, r in zip(got, ref))
+            finite = all(bool(torch.isfinite(x).all())
+                         for x in (out, lse, *got))
+            line = (f"K1+K3 {dname} [{b},{t},{h},{d}] {what}: K1 out "
+                    f"max_abs_err={o_err:.3e} tol={FLASH_TOL[dname]:.0e} "
+                    f"lse max_abs_err={lse_err:.3e} tol={LSE_TOL:.0e}; K3 "
+                    f"max_abs_err(dq,dk,dv)="
+                    f"{','.join(f'{x:.3e}' for x in errs)} rel={rel:.3e} "
+                    f"tol={K3_TOL[dname]:.0e}")
+            if dname == "bfloat16":
+                # live (query, key) pairs
+                live = (float(mask.sum()) if mask is not None
+                        else float(b * t)) * t
+                qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                              for x in (q, k, v))
+                am = None if mask is None else mask.bool()[:, None, None, :]
+                dot = do.transpose(1, 2)
 
-            def sdpa_fwd():
-                with torch.no_grad():
-                    F.scaled_dot_product_attention(qt, kt, vt,
-                                                   attn_mask=am)
+                def sdpa_fwd():
+                    with torch.no_grad():
+                        F.scaled_dot_product_attention(qt, kt, vt,
+                                                       attn_mask=am)
 
-            def sdpa_fwd_bwd():
-                o = F.scaled_dot_product_attention(qt, kt, vt,
-                                                   attn_mask=am)
-                torch.autograd.grad(o, (qt, kt, vt), dot)
+                def sdpa_fwd_bwd():
+                    o = F.scaled_dot_product_attention(qt, kt, vt,
+                                                       attn_mask=am)
+                    torch.autograd.grad(o, (qt, kt, vt), dot)
 
-            t_k1 = device_ms(lambda: flash(q, k, v, mask=mask))
-            t_k3 = device_ms(lambda: bwd(q, k, v, out, lse, do,
-                                         mask=mask), iters=10)
-            t_l1 = device_ms(sdpa_fwd)
-            t_l3 = device_ms(sdpa_fwd_bwd) - t_l1
-            el = q.element_size()
-            b1, by1 = bound_ms(4 * d * h * live,
-                               4 * q.numel() * el + mask.numel() * 4,
-                               PEAK_BF16_FLOPS)
-            b3, by3 = bound_ms(10 * d * h * live,
-                               8 * q.numel() * el + lse.numel() * 4,
-                               PEAK_BF16_FLOPS)
-            line += (f"; K1 kernel_ms={t_k1:.4f} sdpa_ms={t_l1:.4f} "
-                     f"kernel/sdpa={t_k1 / t_l1:.2f} bound_ms={b1:.5f}"
-                     f"({by1}) {_rate(4 * d * h * live, t_k1, b1)}; K3 "
-                     f"kernel_ms={t_k3:.4f} "
-                     f"sdpa_bwd_ms={t_l3:.4f} kernel/sdpa_bwd="
-                     f"{t_k3 / t_l3:.2f} bound_ms={b3:.5f}({by3}) "
-                     f"{_rate(10 * d * h * live, t_k3, b3)}")
-        log(f"{line} {card}")
-        if not (o_err <= FLASH_TOL[dname] and lse_err <= LSE_TOL
-                and rel <= K3_TOL[dname] and finite):
-            raise AssertionError(f"K1 or K3 disagrees with its plain "
-                                 f"version at the fine-tune shape: {line}")
-        rows["K1_err"] = max(rows["K1_err"], o_err)
-        rows["K3_err"] = max(rows["K3_err"], *errs)
+                t_k1 = device_ms(lambda: flash(q, k, v, mask=mask))
+                t_k3 = device_ms(lambda: bwd(q, k, v, out, lse, do,
+                                             mask=mask), iters=10)
+                t_l1 = device_ms(sdpa_fwd)
+                t_l3 = device_ms(sdpa_fwd_bwd) - t_l1
+                el = q.element_size()
+                mask_bytes = 0 if mask is None else mask.numel() * 4
+                b1, by1 = bound_ms(4 * d * h * live,
+                                   4 * q.numel() * el + mask_bytes,
+                                   PEAK_BF16_FLOPS)
+                b3, by3 = bound_ms(10 * d * h * live,
+                                   8 * q.numel() * el + lse.numel() * 4,
+                                   PEAK_BF16_FLOPS)
+                line += (f"; K1 kernel_ms={t_k1:.4f} sdpa_ms={t_l1:.4f} "
+                         f"kernel/sdpa={t_k1 / t_l1:.2f} bound_ms={b1:.5f}"
+                         f"({by1}) {_rate(4 * d * h * live, t_k1, b1)}; K3 "
+                         f"kernel_ms={t_k3:.4f} "
+                         f"sdpa_bwd_ms={t_l3:.4f} kernel/sdpa_bwd="
+                         f"{t_k3 / t_l3:.2f} bound_ms={b3:.5f}({by3}) "
+                         f"{_rate(10 * d * h * live, t_k3, b3)}")
+            log(f"{line} {card}")
+            if not (o_err <= FLASH_TOL[dname] and lse_err <= LSE_TOL
+                    and rel <= K3_TOL[dname] and finite):
+                raise AssertionError(
+                    f"K1 or K3 disagrees with its plain version at the "
+                    f"fine-tune shape: {line}")
+            rows["K1_err"] = max(rows["K1_err"], o_err)
+            rows["K3_err"] = max(rows["K3_err"], *errs)
 
 
 # the split pair's cases: (b, tq, tk, h, h_kv, causal, masked, d,
@@ -1895,6 +1927,224 @@ def phase_dp_agree(state):
     assert launches["K10"] > 0 and launches["K11"] > 0, launches
 
 
+# -- phases 15-17: the ZeRO sharded update, the graph under the wrapper ----
+def _opt_bytes_line(phase: str, w, card) -> None:
+    """The ``OPT_STATE_BYTES`` gauge's reading, this rank's optimizer
+    bytes and the whole moments' bytes, now in host memory."""
+    from deeplearning4j_tpu_torch import tree
+    from deeplearning4j_tpu_torch.obs.metrics import OPT_STATE_BYTES
+    from deeplearning4j_tpu_torch.parallel import per_device_bytes
+    gauge = OPT_STATE_BYTES.snapshot()
+    mine = per_device_bytes(w._dp_state)
+    whole = per_device_bytes(w._evicted_opt)
+    devices = sorted({str(t.device) for t in tree.leaves(w._evicted_opt)})
+    log(f"{phase}: OPT_STATE_BYTES {gauge} rank optimizer bytes={mine} "
+        f"({mine / 2 ** 30:.3f} GiB) whole optimizer state={whole} bytes "
+        f"on {devices} world={w.n} {card}")
+    assert gauge["layout=sharded"] == mine and devices == ["cpu"]
+
+
+def _free_card(phase: str, card) -> None:
+    """Collect what earlier phases left (reference cycles hold nets) and
+    print the card memory still allocated, the floor under the phase's
+    peak."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    gb = torch.cuda.memory_allocated() / 2 ** 30
+    log(f"{phase}: memory_allocated_gb before={gb:.3f} {card}")
+
+
+def phase_zero(state):
+    """The train LM through ``ParallelWrapper(net, mesh=
+    data_parallel_mesh(), sharded_update=True)`` on the one-rank
+    ``"cpu:gloo,cuda:nccl"`` group, then with ``gather_overlap=True``:
+    each 2 warm and 8 timed steps of the train batch, the train kernels'
+    launches exactly a step; the layout holds one flat leaf a parameter
+    leaf (the tied embedding once: ``LM_LEAVES``)."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.ops import kernel_registry
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    mesh = _dp_mesh(state)
+    _free_card("zero", state["card"])
+    for overlap in (False, True):
+        wrappers = []
+
+        def make_step(net, x, y):
+            w = ParallelWrapper(net, mesh=mesh, sharded_update=True,
+                                gather_overlap=overlap)
+            wrappers.append(w)
+            batch = [DataSet(x, y)]
+            return lambda: w.fit(batch)
+
+        log(f"zero: gather_overlap={overlap}")
+        _fit_steps(state, "zero", TRAIN, TRAIN_B, TRAIN_T, warm=2, steps=8,
+                   make_step=make_step)
+        (w,) = wrappers
+        leaves = len(w._layout().sizes)
+        log(f"zero: {leaves} flat leaves (LM_LEAVES "
+            f"{kernel_registry.LM_LEAVES}), {sum(w._layout().padded)} "
+            f"padded elements {state['card']}")
+        assert leaves == kernel_registry.LM_LEAVES
+        _opt_bytes_line("zero", w, state["card"])
+        del w, wrappers
+        _free_card("zero", state["card"])
+
+
+def phase_zero_agree(state):
+    """One f32 step (TF32 off) at B = 2, T = 256 of the train model, from
+    the same weights: (1) on the card, replicated SYNC, the sharded update
+    and the overlap each take two steps from ONE gradient (K3's dq
+    atomics change the last bits of a gradient from run to run; every
+    op after it is elementwise and IEEE-rounded), and must end with the
+    same params (and ``gather_opt_state`` the replicated moments) bit for
+    bit at one rank; (2) the sharded step through ``fit`` on the card
+    and on the CPU (the CPU tensors over gloo): the loss and the
+    reduce-scattered gradient it applies, in train_agree's bands."""
+    import torch
+    from deeplearning4j_tpu_torch import tree
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn.layers.base import fold_in
+    from deeplearning4j_tpu_torch.ops import kernel_registry
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.zoo.gpt import CausalTransformerLM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = state["card"]
+    mesh = _dp_mesh(state)
+    model = CausalTransformerLM(**TRAIN)          # float32
+    x, y = _train_batch(1, 2, 256, model.vocab_size)
+    batch = [DataSet(x, y)]
+    # (1) one gradient, three update paths
+    ref = ParallelWrapper(model.init(256), mesh=mesh)
+    fixed = ref._local_grads(ref.net.params, ref.net._as_input(x),
+                             ref.net._as_input(y),
+                             fold_in(ref.net.conf.seed, 0))
+    nets = {}
+    for name, kw in (("replicated", {}), ("sharded",
+                                          {"sharded_update": True}),
+                     ("overlap", {"sharded_update": True,
+                                  "gather_overlap": True})):
+        w = ParallelWrapper(model.init(256), mesh=mesh, **kw)
+        w._local_grads = lambda p, xs, ys, rng, w=w: (
+            fixed[0], tree.map_(torch.clone, fixed[1]), w.net.state)
+        w.fit(batch, epochs=2)
+        nets[name] = w
+    del ref, fixed
+    same = lambda a, b: all(torch.equal(p, q) for p, q in
+                            zip(tree.leaves(a), tree.leaves(b)))
+    rep, sh, ov = (nets[k] for k in ("replicated", "sharded", "overlap"))
+    checks = {
+        "sharded params == replicated": same(sh.net.params,
+                                             rep.net.params),
+        "overlap params == sharded": same(ov.net.params, sh.net.params),
+        "sharded gather_opt_state == replicated opt_state": same(
+            sh.gather_opt_state(), rep.net.opt_state),
+        "overlap gather_opt_state == sharded": same(
+            ov.gather_opt_state(), sh.gather_opt_state()),
+    }
+    log(f"zero_agree: f32 B=2 T=256 two steps from one gradient, card, "
+        f"bit for bit: {checks} {card}")
+    del nets, rep, sh, ov
+    _free_card("zero_agree", card)
+    # (2) the sharded step, card against CPU
+    results = {}
+    for e in kernel_registry.ported():
+        e.reset()
+    for dev in ("cuda", "cpu"):
+        net = model.init(256, device=dev)
+        w = ParallelWrapper(net, mesh=mesh, sharded_update=True)
+        layout, seen = w._layout(), []
+        scatter = layout.scatter_mean
+
+        def record(tree_, group=None, scatter=scatter, seen=seen):
+            out = scatter(tree_, group)
+            seen.append(out)
+            return out
+
+        layout.scatter_mean = record
+        w.fit(batch)
+        grads = tree.map_(lambda t: t.cpu(), layout.unflatten(seen[0]))
+        results[dev] = (net.score(), grads)
+        del net, w, layout, seen, grads
+    launches = {e.key: e.launches() for e in kernel_registry.ported()}
+    (l_card, g_card), (l_cpu, g_cpu) = results["cuda"], results["cpu"]
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    rels = tree.map_with_path(
+        lambda path, a, b: (_rel_err(a, b), ".".join(path)), g_card, g_cpu)
+    worst, worst_key = max(tree.leaves(rels))
+    log(f"zero_agree: f32 B=2 T=256 one sharded step, card vs CPU: loss "
+        f"{l_card:.6f} vs {l_cpu:.6f} rel={loss_rel:.3e} "
+        f"tol={TRAIN_LOSS_RTOL:.0e}; worst reduce-scattered gradient "
+        f"{worst_key} max|d|/max|g|={worst:.3e} tol={TRAIN_GRAD_TOL:.0e} "
+        f"{card}")
+    log(f"zero_agree: card launches {launches} {card}")
+    if not all(checks.values()):
+        raise AssertionError(f"zero_agree: not bit for bit: {checks}")
+    if not (loss_rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_TOL):
+        raise AssertionError("card and CPU sharded step disagree")
+    assert launches["K1"] > 0 and launches["K3"] > 0, launches
+
+
+def phase_dp_graph(state):
+    """BERT-base's classifier (the finetune phase's model, bfloat16
+    compute, dropout 0.1) through ``ParallelWrapper(graph, mesh=
+    data_parallel_mesh(), sharded_update=True)`` on the one-rank group:
+    the finetune batch's tokens, segments and labels as full-length rows
+    (no masks: the wrapper's graph adapter passes none, as the JAX one),
+    2 warm and 8 timed steps; every loss finite and the mean of the last
+    two below that of the first two, each kernel launched exactly its
+    registry count per step (K1 and K3 unmasked), then one ``output``
+    whose rows each sum to 1."""
+    import math
+    import torch
+    from deeplearning4j_tpu_torch.ops import kernel_registry
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.zoo.bert import BertBase
+    card = state["card"]
+    mesh = _dp_mesh(state)
+    _free_card("dp_graph", card)
+    t0 = time.perf_counter()
+    net = BertBase(seed=2, compute_dtype="bfloat16").init_classifier(
+        2, BERT_T)
+    tokens, segments, _, labels = _finetune_batch(0, BERT_B, BERT_T)
+    w = ParallelWrapper(net, mesh=mesh, sharded_update=True)
+    batch = [([tokens, segments], [labels])]
+    log(f"dp_graph: init {net.num_params()} params on {net.device} "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    def step():
+        w.fit(batch)
+        return net.score()                   # fit ends in a device sync
+
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step() for _ in range(2)]      # warm steps
+    for e in kernel_registry.ported():
+        e.reset()
+    torch.cuda.synchronize()
+    steps = 8
+    t_start = time.perf_counter()
+    losses += [step() for _ in range(steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    launches = {e.key: e.launches() for e in kernel_registry.ported()}
+    state.setdefault("launches", {})["dp_graph"] = launches
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"dp_graph: losses {' '.join(f'{l:.4f}' for l in losses)} {card}")
+    log(f"dp_graph: B={BERT_B} T={BERT_T} steps={steps} mean_step_ms="
+        f"{wall / steps * 1e3:.3f} samples_per_s="
+        f"{BERT_B * steps / wall:.1f} max_memory_allocated_gb="
+        f"{peak_gb:.3f} {card}")
+    _opt_bytes_line("dp_graph", w, card)
+    assert all(math.isfinite(l) for l in losses), losses
+    first, last = sum(losses[:2]) / 2, sum(losses[-2:]) / 2
+    assert last < first, (first, last, losses)
+    _check_step_launches("dp_graph", steps, launches, card)
+    probs = net.output(tokens, segments)[0]
+    _check_prob_rows("dp_graph", probs, PROB_SUM_TOL["bfloat16"], card)
+
+
 # -- phases 6, 7 -----------------------------------------------------------
 # -- phases 13-14: sequence-parallel ----------------------------------------
 def _seq_mesh(state):
@@ -2237,10 +2487,11 @@ def _wall_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-# device names of the norm and codec kernels, whose summed time per
-# window ``--phases profile`` prints whatever their rank
+# device names of the norm and codec kernels, and of NCCL's collectives,
+# whose summed time per window ``--phases profile`` prints whatever their
+# rank
 PROFILE_KERNELS = ("rms_fwd", "ln_fwd", "norm_bwd_", "threshold_encode",
-                   "threshold_decode")
+                   "threshold_decode", "nccl")
 
 
 def _device_window(name: str, fn, wall_ms: float, card: str,
@@ -2249,8 +2500,9 @@ def _device_window(name: str, fn, wall_ms: float, card: str,
     every kernel, memcpy and memset (user-annotation ranges are not
     counted). Prints the busy time, its idle share of ``wall_ms`` (an
     unprofiled run of the same work), the ten largest device items by
-    name and every norm and codec kernel (``PROFILE_KERNELS``) with its
-    summed time and launches; with ``host_top``, also that many
+    name and every norm, codec and NCCL kernel (``PROFILE_KERNELS``) with
+    its summed time and launches, and the sums of the memcpy and memset
+    items and of the NCCL kernels; with ``host_top``, also that many
     host-side ops by their own CPU time under the profiler (which
     inflates them: a ranking, not a time)."""
     import collections
@@ -2277,6 +2529,11 @@ def _device_window(name: str, fn, wall_ms: float, card: str,
         if any(k in key for k in PROFILE_KERNELS):
             log(f"  kernel {by_name[key]:9.3f} ms x{count[key]:<5d} "
                 f"{key[:90]}")
+    for what, keys in (("memcpy+memset", ("Memcpy", "Memset")),
+                       ("nccl", ("nccl",))):
+        sel = [k for k in by_name if any(w in k for w in keys)]
+        log(f"  sum {what} {sum(by_name[k] for k in sel):9.3f} ms "
+            f"x{sum(count[k] for k in sel)}")
     host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
                   reverse=True)
     for ev in host[:host_top]:
@@ -2291,7 +2548,11 @@ def phase_profile(state):
     of one fine-tune step of the finetune phase's model and batch, of
     one step of the longctx phase's model and batch, of one sp step (the
     same batch, the zigzag ring at one rank), of one dp_packed step (on
-    the train net) and of its packed exchange alone.
+    the train net), of its packed exchange alone, of one zero step
+    (the train model and batch under the sharded update: the flat copies
+    and NCCL's reduce-scatter and all-gather beside the step's work) and
+    of one dp_graph step (the fine-tune model and batch, unmasked, under
+    the same wrapper).
     Every wall time is taken before the first profiled window,
     and the decode window's once more after the last one: a host-bound
     step ran slower after the kernels phase, and this shows whether
@@ -2349,6 +2610,21 @@ def phase_profile(state):
     g, acc_state, group, acc = parts()
     exchange = lambda: acc.exchange_packed(g, acc_state, group)
     exchange()
+    # the zero step: the train model under the sharded update
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    zw = ParallelWrapper(tmodel.init(TRAIN_T), mesh=_dp_mesh(state),
+                         sharded_update=True)
+    zero_step = lambda: zw.fit([DataSet(x, y)])
+    for _ in range(2):
+        zero_step()
+    # the dp_graph step: the fine-tune model and batch under the wrapper
+    gw = ParallelWrapper(BertBase(seed=2, compute_dtype="bfloat16")
+                         .init_classifier(2, BERT_T), mesh=_dp_mesh(state),
+                         sharded_update=True)
+    graph_step = lambda: gw.fit([([tokens, segments], [labels])])
+    for _ in range(2):
+        graph_step()
     decode = lambda: [sched.step() for _ in range(8)]
     train_step = lambda: net.fit(x, y)
     walls = {"prefill": _wall_ms(lambda: sched.admit(reqs[first])),
@@ -2356,7 +2632,8 @@ def phase_profile(state):
              "finetune": _wall_ms(ft_step), "longctx": _wall_ms(long_step),
              "sp": _wall_ms(sp_step),
              "dp_packed": _wall_ms(packed_step),
-             "exchange": _wall_ms(exchange)}
+             "exchange": _wall_ms(exchange), "zero": _wall_ms(zero_step),
+             "dp_graph": _wall_ms(graph_step)}
     sched.evict(reqs[first])            # its slot and pages, once more
     _device_window(f"prefill t0={lens[first]} (bucket 2048)",
                    lambda: sched.admit(stream(first)), walls["prefill"],
@@ -2375,6 +2652,12 @@ def phase_profile(state):
                    walls["dp_packed"], card)
     _device_window("exchange_packed alone", exchange,
                    walls["exchange"], card, host_top=12)
+    _device_window(f"zero step (sharded update, one rank) B={TRAIN_B} "
+                   f"T={TRAIN_T}", zero_step, walls["zero"], card,
+                   host_top=12)
+    _device_window(f"dp_graph step (sharded update, one rank, unmasked) "
+                   f"B={BERT_B} T={BERT_T}", graph_step, walls["dp_graph"],
+                   card, host_top=12)
     log(f"profile: dp_packed exchange wall_ms={walls['exchange']:.3f} of a "
         f"{walls['dp_packed']:.3f} ms step "
         f"({100 * walls['exchange'] / walls['dp_packed']:.1f}%) {card}")

@@ -235,6 +235,7 @@ class ComputationGraph:
     # the parameter and optimizer bookkeeping of MultiLayerNetwork, which
     # keys its groups by layer where this graph keys them by node
     params_from_jax = MultiLayerNetwork.params_from_jax
+    opt_state_from_jax = MultiLayerNetwork.opt_state_from_jax
     _build_optimizer = MultiLayerNetwork._build_optimizer
     _as_input = MultiLayerNetwork._as_input
     num_params = MultiLayerNetwork.num_params

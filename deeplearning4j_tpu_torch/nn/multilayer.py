@@ -241,6 +241,56 @@ class MultiLayerNetwork:
         self._build_optimizer()
         return self
 
+    def opt_state_from_jax(self, state_tree):
+        """Load a JAX network's optimizer state: ``state_tree`` is what
+        ``jax.tree.map(np.asarray, net.opt_state)`` gives — optax's
+        per-group ``multi_transform`` state of namedtuples, tuples and
+        dicts, whose Adam-family leaves are each group's ``count``,
+        ``mu`` and ``nu``. Each leaf of this network's optimizer state is
+        found there by its group, its field and its parameter keys, and
+        checked for shape. Returns self."""
+        if self.opt_state is None:
+            raise RuntimeError("call init() before opt_state_from_jax()")
+        found = {}
+
+        def walk(node, path):
+            if isinstance(node, dict):
+                for k, v in node.items():
+                    walk(v, path + (k,))
+            elif isinstance(node, tuple) and hasattr(node, "_fields"):
+                for f in node._fields:
+                    walk(getattr(node, f), path + (f,))
+            elif isinstance(node, (tuple, list)):
+                for i, v in enumerate(node):
+                    walk(v, path + (i,))
+            else:
+                found[path] = node
+
+        walk(state_tree, ())
+        by_key = {}
+        for path, leaf in found.items():
+            # (..., "inner_states", group, ..., field[, group, *keys])
+            group = path[path.index("inner_states") + 1]
+            at = next(i for i, p in enumerate(path)
+                      if isinstance(p, str) and p in ("count", "mu", "nu"))
+            rest = path[at + 1:]
+            if rest and rest[0] == group:
+                rest = rest[1:]
+            by_key[(group, path[at]) + rest] = leaf
+
+        def load(path, t):
+            if path not in by_key:
+                raise ValueError(f"opt_state{list(path)}: not in the JAX "
+                                 "optimizer state")
+            a = tree.to_torch(by_key[path])
+            if tuple(a.shape) != tuple(t.shape):
+                raise ValueError(f"opt_state{list(path)}: shape "
+                                 f"{tuple(a.shape)} != {tuple(t.shape)}")
+            return a.to(t.device, dtype=t.dtype)
+
+        self.opt_state = tree.map_with_path(load, self.opt_state)
+        return self
+
     def _materialize_ties(self, params):
         """Rebuild tied params from their source inside the forward —
         gradients accumulate onto the source from both uses."""

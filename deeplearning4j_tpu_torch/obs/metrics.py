@@ -2,8 +2,9 @@
 
 Port of the part of ``deeplearning4j_tpu/obs/metrics.py`` the serving
 path calls: the registry objects, the per-entry step families that
-``obs.record_step`` feeds, and the ``SERVING_*`` families of
-``serving/{gateway,scheduler,kv_pager}.py``. Family names are the JAX
+``obs.record_step`` feeds, the ``SERVING_*`` families of
+``serving/{gateway,scheduler,kv_pager}.py`` and ``OPT_STATE_BYTES`` of
+``parallel/wrapper.py``. Family names are the JAX
 package's, so one dashboard reads both. The Prometheus exposition and
 the HTTP endpoint are not ported here.
 """
@@ -187,6 +188,15 @@ SERVING_KV_RESERVED = REGISTRY.gauge(
 SERVING_PREFIX_SHARED = REGISTRY.gauge(
     "dl4j_tpu_serving_prefix_shared_pages",
     "KV pages currently referenced by more than one live sequence")
+
+# -- parallel training (parallel/wrapper.py) -----------------------------------
+# the optimizer-state footprint the ZeRO sharded update divides by N:
+# layout "replicated" (every rank holds the whole moments) or "sharded"
+# (1/N a rank)
+OPT_STATE_BYTES = REGISTRY.gauge(
+    "dl4j_tpu_opt_state_bytes_per_device",
+    "optimizer-state bytes resident per device for the active "
+    "ParallelWrapper training layout", ("layout",))
 
 
 def observe_step(entry: str, dt: float, h2d: float = 0.0,

@@ -5,23 +5,26 @@ For each row: the JAX kernel body and its entry point, the port function
 and its plain PyTorch version, the launch counter, the route (``cuda`` or
 ``triton``), the source file, the status — ``ported`` or ``todo`` — the
 main paths that launch it (``serve``, ``train``, ``finetune``,
-``longctx``, ``dp``, ``dp_packed``, ``sp``) and, for each path that runs
-in steps (``train``, ``finetune``, ``longctx``: the LM trained at a
-32 768-token context, where the backward takes the split pair K4 + K5
-instead of K3; ``dp``: the train LM through ``ParallelWrapper``'s
-ENCODED mode; ``dp_packed``: the same step with
+``longctx``, ``dp``, ``dp_packed``, ``sp``, ``zero``, ``dp_graph``) and,
+for each path that runs in steps (``train``, ``finetune``, ``longctx``:
+the LM trained at a 32 768-token context, where the backward takes the
+split pair K4 + K5 instead of K3; ``dp``: the train LM through
+``ParallelWrapper``'s ENCODED mode; ``dp_packed``: the same step with
 ``EncodedGradientsAccumulator.exchange_packed``; ``sp``: the long-context
 LM trained with ``sequence_parallel="zigzag_ring"`` under a one-rank
 ``{"seq": 1}`` context, whose attention runs four half-chunk block pairs
-a layer through ``flash_block_fwd``/``flash_block_bwd``), its launches
-per step. ``chip_smoke.py`` reads this table: it builds and
-checks every ``ported`` row on the card, zeroes the launch counters just
-before each path it drives and reads them just after, and expects every
-row to launch on each of its paths (on a stepped path, exactly
+a layer through ``flash_block_fwd``/``flash_block_bwd``; ``zero``: the
+train LM through ``ParallelWrapper(sharded_update=True)``, the ZeRO
+sharded update; ``dp_graph``: BERT-base's classifier, a
+``ComputationGraph``, through the same wrapper on full-length rows, so
+its attention runs unmasked), its launches per step.
+``chip_smoke.py`` reads this table: it builds and checks every
+``ported`` row on the card, zeroes the launch counters just before each
+path it drives and reads them just after, and expects every row to
+launch on each of its paths (on a stepped path, exactly
 ``per_step[path]`` times a step, and no launch of a row the path does
-not list). ``tests/test_torch_imports.py`` holds
-the ``ported`` rows to importable functions that carry a ``launches``
-counter.
+not list). ``tests/test_torch_imports.py`` holds the ``ported`` rows to
+importable functions that carry a ``launches`` counter.
 """
 from __future__ import annotations
 
@@ -48,10 +51,10 @@ class KernelEntry:
     paths: Tuple[str, ...] = ()          # main paths that launch it
     #: launches per step on each stepped path that launches it: ``train``
     #: and ``longctx`` (the 12-layer GPT-2-small-class LM at 1 024 and
-    #: 32 768 tokens, remat off), ``finetune`` (BERT-base's classifier),
-    #: ``dp`` and ``dp_packed`` (the train LM data-parallel over one
-    #: rank), ``sp`` (the long-context LM's zigzag ring at one rank);
-    #: ``serve`` runs no steps
+    #: 32 768 tokens, remat off), ``finetune`` and ``dp_graph``
+    #: (BERT-base's classifier), ``dp``, ``dp_packed`` and ``zero`` (the
+    #: train LM data-parallel over one rank), ``sp`` (the long-context
+    #: LM's zigzag ring at one rank); ``serve`` runs no steps
     per_step: Dict[str, int] = field(default_factory=dict)
 
     def _resolve(self, ref: str) -> Callable:
@@ -73,8 +76,11 @@ class KernelEntry:
 
 _CK = "deeplearning4j_tpu_torch.ops.cuda_kernels"
 _NORM = "deeplearning4j_tpu_torch.ops.fused_norms"
-#: the data-parallel paths, which run the train LM's step
-_DP = ("dp", "dp_packed")
+#: the data-parallel paths, which run the train LM's step (``zero``
+#: through the sharded update)
+_DP = ("dp", "dp_packed", "zero")
+#: the fine-tune step's paths: alone, and under the wrapper
+_FT = ("finetune", "dp_graph")
 #: parameter leaves of the train LM (tied: the embedding; 10 a block of
 #: 12; the final norm's gamma; the head's bias), ``len(list(tree.leaves(
 #: net.params)))``, held by ``tests/test_torch_threshold_codec.py`` and
@@ -83,8 +89,13 @@ LM_LEAVES = 1 + 12 * 10 + 1 + 1
 
 
 def _dp(n: int) -> Dict[str, int]:
-    """The train step's count ``n`` on both data-parallel paths."""
+    """The train step's count ``n`` on every data-parallel path."""
     return {path: n for path in _DP}
+
+
+def _ft(n: int) -> Dict[str, int]:
+    """The fine-tune step's count ``n`` on both of its paths."""
+    return {path: n for path in _FT}
 
 
 #: flash block pairs a layer of the ``sp`` step: the zigzag ring at one
@@ -103,8 +114,8 @@ KERNELS: Tuple[KernelEntry, ...] = (
         port=f"{_CK}:flash_attention",
         plain=f"{_CK}:flash_attention_reference",
         # once a block (the sp path: once a block pair)
-        paths=("serve", "train", "finetune", "longctx", *_DP, "sp"),
-        per_step={"train": 12, "finetune": 12, "longctx": 12,
+        paths=("serve", "train", *_FT, "longctx", *_DP, "sp"),
+        per_step={"train": 12, **_ft(12), "longctx": 12,
                   **_dp(12), "sp": SP_PAIRS * 12}),
     KernelEntry(
         "K2", "rms_norm_fwd", f"{_FN}:111", f"{_FN}:rms_norm", "ported",
@@ -120,9 +131,9 @@ KERNELS: Tuple[KernelEntry, ...] = (
         source="deeplearning4j_tpu_torch/csrc/flash_attention_bwd.cu",
         port=f"{_CK}:flash_attention_bwd",
         plain=f"{_CK}:flash_attention_bwd_reference",
-        paths=("train", "finetune", *_DP, "sp"),
+        paths=("train", *_FT, *_DP, "sp"),
         # once a block (the sp path: once a block pair)
-        per_step={"train": 12, "finetune": 12, **_dp(12),
+        per_step={"train": 12, **_ft(12), **_dp(12),
                   "sp": SP_PAIRS * 12}),
     KernelEntry(
         "K4", "flash_attention_bwd_dq", f"{_PK}:418", f"{_PK}:_flash_bwd",
@@ -162,14 +173,14 @@ KERNELS: Tuple[KernelEntry, ...] = (
         source="deeplearning4j_tpu_torch/ops/fused_norms.py",
         port=f"{_NORM}:layer_norm", plain=f"{_NORM}:layer_norm_reference",
         # emb_ln, ln1 and ln2 of 12 blocks, final_ln
-        paths=("finetune",), per_step={"finetune": 26}),
+        paths=_FT, per_step=_ft(26)),
     KernelEntry(
         "K9", "layer_norm_bwd", f"{_FN}:312", f"{_FN}:_ln_bwd_call",
         "ported", "encoder", route="cuda",
         source="deeplearning4j_tpu_torch/csrc/norm_bwd.cu",
         port=f"{_NORM}:layer_norm_bwd",
-        plain=f"{_NORM}:layer_norm_bwd_reference", paths=("finetune",),
-        per_step={"finetune": 26}),                       # all 26 norms
+        plain=f"{_NORM}:layer_norm_bwd_reference", paths=_FT,
+        per_step=_ft(26)),                                # all 26 norms
     KernelEntry(
         "K10", "threshold_encode", f"{_PK}:843", f"{_PK}:threshold_encode",
         "ported", "data-parallel", route="cuda",
@@ -195,5 +206,6 @@ def ported() -> Tuple[KernelEntry, ...]:
 
 def on_path(path: str) -> Tuple[KernelEntry, ...]:
     """The ported rows a main path (``serve``, ``train``, ``finetune``,
-    ``longctx``, ``dp``, ``dp_packed``, ``sp``) launches."""
+    ``longctx``, ``dp``, ``dp_packed``, ``sp``, ``zero``, ``dp_graph``)
+    launches."""
     return tuple(e for e in ported() if path in e.paths)

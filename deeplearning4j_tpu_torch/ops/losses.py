@@ -3,10 +3,11 @@
 Every loss is ``fn(labels, preds, mask=None, weights=None) -> scalar``:
 the mean over the batch of per-example sums (masked steps contribute 0),
 the reference's ``BaseOutputLayer.computeScore`` semantics. The ported
-slices carry ``sparse_mcxent`` (the causal LM's loss) and ``mcxent`` with
-its alias ``negativeloglikelihood`` (one-hot labels: BERT's classifier);
-other names raise ``NotImplementedError`` until the slice that needs
-them.
+slices carry ``sparse_mcxent`` (the causal LM's loss), ``mcxent`` with
+its alias ``negativeloglikelihood`` (one-hot labels: BERT's classifier)
+and ``mse`` with its alias ``l2`` (a regression output of a multi-output
+graph under ``ParallelWrapper``); other names raise
+``NotImplementedError`` until the slice that needs them.
 
 ``sparse_mcxent(..., from_logits=True)`` takes the logits in their own
 dtype: the logsumexp runs in f32, but on row chunks, so a bfloat16
@@ -116,6 +117,18 @@ def mcxent(labels, preds, mask=None, weights=None, from_logits=False):
 negativeloglikelihood = mcxent
 
 
+def mse(labels, preds, mask=None, weights=None):
+    """Squared error, summed per example (reference LossMSE)."""
+    raw = torch.square(preds - labels)
+    if weights is not None:
+        raw = raw * torch.as_tensor(weights, dtype=raw.dtype,
+                                    device=raw.device)
+    return _mean(raw, mask)
+
+
+l2 = mse
+
+
 def wants_f32_logits(fn, fused: bool) -> bool:
     """The single gate for the half-precision-training loss cast:
     losses that fold the upcast into their own reductions (marked
@@ -130,6 +143,8 @@ _REGISTRY: Dict[str, Callable] = {
     "sparse_mcxent": sparse_mcxent,
     "mcxent": mcxent,
     "negativeloglikelihood": negativeloglikelihood,
+    "mse": mse,
+    "l2": l2,
 }
 
 

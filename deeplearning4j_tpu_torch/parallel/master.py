@@ -20,11 +20,13 @@ semantics:
    exchanged and every replica applies every replica's update, residuals
    kept locally (the wrapper's ENCODED mode).
 
-``make_global_batch`` has no counterpart: in the per-process model each
-rank feeds its own batch (``ParallelWrapper.fit``, the JAX package's
-multi-process rule), so nothing assembles a global device array. Evaluation
-(``evaluate``, ``do_evaluation``, ``merge_across_processes``) needs the
-``eval_/`` classes, which come with the MultiLayerNetwork-core slice.
+``SparkComputationGraph`` runs the same flow over a ``ComputationGraph``
+(the wrapper's graph adapter). ``make_global_batch`` has no counterpart:
+in the per-process model each rank feeds its own batch
+(``ParallelWrapper.fit``, the JAX package's multi-process rule), so
+nothing assembles a global device array. Evaluation (``evaluate``,
+``do_evaluation``, ``merge_across_processes``) needs the ``eval_/``
+classes, which come with the MultiLayerNetwork-core slice.
 """
 from __future__ import annotations
 
@@ -236,4 +238,7 @@ class SparkDl4jMultiLayer:
 
 class SparkComputationGraph(SparkDl4jMultiLayer):
     """Reference ``SparkComputationGraph`` — the same flow over a
-    ComputationGraph, which the wrapper refuses until its slice."""
+    ComputationGraph: ``fit`` takes this rank's ``MultiDataSet``-like
+    batches (features and labels as lists) through the wrapper's graph
+    adapter; ``evaluate`` and ``do_evaluation`` wait for the eval_/
+    classes."""

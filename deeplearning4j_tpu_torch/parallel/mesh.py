@@ -154,6 +154,50 @@ def all_gather(tensor: torch.Tensor, group=None):
     return out
 
 
+# the flat collectives' current names (torch 2.13); older releases have
+# only the ``_tensor`` ones, with the same arguments
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single",
+                          dist.reduce_scatter_tensor)
+_ALL_GATHER = getattr(dist, "all_gather_single",
+                      dist.all_gather_into_tensor)
+
+
+def reduce_scatter_sum(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """This rank's block of the sum of ``tensor`` over ``group``, a new
+    tensor: ``tensor`` (1-D, its length a multiple of the group size) is
+    cut into one block per rank in rank order, and rank ``r`` receives
+    the sum of every rank's block ``r`` (the JAX ``psum_scatter`` with
+    ``tiled=True``)."""
+    check_backend(tensor, group)
+    n = dist.get_world_size(group)
+    if tensor.ndim != 1 or tensor.numel() % n:
+        raise ValueError(f"reduce_scatter_sum takes a 1-D tensor whose "
+                         f"length is a multiple of {n}, got "
+                         f"{tuple(tensor.shape)}")
+    if not tensor.is_contiguous():
+        raise ValueError("collectives take contiguous tensors")
+    out = torch.empty(tensor.numel() // n, dtype=tensor.dtype,
+                      device=tensor.device)
+    _REDUCE_SCATTER(out, tensor, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+def all_gather_(out: torch.Tensor, tensor: torch.Tensor,
+                group=None) -> torch.Tensor:
+    """Write every rank's ``tensor`` (1-D) into ``out``, in rank order,
+    in place, and return ``out`` (the JAX ``all_gather`` with
+    ``tiled=True``)."""
+    check_backend(tensor, group)
+    if out.numel() != tensor.numel() * dist.get_world_size(group):
+        raise ValueError(f"all_gather_: out holds {out.numel()} elements, "
+                         f"{dist.get_world_size(group)} ranks send "
+                         f"{tensor.numel()} each")
+    if not (tensor.is_contiguous() and out.is_contiguous()):
+        raise ValueError("collectives take contiguous tensors")
+    _ALL_GATHER(out, tensor, group=group)
+    return out
+
+
 def broadcast_(tensor: torch.Tensor, src_group_rank: int = 0,
                group=None) -> torch.Tensor:
     """Overwrite ``tensor`` with rank ``src_group_rank``'s (its rank in

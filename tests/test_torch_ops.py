@@ -239,7 +239,7 @@ def test_registry_lists_every_tpu_kernel():
         # every ported row names the main paths that launch it
         assert e.paths and set(e.paths) <= {"serve", "train", "finetune",
                                             "longctx", "dp", "dp_packed",
-                                            "sp"}
+                                            "sp", "zero", "dp_graph"}
         # the stepped phases' expected launches per step: one positive
         # count for each stepped path of the row, none for serve
         stepped = set(e.paths) - {"serve"}
@@ -266,6 +266,12 @@ def test_registry_lists_every_tpu_kernel():
     # K1 and K3 once a block pair (four a layer), the norms as longctx
     assert {e.key: e.per_step["sp"] for e in on_path("sp")} == {
         "K1": 48, "K2": 13, "K3": 48, "K6": 25, "K7": 12}
+    # the ZeRO sharded update runs the train step's kernels; the graph
+    # under the wrapper the fine-tune step's
+    assert {e.key: e.per_step["zero"] for e in on_path("zero")} == train
+    assert {e.key: e.per_step["dp_graph"]
+            for e in on_path("dp_graph")} == {"K1": 12, "K3": 12,
+                                              "K8": 26, "K9": 26}
     for e in KERNELS:
         if e.status == "todo":
             assert e.port is None and e.route is None and not e.paths

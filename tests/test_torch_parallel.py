@@ -291,9 +291,7 @@ def test_spark_fit_equals_the_wrapper(runs, name, mode):
 
 
 REFUSED = {
-    "sharded_update": "ZeRO slice", "gather_overlap": "ZeRO slice",
-    "graph": "ComputationGraph-under-the-wrapper slice",
-    "warmup": "compile-lifecycle slice", "gather_opt_state": "ZeRO slice",
+    "warmup": "compile-lifecycle slice",
     "checkpoint_tree": "resilience slice",
     "checkpoint_target": "resilience slice",
     "load_checkpoint_tree": "resilience slice",
@@ -306,7 +304,9 @@ REFUSED = {
     "elastic_init": "resilience slice",
 }
 BAD_ARGS = {"bad_mode": "unknown mode", "mesh_size": "needs 3 ranks",
-            "workers": "needs 3 ranks", "cuda_in_gloo": "CUDA tensor"}
+            "workers": "needs 3 ranks", "cuda_in_gloo": "CUDA tensor",
+            "sharded_not_sync": "SYNC-mode",
+            "overlap_alone": "set sharded_update=True"}
 
 
 def test_refused_options_raise_naming_their_slice(runs):

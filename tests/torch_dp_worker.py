@@ -128,8 +128,8 @@ def run_wrappers(inp, mesh, res, log):
 
 
 def refusals(inp, mesh):
-    """The message of every option this slice refuses."""
-    from deeplearning4j_tpu_torch.zoo.bert import BertTiny
+    """The message of every option this slice refuses, and of the
+    sharded update's bad arguments."""
     net = nano_net(inp)
     data = batches(inp, mesh.index("data"))
     out = {}
@@ -143,16 +143,13 @@ def refusals(inp, mesh):
             out[name] = "no error"
 
     w = ParallelWrapper(net, mesh=mesh)
-    expect("sharded_update", lambda: ParallelWrapper(
-        net, sharded_update=True, mesh=mesh))
-    expect("gather_overlap", lambda: ParallelWrapper.builder(net)
+    expect("sharded_not_sync", lambda: ParallelWrapper(
+        net, mode="encoded", sharded_update=True, mesh=mesh))
+    expect("overlap_alone", lambda: ParallelWrapper.builder(net)
            .gather_overlap().build())
-    graph = BertTiny(max_len=16).init_classifier(2, 16, device="cpu")
-    expect("graph", lambda: ParallelWrapper(graph, mesh=mesh))
-    for meth in ("warmup", "gather_opt_state", "checkpoint_tree",
-                 "checkpoint_target", "load_checkpoint_tree",
-                 "load_gathered_tree"):
-        args = () if meth in ("gather_opt_state", "checkpoint_tree",
+    for meth in ("warmup", "checkpoint_tree", "checkpoint_target",
+                 "load_checkpoint_tree", "load_gathered_tree"):
+        args = () if meth in ("checkpoint_tree",
                               "checkpoint_target") else ({},)
         expect(meth, lambda m=meth, a=args: getattr(w, m)(*a))
     w.elastic = object()

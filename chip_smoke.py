@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card (H100).
 
-    python3 chip_smoke.py               # phases 1-18 (needs one card)
+    python3 chip_smoke.py               # phases 1-20 (needs one card)
     python3 chip_smoke.py --phases train,train_agree,kernels
     python3 chip_smoke.py --phases finetune,finetune_agree,kernels
     python3 chip_smoke.py --phases longctx,longctx_agree,kernels
     python3 chip_smoke.py --phases dp,dp_packed,dp_agree,kernels
     python3 chip_smoke.py --phases sp,sp_agree,kernels
     python3 chip_smoke.py --phases zero,zero_agree,dp_graph,kernels
+    python3 chip_smoke.py --phases eval,eval_agree,kernels
     python3 chip_smoke.py --phases profile    # device-time breakdown
 
 Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
@@ -116,7 +117,26 @@ Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
    group, the fine-tune batch as full-length rows (no masks, so K1 and
    K3 run unmasked): 2 warm and 8 timed steps, the loss falling, the
    launches exactly, then one ``output`` whose rows each sum to 1;
-18. kernels — holds each ported kernel against its plain PyTorch version
+18. eval — the finetune phase's model (BERT-base, bfloat16 compute)
+   evaluated by ``net.evaluate`` over 16 fixed full-length batches of
+   64 x 128 (1 024 samples, no masks): one warm pass, then 3 timed
+   passes, each between zeroed and read launch counters (exactly K1 12
+   and K8 26 a batch, no other kernel), in turns with the bare
+   ``output`` loop over the same batches (samples/s of both, the median
+   of 3 passes after one warm, each from a synchronised card to a
+   synchronised card, and the peak memory); then in the dp phases'
+   one-rank group
+   ``SparkComputationGraph(net, master).evaluate(batches,
+   num_classes=2)`` and ``do_evaluation`` with all seven evaluation
+   classes, each with the local confusion matrix; then the dense net of
+   ``tests/test_multiprocess.py`` trained 8 epochs on the card and put
+   through ``evaluate`` and ``evaluate_regression``;
+19. eval_agree — BERT-base in float32 (dropout 0, TF32 off), 2 batches
+   of 16 x 128: the card's probabilities against the port on the CPU
+   within ``AGREE_TOL``, any argmax that differs on a row whose top two
+   lie within twice the observed error, and the seven classes fed the
+   card's tensors equal to the bit to the same fed numpy arrays;
+20. kernels — holds each ported kernel against its plain PyTorch version
    on the card at its main paths' shapes, in bfloat16 (for K1, K3, K4
    and K5 the tensor-core kernels of ``csrc/flash_mma.cuh``) and float32
    (their CUDA-core kernels), including operands whose base and strides
@@ -159,21 +179,22 @@ Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
    step (``PERF.md`` records such a slowdown, cause not isolated).
 
 Each main path (serve, train, finetune, longctx, dp, dp_packed, sp, zero,
-dp_graph) zeroes
+dp_graph, eval) zeroes
 the launch counters of the kernels just before it runs and reads them
 just after; it fails if a kernel the registry lists for that path was
-not launched, and on a stepped path (all but serve) if any ported kernel
-was launched other than its registry count per step (0 for a kernel the
-path does not list).
+not launched, and on a stepped path (all but serve; eval counts its
+batches) if any ported kernel was launched other than its registry
+count per step (0 for a kernel the path does not list).
 
 ``profile`` (not in the default run) prints the device busy time, idle
 share and top kernels of one 2048-bucket prefill, of 8 decode steps with
 32 active slots, of one training step, of one fine-tune step, of one
 long-context step, of one sp step, of one dp_packed step, of its
-exchange alone, of one zero step and of one dp_graph step, from
-``torch.profiler``. Each window's wall time is taken before the first
-profiled window, and the decode window's wall once more after the last
-one, to show whether profiling changed it.
+exchange alone, of one zero step, of one dp_graph step, and of one eval
+pass and its bare output loop, from ``torch.profiler``. Each window's
+wall time is taken before the first profiled window, and the decode
+window's wall once more after the last one, to show whether profiling
+changed it.
 
 Any failed phase exits non-zero before the result lines. The last two
 lines are the ``kernels`` JSON object (when the kernels phase and a path
@@ -194,7 +215,7 @@ import time
 PHASES = ("device", "serve", "agree", "train", "train_agree", "finetune",
           "finetune_agree", "longctx", "longctx_agree", "dp", "dp_packed",
           "dp_agree", "sp", "sp_agree", "zero", "zero_agree", "dp_graph",
-          "kernels")
+          "eval", "eval_agree", "kernels")
 
 # published peaks of one H100 SXM (dense): the bound of a kernel is the
 # larger of its operations over the peak rate for their type and its
@@ -2476,6 +2497,214 @@ def phase_finetune_agree(state):
         raise AssertionError("card and CPU fine-tune step disagree")
 
 
+# -- phases 18, 19: evaluation ---------------------------------------------
+#: the evaluate phase: this many fixed full-length batches of BERT_B rows
+EVAL_BATCHES = 16
+#: timed passes over them (each after one warm pass), and the median taken
+EVAL_PASSES = 3
+#: eval_agree: batches of this many rows, card against CPU in f32
+EVAL_AGREE_BATCHES, EVAL_AGREE_B = 2, 16
+
+
+def _eval_batches(seed: int, n: int, b: int):
+    """``n`` full-length sentence-pair batches (no masks) of ``b`` rows:
+    the fine-tune batch of ``_finetune_batch(seed + i, b, BERT_T)`` with
+    its mask dropped, as ``MultiDataSet``s of host arrays."""
+    from deeplearning4j_tpu_torch.data import MultiDataSet
+    out = []
+    for i in range(n):
+        tokens, segments, _, labels = _finetune_batch(seed + i, b, BERT_T)
+        out.append(MultiDataSet([tokens, segments], [labels]))
+    return out
+
+
+def _eval_classes():
+    """One of each of the seven evaluation classes."""
+    from deeplearning4j_tpu_torch.eval_ import (
+        ROC, Evaluation, EvaluationBinary, EvaluationCalibration,
+        RegressionEvaluation, ROCBinary, ROCMultiClass)
+    return [Evaluation(), ROC(), ROCMultiClass(), ROCBinary(),
+            EvaluationBinary(), EvaluationCalibration(),
+            RegressionEvaluation()]
+
+
+def _same_stats(a, b, path="") -> bool:
+    """Two evaluations' statistics equal to the bit: the same nested
+    attributes, numpy arrays of the same dtype and bytes, equal
+    scalars."""
+    import numpy as np
+    if hasattr(a, "__dict__"):
+        a, b = vars(a), vars(b)
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(_same_stats(a[k], b[k]) for k in a))
+    if isinstance(a, list):
+        return (isinstance(b, list) and len(a) == len(b)
+                and all(_same_stats(x, y) for x, y in zip(a, b)))
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype
+                and a.shape == b.shape and a.tobytes() == b.tobytes())
+    return type(a) is type(b) and a == b
+
+
+def phase_eval(state):
+    """BERT-base's classifier (the finetune phase's model: bfloat16
+    compute, random weights from a seed) evaluated over ``EVAL_BATCHES``
+    fixed full-length batches of 64 × 128: ``net.evaluate`` (one warm
+    pass, then ``EVAL_PASSES`` timed, each between zeroed and read launch
+    counters: exactly the registry's ``eval`` count a batch), in turns
+    with the bare ``output`` loop over the same batches; then, in the
+    one-rank group of the dp phases, ``SparkComputationGraph(...).evaluate(...,
+    num_classes=2)`` and ``do_evaluation`` with all seven classes, whose
+    confusion matrices must equal the local one; then the dense net of
+    ``tests/test_multiprocess.py`` trained and evaluated on the card
+    (``evaluate``, ``evaluate_regression``)."""
+    import math
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.data import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.ops import kernel_registry
+    from deeplearning4j_tpu_torch.parallel import (
+        ParameterAveragingTrainingMaster, SparkComputationGraph)
+    from deeplearning4j_tpu_torch.zoo.bert import BertBase
+    card = state["card"]
+    mesh = _dp_mesh(state)
+    _free_card("eval", card)
+    t0 = time.perf_counter()
+    net = BertBase(seed=2, compute_dtype="bfloat16").init_classifier(
+        2, BERT_T)
+    batches = _eval_batches(0, EVAL_BATCHES, BERT_B)
+    samples = EVAL_BATCHES * BERT_B
+    log(f"eval: init {net.num_params()} params on {net.device} "
+        f"{time.perf_counter() - t0:.1f}s; {EVAL_BATCHES} batches of "
+        f"{BERT_B} x {BERT_T}, numpy {np.__version__}")
+
+    def outputs():
+        for b in batches:
+            net.output(*b.features)
+
+    torch.cuda.reset_peak_memory_stats()
+    local = net.evaluate(batches)            # warm pass
+    _wall_ms(outputs)                        # warm pass
+    launches = dict.fromkeys((e.key for e in kernel_registry.ported()), 0)
+    eval_ms, out_ms = [], []
+    for _ in range(EVAL_PASSES):             # in turns: evaluate, output
+        for e in kernel_registry.ported():
+            e.reset()
+        eval_ms.append(_wall_ms(lambda: net.evaluate(batches)))
+        for e in kernel_registry.ported():
+            launches[e.key] += e.launches()
+        out_ms.append(_wall_ms(outputs))
+    state.setdefault("launches", {})["eval"] = launches
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    e_ms, o_ms = statistics.median(eval_ms), statistics.median(out_ms)
+    log(f"eval: evaluate {e_ms:.3f} ms a pass "
+        f"samples_per_s={samples / e_ms * 1e3:.1f}; output loop "
+        f"{o_ms:.3f} ms a pass samples_per_s={samples / o_ms * 1e3:.1f};"
+        f" evaluate - output = {e_ms - o_ms:.3f} ms a pass "
+        f"({(e_ms - o_ms) / EVAL_BATCHES:.3f} ms a batch); medians of "
+        f"{EVAL_PASSES} passes each, in turns, after one warm pass each "
+        f"(evaluate {' '.join(f'{t:.3f}' for t in eval_ms)}; output "
+        f"{' '.join(f'{t:.3f}' for t in out_ms)}); "
+        f"max_memory_allocated_gb={peak_gb:.3f} {card}")
+    log(f"eval: count {local.count} accuracy {local.accuracy():.4f} "
+        f"confusion {local.confusion.tolist()} {card}")
+    assert local.count == samples, local.count
+    _check_step_launches("eval", EVAL_PASSES * EVAL_BATCHES, launches, card)
+
+    spark = SparkComputationGraph(net, ParameterAveragingTrainingMaster(),
+                                  mesh)
+    pinned = spark.evaluate(batches, num_classes=2)
+    evs = spark.do_evaluation(batches, *_eval_classes())
+    ev, roc = evs[0], evs[1]
+    log(f"eval: SparkComputationGraph.evaluate(num_classes=2) count "
+        f"{pinned.count}; do_evaluation over the seven classes: count "
+        f"{ev.count} ROC AUC {roc.calculate_auc():.4f} ECE "
+        f"{evs[5].expected_calibration_error():.4f} MSE "
+        f"{evs[6].mean_squared_error():.4f} {card}")
+    for other in (pinned, ev):
+        assert other.count == samples
+        assert np.array_equal(other.confusion, local.confusion), \
+            (other.confusion, local.confusion)
+
+    # the MultiLayerNetwork half: tests/test_multiprocess.py's dense net
+    from deeplearning4j_tpu_torch.nn import updaters as upd
+    from deeplearning4j_tpu_torch.nn.config import (InputType,
+                                                    NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    conf = (NeuralNetConfiguration.builder().seed(42)
+            .updater(upd.Adam(learning_rate=0.05)).list()
+            .layer(DenseLayer(n_out=16, activation="tanh"))
+            .layer(OutputLayer(n_out=2, activation="softmax",
+                               loss="mcxent"))
+            .set_input_type(InputType.feed_forward(4)).build())
+    dense = MultiLayerNetwork(conf).init()
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((448, 4)).astype(np.float32)
+    y = np.eye(2, dtype=np.float32)[(x.sum(1) > 0).astype(int)]
+    it = ListDataSetIterator([DataSet(x[i:i + 64], y[i:i + 64])
+                              for i in range(0, 448, 64)])
+    dense.fit(it, epochs=8)
+    dev = dense.evaluate(it)
+    reg = dense.evaluate_regression(it)
+    log(f"eval: dense net on {dense.device}, 56 steps: score "
+        f"{dense.score():.4f}; evaluate count {dev.count} accuracy "
+        f"{dev.accuracy():.4f}; evaluate_regression n {reg.n} MSE "
+        f"{reg.mean_squared_error():.6f} {card}")
+    assert dense.device.type == "cuda"
+    assert dev.count == reg.n == 448 and dev.accuracy() > 0.8
+    assert math.isfinite(reg.mean_squared_error())
+
+
+def phase_eval_agree(state):
+    """BERT-base in float32 (dropout 0, TF32 off) over
+    ``EVAL_AGREE_BATCHES`` full-length batches of 16 × 128: the card's
+    probabilities against the port on the CPU within ``AGREE_TOL``; the
+    seven classes fed the card's tensors give statistics equal to the bit
+    to those fed the same values as numpy arrays; a row whose argmax
+    differs between card and CPU must have its top two within twice the
+    observed error."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.zoo.bert import BertBase
+    card = state["card"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = BertBase(seed=3, dropout=0.0)            # float32
+    batches = _eval_batches(1, EVAL_AGREE_BATCHES, EVAL_AGREE_B)
+    probs = {}
+    for dev in ("cuda", "cpu"):
+        net = model.init_classifier(2, BERT_T, device=dev)
+        probs[dev] = [net.output(*b.features)[0] for b in batches]
+        del net
+    card_t = torch.cat(probs["cuda"])
+    card_np, cpu_np = card_t.cpu().numpy(), torch.cat(probs["cpu"]).numpy()
+    err = float(np.abs(card_np - cpu_np).max())
+    top2 = np.sort(cpu_np, axis=1)[:, -2:]
+    margin = top2[:, 1] - top2[:, 0]
+    flipped = np.argmax(card_np, 1) != np.argmax(cpu_np, 1)
+    near = int((margin <= 2 * err).sum())
+    log(f"eval_agree: f32 {EVAL_AGREE_BATCHES} x {EVAL_AGREE_B} x {BERT_T} "
+        f"card vs CPU: max|dp|={err:.3e} tol={AGREE_TOL:.0e}; argmax "
+        f"differs on {int(flipped.sum())} rows, {near} rows have a top-two "
+        f"margin within 2 x {err:.3e} {card}")
+    assert err <= AGREE_TOL, err
+    assert (margin[flipped] <= 2 * err).all(), margin[flipped]
+    fed_t, fed_np = _eval_classes(), _eval_classes()
+    for b, p in zip(batches, probs["cuda"]):
+        y = b.labels[0]
+        for e in fed_t:
+            e.eval(torch.as_tensor(y, device="cuda"), p)
+        for e in fed_np:
+            e.eval(y, p.cpu().numpy())
+    same = [_same_stats(a, b) for a, b in zip(fed_t, fed_np)]
+    log(f"eval_agree: the seven classes fed card tensors vs numpy, "
+        f"statistics equal to the bit: "
+        f"{dict(zip((type(e).__name__ for e in fed_t), same))} {card}")
+    assert all(same), same
+
+
 def _wall_ms(fn) -> float:
     """Host-clock time of ``fn``, from a synchronised card to a
     synchronised card."""
@@ -2552,7 +2781,8 @@ def phase_profile(state):
     (the train model and batch under the sharded update: the flat copies
     and NCCL's reduce-scatter and all-gather beside the step's work) and
     of one dp_graph step (the fine-tune model and batch, unmasked, under
-    the same wrapper).
+    the same wrapper), and of one pass of the eval phase: ``evaluate``
+    over its 16 batches, and the bare ``output`` loop over them.
     Every wall time is taken before the first profiled window,
     and the decode window's once more after the last one: a host-bound
     step ran slower after the kernels phase, and this shows whether
@@ -2625,6 +2855,12 @@ def phase_profile(state):
     graph_step = lambda: gw.fit([([tokens, segments], [labels])])
     for _ in range(2):
         graph_step()
+    # one pass of the eval phase, and its bare output loop
+    ebatches = _eval_batches(0, EVAL_BATCHES, BERT_B)
+    eval_pass = lambda: bert.evaluate(ebatches)
+    out_pass = lambda: [bert.output(*b.features) for b in ebatches]
+    eval_pass()
+    out_pass()
     decode = lambda: [sched.step() for _ in range(8)]
     train_step = lambda: net.fit(x, y)
     walls = {"prefill": _wall_ms(lambda: sched.admit(reqs[first])),
@@ -2633,7 +2869,8 @@ def phase_profile(state):
              "sp": _wall_ms(sp_step),
              "dp_packed": _wall_ms(packed_step),
              "exchange": _wall_ms(exchange), "zero": _wall_ms(zero_step),
-             "dp_graph": _wall_ms(graph_step)}
+             "dp_graph": _wall_ms(graph_step), "eval": _wall_ms(eval_pass),
+             "output": _wall_ms(out_pass)}
     sched.evict(reqs[first])            # its slot and pages, once more
     _device_window(f"prefill t0={lens[first]} (bucket 2048)",
                    lambda: sched.admit(stream(first)), walls["prefill"],
@@ -2658,6 +2895,11 @@ def phase_profile(state):
     _device_window(f"dp_graph step (sharded update, one rank, unmasked) "
                    f"B={BERT_B} T={BERT_T}", graph_step, walls["dp_graph"],
                    card, host_top=12)
+    _device_window(f"eval pass ({EVAL_BATCHES} batches B={BERT_B} "
+                   f"T={BERT_T}, unmasked)", eval_pass, walls["eval"], card,
+                   host_top=6)
+    _device_window(f"output loop ({EVAL_BATCHES} batches B={BERT_B} "
+                   f"T={BERT_T}, unmasked)", out_pass, walls["output"], card)
     log(f"profile: dp_packed exchange wall_ms={walls['exchange']:.3f} of a "
         f"{walls['dp_packed']:.3f} ms step "
         f"({100 * walls['exchange'] / walls['dp_packed']:.1f}%) {card}")

@@ -77,3 +77,18 @@ class MultiDataSet:
 
     def num_examples(self) -> int:
         return self.features[0].shape[0]
+
+
+#: the batch attributes that carry masks
+_MASKS = ("features_mask", "labels_mask", "features_masks", "labels_masks")
+
+
+def has_masks(ds) -> bool:
+    """Whether a batch (a ``DataSet``, a ``MultiDataSet`` or any object
+    with their mask attributes) carries a features or labels mask."""
+    for attr in _MASKS:
+        m = getattr(ds, attr, None)
+        if m is not None and not (isinstance(m, (list, tuple))
+                                  and all(a is None for a in m)):
+            return True
+    return False

@@ -34,6 +34,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from deeplearning4j_tpu_torch import dtypes, obs, tree
+from deeplearning4j_tpu_torch.eval_.evaluation import Evaluation
 from deeplearning4j_tpu_torch.nn import updaters as upd
 from deeplearning4j_tpu_torch.nn.config import _GLOBAL_DEFAULTS, InputType
 from deeplearning4j_tpu_torch.nn.layers.base import (Layer, fold_in,
@@ -43,7 +44,7 @@ from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     BaseRecurrentLayer, RnnOutputLayer)
 from deeplearning4j_tpu_torch.nn.multilayer import (
     _FUSABLE, _UNPORTED_LAYER_OPTIONS, MultiLayerNetwork, apply_updates,
-    loss_and_grads)
+    evaluate_batches, loss_and_grads)
 from deeplearning4j_tpu_torch.nn.vertices import GraphVertex
 from deeplearning4j_tpu_torch.ops import losses as losses_mod
 
@@ -466,6 +467,17 @@ class ComputationGraph:
     def score(self, dataset=None) -> float:
         """The last training loss (reference ComputationGraph.score())."""
         return self.score_
+
+    def evaluate(self, iterator) -> Evaluation:
+        """Classification evaluation of the first output against the
+        first label over ``iterator`` (reference
+        ComputationGraph.evaluate): list features feed ``output(*x)``, the
+        rule of the JAX ``SparkComputationGraph.do_evaluation``. The JAX
+        ``ComputationGraph.evaluate`` (``deeplearning4j_tpu/nn/graph.py:
+        783-793``) passes a list as the first input alone, so it fails on
+        a graph of several inputs; on one input fed ``DataSet``s the two
+        rules agree. No ``evaluate_regression``, as in the JAX graph."""
+        return evaluate_batches(self, iterator, Evaluation())[0]
 
     def summary(self) -> str:
         lines = ["=" * 76,

@@ -47,6 +47,10 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import dtypes, obs, tree
+from deeplearning4j_tpu_torch.data.dataset import has_masks
+from deeplearning4j_tpu_torch.eval_.evaluation import (Evaluation,
+                                                       RegressionEvaluation,
+                                                       to_host)
 from deeplearning4j_tpu_torch.nn import updaters as upd
 from deeplearning4j_tpu_torch.nn.config import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.layers.base import (Layer, fold_in,
@@ -130,6 +134,41 @@ def loss_and_grads(loss_fn, params):
               for p, g in zip(leaves, flat))
     grads = tree.map_(lambda _: next(it), work)
     return loss.detach(), grads, aux
+
+
+def evaluate_batches(net, iterator, *evals):
+    """Feed every batch of ``iterator`` through ``net.output`` and each
+    evaluation of ``evals``; returns ``evals`` as a list. The JAX
+    package's rule of ``SparkComputationGraph.do_evaluation``
+    (``deeplearning4j_tpu/parallel/master.py:285-305``), shared by both
+    networks' ``evaluate``: ``reset()`` the iterator if it has one;
+    batches are ``DataSet``/``MultiDataSet``-like or ``(x, y)`` pairs;
+    list features go to ``output(*x)``, and the first output is
+    evaluated against the first label. The output is copied to the host
+    once a batch. A batch with masks raises ``NotImplementedError``."""
+    if hasattr(iterator, "reset"):
+        iterator.reset()
+    for ds in iterator:
+        if has_masks(ds):
+            raise NotImplementedError(
+                "evaluate: a batch with features or labels masks — the "
+                "JAX evaluate and do_evaluation pass no masks to output "
+                "or eval (deeplearning4j_tpu/nn/multilayer.py:868-894, "
+                "nn/graph.py:783-793, parallel/master.py:285-305), so "
+                "they would evaluate the batch unmasked; the port refuses "
+                "it until that gap of the reference is decided "
+                "(ROADMAP.md C)")
+        x, y = (ds.features, ds.labels) if hasattr(ds, "features") else ds
+        out = (net.output(*x) if isinstance(x, (list, tuple))
+               else net.output(x))
+        if isinstance(out, (list, tuple)):
+            out = out[0]
+        if isinstance(y, (list, tuple)):
+            y = y[0]
+        out, y = to_host(out), to_host(y)
+        for e in evals:
+            e.eval(y, out)
+    return list(evals)
 
 
 def apply_updates(updater, grad_norm, params, grads, opt_state):
@@ -587,6 +626,16 @@ class MultiLayerNetwork:
             loss = _mesh().all_reduce_sum(loss.reshape(1).contiguous(),
                                            sp[0].group)
         return float(loss)
+
+    def evaluate(self, iterator) -> Evaluation:
+        """Classification evaluation over ``iterator`` (reference
+        MultiLayerNetwork.evaluate(DataSetIterator) → Evaluation)."""
+        return evaluate_batches(self, iterator, Evaluation())[0]
+
+    def evaluate_regression(self, iterator) -> RegressionEvaluation:
+        """Regression evaluation over ``iterator`` (reference
+        MultiLayerNetwork.evaluateRegression)."""
+        return evaluate_batches(self, iterator, RegressionEvaluation())[0]
 
     def num_params(self) -> int:
         return sum(math.prod(t.shape) for t in tree.leaves(self.params))

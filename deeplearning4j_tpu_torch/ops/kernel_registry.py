@@ -5,9 +5,10 @@ For each row: the JAX kernel body and its entry point, the port function
 and its plain PyTorch version, the launch counter, the route (``cuda`` or
 ``triton``), the source file, the status — ``ported`` or ``todo`` — the
 main paths that launch it (``serve``, ``train``, ``finetune``,
-``longctx``, ``dp``, ``dp_packed``, ``sp``, ``zero``, ``dp_graph``) and,
-for each path that runs in steps (``train``, ``finetune``, ``longctx``:
-the LM trained at a 32 768-token context, where the backward takes the
+``longctx``, ``dp``, ``dp_packed``, ``sp``, ``zero``, ``dp_graph``,
+``eval``) and, for each path that runs in steps or batches (``train``,
+``finetune``, ``longctx``: the LM trained at a 32 768-token context,
+where the backward takes the
 split pair K4 + K5 instead of K3; ``dp``: the train LM through
 ``ParallelWrapper``'s ENCODED mode; ``dp_packed``: the same step with
 ``EncodedGradientsAccumulator.exchange_packed``; ``sp``: the long-context
@@ -17,7 +18,9 @@ a layer through ``flash_block_fwd``/``flash_block_bwd``; ``zero``: the
 train LM through ``ParallelWrapper(sharded_update=True)``, the ZeRO
 sharded update; ``dp_graph``: BERT-base's classifier, a
 ``ComputationGraph``, through the same wrapper on full-length rows, so
-its attention runs unmasked), its launches per step.
+its attention runs unmasked; ``eval``: the same classifier's
+``evaluate`` on full-length rows, a forward alone, counted per evaluated
+batch), its launches per step.
 ``chip_smoke.py`` reads this table: it builds and checks every
 ``ported`` row on the card, zeroes the launch counters just before each
 path it drives and reads them just after, and expects every row to
@@ -54,7 +57,8 @@ class KernelEntry:
     #: 32 768 tokens, remat off), ``finetune`` and ``dp_graph``
     #: (BERT-base's classifier), ``dp``, ``dp_packed`` and ``zero`` (the
     #: train LM data-parallel over one rank), ``sp`` (the long-context
-    #: LM's zigzag ring at one rank); ``serve`` runs no steps
+    #: LM's zigzag ring at one rank), ``eval`` (BERT-base's classifier
+    #: forward, per evaluated batch); ``serve`` runs no steps
     per_step: Dict[str, int] = field(default_factory=dict)
 
     def _resolve(self, ref: str) -> Callable:
@@ -114,9 +118,9 @@ KERNELS: Tuple[KernelEntry, ...] = (
         port=f"{_CK}:flash_attention",
         plain=f"{_CK}:flash_attention_reference",
         # once a block (the sp path: once a block pair)
-        paths=("serve", "train", *_FT, "longctx", *_DP, "sp"),
+        paths=("serve", "train", *_FT, "longctx", *_DP, "sp", "eval"),
         per_step={"train": 12, **_ft(12), "longctx": 12,
-                  **_dp(12), "sp": SP_PAIRS * 12}),
+                  **_dp(12), "sp": SP_PAIRS * 12, "eval": 12}),
     KernelEntry(
         "K2", "rms_norm_fwd", f"{_FN}:111", f"{_FN}:rms_norm", "ported",
         "serving", route="triton",
@@ -173,7 +177,7 @@ KERNELS: Tuple[KernelEntry, ...] = (
         source="deeplearning4j_tpu_torch/ops/fused_norms.py",
         port=f"{_NORM}:layer_norm", plain=f"{_NORM}:layer_norm_reference",
         # emb_ln, ln1 and ln2 of 12 blocks, final_ln
-        paths=_FT, per_step=_ft(26)),
+        paths=(*_FT, "eval"), per_step={**_ft(26), "eval": 26}),
     KernelEntry(
         "K9", "layer_norm_bwd", f"{_FN}:312", f"{_FN}:_ln_bwd_call",
         "ported", "encoder", route="cuda",
@@ -206,6 +210,6 @@ def ported() -> Tuple[KernelEntry, ...]:
 
 def on_path(path: str) -> Tuple[KernelEntry, ...]:
     """The ported rows a main path (``serve``, ``train``, ``finetune``,
-    ``longctx``, ``dp``, ``dp_packed``, ``sp``, ``zero``, ``dp_graph``)
-    launches."""
+    ``longctx``, ``dp``, ``dp_packed``, ``sp``, ``zero``, ``dp_graph``,
+    ``eval``) launches."""
     return tuple(e for e in ported() if path in e.paths)

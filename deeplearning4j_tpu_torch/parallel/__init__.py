@@ -10,6 +10,9 @@ K11), the named-axis ``Mesh``, and the serving errors of
 ``inference.py``, and sequence parallelism: ``distributed_context``,
 the ring and zigzag ring of ``ring_attention.py`` over the flash block
 entries (K1, K3, K4, K5) and the Ulysses all-to-all of ``ulysses.py``.
+Distributed evaluation: the facades' ``evaluate``, ``evaluate_regression``
+and ``do_evaluation``, and ``master.merge_across_processes``, which folds
+every rank's statistics together over the group.
 ``composed.py``, ``pipeline.py``, ``moe.py`` and
 ``ParallelInference`` come with later slices.
 """

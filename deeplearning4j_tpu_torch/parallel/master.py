@@ -24,24 +24,27 @@ semantics:
 (the wrapper's graph adapter). ``make_global_batch`` has no counterpart:
 in the per-process model each rank feeds its own batch
 (``ParallelWrapper.fit``, the JAX package's multi-process rule), so
-nothing assembles a global device array. Evaluation (``evaluate``,
-``do_evaluation``, ``merge_across_processes``) needs the ``eval_/``
-classes, which come with the MultiLayerNetwork-core slice.
+nothing assembles a global device array. Evaluation follows the same
+rule: each rank evaluates its own batches (``evaluate``,
+``evaluate_regression``, ``do_evaluation``) and
+``merge_across_processes`` folds the ranks' statistics together, so
+every rank returns the full-data evaluation.
 """
 from __future__ import annotations
 
+import pickle
 from dataclasses import dataclass
 from typing import Optional
 
+import torch
 import torch.distributed as dist
 
+from deeplearning4j_tpu_torch.eval_.evaluation import Evaluation
+from deeplearning4j_tpu_torch.nn.multilayer import evaluate_batches
 from deeplearning4j_tpu_torch.parallel.compression import (
     AdaptiveThresholdAlgorithm, EncodedGradientsAccumulator)
 from deeplearning4j_tpu_torch.parallel.mesh import data_parallel_mesh
 from deeplearning4j_tpu_torch.parallel.wrapper import ParallelWrapper
-
-_EVAL_SLICE = ("evaluation needs the eval_/ classes, which come with the "
-               "MultiLayerNetwork-core slice")
 
 
 class TrainingMaster:
@@ -184,10 +187,73 @@ class ShardedDataSetIterator:
         return getattr(self.base, name)
 
 
+def _gather_bytes(payload: bytes):
+    """Every rank's ``payload``, in rank order, over the default group's
+    CPU (gloo) side: the lengths are all-gathered, then the bytes padded
+    to the longest as uint8 CPU tensors."""
+    n = dist.get_world_size()
+    size = torch.tensor([len(payload)], dtype=torch.int64)
+    sizes = [torch.zeros_like(size) for _ in range(n)]
+    dist.all_gather(sizes, size)
+    lens = [int(t) for t in sizes]
+    padded = torch.zeros(max(lens), dtype=torch.uint8)
+    padded[:len(payload)] = torch.frombuffer(bytearray(payload),
+                                             dtype=torch.uint8)
+    parts = [torch.zeros_like(padded) for _ in range(n)]
+    dist.all_gather(parts, padded)
+    return [p[:k].numpy().tobytes() for p, k in zip(parts, lens)]
+
+
 def merge_across_processes(evals):
     """Cross-process reduction of evaluation objects (reference
-    ``SparkDl4jMultiLayer#doEvaluation``); comes with the eval_/ classes."""
-    raise NotImplementedError(f"merge_across_processes: {_EVAL_SLICE}")
+    ``SparkDl4jMultiLayer#doEvaluation``: per-partition local eval
+    followed by a reduce of ``IEvaluation#merge``).
+
+    Every rank calls this with its own shard's evaluation (or list of
+    them). Past one rank the pickled lists are all-gathered over the
+    default group as CPU tensors (gloo, never NCCL) and merged in rank
+    order, so every rank returns the same full-data evaluations, equal
+    to the byte when pickled. The ranks' list lengths are compared after
+    the gather, on every rank, so a mismatch raises ``ValueError`` on
+    all of them and leaves none waiting in a collective; so does a
+    ``merge`` that refuses (a class-count mismatch). At world size 1 (or
+    without a process group) the input comes back as it is. Works for
+    any evaluation class with a ``merge`` method."""
+    return _evaluate_and_merge(lambda: evals)
+
+
+def _evaluate_and_merge(run):
+    """``merge_across_processes(run())``, where ``run`` evaluates this
+    rank's batches. Past one rank, a refusal of this rank's batches (the
+    ``NotImplementedError`` of a masked batch, a ``ValueError`` of
+    ``eval``) goes through the same gather in place of the evaluations,
+    so every rank raises it and none is left waiting in the collective:
+    the refusing rank its own error, the others the first refusal's
+    type, naming its rank."""
+    if not (dist.is_initialized() and dist.get_world_size() > 1):
+        return run()
+    try:
+        evs, refusal = run(), None
+    except (NotImplementedError, ValueError) as err:
+        evs, refusal = None, err
+    single = not isinstance(evs, (list, tuple))
+    payload = pickle.dumps((refusal, [evs] if single else list(evs)))
+    shards = [pickle.loads(p) for p in _gather_bytes(payload)]
+    if refusal is not None:
+        raise refusal
+    for rank, (err, _) in enumerate(shards):
+        if err is not None:
+            raise type(err)(f"rank {rank} refused its batches: {err}")
+    merged = shards[0][1]
+    for rank, (_, shard) in enumerate(shards[1:], start=1):
+        if len(shard) != len(merged):
+            raise ValueError(
+                f"rank {rank} contributed {len(shard)} evaluation "
+                f"objects, expected {len(merged)} — every rank must "
+                "pass the same evaluations")
+        for a, b in zip(merged, shard):
+            a.merge(b)
+    return merged[0] if single else merged
 
 
 class SparkDl4jMultiLayer:
@@ -221,13 +287,38 @@ class SparkDl4jMultiLayer:
         return self.fit(list(datasets), epochs=epochs)
 
     def evaluate(self, iterator, num_classes: Optional[int] = None):
-        raise NotImplementedError(f"evaluate: {_EVAL_SLICE}")
+        """Evaluate this rank's batches, then merge the statistics across
+        the ranks: every rank returns the full-data Evaluation.
+        ``num_classes`` pins the class count for shards that do not see
+        every class (or no sample at all)."""
+        if num_classes is None:
+            return _evaluate_and_merge(lambda: self.net.evaluate(iterator))
+        return self.do_evaluation(iterator,
+                                  Evaluation(n_classes=num_classes))[0]
 
     def evaluate_regression(self, iterator):
-        raise NotImplementedError(f"evaluate_regression: {_EVAL_SLICE}")
+        """``RegressionEvaluation`` of this rank's batches, merged across
+        the ranks. A ``ComputationGraph`` has no ``evaluate_regression``
+        (nor has the JAX one): use ``do_evaluation(iterator,
+        RegressionEvaluation())``."""
+        if not hasattr(self.net, "evaluate_regression"):
+            raise TypeError(
+                f"evaluate_regression: a {type(self.net).__name__} has no "
+                "evaluate_regression, as in the JAX package; use "
+                "do_evaluation(iterator, RegressionEvaluation())")
+        return _evaluate_and_merge(
+            lambda: self.net.evaluate_regression(iterator))
 
     def do_evaluation(self, iterator, *evals):
-        raise NotImplementedError(f"do_evaluation: {_EVAL_SLICE}")
+        """Reference ``doEvaluation``: run any evaluation objects over
+        this rank's batches and merge them across the ranks. List
+        features feed ``output(*x)``; a graph of several outputs is
+        evaluated on its first output and label (reference
+        ``SparkComputationGraph#doEvaluation``). A batch with masks
+        raises ``NotImplementedError``, as the networks' ``evaluate``,
+        and on every rank when one rank's batches hold it."""
+        return _evaluate_and_merge(
+            lambda: evaluate_batches(self.net, iterator, *evals))
 
     def score(self) -> float:
         return self.net.score()
@@ -240,5 +331,5 @@ class SparkComputationGraph(SparkDl4jMultiLayer):
     """Reference ``SparkComputationGraph`` — the same flow over a
     ComputationGraph: ``fit`` takes this rank's ``MultiDataSet``-like
     batches (features and labels as lists) through the wrapper's graph
-    adapter; ``evaluate`` and ``do_evaluation`` wait for the eval_/
-    classes."""
+    adapter; ``evaluate`` and ``do_evaluation`` evaluate the first output
+    against the first label."""

@@ -74,6 +74,7 @@ import torch
 import torch.distributed as dist
 
 from deeplearning4j_tpu_torch import obs, tree
+from deeplearning4j_tpu_torch.data.dataset import has_masks
 from deeplearning4j_tpu_torch.nn.layers.base import fold_in
 from deeplearning4j_tpu_torch.nn.multilayer import (apply_updates,
                                                     loss_and_grads)
@@ -95,9 +96,6 @@ _LOG = logging.getLogger("deeplearning4j_tpu_torch")
 _CROSS_LEAF_GRAD_NORMS = frozenset({
     "clipl2perlayer", "clipl2perparamtype",
     "renormalizel2perlayer", "renormalizel2perparamtype"})
-
-#: the batch attributes that carry masks
-_MASKS = ("features_mask", "labels_mask", "features_masks", "labels_masks")
 
 
 def _later(what: str, slice_: str):
@@ -124,15 +122,6 @@ def _map_batch(fn, x):
     if isinstance(x, (list, tuple)):
         return type(x)(fn(a) for a in x)
     return fn(x)
-
-
-def _has_masks(ds) -> bool:
-    for attr in _MASKS:
-        m = getattr(ds, attr, None)
-        if m is not None and not (isinstance(m, (list, tuple))
-                                  and all(a is None for a in m)):
-            return True
-    return False
 
 
 class ParallelWrapper:
@@ -613,7 +602,7 @@ class ParallelWrapper:
                 if n_steps is not None and i >= n_steps:
                     break                # stay in lockstep with the group
                 t0 = obs.now()
-                if _has_masks(ds):
+                if has_masks(ds):
                     raise NotImplementedError(
                         "ParallelWrapper.fit: a batch with features or "
                         "labels masks — the JAX wrapper's loss adapter "

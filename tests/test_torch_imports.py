@@ -24,7 +24,9 @@ def _modules():
 
 def test_importing_every_port_module_stays_light():
     mods = list(_modules())
-    assert "deeplearning4j_tpu_torch.serving.gateway" in mods
+    assert {"deeplearning4j_tpu_torch.serving.gateway",
+            "deeplearning4j_tpu_torch.eval_.evaluation",
+            "deeplearning4j_tpu_torch.data.iterators"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -61,12 +63,12 @@ def test_no_source_imports_jax_or_the_jax_package(path):
 def test_registry_rows_resolve_to_counted_kernels():
     """Every ported row resolves to a function with a launch counter and
     an existing source, and every main path it names (the ``sp``,
-    ``zero`` and ``dp_graph`` paths included) is a phase
+    ``zero``, ``dp_graph`` and ``eval`` paths included) is a phase
     ``chip_smoke.py`` drives."""
     import chip_smoke
     from deeplearning4j_tpu_torch.ops import kernel_registry
     paths = {p for e in kernel_registry.ported() for p in e.paths}
-    assert {"sp", "zero", "dp_graph"} <= paths
+    assert {"sp", "zero", "dp_graph", "eval"} <= paths
     for e in kernel_registry.ported():
         assert set(e.paths) <= set(chip_smoke.PHASES), e.key
         fn = e.port_fn()

@@ -1,4 +1,4 @@
-"""The port's twin of the fit half of ``tests/test_multiprocess.py::
+"""The port's twin of ``tests/test_multiprocess.py::
 test_two_process_distributed_training``, on the CPU: two gloo ranks
 (``tests/torch_dp_worker.py`` job ``fit2``, spawned the way
 ``tests/test_torch_parallel.py`` spawns it, torch on one thread) train
@@ -8,19 +8,19 @@ rank on its ``ShardedDataSetIterator`` shard of 7 batches: 4 batches on
 rank 0 and 3 on rank 1. The ranks agree 3 steps an epoch (the minimum),
 so both return, with the same parameters to the bit and a score under
 0.4, the reference's bar. An unsized iterator at world size 2 raises,
-naming the reason. The evaluate half waits for the ``eval_`` merge.
+naming the reason. The evaluate half, and the merge cases around it, are
+the twins of ``tests/torch_eval_twins.py`` (collected here at n = 2, and
+by ``tests/test_torch_multiprocess_4.py`` at n = 4) over the same spawn.
 """
 import numpy as np
 import pytest
 
-from test_torch_parallel import _collect, _spawn
+from torch_eval_twins import *  # noqa: F401,F403  (the twins, collected here)
 
 
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
-    out_dir = str(tmp_path_factory.mktemp("fit2"))
-    return _collect(_spawn("fit2", 2, out_dir), "fit2", out_dir,
-                    timeout=300)
+def world():
+    return 2
 
 
 def test_uneven_shards_train_in_lockstep(ranks):

@@ -239,7 +239,8 @@ def test_registry_lists_every_tpu_kernel():
         # every ported row names the main paths that launch it
         assert e.paths and set(e.paths) <= {"serve", "train", "finetune",
                                             "longctx", "dp", "dp_packed",
-                                            "sp", "zero", "dp_graph"}
+                                            "sp", "zero", "dp_graph",
+                                            "eval"}
         # the stepped phases' expected launches per step: one positive
         # count for each stepped path of the row, none for serve
         stepped = set(e.paths) - {"serve"}
@@ -272,6 +273,10 @@ def test_registry_lists_every_tpu_kernel():
     assert {e.key: e.per_step["dp_graph"]
             for e in on_path("dp_graph")} == {"K1": 12, "K3": 12,
                                               "K8": 26, "K9": 26}
+    # evaluation: the fine-tune model's forward alone, per batch — K1
+    # once a block, K8 at every LayerNorm; no backward kernel
+    assert {e.key: e.per_step["eval"] for e in on_path("eval")} == {
+        "K1": 12, "K8": 26}
     for e in KERNELS:
         if e.status == "todo":
             assert e.port is None and e.route is None and not e.paths

@@ -297,10 +297,6 @@ REFUSED = {
     "load_checkpoint_tree": "resilience slice",
     "load_gathered_tree": "resilience slice",
     "elastic": "resilience slice", "numerics": "observatories slice",
-    "evaluate": "MultiLayerNetwork-core slice",
-    "evaluate_regression": "MultiLayerNetwork-core slice",
-    "do_evaluation": "MultiLayerNetwork-core slice",
-    "merge_across_processes": "MultiLayerNetwork-core slice",
     "elastic_init": "resilience slice",
 }
 BAD_ARGS = {"bad_mode": "unknown mode", "mesh_size": "needs 3 ranks",

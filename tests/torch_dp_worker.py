@@ -10,15 +10,19 @@ JOB ``dp2`` (world 2) runs the accumulator's ``exchange``,
 the carried-across weights there (rank r fed its rows of each global
 batch), the training masters and the Spark facade, and every refused
 option; JOB ``mesh4`` (world 4) builds a {"slice": 2, "data": 2} mesh and
-runs ``exchange_hierarchical``; JOB ``fit2`` (world 2) trains the dense
-net of ``tests/test_multiprocess.py`` through ``SparkDl4jMultiLayer`` on
-its ``ShardedDataSetIterator`` shard of 7 batches (uneven: 4 and 3), then
-calls ``fit`` on an unsized iterator. Each rank writes
-``DIR/JOB-rank<R>.npz`` (arrays) and ``.json`` (losses, messages). The
-process group comes up through a file under ``DIR``.
+runs ``exchange_hierarchical``; JOB ``fit2`` (world 2) and ``fit4``
+(world 4) train the dense net of ``tests/test_multiprocess.py`` through
+``SparkDl4jMultiLayer`` on its ``ShardedDataSetIterator`` shard of 7
+batches (uneven: 4 and 3; 2, 2, 2 and 1), call ``fit`` on an unsized
+iterator, then evaluate: the evaluate half of that test and the merge
+cases of :func:`run_eval_cases`, with BERT's weights and batches from
+``DIR/inputs.npz``. Each rank writes ``DIR/JOB-rank<R>.npz`` (arrays) and
+``.json`` (losses, messages). The process group comes up through a file
+under ``DIR``.
 """
 import json
 import os
+import pickle
 import sys
 import types
 
@@ -35,7 +39,6 @@ from deeplearning4j_tpu_torch.parallel import (  # noqa: E402
     ParameterAveragingTrainingMaster, SharedTrainingMaster,
     SparkDl4jMultiLayer, data_parallel_mesh, initialize_distributed,
     make_mesh, mesh as mesh_mod)
-from deeplearning4j_tpu_torch.parallel import master as master_mod  # noqa
 from deeplearning4j_tpu_torch.zoo.gpt import GPTNano  # noqa: E402
 
 MODES = ("sync", "encoded", "averaging", "async")
@@ -158,12 +161,6 @@ def refusals(inp, mesh):
     net._numerics = object()
     expect("numerics", lambda: w.fit(data))
     del net._numerics
-    spark = SparkDl4jMultiLayer(nano_net(inp), SharedTrainingMaster(), mesh)
-    expect("evaluate", lambda: spark.evaluate(data))
-    expect("evaluate_regression", lambda: spark.evaluate_regression(data))
-    expect("do_evaluation", lambda: spark.do_evaluation(data))
-    expect("merge_across_processes",
-           lambda: master_mod.merge_across_processes([]))
     expect("elastic_init", mesh_mod.initialize_distributed_elastic)
     expect("bad_mode", lambda: ParallelWrapper(net, mode="x", mesh=mesh))
     expect("mesh_size", lambda: make_mesh({"data": 3}))
@@ -173,11 +170,12 @@ def refusals(inp, mesh):
     return out
 
 
-def run_sharded_fit(mesh, log):
+def run_sharded_fit(mesh, log, job):
     """The fit half of ``tests/test_multiprocess.py``'s worker: the same
-    dense net and data, 7 batches of 64 dealt round-robin to the 2 ranks
-    (4 and 3), ``ParameterAveragingTrainingMaster(64)`` averaging every 2
-    steps, 8 epochs. Then ``fit`` on an iterator without ``len``."""
+    dense net and data, 7 batches of 64 dealt round-robin to the ranks
+    (4 and 3 at world 2), ``ParameterAveragingTrainingMaster(64)``
+    averaging every 2 steps, 8 epochs. Then ``fit`` on an iterator
+    without ``len``. Returns the arrays, the trainer and the batches."""
     from deeplearning4j_tpu_torch.nn.config import (InputType,
                                                     NeuralNetConfiguration)
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
@@ -199,19 +197,113 @@ def run_sharded_fit(mesh, log):
               .averaging_frequency(2).build())
     trainer = SparkDl4jMultiLayer(net, master, mesh)
     shard = ShardedDataSetIterator(data)
-    log["fit2/shard"] = [shard.shard_index, shard.num_shards, len(shard)]
+    log[f"{job}/shard"] = [shard.shard_index, shard.num_shards, len(shard)]
     trainer.fit(shard, epochs=8)
-    log["fit2/score"] = trainer.score()
-    log["fit2/iteration"] = net.iteration
+    log[f"{job}/score"] = trainer.score()
+    log[f"{job}/iteration"] = net.iteration
     res = {}
-    put(res, "fit2/params", net.params)
+    put(res, f"{job}/params", net.params)
     try:
         trainer.fit(iter(data))
     except ValueError as e:
-        log["fit2/unsized"] = f"ValueError: {e}"
+        log[f"{job}/unsized"] = f"ValueError: {e}"
     else:
-        log["fit2/unsized"] = "no error"
-    return res
+        log[f"{job}/unsized"] = "no error"
+    return res, trainer, data
+
+
+#: the seven evaluation classes, in ``eval_/evaluation.py``'s order
+EVAL_CLASSES = ("Evaluation", "EvaluationBinary", "ROC", "ROCMultiClass",
+                "ROCBinary", "EvaluationCalibration", "RegressionEvaluation")
+#: the narrow BERT of the merge cases (weights from ``inputs.npz``)
+BERT_KW = dict(vocab_size=100, hidden=64, n_layers=2, n_heads=2, max_len=16,
+               dropout=0.0, seed=9)
+
+
+def _pickled(obj):
+    return np.frombuffer(pickle.dumps(obj), np.uint8)
+
+
+def _raises(fn):
+    """The ``ValueError`` or ``NotImplementedError`` ``fn`` raises, as
+    "Type: message", or "no error"."""
+    try:
+        fn()
+    except (ValueError, NotImplementedError) as e:
+        return f"{type(e).__name__}: {e}"
+    return "no error"
+
+
+def run_eval_cases(inp, trainer, data, res, log):
+    """The evaluate half of ``tests/test_multiprocess.py``'s worker
+    (``trainer.evaluate`` of the rank's shard, ``net.evaluate`` of all the
+    data) and the merge cases: the seven classes over the rank's shard
+    (``uneven``: the payloads differ in size), ``evaluate`` with and
+    without ``num_classes`` where only rank 0's shard has a sample
+    (``empty``), a pinned class count against an observed one
+    (``pinned``), a rank passing two evaluations where the others pass one
+    (``count``), a masked batch in rank 0's shard alone (``masked``,
+    through ``do_evaluation`` and ``evaluate``), and
+    ``SparkComputationGraph.do_evaluation`` of the narrow BERT (``bert``). Each merged result goes into ``res`` pickled, so the
+    ranks' bytes can be compared."""
+    from deeplearning4j_tpu_torch.data import (ListDataSetIterator,
+                                               MultiDataSet)
+    from deeplearning4j_tpu_torch.eval_ import evaluation as ev
+    from deeplearning4j_tpu_torch.nn.multilayer import evaluate_batches
+    from deeplearning4j_tpu_torch.parallel import (ShardedDataSetIterator,
+                                                   SparkComputationGraph)
+    from deeplearning4j_tpu_torch.zoo.bert import Bert
+    rank = torch.distributed.get_rank()
+    net = trainer.net
+    merged = trainer.evaluate(ShardedDataSetIterator(data))
+    full = net.evaluate(ListDataSetIterator(data))
+    log["eval/count"] = [merged.count, full.count]
+    res["eval/confusion"] = merged.confusion
+    res["eval/full_confusion"] = full.confusion
+    res["eval/pickle"] = _pickled(merged)
+    res["eval/probs"] = net.output(np.concatenate(
+        [d.features for d in data])).numpy()
+
+    fresh = lambda: [getattr(ev, c)() for c in EVAL_CLASSES]
+    local = evaluate_batches(net, ShardedDataSetIterator(data), *fresh())
+    log["uneven/local_bytes"] = len(pickle.dumps(local))
+    res["uneven/pickle"] = _pickled(
+        trainer.do_evaluation(ShardedDataSetIterator(data), *fresh()))
+
+    one = data[:1]                           # rank 0's shard alone
+    log["empty/local_count"] = net.evaluate(
+        ShardedDataSetIterator(one)).count
+    res["empty/pinned"] = _pickled(
+        trainer.evaluate(ShardedDataSetIterator(one), num_classes=2))
+    res["empty/unpinned"] = _pickled(
+        trainer.evaluate(ShardedDataSetIterator(one)))
+
+    pin = ev.Evaluation(n_classes=3 if rank == 0 else None)
+    log["pinned/raised"] = _raises(lambda: trainer.do_evaluation(
+        ShardedDataSetIterator(data), pin))
+    evals = [ev.Evaluation() for _ in range(2 if rank == 0 else 1)]
+    log["count/raised"] = _raises(lambda: trainer.do_evaluation(
+        ShardedDataSetIterator(data), *evals))
+
+    masked = [DataSet(d.features, d.labels,
+                      labels_mask=np.ones(len(d.labels), np.float32))
+              if i == 0 else d for i, d in enumerate(data)]
+    log["masked/do_evaluation"] = _raises(lambda: trainer.do_evaluation(
+        ShardedDataSetIterator(masked), ev.Evaluation()))
+    log["masked/evaluate"] = _raises(
+        lambda: trainer.evaluate(ShardedDataSetIterator(masked)))
+
+    bert = Bert(**BERT_KW).init_classifier(2, 16, device="cpu")
+    bert.params_from_jax(tree.map_(lambda t: t.numpy(),
+                                   nested(inp, "bert/weights")))
+    batches = [MultiDataSet([inp[f"bert/tok{i}"], inp[f"bert/seg{i}"]],
+                            [inp[f"bert/y{i}"]])
+               for i in range(int(inp["bert/n"]))]
+    spark = SparkComputationGraph(bert, trainer.master, trainer.mesh)
+    res["bert/pickle"] = _pickled(spark.do_evaluation(
+        ShardedDataSetIterator(batches), ev.Evaluation(), ev.ROC()))
+    res["bert/probs"] = np.concatenate(
+        [bert.output(*b.features)[0].numpy() for b in batches])
 
 
 def main():
@@ -222,16 +314,16 @@ def main():
                            rank)
     res, log = {}, {"backend": torch.distributed.get_backend(),
                     "rank": torch.distributed.get_rank()}
-    if job != "fit2":
-        inp = dict(np.load(os.path.join(out_dir, "inputs.npz")))
+    inp = dict(np.load(os.path.join(out_dir, "inputs.npz")))
     if job == "dp2":
         mesh = data_parallel_mesh()
         log["mesh"] = [mesh.size(), mesh.index("data")]
         run_exchanges(inp, rank, mesh.group("data"), res)
         run_wrappers(inp, mesh, res, log)
         log["refused"] = refusals(inp, mesh)
-    elif job == "fit2":
-        res = run_sharded_fit(data_parallel_mesh(), log)
+    elif job in ("fit2", "fit4"):
+        res, trainer, data = run_sharded_fit(data_parallel_mesh(), log, job)
+        run_eval_cases(inp, trainer, data, res, log)
     else:
         mesh = make_mesh({"slice": 2, "data": 2})
         log["mesh"] = {a: [mesh.index(a), torch.distributed

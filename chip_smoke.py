@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card (H100).
 
-    python3 chip_smoke.py               # phases 1-20 (needs one card)
+    python3 chip_smoke.py               # phases 1-23 (needs one card)
     python3 chip_smoke.py --phases train,train_agree,kernels
     python3 chip_smoke.py --phases finetune,finetune_agree,kernels
     python3 chip_smoke.py --phases longctx,longctx_agree,kernels
@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases sp,sp_agree,kernels
     python3 chip_smoke.py --phases zero,zero_agree,dp_graph,kernels
     python3 chip_smoke.py --phases eval,eval_agree,kernels
+    python3 chip_smoke.py --phases serve_opts,serve_opts_agree,beam,kernels
     python3 chip_smoke.py --phases profile    # device-time breakdown
 
 Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
@@ -27,15 +28,42 @@ Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
 3. agree — the same model in float32: the card's prefill logits and 8
    teacher-forced decode steps against the port on the CPU (the plain
    versions), for one 300-token prompt;
-4. train — the same model built by ``CausalTransformerLM(...).init(1024)``
+4. serve_opts — four gateways at the serve width (bfloat16,
+   ``max_slots=32``, ``block=16``, ``max_context=2048``) each run one
+   burst of the port's ``gen_shared_prefix_requests`` (32 requests, a
+   1 024-token system prompt and 16-256-token suffixes, 64 new tokens)
+   through ``run_trace(mode="burst")``: (a) no options, (b)
+   ``prefix_sharing=True, spec_k=4``, (c) ``serve_quant="int8",
+   cache_quant="int8"``, (d) all four. Each stream 64 in-vocab tokens,
+   the pager's invariants and every page freed, exact launches (K1 12 a
+   dense admission, K2 25 an admission and a step); (b) and (d) hit the
+   prefix index and draft. (b) may leave (a)'s tokens, and (d) (c)'s,
+   only at a near tie: where the reference's top two logits (from a
+   second, untimed burst) lie within twice the measured bf16 difference
+   of the two paths, which must itself stay within the paths' float32
+   difference plus twice the single-token path's bf16 error. Then the
+   request-at-a-time baseline on the same traffic, and the decode step
+   with the int8 cache and with int8 weights against bf16;
+5. serve_opts_agree — the serve model in float32 with int8 weights and
+   the int8 cache (TF32 off), card against CPU within ``AGREE_TOL``: a
+   300-token prefill and 8 decode steps, the verify step against 4
+   single-token steps from one pool, the suffix prefill of a sharer
+   against the same suffix run token by token (and, with the float
+   cache, against the dense prefill); the quantisers give the same bits
+   on both devices;
+6. beam — ``generate_beam`` at the serve width in bfloat16, B = 4
+   prompts of 300 tokens, 32 new tokens, 4 beams, without and with both
+   int8 options: two calls equal, ``beams=1`` equal to greedy
+   ``generate``, K1 12 and K2 800 launches a call;
+7. train — the same model built by ``CausalTransformerLM(...).init(1024)``
    (bfloat16 compute, the model's AdamW) trained by ``net.fit(x, y)`` on
    one fixed batch of 16 x 1024 random tokens: 2 warm steps, then 8
    timed steps; every loss finite and the last below the first, and each
    training kernel launched its expected number of times per step;
-5. train_agree — the same model in float32 (TF32 off), one step at
+8. train_agree — the same model in float32 (TF32 off), one step at
    B = 2, T = 256: the card's loss and every gradient against the port
    on the CPU;
-6. finetune — BERT-base at full width and depth (vocab 30522, hidden
+9. finetune — BERT-base at full width and depth (vocab 30522, hidden
    768, 12 layers, 12 heads of 64, FFN x4, max_len 512, dropout 0.1,
    bfloat16 compute, the model's AdamW, random weights from a seed)
    built by ``BertBase(...).init_classifier(2, 128)`` and trained by
@@ -46,11 +74,11 @@ Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
    mean of the first two (under dropout a single step's loss is noisy);
    each kernel launched exactly its registry count per step; then one
    ``output(...)`` whose rows each sum to 1;
-7. finetune_agree — BERT-base in float32 with dropout 0 (a CUDA and a
+10. finetune_agree — BERT-base in float32 with dropout 0 (a CUDA and a
    CPU ``torch.Generator`` draw different masks) and TF32 off, one step
    at B = 4, T = 128 with a key mask: the card's loss and every gradient
    against the port on the CPU;
-8. longctx — the serve phase's LM at a 32 768-token context, built by
+11. longctx — the serve phase's LM at a 32 768-token context, built by
    ``CausalTransformerLM(..., max_len=32768).init(32768)`` (bfloat16
    compute, the model's AdamW) and trained by ``net.fit(x, y)`` on one
    fixed batch of 1 x 32 768 random tokens: 1 warm step, then 3 timed
@@ -58,11 +86,11 @@ Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
    pair K4 (dq) + K5 (dk/dv) instead of the fused K3, by the JAX
    package's own test; every loss finite and the last below the first,
    each kernel launched exactly its registry count per step (K3 none);
-9. longctx_agree — the same model in float32 (TF32 off), one step at
+12. longctx_agree — the same model in float32 (TF32 off), one step at
    B = 2, T = 256 with the fused backward's budget set to 0, so the
    card's backward runs K4 + K5: its loss and every gradient against
    the port on the CPU;
-10. dp — ``initialize_distributed()`` (this process alone, a
+13. dp — ``initialize_distributed()`` (this process alone, a
    ``"cpu:gloo,cuda:nccl"`` group: NCCL for CUDA tensors, gloo for CPU
    ones), then the train phase's LM and batch through
    ``SharedTrainingMaster().make_wrapper(net, data_parallel_mesh())`` →
@@ -70,19 +98,19 @@ Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
    decoded update summed over the group): 2 warm steps, then 8 timed;
    every loss finite and the last below the first, the train kernels'
    launches exactly, K10 and K11 none;
-11. dp_packed — the same LM and batch in a step loop over the data group:
+14. dp_packed — the same LM and batch in a step loop over the data group:
    ``loss_and_grads`` → ``EncodedGradientsAccumulator.exchange_packed``
    (K10 once a parameter leaf, the packed words all-gathered, K11 once a
    leaf and rank) → ``apply_updates``; 2 warm and 8 timed steps, the
    launches exactly (K10 = the net's parameter leaves, K11 = leaves ×
    ranks);
-12. dp_agree — one f32 step (TF32 off) of ENCODED and of the packed
+15. dp_agree — one f32 step (TF32 off) of ENCODED and of the packed
    exchange at B = 2, T = 256 from the same weights, card against CPU in
    the same group (the CPU tensors over gloo): the loss, the decoded
    updates (all but the codes flipped at |g| ≈ τ equal) and the
    residuals (where the codes agree, to 1e-3 of the leaf's largest
    gradient);
-13. sp — ``initialize_distributed()`` (this process alone), then
+16. sp — ``initialize_distributed()`` (this process alone), then
    ``make_mesh({"seq": 1})`` and ``distributed_context``: the longctx
    phase's LM built with ``sequence_parallel="zigzag_ring"`` and trained
    by ``net.fit(x, y)`` on the same 1 x 32 768 batch, 1 warm and 3
@@ -92,12 +120,12 @@ Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
    fit the fused budget), one pair wholly above the diagonal; every loss
    finite and the last below the first, each kernel launched exactly its
    registry count per step;
-14. sp_agree — one f32 step (TF32 off) of the train phase's model at
+17. sp_agree — one f32 step (TF32 off) of the train phase's model at
    B = 2, T = 256 under the seq-1 context for each of ``ring``,
    ``zigzag_ring`` and ``ulysses``: the card's loss and every gradient
    against the same step without the context on the card, and against
    the same step under the context on the CPU;
-15. zero — the train phase's LM and batch through ``ParallelWrapper(net,
+18. zero — the train phase's LM and batch through ``ParallelWrapper(net,
    mesh=data_parallel_mesh(), sharded_update=True)`` on the one-rank
    group of the dp phases (the ZeRO sharded update: one reduce-scatter a
    flat gradient leaf, the update on the rank's slice against its 1/N
@@ -106,18 +134,18 @@ Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
    tokens/s, peak GB and the ``OPT_STATE_BYTES`` reading, every loss
    finite and the last below the first, the train kernels' launches
    exactly;
-16. zero_agree — the train model in float32 (TF32 off) at B = 2,
+19. zero_agree — the train model in float32 (TF32 off) at B = 2,
    T = 256: replicated SYNC, the sharded update and the overlap take two
    steps each from one gradient and must end bit for bit alike (params
    and the gathered optimizer state); then one sharded step through
    ``fit`` on the card against the CPU: the loss and the
    reduce-scattered gradient in train_agree's bands;
-17. dp_graph — BERT-base's classifier (the finetune phase's model)
+20. dp_graph — BERT-base's classifier (the finetune phase's model)
    through ``ParallelWrapper(graph, sharded_update=True)`` on the same
    group, the fine-tune batch as full-length rows (no masks, so K1 and
    K3 run unmasked): 2 warm and 8 timed steps, the loss falling, the
    launches exactly, then one ``output`` whose rows each sum to 1;
-18. eval — the finetune phase's model (BERT-base, bfloat16 compute)
+21. eval — the finetune phase's model (BERT-base, bfloat16 compute)
    evaluated by ``net.evaluate`` over 16 fixed full-length batches of
    64 x 128 (1 024 samples, no masks): one warm pass, then 3 timed
    passes, each between zeroed and read launch counters (exactly K1 12
@@ -131,12 +159,12 @@ Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
    classes, each with the local confusion matrix; then the dense net of
    ``tests/test_multiprocess.py`` trained 8 epochs on the card and put
    through ``evaluate`` and ``evaluate_regression``;
-19. eval_agree — BERT-base in float32 (dropout 0, TF32 off), 2 batches
+22. eval_agree — BERT-base in float32 (dropout 0, TF32 off), 2 batches
    of 16 x 128: the card's probabilities against the port on the CPU
    within ``AGREE_TOL``, any argmax that differs on a row whose top two
    lie within twice the observed error, and the seven classes fed the
    card's tensors equal to the bit to the same fed numpy arrays;
-20. kernels — holds each ported kernel against its plain PyTorch version
+23. kernels — holds each ported kernel against its plain PyTorch version
    on the card at its main paths' shapes, in bfloat16 (for K1, K3, K4
    and K5 the tensor-core kernels of ``csrc/flash_mma.cuh``) and float32
    (their CUDA-core kernels), including operands whose base and strides
@@ -178,13 +206,14 @@ Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
    nothing it leaves behind in the process can slow the host-bound serve
    step (``PERF.md`` records such a slowdown, cause not isolated).
 
-Each main path (serve, train, finetune, longctx, dp, dp_packed, sp, zero,
-dp_graph, eval) zeroes
+Each main path (serve, serve_opts, beam, train, finetune, longctx, dp,
+dp_packed, sp, zero, dp_graph, eval) zeroes
 the launch counters of the kernels just before it runs and reads them
 just after; it fails if a kernel the registry lists for that path was
 not launched, and on a stepped path (all but serve; eval counts its
 batches) if any ported kernel was launched other than its registry
-count per step (0 for a kernel the path does not list).
+count per step (0 for a kernel the path does not list); serve_opts
+counts from its admissions and steps.
 
 ``profile`` (not in the default run) prints the device busy time, idle
 share and top kernels of one 2048-bucket prefill, of 8 decode steps with
@@ -212,7 +241,8 @@ import subprocess
 import sys
 import time
 
-PHASES = ("device", "serve", "agree", "train", "train_agree", "finetune",
+PHASES = ("device", "serve", "agree", "serve_opts", "serve_opts_agree",
+          "beam", "train", "train_agree", "finetune",
           "finetune_agree", "longctx", "longctx_agree", "dp", "dp_packed",
           "dp_agree", "sp", "sp_agree", "zero", "zero_agree", "dp_graph",
           "eval", "eval_agree", "kernels")
@@ -274,6 +304,21 @@ DP_FLIP_TOL = 1e-4
 
 SERVE = dict(vocab_size=50257, hidden=768, n_layers=12, n_heads=6,
              max_len=2048, ffn_mult=8 / 3, tie_embeddings=True)
+# serve_opts: the shared-prefix burst (requests, system-prompt tokens,
+# suffix lengths, new tokens) and the gateways' slots; the four
+# gateways as (tag, model options, gateway options)
+OPTS_REQUESTS, OPTS_PREFIX, OPTS_SUFFIX, OPTS_NEW = 32, 1024, (16, 256), 64
+OPTS_SLOTS = 32
+_INT8 = {"serve_quant": "int8", "cache_quant": "int8"}
+_SPEC_SHARE = {"prefix_sharing": True, "spec_k": 4}
+OPTS_GATEWAYS = (("a", {}, {}), ("b", {}, _SPEC_SHARE), ("c", _INT8, {}),
+                 ("d", _INT8, _SPEC_SHARE))
+# beam: prompts and their length (the new tokens: the registry's
+# BEAM_NEW), and the calls timed
+BEAM_B, BEAM_T0 = 4, 300
+BEAM_TIMED = 5
+# serve_opts: turns of the decode-step comparison (one warm turn more)
+STEP_TURNS = 5
 TRAIN = dict(SERVE, max_len=1024)
 TRAIN_B, TRAIN_T = 16, 1024
 # BERT-base fine-tune: the BASELINE's config #4 (B = 64, T = 128, bf16)
@@ -362,7 +407,7 @@ def phase_device(state):
     state["card"] = f"[{state['smi']}]"
 
 
-# -- the builds; phase 10, kernels -----------------------------------------
+# -- the builds; phase 23, kernels -----------------------------------------
 def _build_all():
     """Build every ported CUDA library at once, one nvcc each, and print
     ptxas' report for each kernel instantiation: registers, spills and
@@ -440,32 +485,33 @@ def _ptxas_report(text: str):
     return lines
 
 
-def _flash_case(dt, tb, h, h_kv, causal, masked, seed, unaligned=False):
-    """q, k, v [1, tb, heads, 128] and a key mask (``masked``) on the
+def _flash_case(dt, tb, h, h_kv, causal, masked, seed, unaligned=False,
+                b=1):
+    """q, k, v [b, tb, heads, 128] and a key mask (``masked``) on the
     card; ``unaligned``: each a view one element into a [.., 129] tensor,
     so that its base and strides are not whole 16-byte chunks and the
     tensor-core kernels fill their tiles by element copies."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
     extra = 1 if unaligned else 0
-    mk = lambda hh: torch.randn((1, tb, hh, 128 + extra), generator=g,
+    mk = lambda hh: torch.randn((b, tb, hh, 128 + extra), generator=g,
                                 device="cuda").to(dt)[..., extra:]
     q, k, v = mk(h), mk(h_kv), mk(h_kv)
     mask = None
     if masked:
-        mask = (torch.rand((1, tb), generator=g, device="cuda") > 0.3)
+        mask = (torch.rand((b, tb), generator=g, device="cuda") > 0.3)
         mask[:, 0] = True
         mask = mask.float()
     return q, k, v, mask
 
 
-def _flash_flops(tb, h, causal, mask):
+def _flash_flops(tb, h, causal, mask, b=1):
     """Two products (q·k and p·v) of 2·D flops per live (query, key)
     pair and head — the pairs these inputs make live."""
     if causal:
-        pairs = tb * (tb + 1) / 2
+        pairs = b * tb * (tb + 1) / 2
     else:
-        pairs = tb * (tb if mask is None else float(mask.sum()))
+        pairs = tb * (b * tb if mask is None else float(mask.sum()))
     return 4 * pairs * 128 * h
 
 
@@ -489,26 +535,28 @@ def phase_kernels(state):
     # CUDA-core one; both timed by CUDA-graph replay, as SDPA is
     e = ents["K1"]
     flash, plain = e.port_fn(), e.plain_fn()
-    # (tb, h, h_kv, causal, masked, unaligned)
-    cases = [(tb, 6, 6, True, False, False)
+    # (tb, h, h_kv, causal, masked, unaligned, batch): the serve paths'
+    # prefills are [1, 2048] (serve, serve_opts) and [BEAM_B, 512] (beam)
+    cases = [(tb, 6, 6, True, False, False, 1)
              for tb in (16, 200, 1024, 2048)]
-    cases += [(200, 6, 2, True, False, False),
-              (2048, 6, 2, True, False, False),
-              (200, 6, 6, False, True, False),
-              (1024, 6, 6, False, True, False),
-              (333, 6, 3, True, False, True),
-              (200, 6, 6, False, True, True)]
+    cases += [(512, 6, 6, True, False, False, BEAM_B),
+              (200, 6, 2, True, False, False, 1),
+              (2048, 6, 2, True, False, False, 1),
+              (200, 6, 6, False, True, False, 1),
+              (1024, 6, 6, False, True, False, 1),
+              (333, 6, 3, True, False, True, 1),
+              (200, 6, 6, False, True, True, 1)]
     for dname in ("bfloat16", "float32"):
         dt = getattr(torch, dname)
-        for i, (tb, h, h_kv, causal, masked, unal) in enumerate(cases):
+        for i, (tb, h, h_kv, causal, masked, unal, nb) in enumerate(cases):
             q, k, v, mask = _flash_case(dt, tb, h, h_kv, causal, masked, i,
-                                        unal)
+                                        unal, b=nb)
             out = flash(q, k, v, causal=causal, mask=mask)
             ref = plain(q, k, v, causal=causal, mask=mask)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             ok = err <= FLASH_TOL[dname] and torch.isfinite(out).all()
-            line = (f"K1 flash {dname} Tb={tb} H={h} Hkv={h_kv} "
+            line = (f"K1 flash {dname} B={nb} Tb={tb} H={h} Hkv={h_kv} "
                     f"causal={causal} mask={masked} unaligned={unal}: "
                     f"max_abs_err={err:.3e} tol={FLASH_TOL[dname]:.0e}")
             t_k = device_ms(lambda: flash(q, k, v, causal=causal, mask=mask))
@@ -527,7 +575,7 @@ def phase_kernels(state):
                       ) * q.element_size()
             if mask is not None:
                 nbytes += mask.numel() * mask.element_size()
-            flops = _flash_flops(tb, h, causal, mask)
+            flops = _flash_flops(tb, h, causal, mask, b=nb)
             b_ms, b_by = bound_ms(
                 flops, nbytes,
                 PEAK_BF16_FLOPS if dname == "bfloat16" else PEAK_F32_FLOPS)
@@ -535,7 +583,8 @@ def phase_kernels(state):
                      f"sdpa_ms={t_l:.4f} kernel/sdpa={t_k / t_l:.2f} "
                      f"bound_ms={b_ms:.5f}({b_by}) "
                      f"{_rate(flops, t_k, b_ms)} {card}")
-            if (dname, tb, h_kv, masked) == ("bfloat16", 2048, 6, False):
+            if (dname, nb, tb, h_kv, masked) == ("bfloat16", 1, 2048, 6,
+                                                 False):
                 rows["K1"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
                                   bound_ms=b_ms, bound_by=b_by)
             log(line)
@@ -545,13 +594,16 @@ def phase_kernels(state):
             rows.setdefault("K1_err", 0.0)
             rows["K1_err"] = max(rows["K1_err"], err)
 
-    # K2 RMSNorm forward
+    # K2 RMSNorm forward, at the serve paths' row counts: beam's decode
+    # (BEAM_B x 4 beams), the decode step (32 slots), the suffix prefill
+    # buckets (16-256 rows), the k = 4 verify step (32 x 4), the
+    # prefills (2048), and the train step's
     e = ents["K2"]
     rms, rms_plain = e.port_fn(), e.plain_fn()
     f = 768
     for dname in ("bfloat16", "float32"):
         dt = getattr(torch, dname)
-        for n in (32, 2048, TRAIN_B * TRAIN_T):
+        for n in (16, 32, 64, 128, 256, 2048, TRAIN_B * TRAIN_T):
             g = torch.Generator(device="cuda").manual_seed(n)
             x = torch.randn((n, f), generator=g, device="cuda").to(dt)
             gamma = (1 + 0.1 * torch.randn((f,), generator=g,
@@ -1630,7 +1682,676 @@ def phase_agree(state):
         raise AssertionError("card and CPU logits disagree")
 
 
-# -- phases 4, 8 ------------------------------------------------------------
+# -- phases 4-6: the serving options ------------------------------------------
+def _opts_requests():
+    """The serve_opts burst: the port's ``gen_shared_prefix_requests``
+    at ``OPTS_REQUESTS`` requests of one ``OPTS_PREFIX``-token system
+    prompt and a 16-256-token suffix, ``OPTS_NEW`` new tokens each."""
+    from deeplearning4j_tpu_torch.serving.loadgen import \
+        gen_shared_prefix_requests
+    return gen_shared_prefix_requests(
+        n_requests=OPTS_REQUESTS, prefix_len=OPTS_PREFIX,
+        suffix_lens=OPTS_SUFFIX, max_new=OPTS_NEW,
+        vocab_size=SERVE["vocab_size"], seed=0)
+
+
+def _record_margins(model, sched):
+    """Record, for every token the scheduler picks, the top-two logit
+    margin of the row it came from: ``model._pick`` and ``sched.admit``
+    are wrapped on these instances (a top-2 on the card, no sync) —
+    only for an untimed pass. The returned function maps each request's
+    prompt (bytes) to its margins in token order, after the run."""
+    import torch
+    calls, cur = [], {}
+    real_pick, real_admit = model._pick, sched.admit
+
+    def admit(req):
+        cur["req"] = req
+        return real_admit(req)
+
+    def pick(logits, *a, **kw):
+        top2 = torch.topk(logits.float(), 2, dim=-1).values
+        if logits.shape[0] == 1:
+            rows = [(cur["req"], 0)]
+        else:
+            rows = [(s.req, i) for i, s in enumerate(sched._slots) if s]
+        calls.append((top2[:, 0] - top2[:, 1], rows))
+        return real_pick(logits, *a, **kw)
+
+    model._pick, sched.admit = pick, admit
+
+    def margins():
+        out = {}
+        for gap, rows in calls:
+            gap = gap.cpu().numpy()
+            for req, i in rows:
+                out.setdefault(req.prompt.tobytes(), []).append(
+                    float(gap[i]))
+        return out
+    return margins
+
+
+def _path_logits(params, requests, forced, dtype: str, model_kw,
+                 spec: bool):
+    """The serve model's logits on one of the two paths the near-tie
+    rule compares, on the card: a scheduler admits the burst's first two
+    requests — without options both by dense prefills, then 63
+    single-token steps; with prefix sharing the second by the suffix
+    prefill, then 15 verify steps of k = 4 — teacher-forced on
+    ``forced`` [2, OPTS_NEW], so every position is compared. Returns
+    (the second request's first-token logits [1, V], the steps' logits
+    [2, n, V]), f32 on the card."""
+    import torch
+    from deeplearning4j_tpu_torch.serving.scheduler import DecodeScheduler
+    from deeplearning4j_tpu_torch.zoo.gpt import CausalTransformerLM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = CausalTransformerLM(compute_dtype=dtype, **SERVE, **model_kw)
+    p = model._decode_params(params)
+    sched = DecodeScheduler(model, params, max_slots=OPTS_SLOTS, block=16,
+                            max_context=2048, prefix_sharing=spec)
+    firsts = []
+    hook = "_suffix_logits" if spec else "_prefill_logits_into_pages"
+    real = getattr(sched, hook)
+    setattr(sched, hook, lambda *a: firsts.append(real(*a)) or firsts[-1])
+    for r in requests[:2]:
+        sched.admit(_ForcedReq(r["prompt"], OPTS_NEW))
+    assert len(firsts) == (1 if spec else 2), len(firsts)
+    f = sched._ensure_feed([0, 1])
+    dev = f["lengths"].device
+    lengths = f["lengths"].clone()
+    prev = f["prev"].clone()
+    rows = []
+    with torch.no_grad():
+        if not spec:
+            prev[:2] = torch.as_tensor(forced[:, 0], device=dev)
+            for j in range(OPTS_NEW - 1):
+                rows.append(sched._decode_logits(
+                    p, f["pt"], lengths, f["active"], prev)[:2].float())
+                lengths = lengths + f["active"].to(lengths.dtype)
+                prev[:2] = torch.as_tensor(forced[:, j + 1], device=dev)
+            rows = torch.stack(rows, 1)
+        else:
+            k = 4
+            drafts = torch.zeros((OPTS_SLOTS, k - 1), dtype=torch.int64,
+                                 device=dev)
+            for j in range(0, OPTS_NEW - 1 - k + 1, k):
+                prev[:2] = torch.as_tensor(forced[:, j], device=dev)
+                drafts[:2] = torch.as_tensor(forced[:, j + 1:j + k],
+                                             device=dev)
+                rows.append(sched._spec_logits(
+                    p, f["pt"], lengths, f["active"], prev,
+                    drafts)[:2].float())
+                lengths = lengths + k * f["active"].to(lengths.dtype)
+            rows = torch.cat(rows, 1)
+    return firsts[-1][:1].float(), rows
+
+
+def _opts_path_error(params, requests, pair: str, model_kw, card) -> float:
+    """The error the near-tie rule allows between a gateway without
+    prefix sharing and spec decode and one with them (``model_kw``: the
+    model options both share): the largest |logit difference| between
+    the two paths in bf16 (``_path_logits``: first-token and step
+    logits). It must stay within a limit set by the single-token path
+    and by float32: the paths' float32 difference (the arithmetic the
+    two paths do differently, ~1e-5 with the float cache, the shared
+    keys' quantisation with the int8 cache) plus twice the single-token
+    path's own bf16 error (bf16 against float32) — each bf16 path's
+    distance from its float32 twin counted as the single path's. A
+    bf16 fault of the verify step or the suffix prefill alone shows as
+    an error past that limit."""
+    import numpy as np
+    forced = np.random.default_rng(3).integers(
+        0, SERVE["vocab_size"], (2, OPTS_NEW))
+    got = {(spec, dt): _path_logits(params, requests, forced, dt, model_kw,
+                                    spec)
+           for spec in (False, True) for dt in ("bfloat16", "float32")}
+    n = got[(True, "float32")][1].shape[1]
+
+    def diff(a, b):
+        return max((x[..., :n, :] - y[..., :n, :]).abs().max().item()
+                   if x.dim() == 3 else (x - y).abs().max().item()
+                   for x, y in zip(got[a], got[b]))
+    err = diff((True, "bfloat16"), (False, "bfloat16"))
+    e_bf16 = diff((False, "bfloat16"), (False, "float32"))
+    q = diff((True, "float32"), (False, "float32"))
+    limit = q + 2 * e_bf16
+    del got
+    log(f"serve_opts: path error {pair} cache, single-token path (dense "
+        f"prefills) vs sharing + spec (suffix prefill, k=4 verify), "
+        f"first token + {n} forced positions x 2 slots: bf16 "
+        f"max_abs_err={err:.4e}; limit {limit:.4e} = f32 paths' "
+        f"difference {q:.4e} + 2 x single-token bf16 vs f32 "
+        f"{e_bf16:.4e} {card}")
+    assert err <= limit, (f"{pair}: the bf16 paths differ by {err:.4e}, "
+                          f"past {limit:.4e}")
+    return err
+
+
+class _ForcedReq:
+    """A duck-typed request for driving a scheduler directly."""
+
+    def __init__(self, prompt, max_new):
+        import numpy as np
+        self.prompt = np.asarray(prompt, np.int32)
+        self.max_new = max_new
+        self.temperature = None
+        self.eos_id = None
+        self.tokens = []
+
+    def push(self, tok):
+        self.tokens.append(int(tok))
+
+    def finish(self):
+        pass
+
+    def fail(self, e):
+        raise e
+
+
+def phase_serve_opts(state):
+    """Four gateways at the serve width (bfloat16, ``max_slots=32``,
+    ``block=16``, ``max_context=2048``) each run the same shared-prefix
+    burst through the port's ``run_trace(mode="burst")``: (a) no
+    options, (b) prefix sharing + spec_k 4, (c) int8 weights + int8
+    cache, (d) all four. Each: 64 in-vocab tokens a stream, no error,
+    pager invariants and every page freed, exact K1 (12 a dense
+    admission) and K2 (25 an admission and a step) launches, in (b) and
+    (d) prefix hits and drafts. (b) is held against (a) and (d) against
+    (c): a stream may leave the reference's tokens only where the
+    reference's top two logits lie within twice the measured bf16 error
+    between the two paths (itself held to a limit set by the
+    single-token path and float32, ``_opts_path_error``), and is not
+    compared after that; the reference's tokens and margins come from
+    a second, untimed burst through the same gateway. Then the
+    request-at-a-time baseline on the same traffic, and the decode step
+    with and without the int8 options."""
+    import torch
+    from deeplearning4j_tpu_torch.obs import metrics
+    from deeplearning4j_tpu_torch.ops import kernel_registry
+    from deeplearning4j_tpu_torch.serving.gateway import ServingGateway
+    from deeplearning4j_tpu_torch.serving.loadgen import (
+        baseline_tokens_per_sec, run_trace)
+    from deeplearning4j_tpu_torch.zoo.gpt import CausalTransformerLM
+    card = state["card"]
+    base = CausalTransformerLM(compute_dtype="bfloat16", **SERVE)
+    params = base.init_params(seed=0, device="cuda")
+    requests = _opts_requests()
+    lens = [len(r["prompt"]) for r in requests]
+    errs = {"a": _opts_path_error(params, requests, "float", {}, card),
+            "c": _opts_path_error(params, requests, "int8", _INT8, card)}
+    ported = kernel_registry.ported()
+    total = {e.key: 0 for e in ported}
+    outs, refs = {}, {}
+    for tag, model_kw, gw_kw in OPTS_GATEWAYS:
+        model = CausalTransformerLM(compute_dtype="bfloat16", **SERVE,
+                                    **model_kw)
+        gw = ServingGateway(model, params, max_slots=OPTS_SLOTS, block=16,
+                            max_context=2048, queue_limit=64,
+                            default_max_new=OPTS_NEW, **gw_kw)
+        sched = gw._sched
+        streams = []
+        real_submit = gw.submit
+        gw.submit = lambda *a, **kw: streams.append(
+            real_submit(*a, **kw)) or streams[-1]
+        try:
+            t0 = time.perf_counter()
+            warm = gw.warmup(prompt_lens=lens)
+            t_warm = time.perf_counter() - t0
+            snap = lambda m: m.snapshot()[""]
+            entry = ("entry=serving.spec_step" if gw_kw.get("spec_k")
+                     else "entry=serving.decode_step")
+            host = lambda: [m.snapshot().get(entry, 0.0) for m in (
+                metrics.H2D_SECONDS, metrics.SYNC_SECONDS)]
+            host0 = host()
+            before = {m: snap(m) for m in (
+                metrics.SERVING_STEP, metrics.SERVING_PREFILL,
+                metrics.SERVING_PREFIX_HITS, metrics.SERVING_PREFIX_SAVED,
+                metrics.SERVING_PREFIX_COW, metrics.SERVING_SPEC_DRAFTED,
+                metrics.SERVING_SPEC_ACCEPTED)}
+            for e in ported:
+                e.reset()
+            stats = run_trace(gw, requests, mode="burst", timeout_s=600)
+            torch.cuda.synchronize()
+            launches = {e.key: e.launches() for e in ported}
+            delta = {m: (snap(m)["count"] - before[m]["count"]
+                         if isinstance(before[m], dict)
+                         else snap(m) - before[m]) for m in before}
+            step_ms = ((snap(metrics.SERVING_STEP)["sum"]
+                        - before[metrics.SERVING_STEP]["sum"])
+                       / delta[metrics.SERVING_STEP] * 1e3)
+            prefill_ms = ((snap(metrics.SERVING_PREFILL)["sum"]
+                           - before[metrics.SERVING_PREFILL]["sum"])
+                          / delta[metrics.SERVING_PREFILL] * 1e3)
+            assert len(streams) == OPTS_REQUESTS, len(streams)
+            gens = []
+            for st in streams:
+                assert st.error() is None, st.error()
+                gen = st.result(timeout=5)[len(st.prompt):]
+                assert gen.shape == (OPTS_NEW,), gen.shape
+                assert ((gen >= 0) & (gen < model.vocab_size)).all()
+                gens.append(gen)
+            assert stats["completed"] == OPTS_REQUESTS, stats
+            sched.pager.check_invariants()
+            assert sched.pager.free_pages() == sched.pager.n_pages - 1
+            hits = int(delta[metrics.SERVING_PREFIX_HITS])
+            steps = int(delta[metrics.SERVING_STEP])
+            feed_ms, sync_ms = ((b - a) / steps * 1e3
+                                for a, b in zip(host0, host()))
+            want = {e.key: 0 for e in ported}
+            want["K1"] = 12 * (OPTS_REQUESTS - hits)
+            want["K2"] = 25 * (OPTS_REQUESTS + steps)
+            log(f"serve_opts ({tag}) {model_kw or ''}{gw_kw or ''}: "
+                f"launches {launches} (expected {want}: K1 12 x "
+                f"{OPTS_REQUESTS - hits} dense admissions, K2 25 x "
+                f"({OPTS_REQUESTS} admissions + {steps} steps)) {card}")
+            assert launches == want, (launches, want)
+            if gw_kw:
+                assert hits > 0 and delta[metrics.SERVING_SPEC_DRAFTED] > 0
+            ttft = sorted(st.ttft_s for st in streams)
+            drafted = delta[metrics.SERVING_SPEC_DRAFTED]
+            log(f"serve_opts ({tag}): requests={len(streams)} "
+                f"p50_ttft_s={ttft[len(ttft) // 2]:.4f} "
+                f"max_ttft_s={ttft[-1]:.4f} "
+                f"tokens_per_s={stats['tokens'] / stats['wall_s']:.1f} "
+                f"wall_s={stats['wall_s']} steps={steps} "
+                f"mean_step_ms={step_ms:.3f} (host feed"
+                f"{' + draft' if gw_kw else ''} {feed_ms:.3f}, sync "
+                f"{sync_ms:.3f}) "
+                f"mean_prefill_ms={prefill_ms:.3f} "
+                f"accept_rate={stats['spec_accept_rate']} "
+                f"drafted={int(drafted)} "
+                f"accepted={int(delta[metrics.SERVING_SPEC_ACCEPTED])} "
+                f"prefix_hits={hits} prefill_tokens_saved="
+                f"{int(delta[metrics.SERVING_PREFIX_SAVED])} "
+                f"cow_copies={int(delta[metrics.SERVING_PREFIX_COW])} "
+                f"pool_bytes={sched.pager.pool_bytes()} "
+                f"warmup_s={t_warm:.1f} suffix_buckets="
+                f"{warm['suffix_buckets']} {card}")
+            for k in total:
+                total[k] += launches[k]
+            outs[tag] = {st.prompt.tobytes(): g
+                         for st, g in zip(streams, gens)}
+            if tag in errs:
+                refs[tag] = _margins_pass(gw, model, requests, streams,
+                                          outs[tag], tag, card)
+        finally:
+            gw.shutdown(drain=False)
+            del gw, sched
+            _free_card(f"serve_opts ({tag})", card)
+    state.setdefault("launches", {})["serve_opts"] = total
+    # (b) against (a), (d) against (c): the near-tie rule
+    for ref, tag in (("a", "b"), ("c", "d")):
+        _near_ties(refs[ref], outs[tag], errs[ref], ref, tag, card)
+    # the request-at-a-time baseline on (a)'s traffic
+    baseline_tokens_per_sec(base, params, requests[:1])
+    tps = baseline_tokens_per_sec(base, params, requests)
+    log(f"serve_opts: request-at-a-time baseline (B=1 generate, "
+        f"sequential) tokens_per_s={tps:.1f} on the same {OPTS_REQUESTS} "
+        f"requests {card}")
+    _opts_step_costs(params, requests, card)
+
+
+def _margins_pass(gw, model, requests, streams, timed, tag, card):
+    """A second, untimed burst of ``requests`` through ``gw`` with the
+    top-two margins recorded (``_record_margins``); the pager must again
+    free every page. Returns {prompt bytes: (tokens, margins)}, and
+    prints how many streams equal the timed burst's ``timed``."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.serving.loadgen import run_trace
+    sched = gw._sched
+    margins = _record_margins(model, sched)
+    streams.clear()
+    stats = run_trace(gw, requests, mode="burst", timeout_s=600)
+    assert stats["completed"] == OPTS_REQUESTS, stats
+    sched.pager.check_invariants()
+    assert sched.pager.free_pages() == sched.pager.n_pages - 1
+    got = margins()
+    ref = {}
+    for st in streams:
+        key = st.prompt.tobytes()
+        ref[key] = (st.result(timeout=5)[len(st.prompt):], got[key])
+        assert len(got[key]) == OPTS_NEW, len(got[key])
+    same = sum(np.array_equal(ref[k][0], timed[k]) for k in timed)
+    log(f"serve_opts ({tag}): untimed burst with margins recorded: "
+        f"{same} of {len(timed)} streams equal the timed burst's {card}")
+    return ref
+
+
+def _near_ties(ref, got, err, ref_tag, tag, card) -> None:
+    """Every stream of gateway ``tag`` equals the reference's tokens up
+    to its first difference, which must fall where the reference's top
+    two logits lie within 2 x ``err``; the stream is not compared past
+    it."""
+    import numpy as np
+    same, tied = 0, 0
+    for key, (toks, margins) in ref.items():
+        diff = np.flatnonzero(toks != got[key])
+        if not diff.size:
+            same += 1
+            continue
+        j = int(diff[0])
+        assert margins[j] <= 2 * err, (
+            f"({tag}) leaves ({ref_tag}) at token {j} where ({ref_tag})'s "
+            f"top-two margin {margins[j]:.4e} > 2 x {err:.4e}")
+        tied += 1
+    log(f"serve_opts: ({tag}) vs ({ref_tag}): {same} streams equal, {tied} "
+        f"leave ({ref_tag}) at a near tie (top-two margin <= 2 x "
+        f"{err:.4e}) {card}")
+
+
+def _opts_step_costs(params, requests, card) -> None:
+    """The decode step with 32 live slots (the burst's first 32
+    requests, admitted densely) at bf16, with the int8 cache, with the
+    int8 cache whose quantiser copies its divisor from the host (a 0-dim
+    ``torch.tensor``: a copy that waits for the stream, 12 a step), and
+    with int8 weights: wall ms of 8 steps from a synchronised card, in
+    ``STEP_TURNS`` turns after one warm turn (median, min, max); and the
+    page-table gather of one layer's context with its conversion to
+    bf16 (``DecodeScheduler._context``) timed alone."""
+    import torch
+    from deeplearning4j_tpu_torch.serving.scheduler import DecodeScheduler
+    from deeplearning4j_tpu_torch.zoo import gpt
+    real_div = gpt._div127
+
+    def host_div(x):
+        return x / torch.tensor(127.0, dtype=x.dtype, device=x.device)
+    variants = (("bf16", {}, real_div),
+                ("int8 cache", {"cache_quant": "int8"}, real_div),
+                ("int8 cache, host-copied divisor", {"cache_quant": "int8"},
+                 host_div),
+                ("int8 weights", {"serve_quant": "int8"}, real_div))
+    scheds = {}
+    for tag, kw, div in variants:
+        model = gpt.CausalTransformerLM(compute_dtype="bfloat16", **SERVE,
+                                        **kw)
+        sched = DecodeScheduler(model, params, max_slots=OPTS_SLOTS,
+                                block=16, max_context=2048)
+        sched.warmup(prompt_lens=[len(r["prompt"]) for r in requests])
+        for r in requests[:OPTS_SLOTS]:
+            sched.admit(_ForcedReq(r["prompt"], OPTS_NEW))
+        scheds[tag] = (sched, div)
+
+    def turn(tag):
+        sched, div = scheds[tag]
+        gpt._div127 = div
+        try:
+            return _wall_ms(lambda: [sched.step() for _ in range(8)]) / 8
+        finally:
+            gpt._div127 = real_div
+    walls = {tag: [] for tag in scheds}
+    for i in range(STEP_TURNS + 1):
+        for tag in scheds:
+            ms = turn(tag)
+            if i:
+                walls[tag].append(ms)
+    for tag, (sched, _) in scheds.items():
+        pt = torch.as_tensor(sched._page_table, device=sched.device)
+        ctx_ms = time_ms(lambda: sched._context(0, pt, torch.bfloat16))
+        w = walls[tag]
+        log(f"serve_opts: decode step {tag}: mean_step_ms median="
+            f"{statistics.median(w):.3f} min={min(w):.3f} max={max(w):.3f}"
+            f" ({STEP_TURNS} turns of 8 steps x {OPTS_SLOTS} live slots, "
+            f"in turns with the other variants); context gather per layer "
+            f"ms={ctx_ms:.4f} x12 = {12 * ctx_ms:.3f} ms; pool_bytes="
+            f"{sched.pager.pool_bytes()} {card}")
+    del scheds, sched
+    _free_card("serve_opts step costs", card)
+
+
+def _agree(name: str, got, ref, card) -> float:
+    """``got`` against ``ref`` ([..., V] logits, host f32): max |d| <=
+    ``AGREE_TOL``, and an argmax that differs only on a row whose top
+    two (in ``ref``) lie within twice the observed error."""
+    import numpy as np
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    err = float(np.abs(got - ref).max())
+    top2 = np.sort(ref, axis=-1)[..., -2:]
+    margin = top2[..., 1] - top2[..., 0]
+    flipped = np.argmax(got, -1) != np.argmax(ref, -1)
+    log(f"serve_opts_agree: {name}: max_abs_err={err:.3e} "
+        f"tol={AGREE_TOL:.0e} argmax differs on {int(flipped.sum())} of "
+        f"{flipped.size} rows {card}")
+    assert err <= AGREE_TOL, (name, err)
+    assert (margin[flipped] <= 2 * err).all(), (name, margin[flipped])
+    return err
+
+
+def _sequential_suffix(model, params, donor, prompt, shared_len,
+                       max_context):
+    """The reference of a suffix prefill: a scheduler without sharing
+    admits ``donor``; a second slot's table row takes the donor's first
+    ``shared_len // 16`` pages and fresh ones, and the suffix runs one
+    token at a time through the single-row decode step. Returns the
+    logits [V] at the prompt's last position."""
+    import torch
+    from deeplearning4j_tpu_torch.serving.scheduler import DecodeScheduler
+    sched = DecodeScheduler(model, params, max_slots=2, block=16,
+                            max_context=max_context)
+    sched.admit(_ForcedReq(donor, 16))
+    npg = sched.pages_needed(len(prompt), 16)
+    n_full = shared_len // 16
+    row = list(sched._page_table[0][:n_full]) + sched.pager.alloc(
+        npg - n_full, object())
+    dev = sched.device
+    pt = torch.as_tensor(sched._page_table, device=dev)
+    pt[1, :npg] = torch.as_tensor(row, device=dev)
+    p = model._decode_params(params)
+    active = torch.tensor([False, True], device=dev)
+    with torch.no_grad():
+        for pos in range(shared_len, len(prompt)):
+            logits = sched._decode_logits(
+                p, pt, torch.tensor([0, pos], device=dev), active,
+                torch.tensor([0, int(prompt[pos])], device=dev))
+    return logits[1]
+
+
+def phase_serve_opts_agree(state):
+    """The serve model in float32 with int8 weights and the int8 cache
+    (TF32 off), card against the port on the CPU within ``AGREE_TOL``:
+    a 300-token prefill and 8 teacher-forced decode steps; the verify
+    step over [2, 4] rows against 4 single-token steps from one pool;
+    the suffix prefill of a sharer against the same suffix run token by
+    token over the same shared pages (with the float cache also against
+    the dense prefill of the whole prompt: the int8 cache's dense
+    prefill attends its keys unquantised, as the JAX package's does, so
+    there the two differ by the quantisation, printed). ``_quant_kv``
+    and ``QuantizedWeight`` give the same bits on the card and the CPU
+    for the same input."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.serving.scheduler import DecodeScheduler
+    from deeplearning4j_tpu_torch.zoo.gpt import (CausalTransformerLM,
+                                                  QuantizedWeight, _quant_kv)
+    card = state["card"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = CausalTransformerLM(serve_quant="int8", cache_quant="int8",
+                                **SERVE)
+    fmodel = CausalTransformerLM(serve_quant="int8", **SERVE)
+    V = model.vocab_size
+    rng = np.random.default_rng(2)
+    prompt = rng.integers(0, V, 300)
+    forced = rng.integers(0, V, (2, 8))
+    prefix = rng.integers(0, V, 256)
+    donor = np.r_[prefix, rng.integers(0, V, 44)].astype(np.int32)
+    sharer = np.r_[prefix, rng.integers(0, V, 44)].astype(np.int32)
+    kv = torch.as_tensor(rng.standard_normal((2, 6, 2, 128, 300)) * 3,
+                         dtype=torch.float32)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        out = res[dev] = {}
+        params = model.init_params(seed=1, device=dev)
+        p = model._decode_params(params)
+        out["quant"] = {path: (w.w8.cpu(), w.scale.cpu())
+                        for path, w in _qw_leaves(p, QuantizedWeight)}
+        out["quant_kv"] = [t.cpu() for t in _quant_kv(kv.to(dev), 3)]
+        with torch.no_grad():
+            toks = torch.zeros((1, 512), dtype=torch.int64, device=dev)
+            toks[0, :300] = torch.as_tensor(prompt, device=dev)
+            logits, caches = model._prefill_forward(p, toks, 512 + 8, 300)
+            seq = [logits.float().cpu()]
+            for i, tok in enumerate(forced[0]):
+                logits, caches = model._token_logits(
+                    p, torch.as_tensor([int(tok)], device=dev), caches,
+                    300 + i, 1)
+                seq.append(logits.float().cpu())
+            out["dense"] = torch.cat(seq).numpy()
+            out["codes0"] = caches[0][0].cpu()
+            del caches
+            # the verify rows against 4 single steps from one pool
+            sched = DecodeScheduler(model, params, max_slots=2, block=16,
+                                    max_context=512)
+            for pr in (donor, sharer):
+                sched.admit(_ForcedReq(pr, 16))
+            f = sched._ensure_feed([0, 1])
+            saved = [t.clone() for t in sched.pager.pool]
+            prev = torch.as_tensor(forced[:, 0], device=dev)
+            rows = sched._spec_logits(p, f["pt"], f["lengths"], f["active"],
+                                      prev, torch.as_tensor(
+                                          forced[:, 1:4], device=dev))
+            for t, s in zip(sched.pager.pool, saved):
+                t.copy_(s)
+            lengths, single = f["lengths"], []
+            for j in range(4):
+                single.append(sched._decode_logits(
+                    p, f["pt"], lengths, f["active"],
+                    torch.as_tensor(forced[:, j], device=dev)))
+                lengths = lengths + 1
+            out["rows"] = rows.float().cpu().numpy()
+            out["single"] = torch.stack(single, 1).float().cpu().numpy()
+            del sched, saved
+            # the suffix prefill (int8 cache, then the float cache)
+            for tag, m in (("int8", model), ("float", fmodel)):
+                mp = m._decode_params(params)
+                # room for a third 512-token reservation: the dense
+                # prefill of the sharer's whole prompt
+                sched = DecodeScheduler(m, params, max_slots=2, block=16,
+                                        max_context=512, n_pages=1 + 3 * 32,
+                                        prefix_sharing=True)
+                sched.admit(_ForcedReq(donor, 16))
+                seen = []
+                real = sched._suffix_logits
+                sched._suffix_logits = (lambda *a: seen.append(
+                    (a[3], real(*a))) or seen[-1][1])
+                sched.admit(_ForcedReq(sharer, 16))
+                (shared_len, suffix), = seen
+                assert shared_len == 256, shared_len
+                out[f"suffix_{tag}"] = suffix.float().cpu().numpy()[0]
+                out[f"seq_{tag}"] = _sequential_suffix(
+                    m, params, donor, sharer, shared_len,
+                    512).float().cpu().numpy()
+                pages = torch.as_tensor(sched.pager.alloc(32, object()),
+                                        device=dev)
+                pad = torch.zeros((1, 512), dtype=torch.int64, device=dev)
+                pad[0, :300] = torch.as_tensor(sharer, device=dev)
+                out[f"dense_{tag}"] = sched._prefill_logits_into_pages(
+                    mp, pages, pad, 300).float().cpu().numpy()[0]
+                del sched
+        del params, p
+    cu, cpu = res["cuda"], res["cpu"]
+    same_bits = all(
+        torch.equal(cu["quant"][k][0], cpu["quant"][k][0])
+        and torch.equal(cu["quant"][k][1].view(torch.int32),
+                        cpu["quant"][k][1].view(torch.int32))
+        for k in cpu["quant"])
+    kv_bits = (torch.equal(cu["quant_kv"][0], cpu["quant_kv"][0])
+               and torch.equal(cu["quant_kv"][1].view(torch.int32),
+                               cpu["quant_kv"][1].view(torch.int32)))
+    n_diff = int((cu["codes0"] != cpu["codes0"]).sum())
+    log(f"serve_opts_agree: QuantizedWeight codes and scales card == CPU "
+        f"for all {len(cpu['quant'])} weights: {same_bits}; _quant_kv on "
+        f"one input card == CPU to the bit: {kv_bits}; layer-0 cache codes "
+        f"of the two prefills (each device's own k/v) differ at {n_diff} "
+        f"of {cpu['codes0'].numel()} {card}")
+    assert same_bits and kv_bits
+    _agree("prefill + 8 decode logits, card vs CPU", cu["dense"],
+           cpu["dense"], card)
+    for dev, out in res.items():
+        _agree(f"verify rows vs 4 single steps ({dev})", out["rows"],
+               out["single"], card)
+        _agree(f"suffix prefill vs token-by-token suffix, int8 cache "
+               f"({dev})", out["suffix_int8"], out["seq_int8"], card)
+        _agree(f"suffix prefill vs dense prefill, float cache ({dev})",
+               out["suffix_float"], out["dense_float"], card)
+        gap = float(np.abs(out["suffix_int8"] - out["dense_int8"]).max())
+        log(f"serve_opts_agree: suffix prefill vs dense prefill, int8 cache "
+            f"({dev}): max_abs_diff={gap:.3e} (the quantisation of the "
+            f"shared keys; not bounded) {card}")
+    for key in ("rows", "suffix_int8", "suffix_float"):
+        _agree(f"{key} card vs CPU", cu[key], cpu[key], card)
+
+
+def _qw_leaves(p, cls):
+    """(key path, leaf) of every ``cls`` leaf of a parameter tree."""
+    from deeplearning4j_tpu_torch import tree
+    found = []
+    tree.map_with_path(lambda path, w: found.append((path, w))
+                       if isinstance(w, cls) else None, p)
+    return found
+
+
+def phase_beam(state):
+    """``generate_beam`` at the serve width in bfloat16: B = 4 prompts
+    of 300 tokens, ``BEAM_NEW`` new tokens, 4 beams, without and with
+    both int8 options. Between zeroed and read counters: two beam calls
+    (equal output, the shape [4, 300 + BEAM_NEW], the prompts kept) and
+    one ``beams=1`` call, which must equal greedy ``generate`` exactly;
+    every kernel exactly its registry count per call. The ms per call,
+    and ``_top_k``'s tie order on the card."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.ops import kernel_registry
+    from deeplearning4j_tpu_torch.ops.kernel_registry import BEAM_NEW
+    from deeplearning4j_tpu_torch.zoo.gpt import CausalTransformerLM, _top_k
+    card = state["card"]
+    ties = torch.tensor([[1., 3., 3., 2., 3., 0.]], device="cuda")
+    assert _top_k(ties, 3)[1].tolist() == [[1, 2, 4]]
+    params = CausalTransformerLM(**SERVE).init_params(seed=0,
+                                                      device="cuda")
+    prompts = np.random.default_rng(4).integers(
+        0, SERVE["vocab_size"], (BEAM_B, BEAM_T0))
+    ported = kernel_registry.ported()
+    total = {e.key: 0 for e in ported}
+    calls = 0
+    for tag, kw in (("bf16", {}), ("int8 weights + int8 cache",
+                                   {"serve_quant": "int8",
+                                    "cache_quant": "int8"})):
+        model = CausalTransformerLM(compute_dtype="bfloat16", **SERVE, **kw)
+        model.generate_beam(params, prompts, n_new=BEAM_NEW, beams=4)
+        torch.cuda.synchronize()
+        for e in ported:
+            e.reset()
+        a = model.generate_beam(params, prompts, n_new=BEAM_NEW, beams=4)
+        b = model.generate_beam(params, prompts, n_new=BEAM_NEW, beams=4)
+        one = model.generate_beam(params, prompts, n_new=BEAM_NEW, beams=1)
+        torch.cuda.synchronize()
+        launches = {e.key: e.launches() for e in ported}
+        greedy = model.generate(params, prompts, n_new=BEAM_NEW)
+        assert a.shape == (BEAM_B, BEAM_T0 + BEAM_NEW), a.shape
+        assert (a[:, :BEAM_T0] == prompts).all()
+        assert ((a >= 0) & (a < SERVE["vocab_size"])).all()
+        assert np.array_equal(a, b), "two beam calls differ"
+        assert np.array_equal(one, greedy), "beams=1 differs from greedy"
+        _check_step_launches("beam", 3, launches, card)
+        for k in total:
+            total[k] += launches[k]
+        calls += 3
+        # the host clock over whole calls (each ends in a copy to the
+        # host), past the counted window
+        walls = []
+        for _ in range(BEAM_TIMED):
+            t0 = time.perf_counter()
+            model.generate_beam(params, prompts, n_new=BEAM_NEW, beams=4)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        log(f"beam ({tag}): B={BEAM_B} T0={BEAM_T0} n_new={BEAM_NEW} "
+            f"beams=4 ms_per_call median={statistics.median(walls):.1f} "
+            f"min={min(walls):.1f} max={max(walls):.1f} of {BEAM_TIMED} "
+            f"calls; two calls equal, beams=1 == "
+            f"greedy, beam == greedy on {int((a == greedy).all(1).sum())} "
+            f"of {BEAM_B} rows {card}")
+    state.setdefault("launches", {})["beam"] = total
+
+
+# -- phases 7, 11 -----------------------------------------------------------
 def _train_batch(seed: int, b: int, t: int, vocab: int):
     """Random tokens from ``np.random.default_rng(seed)``: inputs and
     their next-token labels, [b, t] int32 each."""
@@ -1712,7 +2433,7 @@ def _check_step_launches(path: str, steps: int, launches, card) -> None:
             f"{path}, expected {want}"
 
 
-# -- phases 5, 9 ------------------------------------------------------------
+# -- phases 8, 12 -----------------------------------------------------------
 def _lm_agree(state, name: str, model_kw) -> None:
     """One f32 training step (TF32 off) of ``CausalTransformerLM(
     **model_kw)`` at B = 2, T = 256: the card's loss and every gradient
@@ -1779,7 +2500,7 @@ def phase_longctx_agree(state):
     assert launches["K3"] == 0, launches
 
 
-# -- phases 10-12: data-parallel --------------------------------------------
+# -- phases 13-15: data-parallel --------------------------------------------
 def _dp_mesh(state):
     """The default process group (``initialize_distributed``: this
     process alone, ``"cpu:gloo,cuda:nccl"``, so CUDA tensors go over
@@ -1948,7 +2669,7 @@ def phase_dp_agree(state):
     assert launches["K10"] > 0 and launches["K11"] > 0, launches
 
 
-# -- phases 15-17: the ZeRO sharded update, the graph under the wrapper ----
+# -- phases 18-20: the ZeRO sharded update, the graph under the wrapper ----
 def _opt_bytes_line(phase: str, w, card) -> None:
     """The ``OPT_STATE_BYTES`` gauge's reading, this rank's optimizer
     bytes and the whole moments' bytes, now in host memory."""
@@ -2166,8 +2887,8 @@ def phase_dp_graph(state):
     _check_prob_rows("dp_graph", probs, PROB_SUM_TOL["bfloat16"], card)
 
 
-# -- phases 6, 7 -----------------------------------------------------------
-# -- phases 13-14: sequence-parallel ----------------------------------------
+# -- phases 9, 10 ----------------------------------------------------------
+# -- phases 16-17: sequence-parallel ----------------------------------------
 def _seq_mesh(state):
     """The default process group (as ``_dp_mesh`` makes it: this process
     alone) and its one-axis ``{"seq": 1}`` mesh, made once per run."""
@@ -2497,7 +3218,7 @@ def phase_finetune_agree(state):
         raise AssertionError("card and CPU fine-tune step disagree")
 
 
-# -- phases 18, 19: evaluation ---------------------------------------------
+# -- phases 21, 22: evaluation ---------------------------------------------
 #: the evaluate phase: this many fixed full-length batches of BERT_B rows
 EVAL_BATCHES = 16
 #: timed passes over them (each after one warm pass), and the median taken

@@ -185,9 +185,34 @@ SERVING_KV_RESERVED = REGISTRY.gauge(
     "dl4j_tpu_serving_kv_pages_reserved",
     "KV pages reserved per tenant (whole-life reservations)",
     ("tenant",))
+# speculative decode and copy-on-write prefix sharing
+# (serving/scheduler.py, serving/kv_pager.py): the accept rate is the
+# share of drafted tokens one verify step confirmed; the prefix counters
+# count admissions that rode an existing page chain and the prefill
+# tokens that saved
+SERVING_SPEC_ACCEPT = REGISTRY.histogram(
+    "dl4j_tpu_serving_spec_accept_rate",
+    "per-slot fraction of drafted tokens accepted by one verify step",
+    buckets=(0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0))
+SERVING_SPEC_DRAFTED = REGISTRY.counter(
+    "dl4j_tpu_serving_spec_drafted_total",
+    "tokens drafted by the host-side prompt-lookup draft")
+SERVING_SPEC_ACCEPTED = REGISTRY.counter(
+    "dl4j_tpu_serving_spec_accepted_total",
+    "drafted tokens accepted by the batched verify step")
+SERVING_PREFIX_HITS = REGISTRY.counter(
+    "dl4j_tpu_serving_prefix_hits_total",
+    "admissions that mapped a shared prompt prefix onto an existing "
+    "page chain (prefill ran only on the novel suffix)")
+SERVING_PREFIX_SAVED = REGISTRY.counter(
+    "dl4j_tpu_serving_prefix_prefill_tokens_saved_total",
+    "prompt tokens NOT prefilled because their pages were shared")
 SERVING_PREFIX_SHARED = REGISTRY.gauge(
     "dl4j_tpu_serving_prefix_shared_pages",
     "KV pages currently referenced by more than one live sequence")
+SERVING_PREFIX_COW = REGISTRY.counter(
+    "dl4j_tpu_serving_prefix_cow_copies_total",
+    "copy-on-write page copies (a write hit a shared page)")
 
 # -- parallel training (parallel/wrapper.py) -----------------------------------
 # the optimizer-state footprint the ZeRO sharded update divides by N:

@@ -6,7 +6,9 @@ and its plain PyTorch version, the launch counter, the route (``cuda`` or
 ``triton``), the source file, the status — ``ported`` or ``todo`` — the
 main paths that launch it (``serve``, ``train``, ``finetune``,
 ``longctx``, ``dp``, ``dp_packed``, ``sp``, ``zero``, ``dp_graph``,
-``eval``) and, for each path that runs in steps or batches (``train``,
+``eval``, ``serve_opts``: the serving gateway with int8 weights, the
+int8 KV cache, speculative decode and prefix sharing, ``beam``:
+``generate_beam``) and, for each path that runs in steps or batches (``train``,
 ``finetune``, ``longctx``: the LM trained at a 32 768-token context,
 where the backward takes the
 split pair K4 + K5 instead of K3; ``dp``: the train LM through
@@ -20,7 +22,10 @@ sharded update; ``dp_graph``: BERT-base's classifier, a
 ``ComputationGraph``, through the same wrapper on full-length rows, so
 its attention runs unmasked; ``eval``: the same classifier's
 ``evaluate`` on full-length rows, a forward alone, counted per evaluated
-batch), its launches per step.
+batch; ``beam``: one ``generate_beam`` call of ``BEAM_NEW`` tokens),
+its launches per step. ``serve`` and ``serve_opts`` run no fixed steps:
+``chip_smoke.py`` derives their exact counts from the admissions and
+steps each run made.
 ``chip_smoke.py`` reads this table: it builds and checks every
 ``ported`` row on the card, zeroes the launch counters just before each
 path it drives and reads them just after, and expects every row to
@@ -58,7 +63,8 @@ class KernelEntry:
     #: (BERT-base's classifier), ``dp``, ``dp_packed`` and ``zero`` (the
     #: train LM data-parallel over one rank), ``sp`` (the long-context
     #: LM's zigzag ring at one rank), ``eval`` (BERT-base's classifier
-    #: forward, per evaluated batch); ``serve`` runs no steps
+    #: forward, per evaluated batch), ``beam`` (one ``generate_beam``
+    #: call); ``serve`` and ``serve_opts`` run no fixed steps
     per_step: Dict[str, int] = field(default_factory=dict)
 
     def _resolve(self, ref: str) -> Callable:
@@ -102,6 +108,11 @@ def _ft(n: int) -> Dict[str, int]:
     return {path: n for path in _FT}
 
 
+#: tokens of the ``beam`` path's ``generate_beam`` call: its prefill
+#: and ``BEAM_NEW - 1`` decode steps run 25 RMSNorms each (ln1 and ln2 of
+#: 12 blocks, the final norm)
+BEAM_NEW = 32
+
 #: flash block pairs a layer of the ``sp`` step: the zigzag ring at one
 #: rank runs one ring step of four half-chunk pairs (q half × k half),
 #: one of them wholly above the diagonal; each pair is one K1 launch
@@ -117,18 +128,24 @@ KERNELS: Tuple[KernelEntry, ...] = (
         source="deeplearning4j_tpu_torch/csrc/flash_attention.cu",
         port=f"{_CK}:flash_attention",
         plain=f"{_CK}:flash_attention_reference",
-        # once a block (the sp path: once a block pair)
-        paths=("serve", "train", *_FT, "longctx", *_DP, "sp", "eval"),
+        # once a block (the sp path: once a block pair; serving: once a
+        # block of every prefill that is not a shared-prefix admission)
+        paths=("serve", "train", *_FT, "longctx", *_DP, "sp", "eval",
+               "serve_opts", "beam"),
         per_step={"train": 12, **_ft(12), "longctx": 12,
-                  **_dp(12), "sp": SP_PAIRS * 12, "eval": 12}),
+                  **_dp(12), "sp": SP_PAIRS * 12, "eval": 12,
+                  "beam": 12}),
     KernelEntry(
         "K2", "rms_norm_fwd", f"{_FN}:111", f"{_FN}:rms_norm", "ported",
         "serving", route="triton",
         source="deeplearning4j_tpu_torch/ops/fused_norms.py",
         port=f"{_NORM}:rms_norm", plain=f"{_NORM}:rms_norm_reference",
-        # ln1 of 12 blocks, the final norm
-        paths=("serve", "train", "longctx", *_DP, "sp"),
-        per_step={"train": 13, "longctx": 13, **_dp(13), "sp": 13}),
+        # training: ln1 of 12 blocks, the final norm; decoding: ln1 and
+        # ln2 of 12 blocks and the final norm, in every prefill and step
+        paths=("serve", "train", "longctx", *_DP, "sp", "serve_opts",
+               "beam"),
+        per_step={"train": 13, "longctx": 13, **_dp(13), "sp": 13,
+                  "beam": 25 * BEAM_NEW}),
     KernelEntry(
         "K3", "flash_attention_bwd_fused", f"{_PK}:488",
         f"{_PK}:_flash_bwd", "ported", "training", route="cuda",
@@ -211,5 +228,5 @@ def ported() -> Tuple[KernelEntry, ...]:
 def on_path(path: str) -> Tuple[KernelEntry, ...]:
     """The ported rows a main path (``serve``, ``train``, ``finetune``,
     ``longctx``, ``dp``, ``dp_packed``, ``sp``, ``zero``, ``dp_graph``,
-    ``eval``) launches."""
+    ``eval``, ``serve_opts``, ``beam``) launches."""
     return tuple(e for e in ported() if path in e.paths)

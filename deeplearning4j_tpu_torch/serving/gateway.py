@@ -152,8 +152,9 @@ class TokenStream:
 class ServingGateway:
     """Continuous-batching serving front end for ``CausalTransformerLM``
     parameters. Constructor knobs flow to :class:`DecodeScheduler`
-    (slots/pages/block/sampling) and the queue policy (``queue_limit``,
-    ``default_max_new``); the pool lives on ``params``' device.
+    (slots/pages/block/sampling, ``spec_k``, ``prefix_sharing``) and
+    the queue policy (``queue_limit``, ``default_max_new``); the pool
+    lives on ``params``' device.
 
     Concurrency contract: ``_lock`` protects the tenant queues (and the
     deferred-cancel list) ONLY. Scheduler/pager state is mutated
@@ -170,11 +171,13 @@ class ServingGateway:
                  top_p: Optional[float] = None, seed: int = 0,
                  eos_id: Optional[int] = None,
                  starvation_patience: float = 5.0,
-                 start: bool = True):
+                 start: bool = True, spec_k: int = 1,
+                 prefix_sharing: bool = False):
         self._sched = DecodeScheduler(
             model, params, max_slots=max_slots, block=block,
             n_pages=n_pages, max_context=max_context, sample=sample,
-            top_k=top_k, top_p=top_p, seed=seed)
+            top_k=top_k, top_p=top_p, seed=seed, spec_k=spec_k,
+            prefix_sharing=prefix_sharing)
         self.queue_limit = int(queue_limit)
         self.default_max_new = int(default_max_new)
         self.eos_id = eos_id
@@ -207,9 +210,10 @@ class ServingGateway:
 
     # -- public API ------------------------------------------------------
     def warmup(self, prompt_lens=None):
-        """Run the decode step and every prefill bucket once (kernels
-        built, every shape through the device). Call BEFORE taking
-        traffic: the worker is idle then."""
+        """Run every program of the scheduler's mode once (kernels
+        built, every shape through the device; see
+        ``DecodeScheduler.warmup``). Call BEFORE taking traffic: the
+        worker is idle then."""
         self._warm_report = self._sched.warmup(prompt_lens)
         return self._warm_report
 

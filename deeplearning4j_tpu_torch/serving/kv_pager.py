@@ -7,21 +7,30 @@ invariants (:meth:`KVPager.check_invariants`). Cache memory is
 O(active tokens), sequences of any length share one pool, and the pool's
 shape never changes.
 
-Layout: ``codes`` ``[L, P, Hkv, 2D, block]`` on the device, in the
-model's compute dtype — page ``p`` of layer ``l`` holds ``block``
-consecutive positions of the k (rows ``0:D``) and v (rows ``D:2D``)
-halves, the dense cache's layout. The int8 pool (codes + scales) is not
-ported yet.
+Layout, on the device:
+
+- ``codes`` ``[L, P, Hkv, 2D, block]`` — page ``p`` of layer ``l``
+  holds ``block`` consecutive positions of the k (rows ``0:D``) and v
+  (rows ``D:2D``) halves, the dense cache's layout. ``int8`` under
+  ``cache_quant="int8"`` (codes from ``zoo.gpt._quant_kv``, the
+  quantiser the dense path uses), else the model's compute dtype;
+- ``scales`` ``[L, P, Hkv, 2, block]`` f32 — per-(page, head, k/v half,
+  position) dequant scales; present only under int8.
 
 Page 0 is the reserved **trash page**: inactive slots' writes and
 unallocated page-table entries route there, so the fixed-shape step can
 always scatter and gather without touching live sequences (reads of
 trash positions are masked by each slot's length).
 
-Pages are REFCOUNTED and the chain index maps the token bytes each
-full-page prefix covers to its pages, as in the JAX package; the
-scheduler that would adopt shared pages (prefix sharing) is not ported
-yet, but the bookkeeping is, whole.
+Pages are REFCOUNTED: several live sequences may reference one physical
+page (copy-on-write prefix sharing — a KV page is a pure function of the
+tokens it covers). The content-addressed page-chain index maps the
+token bytes each full-page prefix covers to its pages; admission looks
+the prompt up (:meth:`KVPager.match_prefix`), adopts the shared pages
+(:meth:`KVPager.adopt`), and the scheduler copies a page before writing
+it whenever its refcount exceeds one (:meth:`KVPager.cow` does the
+bookkeeping, the scheduler the device copy). A page returns to the free
+list only when its LAST reference releases.
 """
 from __future__ import annotations
 
@@ -58,9 +67,9 @@ class KVPager:
         if n_pages < 2:
             raise ValueError(f"n_pages={n_pages}: need at least one "
                              "usable page beyond the trash page")
-        if cache_quant is not None:
-            raise ValueError(f"cache_quant={cache_quant!r}: the int8 "
-                             "pool is not ported yet (None only)")
+        if cache_quant not in (None, "int8"):
+            raise ValueError(f"cache_quant={cache_quant!r} "
+                             "(None | 'int8')")
         self.n_layers = n_layers
         self.n_kv_heads = n_kv_heads
         self.head_dim = head_dim
@@ -68,9 +77,14 @@ class KVPager:
         self.block = block
         self.cache_quant = cache_quant
         shape = (n_layers, n_pages, n_kv_heads, 2 * head_dim, block)
-        self._pool: Tuple[torch.Tensor, ...] = (
-            torch.zeros(shape, dtype=dtypes.resolve(dtype),
-                        device=device),)
+        if cache_quant == "int8":
+            self._pool: Tuple[torch.Tensor, ...] = (
+                torch.zeros(shape, dtype=torch.int8, device=device),
+                torch.zeros((n_layers, n_pages, n_kv_heads, 2, block),
+                            dtype=torch.float32, device=device))
+        else:
+            self._pool = (torch.zeros(shape, dtype=dtypes.resolve(dtype),
+                                      device=device),)
         # host bookkeeping: LIFO free list (hot pages stay hot), the
         # page -> refcount map, and the per-owner page lists the
         # invariant checks cross-foot against the refcounts
@@ -92,11 +106,12 @@ class KVPager:
     # -- device pool -----------------------------------------------------
     @property
     def pool(self) -> Tuple[torch.Tensor, ...]:
-        """The layer-stacked device tensors the step reads and writes
-        in place: ``(codes,)``."""
+        """The layer-stacked device tensors the steps read and write
+        in place: ``(codes,)`` or ``(codes, scales)``."""
         return self._pool
 
     def pool_bytes(self) -> int:
+        """Device bytes of the pool: codes and, under int8, scales."""
         return sum(a.numel() * a.element_size() for a in self._pool)
 
     # -- allocation ------------------------------------------------------

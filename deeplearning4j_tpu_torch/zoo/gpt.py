@@ -24,8 +24,12 @@ serving gateway take it as it is.
 reaches every block's attention: under ``parallel.distributed_context``
 ``fit`` trains sequence-parallel, each rank on its shard of the tokens
 (``parallel/mesh.py``); outside a context the same model trains locally.
-Decoding (``generate``, the gateway) is local. int8 weight and KV-cache
-quantisation and beam search come with later slices.
+Decoding (``generate``, :meth:`CausalTransformerLM.generate_beam`, the
+gateway) is local. ``serve_quant="int8"`` serves weight-only int8
+weights (:class:`QuantizedWeight`, dequantised inside each consuming
+matmul) and ``cache_quant="int8"`` keeps the KV cache as int8 codes
+with per-(row, head, half, position) f32 scales (:func:`_quant_kv`);
+both change decoding only, never the training parameters.
 """
 from __future__ import annotations
 
@@ -57,6 +61,90 @@ def _rms(x, gamma):
     return fused_norms.rms_norm(x, gamma, eps=fused_norms.RMSNORM_EPS)
 
 
+def _div127(x):
+    """``x / 127`` as a true f32 division on every device: PyTorch's
+    CUDA division by a Python scalar multiplies by its reciprocal, which
+    rounds differently for ~5 % of values, so the divisor is a 0-dim
+    tensor on ``x``'s device, filled there (no host copy, so no wait for
+    the stream)."""
+    return x / x.new_full((), 127.0)
+
+
+def _quant_kv(kvr, channel_axis: int):
+    """int8 KV quantisation shared by prefill, the decode step and the
+    paged steps: per-slice abs-max scales over ``channel_axis`` (the D
+    channels of each k/v half), round-half-even int8 codes. Returns
+    (codes int8, scales f32 with the channel axis dropped) — the same
+    bits as the JAX package's ``_quant_kv`` (a true f32 division, round
+    half to even), on the card as on the CPU."""
+    kvr = kvr.to(torch.float32)
+    s = torch.clamp_min(_div127(kvr.abs().amax(dim=channel_axis)), 1e-8)
+    w8 = torch.round(kvr / s.unsqueeze(channel_axis)).to(torch.int8)
+    return w8, s
+
+
+class QuantizedWeight:
+    """Weight-only int8 tensor for serving: ``w8`` (int8) and a
+    per-channel f32 ``scale``, dequantised inside the consuming op —
+    ``x @ qw`` computes ``x @ (w8.to(x.dtype) * scale.to(x.dtype))``.
+    ``axis`` is the channel axis the scale runs along (0 = one scale a
+    row, 1 = one a column); ``act_dtype`` is the dtype a row gather (the
+    embedding) returns, where no operand gives one. A leaf of the
+    parameter tree (``tree.leaves`` and the dtype casts pass it through
+    whole). ``x @ qw`` works because ``Tensor.__matmul__`` returns
+    ``NotImplemented`` for an operand that is not a tensor, so Python
+    calls :meth:`__rmatmul__`.
+
+    On the card the dequantised copy is a separate tensor that the
+    matmul reads again (PyTorch does not fuse the convert into the
+    matmul as XLA does); ``PERF.md`` records what that costs."""
+
+    def __init__(self, w8, scale, axis: int, act_dtype="float32"):
+        self.w8 = w8
+        self.scale = scale
+        self.axis = axis
+        self.act_dtype = dtypes.resolve(act_dtype)
+
+    @staticmethod
+    def quantize(w, axis: int, act_dtype="float32") -> "QuantizedWeight":
+        """Per-channel abs-max int8 codes of ``w`` along ``axis`` (the
+        JAX package's bits: f32 scale, round half to even)."""
+        scale = _div127(w.abs().amax(dim=1 - axis, keepdim=True))
+        scale = torch.clamp_min(scale, 1e-8).to(torch.float32)
+        w8 = torch.round(w / scale).to(torch.int8)
+        return QuantizedWeight(w8, scale, axis, act_dtype)
+
+    def _dequant(self, dtype):
+        return self.w8.to(dtype) * self.scale.to(dtype)
+
+    @property
+    def T(self) -> "QuantizedWeight":
+        return QuantizedWeight(self.w8.T, self.scale.T, 1 - self.axis,
+                               self.act_dtype)
+
+    @property
+    def device(self):
+        return self.w8.device
+
+    def __rmatmul__(self, x):
+        return x @ self._dequant(x.dtype)
+
+    def __getitem__(self, idx):
+        # embedding-style row gather: dequantise only the taken rows
+        return (self.w8[idx].to(self.act_dtype)
+                * self.scale[idx if self.axis == 0 else slice(None)]
+                .to(self.act_dtype))
+
+
+def _top_k(x, k: int):
+    """The ``k`` largest entries of the last axis, largest first, ties
+    broken toward the LOWER index — ``jax.lax.top_k``'s order (a stable
+    descending sort; ``torch.topk`` promises no order among ties).
+    Returns (values, indices)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def prompt_bucket(t0: int, max_len: Optional[int] = None) -> int:
     """THE prompt-length bucket table: power-of-two (min 16), clamped
     to ``max_len`` when given. ``generate()`` and the serving gateway's
@@ -82,13 +170,16 @@ class CausalTransformerLM:
                  cache_quant: Optional[str] = None,
                  seed: int = 123, updater=None,
                  compute_dtype: Optional[str] = None):
-        if serve_quant is not None:
-            raise ValueError(f"serve_quant={serve_quant!r}: int8 "
-                             "weight-only serving is not ported yet "
-                             "(None only)")
-        if cache_quant is not None:
-            raise ValueError(f"cache_quant={cache_quant!r}: the int8 KV "
-                             "cache is not ported yet (None only)")
+        # "int8": weight-only per-channel quantisation applied to the
+        # decode copy of the parameters (training params untouched)
+        if serve_quant not in (None, "int8"):
+            raise ValueError(f"serve_quant={serve_quant!r} "
+                             "(None | 'int8')")
+        # "int8": KV cache stored as int8 codes + per-(row, kv-head,
+        # k/v-half, position) f32 scales
+        if cache_quant not in (None, "int8"):
+            raise ValueError(f"cache_quant={cache_quant!r} "
+                             "(None | 'int8')")
         n_kv_heads = n_kv_heads or n_heads
         if hidden % n_heads or n_heads % n_kv_heads:
             raise ValueError(f"hidden={hidden}, n_heads={n_heads}, "
@@ -237,20 +328,11 @@ class CausalTransformerLM:
         if top_p is not None and not 0.0 < top_p <= 1.0:
             raise ValueError(f"top_p={top_p} outside (0, 1]")
         ts0 = obs.now()
-        prompt_np = np.asarray(prompt, np.int32)
-        b, t0 = prompt_np.shape
-        if n_new <= 0:
-            return prompt_np
-        if t0 + n_new > self.max_len:
-            raise ValueError(f"prompt+new ({t0 + n_new}) exceeds "
-                             f"max_len={self.max_len}")
-        tb = prompt_bucket(t0, self.max_len)
-        params = net.params if isinstance(net, MultiLayerNetwork) else net
-        p = self._decode_params(params)
-        dev = p["layer_0"]["W"].device
-        pad = np.zeros((b, tb), np.int64)
-        pad[:, :t0] = prompt_np
-        toks = torch.as_tensor(pad, device=dev)
+        prep = self._prep_decode(net, prompt, n_new)
+        if prep is None:
+            return np.asarray(prompt, np.int32)
+        prompt_np, toks, p, b, t0, tb = prep
+        dev = toks.device
         sample = temperature > 0
         if sample and generator is None:
             self._gen_calls += 1
@@ -267,6 +349,27 @@ class CausalTransformerLM:
         obs.record_step("CausalTransformerLM.generate", ts0, ts1, ts2,
                         obs.now())
         return np.concatenate([prompt_np, gen_np], axis=1)
+
+    def _prep_decode(self, net, prompt, n_new: int):
+        """Shared ``generate``/``generate_beam`` prologue: coerce, guard,
+        bucket-pad, prepare the parameters. Returns None when there is
+        nothing to generate, else (prompt [B, T0] int32, padded prompt
+        [B, Tb] on the parameters' device, decode parameters, B, T0,
+        Tb)."""
+        prompt_np = np.asarray(prompt, np.int32)
+        b, t0 = prompt_np.shape
+        if n_new <= 0:
+            return None
+        if t0 + n_new > self.max_len:
+            raise ValueError(f"prompt+new ({t0 + n_new}) exceeds "
+                             f"max_len={self.max_len}")
+        tb = prompt_bucket(t0, self.max_len)
+        params = net.params if isinstance(net, MultiLayerNetwork) else net
+        p = self._decode_params(params)
+        pad = np.zeros((b, tb), np.int64)
+        pad[:, :t0] = prompt_np
+        toks = torch.as_tensor(pad, device=p["layer_0"]["W"].device)
+        return prompt_np, toks, p, b, t0, tb
 
     @staticmethod
     def _filter_logits(logits, top_k, top_p, nucleus):
@@ -300,8 +403,10 @@ class CausalTransformerLM:
         """One decode position through the whole stack: token ids
         [rows] → (logits [rows, V], caches). Each layer's dense cache
         is ONE [rows, Hkv, 2D, T] tensor (k rows 0:D, v rows D:2D), the
-        JAX layout; this position's k/v are written into it IN PLACE
-        (the JAX code returns an updated copy)."""
+        JAX layout — under ``cache_quant="int8"`` a pair (int8 codes of
+        that shape, f32 scales [rows, Hkv, 2, T]); this position's k/v
+        are written into it IN PLACE (the JAX code returns an updated
+        copy)."""
         hd = self.hidden // self.n_heads
         n_kv = self.n_kv_heads
         groups = self.n_heads // n_kv
@@ -317,14 +422,36 @@ class CausalTransformerLM:
                 v = (h @ mha["Wv"]).reshape(rows, 1, n_kv, hd)
                 q = rotary_embedding(q, self.rope_theta, offset=pos)[:, 0]
                 k = rotary_embedding(k, self.rope_theta, offset=pos)[:, 0]
-                ckv[:, :, :, pos] = torch.cat([k, v[:, 0]], dim=2)
-                ck, cv = ckv[:, :, :hd, :], ckv[:, :, hd:, :]
+                kv = torch.cat([k, v[:, 0]], dim=2)     # [rows, Kv, 2D]
+                if self.cache_quant:
+                    # quantise this position against fresh per-(row,
+                    # head, half) scales; the scales factor OUT of both
+                    # einsums (constant over the channel axis): k-scales
+                    # multiply the scores, v-scales pre-scale the
+                    # softmax weights, both in f32, and only their
+                    # products cast back — bf16 rounds each value once
+                    w8, sc = ckv
+                    q8, s_new = _quant_kv(kv.reshape(rows, n_kv, 2, hd), 3)
+                    w8[:, :, :, pos] = q8.reshape(rows, n_kv, 2 * hd)
+                    sc[:, :, :, pos] = s_new
+                    ck = w8[:, :, :hd, :].to(x.dtype)
+                    cv = w8[:, :, hd:, :].to(x.dtype)
+                    k_scale = sc[:, :, 0, None, :]
+                    v_scale = sc[:, :, 1, None, :]
+                else:
+                    ckv[:, :, :, pos] = kv
+                    ck, cv = ckv[:, :, :hd, :], ckv[:, :, hd:, :]
+                    k_scale = v_scale = None
                 qg = q.reshape(rows, n_kv, groups, hd)
                 s = torch.einsum("bkgd,bkdt->bkgt", qg, ck) / torch.sqrt(
                     torch.tensor(hd, dtype=x.dtype))
+                if k_scale is not None:
+                    s = (s * k_scale).to(x.dtype)
                 live = torch.arange(ck.shape[3], device=x.device) <= pos
                 s = s.masked_fill(~live, -1e9)
                 w = torch.softmax(s, dim=-1)
+                if v_scale is not None:
+                    w = (w * v_scale).to(x.dtype)
                 a = torch.einsum("bkgt,bkdt->bkgd", w, cv).reshape(rows,
                                                                    -1)
                 x = x + a @ mha["Wo"] + mha["bo"]
@@ -347,8 +474,9 @@ class CausalTransformerLM:
     def _prefill_forward(self, params, toks, cache_len: int, t0: int):
         """Batched prompt prefill: ONE causal forward over the padded
         prompt [B, Tb] builds every layer's dense cache [B, Hkv, 2D,
-        cache_len] and yields the logits at the last real prompt
-        position ``t0 - 1``. Attention goes through
+        cache_len] (int8 codes and f32 scales under ``cache_quant``)
+        and yields the logits at the last real prompt position
+        ``t0 - 1``. Attention goes through
         ``scaled_dot_attention`` (the flash kernel on the card). Rows
         past ``t0 - 1`` hold right-padding junk, but causality keeps
         them out of every real row's context, and decode overwrites row
@@ -376,10 +504,22 @@ class CausalTransformerLM:
                 h = F.silu(h @ pblk["Wg"]) * (h @ pblk["Wu"])
                 x = x + h @ pblk["Wd"]
                 # cache layout [B, Hkv, 2D, T]: k rows 0:D, v rows D:2D
-                kv = x.new_zeros((bsz, n_kv, 2 * hd, cache_len))
-                kv[..., :tb] = torch.cat([k.permute(0, 2, 3, 1),
-                                          v.permute(0, 2, 3, 1)], dim=2)
-                caches.append(kv)
+                kv_full = torch.cat([k.permute(0, 2, 3, 1),
+                                     v.permute(0, 2, 3, 1)], dim=2)
+                if self.cache_quant:
+                    w8, sc = _quant_kv(
+                        kv_full.reshape(bsz, n_kv, 2, hd, tb), 3)
+                    codes = torch.zeros((bsz, n_kv, 2 * hd, cache_len),
+                                        dtype=torch.int8, device=x.device)
+                    codes[..., :tb] = w8.reshape(bsz, n_kv, 2 * hd, tb)
+                    scales = x.new_zeros((bsz, n_kv, 2, cache_len),
+                                         dtype=torch.float32)
+                    scales[..., :tb] = sc
+                    caches.append((codes, scales))
+                else:
+                    kv = x.new_zeros((bsz, n_kv, 2 * hd, cache_len))
+                    kv[..., :tb] = kv_full
+                    caches.append(kv)
         with obs.devtime.scope("prefill.lm_head"):
             x = _rms(x, params[f"layer_{self.n_layers + 1}"]["gamma"])
             logits = self._head_logits(params, x[:, t0 - 1])
@@ -398,18 +538,31 @@ class CausalTransformerLM:
 
     def _cast_decode(self, params):
         """Serving honors ``compute_dtype``: parameters cast once, so
-        the KV caches and every per-token matmul run in it."""
-        if self.compute_dtype is None:
-            return params
-        return dtypes.cast_float_tree(params, self.compute_dtype)
+        the KV caches and every per-token matmul run in it.
+        ``serve_quant="int8"`` first quantises every 2-D weight
+        per-channel FROM the f32 masters (quantising a bf16-rounded
+        tree would compound the rounding), then the remaining float
+        leaves are cast. The embedding gets one scale a ROW: the rows
+        it gathers and the tied head (its ``.T``) share them."""
+        if self.serve_quant == "int8":
+            act = self.compute_dtype or "float32"
+            params = {
+                lname: tree.map_(
+                    lambda w, a=(0 if lname == "layer_0" else 1):
+                    QuantizedWeight.quantize(w.to(torch.float32), a, act)
+                    if w.ndim == 2 else w, blk)
+                for lname, blk in params.items()}
+        if self.compute_dtype is not None:
+            params = dtypes.cast_float_tree(params, self.compute_dtype)
+        return params
 
     def _decode_params(self, params):
-        """Cast ONCE per params version: repeated calls against
-        unchanged params reuse the prepared copy. Staleness-safe by
-        LEAF identity through weakrefs: replacing any tensor in the
+        """Cast (and quantise) ONCE per params version: repeated calls
+        against unchanged params reuse the prepared copy. Staleness-safe
+        by LEAF identity through weakrefs: replacing any tensor in the
         tree invalidates the cache, and the cache never pins the old
         tensors."""
-        if self.compute_dtype is None:
+        if self.compute_dtype is None and self.serve_quant is None:
             return params
         leaves = list(tree.leaves(params))
         cached = self._decode_params_cache
@@ -439,6 +592,68 @@ class CausalTransformerLM:
             prev = pick(logits)
             out.append(prev)
         return torch.stack(out, dim=1)
+
+    # -- beam search ------------------------------------------------------
+    @torch.no_grad()
+    def generate_beam(self, net, prompt, n_new: int, beams: int = 4):
+        """Beam-search decoding (deterministic): keeps the ``beams``
+        highest-logprob hypotheses per example, KV caches reordered to
+        follow their parent beam at every step. The prompt runs as ONE
+        batched prefill with B rows; its caches repeat to B·beams rows
+        only for the expansion. Ties go to the lower index, as
+        ``jax.lax.top_k`` breaks them (:func:`_top_k`), so ``beams=1``
+        is greedy :meth:`generate`. Composes with ``serve_quant`` and
+        ``cache_quant``. Returns the best hypothesis per example,
+        [B, T0 + n_new] int32 (numpy)."""
+        if beams < 1 or beams > self.vocab_size:
+            raise ValueError(f"beams={beams} outside [1, vocab_size]")
+        prep = self._prep_decode(net, prompt, n_new)
+        if prep is None:
+            return np.asarray(prompt, np.int32)
+        prompt_np, toks, p, b, t0, tb = prep
+        gen = self._beam_scan(p, toks, t0, b=b, beams=beams, tb=tb,
+                              n_new=n_new)
+        gen_np = gen.cpu().numpy().astype(np.int32)   # device sync
+        return np.concatenate([prompt_np, gen_np], axis=1)
+
+    def _beam_scan(self, params, toks, t0: int, *, b, beams, tb, n_new):
+        """Prefill with B rows; its last-position log-probs drive the
+        first expansion (top ``beams`` of one root hypothesis); then one
+        decode step over B·beams rows per position, the top ``beams``
+        over beams·V continuations of each example, hypotheses and caches
+        following their parent beam. Returns [B, n_new] token ids."""
+        R = b * beams
+        V = self.vocab_size
+        logits0, caches_b = self._prefill_forward(params, toks, tb + n_new,
+                                                  t0)
+        logp0 = torch.log_softmax(logits0.float(), dim=-1)
+        scores, nxt0 = _top_k(logp0, beams)            # [B, beams]
+        prev = nxt0.reshape(-1)                        # [B·beams]
+        rep = lambda c: c.repeat_interleave(beams, dim=0)
+        caches = [tuple(map(rep, c)) if isinstance(c, tuple) else rep(c)
+                  for c in caches_b]
+        gen = torch.zeros((R, n_new), dtype=torch.int64, device=toks.device)
+        gen[:, 0] = prev
+        base = torch.arange(b, device=toks.device)[:, None] * beams
+        for i in range(n_new - 1):
+            # prev sits at position t0+i; _token_logits writes its KV
+            # row before attending
+            logits, caches = self._token_logits(params, prev, caches,
+                                                t0 + i, R)
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            tot = scores[:, :, None] + logp.reshape(b, beams, V)
+            scores, flat = _top_k(tot.reshape(b, beams * V), beams)
+            rowsel = (base + flat // V).reshape(-1)
+            nxt = (flat % V).reshape(-1)
+            # hypotheses and their KV caches follow the parent beam
+            take = lambda c: c.index_select(0, rowsel)
+            gen = take(gen)
+            caches = [tuple(map(take, c)) if isinstance(c, tuple)
+                      else take(c) for c in caches]
+            gen[:, i + 1] = nxt
+            prev = nxt
+        best = torch.argmax(scores, dim=1)             # [B]
+        return gen[torch.arange(b, device=toks.device) * beams + best]
 
 
 def GPTNano(**kw) -> CausalTransformerLM:

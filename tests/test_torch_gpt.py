@@ -191,10 +191,13 @@ def test_decode_params_cast_once_and_invalidated():
 
 
 def test_unported_options_rejected_and_presets():
+    # the JAX package's validation: None or "int8" for both options
     with pytest.raises(ValueError, match="serve_quant"):
-        GPTNano(serve_quant="int8")
+        GPTNano(serve_quant="int4")
     with pytest.raises(ValueError, match="cache_quant"):
-        GPTNano(cache_quant="int8")
+        GPTNano(cache_quant="int4")
+    assert GPTNano(serve_quant="int8", cache_quant="int8").cache_quant \
+        == "int8"
     mini = GPTMini()
     assert (mini.hidden, mini.n_layers, mini.n_heads) == (384, 6, 6)
     for t in (1, 5, 16, 17, 100, 1025):

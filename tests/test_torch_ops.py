@@ -31,7 +31,7 @@ from deeplearning4j_tpu_torch.nn.layers.attention import (
     _use_flash, repeat_kv_heads, rotary_embedding, scaled_dot_attention)
 from deeplearning4j_tpu_torch.ops import cuda_kernels, fused_norms
 from deeplearning4j_tpu_torch.ops.kernel_registry import (
-    KERNELS, LM_LEAVES, on_path, ported)
+    BEAM_NEW, KERNELS, LM_LEAVES, on_path, ported)
 
 F32_NORM_TOL = 1e-5
 F32_ATTN_TOL = 2e-5
@@ -240,13 +240,18 @@ def test_registry_lists_every_tpu_kernel():
         assert e.paths and set(e.paths) <= {"serve", "train", "finetune",
                                             "longctx", "dp", "dp_packed",
                                             "sp", "zero", "dp_graph",
-                                            "eval"}
+                                            "eval", "serve_opts", "beam"}
         # the stepped phases' expected launches per step: one positive
-        # count for each stepped path of the row, none for serve
-        stepped = set(e.paths) - {"serve"}
+        # count for each stepped path of the row, none for the gateways
+        stepped = set(e.paths) - {"serve", "serve_opts"}
         assert set(e.per_step) == stepped
         assert all(n > 0 for n in e.per_step.values())
     assert {e.key for e in on_path("serve")} == {"K1", "K2"}
+    assert {e.key for e in on_path("serve_opts")} == {"K1", "K2"}
+    # one generate_beam call: K1 once a block of its one prefill, K2 at
+    # the 25 norms of the prefill and of each of BEAM_NEW - 1 steps
+    assert {e.key: e.per_step["beam"] for e in on_path("beam")} == {
+        "K1": 12, "K2": 25 * BEAM_NEW}
     assert {e.key for e in on_path("train")} == {"K1", "K2", "K3", "K6",
                                                  "K7"}
     assert {e.key: e.per_step["finetune"]

@@ -133,9 +133,11 @@ def test_pager_detects_double_ownership_and_double_free():
         pager.check_invariants()
     with pytest.raises(PageTableError, match="double free"):
         pager._decref(4)
-    with pytest.raises(ValueError, match="int8"):
+    # the JAX pager's validation: None or "int8" (the int8 pool's
+    # round trip lives in tests/test_torch_serving_opts.py)
+    with pytest.raises(ValueError, match="cache_quant"):
         KVPager(n_layers=1, n_kv_heads=1, head_dim=8, n_pages=5,
-                block=8, cache_quant="int8", device="cpu")
+                block=8, cache_quant="int4", device="cpu")
 
 
 def test_pager_refcounts_and_chain_index():
@@ -198,10 +200,12 @@ def test_warmup_buckets_and_unported_options(tiny):
     assert warm["buckets"] == sorted({prompt_bucket(t, 64)
                                       for t in range(1, 33)})
     assert sched.pager.free_pages() == sched.pager.n_pages - 1
+    # rejected exactly where the JAX scheduler rejects: a k off the
+    # SPEC_KS grid, and speculative decode under sampling
     with pytest.raises(ValueError, match="spec_k"):
-        DecodeScheduler(model, params, spec_k=2)
-    with pytest.raises(ValueError, match="prefix_sharing"):
-        DecodeScheduler(model, params, prefix_sharing=True)
+        DecodeScheduler(model, params, spec_k=3)
+    with pytest.raises(ValueError, match="greedy-only"):
+        DecodeScheduler(model, params, spec_k=2, sample=True)
     with pytest.raises(ValueError, match="max_context"):
         DecodeScheduler(model, params, max_context=128)
 

@@ -245,7 +245,8 @@ PHASES = ("device", "serve", "agree", "serve_opts", "serve_opts_agree",
           "beam", "train", "train_agree", "finetune",
           "finetune_agree", "longctx", "longctx_agree", "dp", "dp_packed",
           "dp_agree", "sp", "sp_agree", "zero", "zero_agree", "dp_graph",
-          "eval", "eval_agree", "kernels")
+          "eval", "eval_agree", "train_opts", "train_opts_agree",
+          "finetune_opts", "serve_fault", "kernels")
 
 # published peaks of one H100 SXM (dense): the bound of a kernel is the
 # larger of its operations over the peak rate for their type and its
@@ -1898,8 +1899,8 @@ def phase_serve_opts(state):
             warm = gw.warmup(prompt_lens=lens)
             t_warm = time.perf_counter() - t0
             snap = lambda m: m.snapshot()[""]
-            entry = ("entry=serving.spec_step" if gw_kw.get("spec_k")
-                     else "entry=serving.decode_step")
+            entry = ('{entry="serving.spec_step"}' if gw_kw.get("spec_k")
+                     else '{entry="serving.decode_step"}')
             host = lambda: [m.snapshot().get(entry, 0.0) for m in (
                 metrics.H2D_SECONDS, metrics.SYNC_SECONDS)]
             host0 = host()
@@ -2683,7 +2684,7 @@ def _opt_bytes_line(phase: str, w, card) -> None:
     log(f"{phase}: OPT_STATE_BYTES {gauge} rank optimizer bytes={mine} "
         f"({mine / 2 ** 30:.3f} GiB) whole optimizer state={whole} bytes "
         f"on {devices} world={w.n} {card}")
-    assert gauge["layout=sharded"] == mine and devices == ["cpu"]
+    assert gauge['{layout="sharded"}'] == mine and devices == ["cpu"]
 
 
 def _free_card(phase: str, card) -> None:
@@ -3491,6 +3492,570 @@ def _device_window(name: str, fn, wall_ms: float, card: str,
             f"x{ev.count:<5d} {ev.key[:80]}")
 
 
+# -- phases 23-26: the training runtime -------------------------------------
+#: steps_per_loop of the region phases; turns of the grouped and the
+#: sequential timing, taken in alternation (G S G S G S)
+OPTS_K = 4
+OPTS_TURNS = 3
+#: the updater sweep of train_opts_agree: the train model cut to this
+#: depth at full width (the update math is elementwise; the CPU half of
+#: twelve updaters x 3 steps at 12 layers would take minutes)
+SWEEP_LAYERS = 2
+#: the sweep's updaters: each at the LM's own rate (``SWEEP_LR``, the
+#: Adam family under ``_warmup_cosine`` of it); AdaDelta fixes its rate
+#: at 1 and NoOp has none
+SWEEP_LR = 3e-4
+SWEEP = ("Sgd", "Momentum", "Nesterovs", "RmsProp", "AdaGrad", "AdaDelta",
+         "NoOp", "Adam", "AdamW", "Nadam", "AMSGrad", "AdaMax")
+ADAM_FAMILY = ("Adam", "AdamW", "Nadam", "AMSGrad", "AdaMax")
+#: the step fault plan of the region phases, and the serving one
+STEP_PLAN = "step:error=ConnectionError:nth=2:max=1"
+SERVE_PLAN = "serving:error=RuntimeError:nth=3:max=1"
+FAULT_REQUESTS, FAULT_PROMPT, FAULT_NEW = 4, 64, 64
+#: host runtime calls that wait for the card
+_SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+               "cudaEventSynchronize")
+
+
+def _warmup_cosine(upd, initial: float):
+    """Four warmup steps into a cosine over 32."""
+    return upd.WarmupSchedule(warmup_steps=4, base=upd.CosineSchedule(
+        initial=initial, max_iter=32))
+
+
+def _lm_opts_updater(upd):
+    return upd.AdamW(learning_rate=3e-4, weight_decay=0.01,
+                     schedule=_warmup_cosine(upd, 3e-4))
+
+
+def _bert_opts_updater(upd):
+    """BERT's default fine-tuning AdamW under the schedule."""
+    return upd.AdamW(learning_rate=2e-5, weight_decay=0.01,
+                     exclude_bias_and_norm=True,
+                     schedule=_warmup_cosine(upd, 2e-5))
+
+
+def _region_profile(phase, fit_group, scope, n_arrays, card) -> None:
+    """One group's ``fit`` under ``torch.profiler``: exactly one
+    device-to-host copy in the window (the K losses) and no host wait
+    for the card (``_SYNC_CALLS``) inside the region's ``scope``; the
+    host-to-device copies of the staging are printed against the
+    group's ``n_arrays``. Then the same group once more with the sync
+    debug mode set to "error" around each update of the region."""
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fit_group()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "region.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            evs = json.load(f)
+    evs = evs.get("traceEvents", evs) if isinstance(evs, dict) else evs
+    # the host range of the scope (the trace also draws it on the
+    # device's timeline, as a gpu_user_annotation)
+    regions = [e for e in evs if e.get("name") == scope
+               and e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    assert len(regions) == 1, f"{phase}: {len(regions)} {scope} ranges"
+    r0 = regions[0]["ts"]
+    r1 = r0 + regions[0]["dur"]
+    memcpy = [e for e in evs if e.get("cat") == "gpu_memcpy"]
+    d2h = [e for e in memcpy if "DtoH" in e.get("name", "")]
+    h2d = [e for e in memcpy if "HtoD" in e.get("name", "")]
+    syncs = [e for e in evs if e.get("name") in _SYNC_CALLS
+             and r0 <= e["ts"] <= r1]
+    log(f"{phase}: profiler window over one group of {OPTS_K}: "
+        f"device-to-host copies {len(d2h)} (expected 1), host waits "
+        f"inside the region {len(syncs)} (expected 0), host-to-device "
+        f"copies {len(h2d)} (the group's arrays: {n_arrays}), region "
+        f"{regions[0]['dur'] / 1e3:.3f} ms of host time {card}")
+    assert len(d2h) == 1, [e["name"] for e in d2h]
+    assert not syncs, [(e["name"], e["ts"]) for e in syncs]
+
+
+def _sync_debug_updates(net):
+    """Context: each update of ``net`` (``_update``) runs with
+    ``torch.cuda.set_sync_debug_mode("error")``, so a host wait inside
+    the region raises."""
+    import torch
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = net._update
+
+        def guarded(*a, **k):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return orig(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        net._update = guarded
+        try:
+            yield
+        finally:
+            del net._update
+    return ctx()
+
+
+def _grouped_vs_sequential(phase, net, plain, make_it, card):
+    """The mean step ms of a ``steps_per_loop=OPTS_K`` group of ``net``,
+    of ``OPTS_K`` single steps of ``net`` (``steps_per_loop=1``) and of
+    ``OPTS_K`` single steps of ``plain`` (the same model with its
+    default updater, no schedule: the train or finetune phase's step),
+    each from a synchronised card to a synchronised card, in
+    ``OPTS_TURNS`` turns taken in alternation; prints the medians and
+    every turn."""
+    import torch
+    runs = (("grouped", net, OPTS_K), ("sequential", net, 1),
+            ("no_schedule", plain, 1))
+    rows = {name: [] for name, _, _ in runs}
+    plain.fit(make_it())                      # warm the second net
+    for _ in range(OPTS_TURNS):
+        for name, n, spl in runs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n.fit(make_it(), steps_per_loop=spl)
+            torch.cuda.synchronize()
+            rows[name].append((time.perf_counter() - t0) / OPTS_K * 1e3)
+    med = {name: statistics.median(v) for name, v in rows.items()}
+    log(f"{phase}: mean step ms, median of {OPTS_TURNS} turns of "
+        f"{OPTS_K} steps: " + " ".join(
+            f"{name} {med[name]:.3f} ({' '.join(f'{x:.3f}' for x in v)})"
+            for name, v in rows.items())
+        + f"; grouped/sequential {med['grouped'] / med['sequential']:.4f}"
+        f", sequential/no_schedule "
+        f"{med['sequential'] / med['no_schedule']:.4f} {card}")
+
+
+def _state_copy(net):
+    return ([t.clone() for t in _leaves(net.params)],
+            [t.clone() for t in _leaves(net.opt_state)], net.iteration)
+
+
+def _leaves(t):
+    from deeplearning4j_tpu_torch import tree
+    return list(tree.leaves(t))
+
+
+def _fault_leaves_state(phase, net, make_it, card) -> None:
+    """``STEP_PLAN`` over two groups (two ``fit`` calls of one group
+    each): the second group's fault site raises before anything is
+    staged, so the params, the optimizer state and ``iteration`` equal
+    those after the first, to the bit; ``FAULTS_INJECTED{site="step"}``
+    goes up by one. Before the plan no site was evaluated."""
+    import torch
+    from deeplearning4j_tpu_torch.obs import metrics
+    from deeplearning4j_tpu_torch.resilience import faults
+    assert faults.evaluations() == 0, faults.evaluations()
+    fired0 = metrics.FAULTS_INJECTED.labels(site="step").get()
+    try:
+        with faults.active(STEP_PLAN):
+            net.fit(make_it(), steps_per_loop=OPTS_K)
+            after_first = _state_copy(net)
+            raised = None
+            try:
+                net.fit(make_it(), steps_per_loop=OPTS_K)
+            except ConnectionError as e:
+                raised = e
+            stats = faults.stats()
+        assert raised is not None, "the step plan did not fire"
+        now = _state_copy(net)
+        same = (now[2] == after_first[2] and all(
+            torch.equal(a, b) for a, b in zip(now[0] + now[1],
+                                              after_first[0]
+                                              + after_first[1])))
+        fired = metrics.FAULTS_INJECTED.labels(site="step").get() - fired0
+        log(f"{phase}: plan {STEP_PLAN}: raised {type(raised).__name__} "
+            f"at the second group, state after it equal to the bit to "
+            f"the first group's: {same} (iteration {now[2]}), "
+            f"FAULTS_INJECTED{{site=step}} +{fired:g}, rules {stats} "
+            f"{card}")
+        assert same and fired == 1
+    finally:
+        faults.reset()
+
+
+def _lm_group_batches(b: int, t: int, vocab: int, seed0: int = 100):
+    """``OPTS_K`` random-token batches (as ``_train_batch``)."""
+    return [_train_batch(seed0 + i, b, t, vocab) for i in range(OPTS_K)]
+
+
+def phase_train_opts(state):
+    import math
+    import torch
+    from deeplearning4j_tpu_torch import obs
+    from deeplearning4j_tpu_torch.data import ListDataSetIterator
+    from deeplearning4j_tpu_torch.nn import updaters as upd
+    from deeplearning4j_tpu_torch.nn.multilayer import REGION_SCOPE
+    from deeplearning4j_tpu_torch.ops import kernel_registry
+    from deeplearning4j_tpu_torch.zoo.gpt import CausalTransformerLM
+    card = state["card"]
+    _free_card("train_opts", card)
+    model = CausalTransformerLM(compute_dtype="bfloat16",
+                                updater=_lm_opts_updater(upd), **TRAIN)
+    t0 = time.perf_counter()
+    net = model.init(TRAIN_T)
+    batches = _lm_group_batches(TRAIN_B, TRAIN_T, model.vocab_size)
+    log(f"train_opts: init {net.num_params()} params, AdamW under "
+        f"WarmupSchedule(4, CosineSchedule(3e-4, 32)), steps_per_loop="
+        f"{OPTS_K}, {time.perf_counter() - t0:.1f}s")
+
+    def group():
+        net.fit(ListDataSetIterator(batches), steps_per_loop=OPTS_K)
+
+    torch.cuda.reset_peak_memory_stats()
+    group()                                  # the warm group
+    scores = [net.score()]
+    ev0 = obs.trace.events_recorded()
+    for e in kernel_registry.ported():
+        e.reset()
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    for _ in range(2):
+        group()
+        scores.append(net.score())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    launches = {e.key: e.launches() for e in kernel_registry.ported()}
+    state.setdefault("launches", {})["train_opts"] = launches
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = 2 * OPTS_K
+    log(f"train_opts: each group's last loss {' '.join(f'{s:.4f}' for s in scores)} "
+        f"iteration={net.iteration} {card}")
+    log(f"train_opts: B={TRAIN_B} T={TRAIN_T} 2 groups of {OPTS_K} "
+        f"mean_step_ms={wall / steps * 1e3:.3f} tokens_per_s="
+        f"{TRAIN_B * TRAIN_T * steps / wall:.1f} max_memory_allocated_gb="
+        f"{peak_gb:.3f} {card}")
+    assert all(math.isfinite(s) for s in scores), scores
+    assert scores[-1] < scores[0], scores
+    assert obs.trace.events_recorded() == ev0, "tracing off recorded"
+    _check_step_launches("train_opts", steps, launches, card)
+    _region_profile("train_opts", group,
+                    REGION_SCOPE.format("MultiLayerNetwork"), 2, card)
+    with _sync_debug_updates(net):
+        group()
+    log(f"train_opts: one group with sync debug mode 'error' around each "
+        f"update: no host wait raised {card}")
+    plain = CausalTransformerLM(compute_dtype="bfloat16",
+                                **TRAIN).init(TRAIN_T)
+    _grouped_vs_sequential("train_opts", net, plain,
+                           lambda: ListDataSetIterator(batches), card)
+    del plain
+    # one traced group: the step span carries steps=K, and the phases'
+    # spans cover the group's wall
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train_opts.jsonl")
+        obs.trace.enable(path)
+        try:
+            t0 = obs.now()
+            group()
+            t1 = obs.now()
+        finally:
+            obs.trace.disable()
+        evs = [e for e in obs.trace.read_trace(path) if e.get("ph") == "X"]
+    obs.trace.reset()
+    step = [e for e in evs if e["name"] == "MultiLayerNetwork.fit/step"]
+    assert len(step) == 1 and step[0].get("args") == {"steps": OPTS_K}, step
+    parts = [e for e in evs if e["name"].rsplit("/", 1)[-1]
+             in ("h2d", "dispatch", "sync", "etl")]
+    cover = _span_cover(parts, t0 * 1e6, t1 * 1e6)
+    names = sorted({e["name"] for e in parts})
+    log(f"train_opts: traced group: step span args {step[0]['args']}, "
+        f"{len(parts)} spans {names} cover {cover:.4f} of the group's "
+        f"{(t1 - t0) * 1e3:.3f} ms wall {card}")
+    assert cover >= 0.9, cover
+    _fault_leaves_state("train_opts", net,
+                        lambda: ListDataSetIterator(batches), card)
+    del net
+
+
+def _span_cover(spans, w0: float, w1: float) -> float:
+    """Share of [w0, w1] (µs) covered by the union of ``spans``."""
+    total, end = 0.0, w0
+    for e in sorted(spans, key=lambda e: e["ts"]):
+        s, f = max(e["ts"], end), min(e["ts"] + e["dur"], w1)
+        if f > s:
+            total += f - s
+            end = f
+    return total / (w1 - w0)
+
+
+def phase_train_opts_agree(state):
+    """One group of OPTS_K against OPTS_K single fits on the card, then
+    the twelve updaters card against CPU."""
+    import torch
+    from deeplearning4j_tpu_torch import tree
+    from deeplearning4j_tpu_torch.data import ListDataSetIterator
+    from deeplearning4j_tpu_torch.nn import updaters as upd
+    from deeplearning4j_tpu_torch.zoo.gpt import CausalTransformerLM
+    card = state["card"]
+    _free_card("train_opts_agree", card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = CausalTransformerLM(updater=_lm_opts_updater(upd), **TRAIN)
+    batches = _lm_group_batches(2, 256, model.vocab_size, seed0=200)
+    a = model.init(256)
+    a.fit(ListDataSetIterator(batches), steps_per_loop=OPTS_K)
+    b = model.init(256)
+    b.fit(ListDataSetIterator(batches))
+    loss_rel = abs(a.score() - b.score()) / abs(b.score())
+    worst = _worst_param(a.params, b.params)
+    log(f"train_opts_agree: f32 B=2 T=256, one group of {OPTS_K} against "
+        f"{OPTS_K} single fits on the card: last loss {a.score():.6f} vs "
+        f"{b.score():.6f} rel={loss_rel:.3e} tol={TRAIN_LOSS_RTOL:.0e}; "
+        f"worst parameter {worst[1]} max|d|/max|p|={worst[0]:.3e} "
+        f"tol={TRAIN_GRAD_TOL:.0e} {card}")
+    assert loss_rel <= TRAIN_LOSS_RTOL and worst[0] <= TRAIN_GRAD_TOL
+    del a, b
+    sweep = dict(TRAIN, n_layers=SWEEP_LAYERS)
+    failed = []
+    # one pair of nets for the whole sweep: each updater starts from the
+    # same initial parameters on the card with a fresh state, and the
+    # CPU net takes the card's parameters and state at every step
+    model = CausalTransformerLM(**sweep)
+    card_net, cpu_net = model.init(256), model.init(256, device="cpu")
+    init_params = tree.map_(torch.clone, card_net.params)
+    for name in SWEEP:
+        kw = {"learning_rate": SWEEP_LR}
+        if name in ADAM_FAMILY:
+            kw["schedule"] = _warmup_cosine(upd, SWEEP_LR)
+        card_net.conf.updater = cpu_net.conf.updater = \
+            getattr(upd, name)(**kw)
+        card_net.params = tree.map_(torch.clone, init_params)
+        card_net._build_optimizer()
+        worst = {"loss": 0.0, "grad": (0.0, ""), "update": (0.0, "")}
+        for x, y in batches[:3]:
+            got = _sweep_step(card_net, cpu_net, x, y)
+            worst["loss"] = max(worst["loss"], got["loss"])
+            worst["grad"] = max(worst["grad"], got["grad"])
+            worst["update"] = max(worst["update"], got["update"])
+        log(f"train_opts_agree: {name} at {SWEEP_LR}"
+            f"{' under the schedule' if name in ADAM_FAMILY else ''} "
+            f"({SWEEP_LAYERS} layers, full width, f32), 3 steps, each "
+            f"card vs CPU from the card's params and state: worst loss "
+            f"rel={worst['loss']:.3e}, worst gradient {worst['grad'][1]} "
+            f"{worst['grad'][0]:.3e}, worst updated parameter or state "
+            f"{worst['update'][1]} {worst['update'][0]:.3e} of its max "
+            f"{card}")
+        if not (worst["loss"] <= TRAIN_LOSS_RTOL
+                and worst["grad"][0] <= TRAIN_GRAD_TOL
+                and worst["update"][0] <= TRAIN_GRAD_TOL):
+            failed.append(name)
+    assert not failed, f"card and CPU disagree for {failed}"
+
+
+def _sweep_step(card_net, cpu_net, x, y):
+    """One step of the sweep on both devices from the same point: the
+    CPU net takes the card net's parameters and optimizer state, both
+    compute the loss and gradients of the batch, the card applies its
+    update (``apply_updates``, as ``fit`` does) and the CPU applies the
+    same update to the card's gradient. Returns the loss's relative
+    difference and the worst gradient and updated leaf (parameter or
+    optimizer state) against their max, with their keys. (Run free, the
+    two devices' trajectories part further under the Adam family: a
+    gradient element within f32 rounding of zero may take either sign,
+    and Adam steps it by about the learning rate either way.)"""
+    import torch
+    from deeplearning4j_tpu_torch import tree
+    from deeplearning4j_tpu_torch.nn.multilayer import apply_updates
+    cpu_net.params = tree.map_(lambda t: t.cpu(), card_net.params)
+    cpu_net.opt_state = tree.map_(lambda t: t.cpu(), card_net.opt_state)
+    results = []
+    for net in (card_net, cpu_net):
+        xt = torch.as_tensor(x, device=net.device)
+        yt = torch.as_tensor(y, device=net.device)
+        results.append(net._loss_and_grads(xt, yt)[:2])
+    (l_card, g_card), (l_cpu, g_cpu) = results
+    u = card_net.conf.updater
+    card_net.params, card_net.opt_state = apply_updates(
+        u, card_net._grad_norm, card_net.params, g_card,
+        card_net.opt_state)
+    card_net.iteration += 1
+    want_p, want_s = apply_updates(
+        u, cpu_net._grad_norm, cpu_net.params,
+        tree.map_(lambda t: t.cpu(), g_card), cpu_net.opt_state)
+    grads = _worst_param(dict(_named(g_card)), dict(_named(g_cpu)),
+                         flat=True)
+    update = max(_worst_param(card_net.params, want_p),
+                 _worst_param(card_net.opt_state, want_s))
+    return {"loss": abs(l_card.item() - l_cpu.item()) / abs(l_cpu.item()),
+            "grad": grads, "update": update}
+
+
+def _named(params):
+    from deeplearning4j_tpu_torch import tree
+    out = []
+    tree.map_with_path(lambda p, t: out.append((".".join(p),
+                                                t.detach().cpu())), params)
+    return out
+
+
+def _worst_param(a, b, flat=False):
+    """The largest max|a - b| / max|b| over the parameter tensors, and
+    its key."""
+    if not flat:
+        a, b = dict(_named(a)), dict(_named(b))
+    worst = (0.0, "")
+    for k, want in b.items():
+        want = want.double()
+        scale = want.abs().max().item() or 1.0
+        d = (a[k].double() - want).abs().max().item() / scale
+        worst = max(worst, (d, k))
+    return worst
+
+
+def phase_finetune_opts(state):
+    import math
+    import torch
+    from deeplearning4j_tpu_torch.data import MultiDataSet
+    from deeplearning4j_tpu_torch.nn import updaters as upd
+    from deeplearning4j_tpu_torch.nn.multilayer import REGION_SCOPE
+    from deeplearning4j_tpu_torch.ops import kernel_registry
+    from deeplearning4j_tpu_torch.zoo.bert import BertBase
+    card = state["card"]
+    _free_card("finetune_opts", card)
+    t0 = time.perf_counter()
+    net = BertBase(seed=2, compute_dtype="bfloat16",
+                   updater=_bert_opts_updater(upd)).init_classifier(
+        2, BERT_T)
+    data = [MultiDataSet([tok, seg], [lab], features_masks=[mask, mask])
+            for tok, seg, mask, lab in (_finetune_batch(s, BERT_B, BERT_T)
+                                        for s in range(3 * OPTS_K))]
+    log(f"finetune_opts: init {net.num_params()} params, AdamW under "
+        f"WarmupSchedule(4, CosineSchedule(2e-5, 32)), "
+        f"{len(data)} masked batches of {BERT_B} x {BERT_T}, "
+        f"steps_per_loop={OPTS_K}, {time.perf_counter() - t0:.1f}s")
+
+    class It:                    # a re-iterable source of the batches
+        def __init__(self, items):
+            self.items = items
+
+        def __iter__(self):
+            return iter(self.items)
+
+    net.fit(It(data[:OPTS_K]), steps_per_loop=OPTS_K)   # the warm group
+    single = []
+    orig = net._fit_batch
+    net._fit_batch = lambda *a, **k: (single.append(1), orig(*a, **k))[1]
+    for e in kernel_registry.ported():
+        e.reset()
+    scores = []
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    for i in range(3):
+        net.fit(It(data[i * OPTS_K:(i + 1) * OPTS_K]),
+                steps_per_loop=OPTS_K)
+        scores.append(net.score())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    del net._fit_batch
+    launches = {e.key: e.launches() for e in kernel_registry.ported()}
+    state.setdefault("launches", {})["finetune_opts"] = launches
+    steps = 3 * OPTS_K
+    log(f"finetune_opts: each group's last loss {' '.join(f'{s:.4f}' for s in scores)}; "
+        f"single-batch dispatches {len(single)} (expected 0) "
+        f"mean_step_ms={wall / steps * 1e3:.3f} samples_per_s="
+        f"{BERT_B * steps / wall:.1f} {card}")
+    assert all(math.isfinite(s) for s in scores) and not single
+    _check_step_launches("finetune_opts", steps, launches, card)
+
+    def group():
+        net.fit(It(data[:OPTS_K]), steps_per_loop=OPTS_K)
+
+    _region_profile("finetune_opts", group,
+                    REGION_SCOPE.format("ComputationGraph"), 5, card)
+    plain = BertBase(seed=2, compute_dtype="bfloat16").init_classifier(
+        2, BERT_T)
+    _grouped_vs_sequential("finetune_opts", net, plain,
+                           lambda: It(data[:OPTS_K]), card)
+    del plain
+    _fault_leaves_state("finetune_opts", net,
+                        lambda: It(data[:OPTS_K]), card)
+    del net
+
+
+def phase_serve_fault(state):
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.obs import metrics
+    from deeplearning4j_tpu_torch.ops import kernel_registry
+    from deeplearning4j_tpu_torch.resilience import faults
+    from deeplearning4j_tpu_torch.serving.gateway import (SequenceAborted,
+                                                          ServingGateway)
+    from deeplearning4j_tpu_torch.zoo.gpt import CausalTransformerLM
+    card = state["card"]
+    _free_card("serve_fault", card)
+    model = CausalTransformerLM(compute_dtype="bfloat16", **SERVE)
+    params = model.init_params(seed=0, device="cuda")
+    gw = ServingGateway(model, params, max_slots=32, block=16,
+                        max_context=2048, queue_limit=64,
+                        default_max_new=FAULT_NEW)
+    try:
+        gw.warmup(prompt_lens=(FAULT_PROMPT,))
+        rng = np.random.default_rng(7)
+        prompts = [rng.integers(0, model.vocab_size, FAULT_PROMPT)
+                   for _ in range(FAULT_REQUESTS)]
+        assert faults.evaluations() == 0, faults.evaluations()
+        worker = gw._worker
+        sched = gw._sched
+        shed0 = metrics.SERVING_SHED.labels(reason="fault").get()
+        steps0 = sched.steps
+        gw.pause()
+        for e in kernel_registry.ported():
+            e.reset()
+        victims = []
+        with faults.active(SERVE_PLAN):
+            streams = [gw.submit(p, max_new=FAULT_NEW) for p in prompts]
+            gw.resume()
+            for st in streams:
+                try:
+                    st.result(timeout=600)
+                except SequenceAborted as e:
+                    assert e.tokens == st._tokens, "token leakage"
+                    assert e.tokens, "a victim without its tokens"
+                    victims.append(len(e.tokens))
+            stats = faults.stats()
+        shed = metrics.SERVING_SHED.labels(reason="fault").get() - shed0
+        sched.pager.check_invariants()
+        free_ok = sched.pager.free_pages() == sched.pager.n_pages - 1
+        fresh_prompt = rng.integers(0, model.vocab_size, FAULT_PROMPT)
+        out = gw.submit(fresh_prompt, max_new=FAULT_NEW).result(timeout=600)
+        torch.cuda.synchronize()
+        gen = out[FAULT_PROMPT:]
+        launches = {e.key: e.launches() for e in kernel_registry.ported()}
+        steps = sched.steps - steps0
+        admissions = FAULT_REQUESTS + 1
+        want = {e.key: 0 for e in kernel_registry.ported()}
+        want["K1"] = 12 * admissions
+        want["K2"] = 25 * (admissions + steps)
+        state.setdefault("launches", {})["serve_fault"] = launches
+        log(f"serve_fault: plan {SERVE_PLAN} ({stats}): "
+            f"{len(victims)} of {FAULT_REQUESTS} requests shed with "
+            f"their own tokens ({victims} tokens each), "
+            f"SERVING_SHED{{reason=fault}} +{shed:g}, pager invariants "
+            f"hold, every page freed: {free_ok}; then the same worker "
+            f"({gw._worker is worker and worker.is_alive()}) served "
+            f"{gen.size} tokens in vocab: "
+            f"{bool(((gen >= 0) & (gen < model.vocab_size)).all())} "
+            f"{card}")
+        log(f"serve_fault: launches {launches} (expected {want}: K1 12 x "
+            f"{admissions} admissions, K2 25 x ({admissions} admissions "
+            f"+ {steps} steps)) {card}")
+        assert len(victims) == FAULT_REQUESTS and shed == len(victims)
+        assert free_ok and gw._worker is worker and worker.is_alive()
+        assert gen.shape == (FAULT_NEW,)
+        assert ((gen >= 0) & (gen < model.vocab_size)).all()
+        assert launches == want, (launches, want)
+    finally:
+        faults.reset()
+        gw.shutdown(drain=False)
+
+
 def phase_profile(state):
     """Device-time breakdown of the serving path — the prefill of the
     longest prompt (bucket 2048), then 8 decode steps with all 32 slots
@@ -3672,6 +4237,12 @@ def main(argv=None) -> int:
         import torch.distributed as dist
         if dist.is_initialized():            # the dp phases' group
             dist.destroy_process_group()
+    from deeplearning4j_tpu_torch.resilience import faults
+    log(f"faults: site evaluations with no plan active over the run: "
+        f"{faults.evaluations()} (expected 0; the plan phases reset the "
+        f"count after their plans)")
+    if faults.evaluations():
+        return 1
     if "kernels" in phases and state.get("launches"):
         from deeplearning4j_tpu_torch.ops import kernel_registry
         rows = state["kernel_rows"]

@@ -20,4 +20,11 @@ continuous-batching gateway:
 Importing the package (or any module in it) initialises no CUDA
 context, imports no ``triton`` and builds no kernel: kernels are built
 at their first launch.
+
+Runtime flags are read through ``environment.get_flag``; importing the
+package applies the ones that start a process-wide service (the span
+tracer, the metrics server, the fault plan) when they are set.
 """
+from deeplearning4j_tpu_torch import environment as environment
+
+environment.apply_startup_flags()

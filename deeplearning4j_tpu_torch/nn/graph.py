@@ -18,12 +18,15 @@ and a layer that removes the time axis (``ClsTokenPoolLayer``) ends it.
 Not in this slice (each raises ``NotImplementedError``): JSON
 serialisation, per-layer updaters, learning rates, l1/l2 and weight
 decay, frozen layers, constraints, weight noise, listeners, the
-numerics observatory, ``steps_per_loop > 1`` (the JAX package's scanned
-device loop), an ``RnnOutputLayer`` output — the JAX graph's fused
+numerics observatory, an ``RnnOutputLayer`` output — the JAX graph's fused
 head flattens its [B, T, F] input (``graph.py:290-298``), so the
 reference's BERT MLM head is red and the port does not copy it — and
 sequence-parallel layers under a ``distributed_context`` (ROADMAP item
 A4).
+
+``fit(iterator, steps_per_loop=K)`` runs K-step regions as
+``MultiLayerNetwork`` does, and groups masked batches of one mask
+structure (a padded BERT fine-tune keeps its region).
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import math
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import dtypes, obs, tree
@@ -43,10 +47,11 @@ from deeplearning4j_tpu_torch.nn.layers.core import OutputLayer
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     BaseRecurrentLayer, RnnOutputLayer)
 from deeplearning4j_tpu_torch.nn.multilayer import (
-    _FUSABLE, _UNPORTED_LAYER_OPTIONS, MultiLayerNetwork, apply_updates,
-    evaluate_batches, loss_and_grads)
+    _FUSABLE, _UNPORTED_LAYER_OPTIONS, REGION_SCOPE, MultiLayerNetwork,
+    apply_updates, evaluate_batches, loss_and_grads, stage)
 from deeplearning4j_tpu_torch.nn.vertices import GraphVertex
 from deeplearning4j_tpu_torch.ops import losses as losses_mod
+from deeplearning4j_tpu_torch.resilience import faults
 
 
 @dataclass
@@ -132,6 +137,18 @@ class GraphBuilder:
             gradient_normalization=g.grad_norm_ if g else None,
             gradient_normalization_threshold=(
                 g.grad_norm_threshold_ if g else 1.0))
+
+
+def _group_sig(xs, ys, fms, lms):
+    """Grouping key of a ``steps_per_loop`` region (the JAX graph's
+    ``_group_sig``): batches group only when every array shape and the
+    mask structure match."""
+    arrs = (list(xs) + list(ys)
+            + [m for m in (fms or []) if m is not None]
+            + [m for m in (lms or []) if m is not None])
+    return (tuple(m is not None for m in (fms or [])),
+            tuple(m is not None for m in (lms or [])),
+            [tuple(np.shape(a)) for a in arrs])
 
 
 def _toposort(nodes: List[_Node], inputs: List[str]) -> List[_Node]:
@@ -389,11 +406,15 @@ class ComputationGraph:
         None); ``labels_masks``: aligned with the outputs — the
         reference MultiDataSet mask semantics. Iterator items are
         MultiDataSet-like (``features``/``labels`` lists and optional
-        ``features_masks``/``labels_masks``) or ``(xs, ys)`` pairs."""
-        if steps_per_loop != 1:
-            raise NotImplementedError(
-                f"steps_per_loop={steps_per_loop}: the scanned K-step "
-                "device loop comes with the MultiLayerNetwork-core slice")
+        ``features_masks``/``labels_masks``) or ``(xs, ys)`` pairs.
+        ``steps_per_loop`` > 1 groups batches into K-step regions
+        (:meth:`_fit_group`) by the JAX graph's rule
+        (``deeplearning4j_tpu/nn/graph.py:667-679``): batches group while
+        every array shape and the mask structure match
+        (:func:`_group_sig`), masked batches included; a change flushes
+        the group, and a group of one runs as a single batch."""
+        if steps_per_loop < 1:
+            raise ValueError(f"steps_per_loop={steps_per_loop} < 1")
         if labels is not None:
             xs = features if isinstance(features, (list, tuple)) \
                 else [features]
@@ -403,36 +424,103 @@ class ComputationGraph:
         for _ in range(epochs):
             if hasattr(features, "reset"):
                 features.reset()
-            for mds in features:
+            group: list = []
+            prev_sig = None
+            src = iter(features)
+            while True:
+                te0 = obs.now()     # iterator wait = ETL attribution
+                try:
+                    mds = next(src)
+                except StopIteration:
+                    break
+                te1 = obs.now()
+                obs.record_etl("ComputationGraph.fit", te0, te1)
                 if hasattr(mds, "features"):
                     xs = (mds.features if isinstance(mds.features, list)
                           else [mds.features])
                     ys = (mds.labels if isinstance(mds.labels, list)
                           else [mds.labels])
-                    self._fit_batch(xs, ys,
-                                    getattr(mds, "features_masks", None),
-                                    getattr(mds, "labels_masks", None))
+                    fms = getattr(mds, "features_masks", None)
+                    lms = getattr(mds, "labels_masks", None)
                 else:
                     xs, ys = mds
-                    self._fit_batch(xs if isinstance(xs, list) else [xs],
-                                    ys if isinstance(ys, list) else [ys])
+                    xs = xs if isinstance(xs, list) else [xs]
+                    ys = ys if isinstance(ys, list) else [ys]
+                    fms = lms = None
+                if steps_per_loop > 1:
+                    sig = _group_sig(xs, ys, fms, lms)
+                    if group and sig != prev_sig:
+                        self._flush_group(group)
+                    group.append((xs, ys, fms, lms))
+                    prev_sig = sig
+                    if len(group) == steps_per_loop:
+                        self._flush_group(group)
+                else:
+                    # the step's span starts at the batch's arrival
+                    self._fit_batch(xs, ys, fms, lms, _t0=te1)
+            self._flush_group(group)
             self.epoch += 1
         return self
 
-    def _fit_batch(self, xs, ys, fms=None, lms=None):
-        if self.listeners:
-            raise NotImplementedError(
-                "training listeners come with the MultiLayerNetwork-core "
-                "slice")
+    _flush_group = MultiLayerNetwork._flush_group
+    _check_no_listeners = MultiLayerNetwork._check_no_listeners
+
+    def _fit_group(self, group):
+        """One K-step region over the K ``(xs, ys, fms, lms)`` batches of
+        ``group`` (one shape and mask structure): the fault site first,
+        then each input, label and mask stacked on the host and moved to
+        the device in one copy, the K updates in turn with their losses
+        written into a [K] tensor on the device, and one copy of the K
+        losses to the host (as ``MultiLayerNetwork._fit_group``)."""
+        self._check_no_listeners()
         t0 = obs.now()
-        rng = fold_in(self.conf.seed, self.iteration)
+        faults.inject("step")       # site: step dispatch (resilience/)
+        dev = self.device
+
+        def field(pos, j, dtype=None):
+            return stage([item[pos][j] for item in group], dev, dtype)
+
+        xs = [field(0, j) for j in range(len(group[0][0]))]
+        ys = [field(1, j) for j in range(len(group[0][1]))]
+        fms = [None if m is None else field(2, j, torch.float32)
+               for j, m in enumerate(group[0][2] or [])]
+        lms = [None if m is None else field(3, j, torch.float32)
+               for j, m in enumerate(group[0][3] or [])]
         t1 = obs.now()
+        losses = torch.empty(len(group), dtype=torch.float32, device=dev)
+        with obs.devtime.scope(REGION_SCOPE.format("ComputationGraph")):
+            for i in range(len(group)):
+                rng = fold_in(self.conf.seed, self.iteration + i)
+                losses[i] = self._update(
+                    [x[i] for x in xs], [y[i] for y in ys],
+                    [None if m is None else m[i] for m in fms],
+                    [None if m is None else m[i] for m in lms], rng)
+        t2 = obs.now()
+        host = losses.cpu()         # the group's one device sync
+        t3 = obs.now()
+        self.score_ = float(host[-1])
+        self.iteration += len(group)
+        obs.record_step("ComputationGraph.fit", t0, t1, t2, t3,
+                        args={"steps": len(group)})
+
+    def _update(self, xs, ys, fms, lms, rng):
+        """One gradient + optimizer update; returns the loss (on the
+        device)."""
         loss, grads, new_state = self._loss_and_grads(xs, ys, fms, lms,
                                                       rng)
         self.params, self.opt_state = apply_updates(
             self.conf.updater, self._grad_norm, self.params, grads,
             self.opt_state)
         self.state = new_state
+        return loss
+
+    def _fit_batch(self, xs, ys, fms=None, lms=None, _t0=None):
+        self._check_no_listeners()
+        t0 = obs.now() if _t0 is None else _t0
+        faults.inject("step")       # site: step dispatch (resilience/)
+        rng = fold_in(self.conf.seed, self.iteration)
+        t1 = obs.now()
+        loss = self._update(xs, ys, fms, lms, rng)
         t2 = obs.now()
         self.score_ = float(loss)     # blocking device sync
         obs.record_step("ComputationGraph.fit", t0, t1, t2, obs.now())

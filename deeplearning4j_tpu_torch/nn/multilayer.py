@@ -18,10 +18,13 @@ rebinds its donated arrays.
 Not in this slice (each raises ``NotImplementedError`` naming the later
 slice): truncated BPTT, input preprocessors, listeners, l1/l2 and
 per-layer weight decay, per-layer updaters or learning rates, frozen
-layers, constraints, weight noise, the numerics observatory. A
-``steps_per_loop`` group runs its steps one after another (the JAX
-package scans them in one program; the results are the same); a CUDA
-graph over the group is later work.
+layers, constraints, weight noise, the numerics observatory.
+
+``fit(iterator, steps_per_loop=K)`` runs groups of K batches as one
+K-step region (:meth:`MultiLayerNetwork._fit_group`): the counterpart of
+the JAX package's scanned loop, with one host→device copy a field and
+one device→host copy of the K losses, and no read-back between the
+updates; a CUDA graph over the region is later work.
 
 Under a ``parallel.distributed_context`` a network whose layers carry a
 ``sequence_parallel`` mode trains and infers sequence-parallel, by the
@@ -59,6 +62,7 @@ from deeplearning4j_tpu_torch.nn.layers.core import OutputLayer
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     BaseRecurrentLayer, RnnOutputLayer)
 from deeplearning4j_tpu_torch.ops import losses as losses_mod
+from deeplearning4j_tpu_torch.resilience import faults
 
 # losses that support the fused from_logits path, keyed by activation
 _FUSABLE = {
@@ -75,6 +79,27 @@ _UNPORTED_LAYER_OPTIONS = (
     ("learning_rate", "a per-layer learning rate"),
     ("constraints", "parameter constraints"),
     ("weight_noise", "weight noise"))
+
+
+#: (optax state type, field) → the port's name for that state leaf
+#: (``nn/updaters.py``): every state an updater of the JAX package keeps
+_OPTAX_FIELDS = {
+    **{("ScaleByAdamState", f): f for f in ("count", "mu", "nu")},
+    **{("ScaleByAmsgradState", f): f
+       for f in ("count", "mu", "nu", "nu_max")},
+    ("ScaleByScheduleState", "count"): "schedule_count",
+    ("ScaleByRmsState", "nu"): "nu",
+    ("ScaleByRssState", "sum_of_squares"): "sum_of_squares",
+    ("ScaleByAdaDeltaState", "e_g"): "e_g",
+    ("ScaleByAdaDeltaState", "e_x"): "e_x",
+    ("TraceState", "trace"): "trace",
+}
+
+
+#: the named device-time scope around a K-step region's updates (the
+#: network's class name filled in): a profiler window reads the region's
+#: own host calls — no device sync may fall inside it
+REGION_SCOPE = "{}.fit/region"
 
 
 def _lname(i: int) -> str:
@@ -169,6 +194,17 @@ def evaluate_batches(net, iterator, *evals):
         for e in evals:
             e.eval(y, out)
     return list(evals)
+
+
+def stage(arrays, device, dtype=None) -> torch.Tensor:
+    """The K arrays of one field of a ``steps_per_loop`` group stacked
+    into [K, ...] on the host (on the device when they already lie
+    there) and moved to ``device`` in one copy."""
+    if all(isinstance(a, torch.Tensor) for a in arrays):
+        t = torch.stack(list(arrays))
+    else:
+        t = torch.from_numpy(np.stack([np.asarray(a) for a in arrays]))
+    return t.to(device, dtype=dtype)
 
 
 def apply_updates(updater, grad_norm, params, grads, opt_state):
@@ -284,13 +320,16 @@ class MultiLayerNetwork:
         """Load a JAX network's optimizer state: ``state_tree`` is what
         ``jax.tree.map(np.asarray, net.opt_state)`` gives — optax's
         per-group ``multi_transform`` state of namedtuples, tuples and
-        dicts, whose Adam-family leaves are each group's ``count``,
-        ``mu`` and ``nu``. Each leaf of this network's optimizer state is
-        found there by its group, its field and its parameter keys, and
-        checked for shape. Returns self."""
+        dicts. Each leaf is mapped by its group, the optax state type
+        and field that hold it (:data:`_OPTAX_FIELDS`: a schedule's
+        ``ScaleByScheduleState.count`` becomes ``schedule_count``, apart
+        from Adam's ``count``) and its parameter keys; the state type
+        must be the updater's (``Updater.optax_state``), and each leaf
+        is checked for shape against this network's optimizer state.
+        Returns self."""
         if self.opt_state is None:
             raise RuntimeError("call init() before opt_state_from_jax()")
-        found = {}
+        by_key = {}
 
         def walk(node, path):
             if isinstance(node, dict):
@@ -298,30 +337,40 @@ class MultiLayerNetwork:
                     walk(v, path + (k,))
             elif isinstance(node, tuple) and hasattr(node, "_fields"):
                 for f in node._fields:
-                    walk(getattr(node, f), path + (f,))
+                    walk(getattr(node, f),
+                         path + ((type(node).__name__, f),))
             elif isinstance(node, (tuple, list)):
                 for i, v in enumerate(node):
                     walk(v, path + (i,))
             else:
-                found[path] = node
+                add(path, node)
 
-        walk(state_tree, ())
-        by_key = {}
-        for path, leaf in found.items():
-            # (..., "inner_states", group, ..., field[, group, *keys])
-            group = path[path.index("inner_states") + 1]
+        def add(path, leaf):
+            # (..., (multi_transform's state, "inner_states"), group,
+            #  ..., (state type, field)[, group], *keys)
             at = next(i for i, p in enumerate(path)
-                      if isinstance(p, str) and p in ("count", "mu", "nu"))
-            rest = path[at + 1:]
+                      if isinstance(p, tuple) and p[1] == "inner_states")
+            group = path[at + 1]
+            i = max(i for i, p in enumerate(path)
+                    if isinstance(p, tuple) and p in _OPTAX_FIELDS)
+            rest = path[i + 1:]
             if rest and rest[0] == group:
                 rest = rest[1:]
-            by_key[(group, path[at]) + rest] = leaf
+            by_key[(group, path[i][0], _OPTAX_FIELDS[path[i]])
+                   + rest] = leaf
+
+        walk(state_tree, ())
+
+        moments = self.conf.updater.optax_state
 
         def load(path, t):
-            if path not in by_key:
+            kind = ("ScaleByScheduleState" if path[1] == "schedule_count"
+                    else moments)
+            key = (path[0], kind) + path[1:]
+            if key not in by_key:
                 raise ValueError(f"opt_state{list(path)}: not in the JAX "
-                                 "optimizer state")
-            a = tree.to_torch(by_key[path])
+                                 f"optimizer state (as {kind})")
+            a = tree.to_torch(by_key[key])
             if tuple(a.shape) != tuple(t.shape):
                 raise ValueError(f"opt_state{list(path)}: shape "
                                  f"{tuple(a.shape)} != {tuple(t.shape)}")
@@ -529,9 +578,12 @@ class MultiLayerNetwork:
 
         Iterator elements: DataSet-like (``.features``/``.labels``/
         ``.features_mask``/``.labels_mask``) or (x, y) tuples.
-        ``steps_per_loop`` groups batches for the JAX package's scanned
-        device loop; here the group's steps run one after another, with
-        the same results."""
+        ``steps_per_loop`` > 1 groups mask-free batches of one shape into
+        K-step regions (:meth:`_fit_group`), the JAX package's rule
+        (``deeplearning4j_tpu/nn/multilayer.py:575-593``): a batch with
+        masks runs alone and flushes the group, a change of shape
+        flushes it, and a group of one runs as a single batch. The
+        numbers equal those of one ``fit`` a batch."""
         if steps_per_loop < 1:
             raise ValueError(f"steps_per_loop={steps_per_loop} < 1")
         if labels is not None:
@@ -547,23 +599,86 @@ class MultiLayerNetwork:
         for _ in range(epochs):
             if hasattr(features, "reset"):
                 features.reset()
-            for ds in features:
+            group: list = []
+            src = iter(features)
+            while True:
+                te0 = obs.now()     # iterator wait = ETL attribution
+                try:
+                    ds = next(src)
+                except StopIteration:
+                    break
+                te1 = obs.now()
+                obs.record_etl("MultiLayerNetwork.fit", te0, te1)
                 if hasattr(ds, "features"):
-                    self._fit_batch(ds.features, ds.labels,
-                                    getattr(ds, "features_mask", None),
-                                    getattr(ds, "labels_mask", None))
+                    x, y = ds.features, ds.labels
+                    fm = getattr(ds, "features_mask", None)
+                    lm = getattr(ds, "labels_mask", None)
                 else:
                     x, y = ds
-                    self._fit_batch(x, y)
+                    fm = lm = None
+                if steps_per_loop > 1 and fm is None and lm is None:
+                    if group and (np.shape(group[-1][0]) != np.shape(x)
+                                  or np.shape(group[-1][1]) != np.shape(y)):
+                        self._flush_group(group)
+                    group.append((x, y))
+                    if len(group) == steps_per_loop:
+                        self._flush_group(group)
+                else:
+                    self._flush_group(group)
+                    # the step's span starts at the batch's arrival
+                    self._fit_batch(x, y, fm, lm, _t0=te1)
+            self._flush_group(group)
             self.epoch += 1
         return self
 
-    def _fit_batch(self, x, y, fmask=None, lmask=None):
+    def _flush_group(self, group):
+        if not group:
+            return
+        if len(group) == 1:
+            self._fit_batch(*group[0])
+        else:
+            self._fit_group(list(group))
+        group.clear()
+
+    def _fit_group(self, group):
+        """One K-step region over the K (x, y) batches of ``group``: the
+        port's counterpart of the JAX package's scanned device loop.
+        The fault site fires first (a fire changes nothing); each array
+        of the group is stacked on the host and moved to the device in
+        one copy; the K updates then run in turn, update ``i`` with the
+        dropout seed of iteration ``iteration + i`` and its loss written
+        into a [K] tensor on the device, with no read-back between them;
+        the K losses come to the host in one copy at the end."""
+        self._check_no_listeners()
+        t0 = obs.now()
+        faults.inject("step")       # site: step dispatch (resilience/)
+        xs = stage([x for x, _ in group], self.device)
+        ys = stage([y for _, y in group], self.device)
+        t1 = obs.now()
+        losses = torch.empty(len(group), dtype=torch.float32,
+                             device=self.device)
+        with obs.devtime.scope(REGION_SCOPE.format("MultiLayerNetwork")):
+            for i in range(len(group)):
+                rng = fold_in(self.conf.seed, self.iteration + i)
+                losses[i] = self._update(xs[i], ys[i], None, None, rng)
+        t2 = obs.now()
+        host = losses.cpu()         # the group's one device sync
+        t3 = obs.now()
+        self.score_ = float(host[-1])
+        self.iteration += len(group)
+        obs.record_step("MultiLayerNetwork.fit", t0, t1, t2, t3,
+                        args={"steps": len(group)})
+
+    def _check_no_listeners(self):
         if self.listeners:
             raise NotImplementedError(
                 "training listeners come with the MultiLayerNetwork-core "
                 "slice")
-        t0 = obs.now()
+
+    def _fit_batch(self, x, y, fmask=None, lmask=None, _t0=None):
+        self._check_no_listeners()
+        t0 = obs.now() if _t0 is None else _t0
+        faults.inject("step")       # site: step dispatch (resilience/)
         x, y = self._as_input(x), self._as_input(y)
         fmask = self._as_input(fmask, torch.float32)
         lmask = self._as_input(lmask, torch.float32)

@@ -23,7 +23,11 @@ sharded update; ``dp_graph``: BERT-base's classifier, a
 its attention runs unmasked; ``eval``: the same classifier's
 ``evaluate`` on full-length rows, a forward alone, counted per evaluated
 batch; ``beam``: one ``generate_beam`` call of ``BEAM_NEW`` tokens),
-its launches per step. ``serve`` and ``serve_opts`` run no fixed steps:
+its launches per step. ``train_opts`` and ``finetune_opts`` are the train
+and fine-tune steps in ``steps_per_loop`` regions under a learning-rate
+schedule, with the counts of ``train`` and ``finetune``; ``serve_fault``
+is the serving gateway under the ``serving`` fault site. ``serve``,
+``serve_opts`` and ``serve_fault`` run no fixed steps:
 ``chip_smoke.py`` derives their exact counts from the admissions and
 steps each run made.
 ``chip_smoke.py`` reads this table: it builds and checks every
@@ -64,7 +68,9 @@ class KernelEntry:
     #: train LM data-parallel over one rank), ``sp`` (the long-context
     #: LM's zigzag ring at one rank), ``eval`` (BERT-base's classifier
     #: forward, per evaluated batch), ``beam`` (one ``generate_beam``
-    #: call); ``serve`` and ``serve_opts`` run no fixed steps
+    #: call), ``train_opts`` and ``finetune_opts`` (as ``train`` and
+    #: ``finetune``); ``serve``, ``serve_opts`` and ``serve_fault`` run
+    #: no fixed steps
     per_step: Dict[str, int] = field(default_factory=dict)
 
     def _resolve(self, ref: str) -> Callable:
@@ -89,8 +95,12 @@ _NORM = "deeplearning4j_tpu_torch.ops.fused_norms"
 #: the data-parallel paths, which run the train LM's step (``zero``
 #: through the sharded update)
 _DP = ("dp", "dp_packed", "zero")
-#: the fine-tune step's paths: alone, and under the wrapper
-_FT = ("finetune", "dp_graph")
+#: the fine-tune step's paths: alone, under the wrapper, and in K-step
+#: regions under a schedule
+_FT = ("finetune", "dp_graph", "finetune_opts")
+#: the train step's paths on one network: alone, and in K-step regions
+#: under a schedule
+_TR = ("train", "train_opts")
 #: parameter leaves of the train LM (tied: the embedding; 10 a block of
 #: 12; the final norm's gamma; the head's bias), ``len(list(tree.leaves(
 #: net.params)))``, held by ``tests/test_torch_threshold_codec.py`` and
@@ -104,8 +114,13 @@ def _dp(n: int) -> Dict[str, int]:
 
 
 def _ft(n: int) -> Dict[str, int]:
-    """The fine-tune step's count ``n`` on both of its paths."""
+    """The fine-tune step's count ``n`` on each of its paths."""
     return {path: n for path in _FT}
+
+
+def _tr(n: int) -> Dict[str, int]:
+    """The train step's count ``n`` on each of its one-network paths."""
+    return {path: n for path in _TR}
 
 
 #: tokens of the ``beam`` path's ``generate_beam`` call: its prefill
@@ -130,9 +145,9 @@ KERNELS: Tuple[KernelEntry, ...] = (
         plain=f"{_CK}:flash_attention_reference",
         # once a block (the sp path: once a block pair; serving: once a
         # block of every prefill that is not a shared-prefix admission)
-        paths=("serve", "train", *_FT, "longctx", *_DP, "sp", "eval",
-               "serve_opts", "beam"),
-        per_step={"train": 12, **_ft(12), "longctx": 12,
+        paths=("serve", *_TR, *_FT, "longctx", *_DP, "sp", "eval",
+               "serve_opts", "beam", "serve_fault"),
+        per_step={**_tr(12), **_ft(12), "longctx": 12,
                   **_dp(12), "sp": SP_PAIRS * 12, "eval": 12,
                   "beam": 12}),
     KernelEntry(
@@ -142,9 +157,9 @@ KERNELS: Tuple[KernelEntry, ...] = (
         port=f"{_NORM}:rms_norm", plain=f"{_NORM}:rms_norm_reference",
         # training: ln1 of 12 blocks, the final norm; decoding: ln1 and
         # ln2 of 12 blocks and the final norm, in every prefill and step
-        paths=("serve", "train", "longctx", *_DP, "sp", "serve_opts",
-               "beam"),
-        per_step={"train": 13, "longctx": 13, **_dp(13), "sp": 13,
+        paths=("serve", *_TR, "longctx", *_DP, "sp", "serve_opts",
+               "beam", "serve_fault"),
+        per_step={**_tr(13), "longctx": 13, **_dp(13), "sp": 13,
                   "beam": 25 * BEAM_NEW}),
     KernelEntry(
         "K3", "flash_attention_bwd_fused", f"{_PK}:488",
@@ -152,9 +167,9 @@ KERNELS: Tuple[KernelEntry, ...] = (
         source="deeplearning4j_tpu_torch/csrc/flash_attention_bwd.cu",
         port=f"{_CK}:flash_attention_bwd",
         plain=f"{_CK}:flash_attention_bwd_reference",
-        paths=("train", *_FT, *_DP, "sp"),
+        paths=(*_TR, *_FT, *_DP, "sp"),
         # once a block (the sp path: once a block pair)
-        per_step={"train": 12, **_ft(12), **_dp(12),
+        per_step={**_tr(12), **_ft(12), **_dp(12),
                   "sp": SP_PAIRS * 12}),
     KernelEntry(
         "K4", "flash_attention_bwd_dq", f"{_PK}:418", f"{_PK}:_flash_bwd",
@@ -176,8 +191,8 @@ KERNELS: Tuple[KernelEntry, ...] = (
         source="deeplearning4j_tpu_torch/csrc/norm_bwd.cu",
         port=f"{_NORM}:rms_norm_bwd",
         plain=f"{_NORM}:rms_norm_bwd_reference",
-        paths=("train", "longctx", *_DP, "sp"),
-        per_step={"train": 25, "longctx": 25, **_dp(25),
+        paths=(*_TR, "longctx", *_DP, "sp"),
+        per_step={**_tr(25), "longctx": 25, **_dp(25),
                   "sp": 25}),                             # all 25 norms
     KernelEntry(
         "K7", "add_rms_norm_fwd", f"{_FN}:218", f"{_FN}:add_rms_norm",
@@ -185,8 +200,8 @@ KERNELS: Tuple[KernelEntry, ...] = (
         source="deeplearning4j_tpu_torch/ops/fused_norms.py",
         port=f"{_NORM}:add_rms_norm",
         plain=f"{_NORM}:add_rms_norm_reference",
-        paths=("train", "longctx", *_DP, "sp"),
-        per_step={"train": 12, "longctx": 12, **_dp(12),
+        paths=(*_TR, "longctx", *_DP, "sp"),
+        per_step={**_tr(12), "longctx": 12, **_dp(12),
                   "sp": 12}),                             # once a block
     KernelEntry(
         "K8", "layer_norm_fwd", f"{_FN}:298", f"{_FN}:layer_norm",
@@ -228,5 +243,6 @@ def ported() -> Tuple[KernelEntry, ...]:
 def on_path(path: str) -> Tuple[KernelEntry, ...]:
     """The ported rows a main path (``serve``, ``train``, ``finetune``,
     ``longctx``, ``dp``, ``dp_packed``, ``sp``, ``zero``, ``dp_graph``,
-    ``eval``, ``serve_opts``, ``beam``) launches."""
+    ``eval``, ``serve_opts``, ``beam``, ``train_opts``,
+    ``finetune_opts``, ``serve_fault``) launches."""
     return tuple(e for e in ported() if path in e.paths)

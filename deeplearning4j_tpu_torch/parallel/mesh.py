@@ -60,13 +60,23 @@ layer:
 from __future__ import annotations
 
 import math
-import os
 import threading
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from deeplearning4j_tpu_torch.environment import get_flag
+
+
+def _required_flag(name: str) -> int:
+    """The flag ``name``, which a coordinated start needs: ``KeyError``
+    when it is not set."""
+    value = get_flag(name)
+    if value is None:
+        raise KeyError(name)
+    return value
 
 
 def _backend() -> str:
@@ -88,20 +98,20 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     ``cuda:r`` (mod the host's cards)."""
     if dist.is_initialized():
         return
-    coordinator_address = coordinator_address or os.environ.get(
+    coordinator_address = coordinator_address or get_flag(
         "DL4J_TPU_COORD")
     if torch.cuda.is_available():
-        rank = process_id if process_id is not None else int(
-            os.environ.get("DL4J_TPU_PROC_ID", 0))
+        rank = process_id if process_id is not None else (
+            get_flag("DL4J_TPU_PROC_ID") or 0)
         torch.cuda.set_device(rank % torch.cuda.device_count())
     if coordinator_address is None:
         dist.init_process_group(_backend(), store=dist.HashStore(),
                                 rank=0, world_size=1)
         return
     if num_processes is None:
-        num_processes = int(os.environ["DL4J_TPU_NPROC"])
+        num_processes = _required_flag("DL4J_TPU_NPROC")
     if process_id is None:          # NOT `or`: rank 0 is falsy
-        process_id = int(os.environ["DL4J_TPU_PROC_ID"])
+        process_id = _required_flag("DL4J_TPU_PROC_ID")
     url = (coordinator_address if "://" in coordinator_address
            else f"tcp://{coordinator_address}")
     dist.init_process_group(_backend(), init_method=url,

@@ -87,6 +87,7 @@ from deeplearning4j_tpu_torch.parallel.mesh import (Mesh, all_gather_,
                                                     mean_over)
 from deeplearning4j_tpu_torch.parallel.zero import (FlatShardLayout,
                                                     per_device_bytes)
+from deeplearning4j_tpu_torch.resilience import faults
 
 _LOG = logging.getLogger("deeplearning4j_tpu_torch")
 
@@ -595,12 +596,25 @@ class ParallelWrapper:
             # trains from them
             self._pshard = self._init_param_shards()
         n_steps, b = (None, None) if self.n == 1 else self._agree(iterator)
+        # the liveness key: a heartbeat a step (obs.health), retired
+        # when fit ends normally
+        worker = f"proc{dist.get_rank() if dist.is_initialized() else 0}"
         for _ in range(epochs):
             if hasattr(iterator, "reset"):
                 iterator.reset()
-            for i, ds in enumerate(iterator):
+            i = 0
+            src = iter(iterator)
+            while True:
+                te0 = obs.now()     # iterator wait = ETL attribution
+                try:
+                    ds = next(src)
+                except StopIteration:
+                    break
+                obs.record_etl("ParallelWrapper.fit", te0, obs.now())
+                faults.inject("worker_step")  # site: worker loop body
                 if n_steps is not None and i >= n_steps:
                     break                # stay in lockstep with the group
+                i += 1
                 t0 = obs.now()
                 if has_masks(ds):
                     raise NotImplementedError(
@@ -633,10 +647,12 @@ class ParallelWrapper:
                 loss = self._step(x, y, rng)
                 t2 = obs.now()
                 net.score_ = float(loss)     # blocking device sync
-                obs.record_step("ParallelWrapper.fit", t0, t1, t2,
-                                obs.now())
+                obs.record_worker_step(worker, t0, t1, t2, obs.now())
                 net.iteration += 1
             net.epoch += 1
+        # normal completion: retire the liveness beat, so a finished fit
+        # does not read as a stale worker (a crashed loop keeps it)
+        obs.health.retire(worker)
         if self._rep is not None:
             self._sync_back()
         return net

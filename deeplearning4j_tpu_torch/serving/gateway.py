@@ -18,8 +18,15 @@ the kernels on its own thread's current CUDA stream.
 Shed taxonomy (``dl4j_tpu_serving_requests_shed_total{reason=}``):
 ``queue_full`` at submit, ``deadline`` when the admission wait outlives
 the request's budget, ``shutdown`` at drain, ``fault`` when a step or
-an admission fails. (The JAX package's injected-fault site comes with
-the resilience slice.)
+an admission fails — or when the ``serving`` fault site
+(``resilience/faults.py``) fires just before a step.
+
+Request traces (``obs/trace.py``, when tracing is on): each request's
+life is an async track keyed by its id — ``serving.request`` with its
+``queue_wait``, ``prefill`` and ``decode_steps`` phases, emitted at its
+end with the outcome (``retired`` or ``aborted:<error>``) — plus a
+``serving.request/submit`` instant; the worker thread is named
+``serving-gateway``. Off, each costs one branch.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ import numpy as np
 from deeplearning4j_tpu_torch import obs
 from deeplearning4j_tpu_torch.parallel.inference import (
     DeadlineExpiredError, QueueFullError, ServingShutdownError)
+from deeplearning4j_tpu_torch.resilience import faults
 from deeplearning4j_tpu_torch.serving.scheduler import DecodeScheduler
 
 
@@ -74,6 +82,29 @@ class TokenStream:
         self._error: Optional[Exception] = None
         self._cond = threading.Condition()
 
+    def _trace_done(self, outcome: str) -> None:
+        """Emit the request's async trace track (submit → admit →
+        prefill → decode steps → retire/abort) at its end — one
+        ``trace.enabled()`` branch when tracing is off."""
+        if not obs.trace.enabled():
+            return
+        t1 = obs.now()
+        a = {"rid": self.rid, "tenant": self.tenant,
+             "outcome": outcome, "tokens": len(self._tokens)}
+        obs.trace.async_span("serving.request", self.rid,
+                             self.t_submit, t1, a)
+        if self.t_admit is not None:
+            obs.trace.async_span("serving.request/queue_wait",
+                                 self.rid, self.t_submit,
+                                 self.t_admit)
+            if self.t_first is not None:
+                obs.trace.async_span("serving.request/prefill",
+                                     self.rid, self.t_admit,
+                                     self.t_first)
+                obs.trace.async_span("serving.request/decode_steps",
+                                     self.rid, self.t_first, t1,
+                                     {"tokens": len(self._tokens)})
+
     # -- scheduler-facing callbacks (duck-typed request protocol) --------
     def push(self, tok: int) -> None:
         with self._cond:
@@ -86,7 +117,10 @@ class TokenStream:
 
     def finish(self) -> None:
         with self._cond:
+            if self._done:
+                return
             self._done = True
+            self._trace_done("retired")
             self._cond.notify_all()
 
     def fail(self, e: Exception) -> None:
@@ -97,6 +131,7 @@ class TokenStream:
                 e.tokens = list(self._tokens)
             self._error = e
             self._done = True
+            self._trace_done(f"aborted:{type(e).__name__}")
             self._cond.notify_all()
 
     # -- client API ------------------------------------------------------
@@ -292,6 +327,11 @@ class ServingGateway:
             prompt, max_new, tenant, temperature, self.eos_id,
             deadline=(obs.now() + deadline_s
                       if deadline_s is not None else None))
+        if obs.trace.enabled():     # off path: one branch, zero events
+            obs.trace.instant("serving.request/submit",
+                              {"rid": stream.rid, "tenant": tenant,
+                               "prompt": int(prompt.size),
+                               "max_new": max_new})
         with self._lock:
             # re-check under the lock: shutdown() drains the queues
             # under this same lock
@@ -482,6 +522,7 @@ class ServingGateway:
             self._sched.evict(st)
 
     def _loop(self) -> None:
+        obs.trace.set_thread_name("serving-gateway")
         while not self._stop.is_set():
             if self._pause.is_set():
                 self._parked.set()
@@ -498,8 +539,10 @@ class ServingGateway:
                         self._work.wait(0.05)
                 continue
             try:
-                # no gateway lock here: submit() never waits out a
-                # decode iteration
+                # the serving fault site: a fire sheds the in-flight
+                # streams as a failed step does. No gateway lock here:
+                # submit() never waits out a decode iteration
+                faults.inject("serving")
                 self._sched.step()
             except Exception as e:
                 n = self._sched.shed_all(lambda: SequenceAborted(

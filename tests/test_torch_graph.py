@@ -262,8 +262,10 @@ def test_unported_options_raise_naming_the_slice():
     with pytest.raises(NotImplementedError, match="graph.py:290-298"):
         rnn_out.init(device="cpu")
     g = _graph_with().init(device="cpu")
-    with pytest.raises(NotImplementedError, match="steps_per_loop"):
-        g.fit(iter([]), steps_per_loop=2)
+    # steps_per_loop is ported; below 1 it is refused
+    g.fit(iter([]), steps_per_loop=2)
+    with pytest.raises(ValueError, match="steps_per_loop"):
+        g.fit(iter([]), steps_per_loop=0)
     with pytest.raises(NotImplementedError, match="listeners"):
         g.set_listeners(object())
     with pytest.raises(RuntimeError, match="init"):

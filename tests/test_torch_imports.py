@@ -26,7 +26,11 @@ def test_importing_every_port_module_stays_light():
     mods = list(_modules())
     assert {"deeplearning4j_tpu_torch.serving.gateway",
             "deeplearning4j_tpu_torch.eval_.evaluation",
-            "deeplearning4j_tpu_torch.data.iterators"} <= set(mods)
+            "deeplearning4j_tpu_torch.data.iterators",
+            "deeplearning4j_tpu_torch.environment",
+            "deeplearning4j_tpu_torch.obs.trace",
+            "deeplearning4j_tpu_torch.obs.health",
+            "deeplearning4j_tpu_torch.resilience.faults"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"

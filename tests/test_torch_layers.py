@@ -252,8 +252,11 @@ def test_gradient_normalization_matches_jax(mode):
 
 
 def test_unported_updater_options_raise():
-    with pytest.raises(NotImplementedError, match="schedule"):
-        pupd.Adam(schedule=object()).init_state({})
+    # a schedule is ported: it adds its own counter to the state
+    st = pupd.Adam(schedule=pupd.FixedSchedule(0.1)).init_state(
+        {"w": torch.zeros(2)})
+    assert st["schedule_count"].dtype == torch.int32
+    assert int(st["schedule_count"]) == 0
     with pytest.raises(ValueError, match="gradient normalization"):
         pupd.gradient_normalization("bogus")
 

@@ -240,14 +240,22 @@ def test_registry_lists_every_tpu_kernel():
         assert e.paths and set(e.paths) <= {"serve", "train", "finetune",
                                             "longctx", "dp", "dp_packed",
                                             "sp", "zero", "dp_graph",
-                                            "eval", "serve_opts", "beam"}
+                                            "eval", "serve_opts", "beam",
+                                            "train_opts", "finetune_opts",
+                                            "serve_fault"}
         # the stepped phases' expected launches per step: one positive
         # count for each stepped path of the row, none for the gateways
-        stepped = set(e.paths) - {"serve", "serve_opts"}
+        stepped = set(e.paths) - {"serve", "serve_opts", "serve_fault"}
         assert set(e.per_step) == stepped
         assert all(n > 0 for n in e.per_step.values())
     assert {e.key for e in on_path("serve")} == {"K1", "K2"}
     assert {e.key for e in on_path("serve_opts")} == {"K1", "K2"}
+    assert {e.key for e in on_path("serve_fault")} == {"K1", "K2"}
+    # the K-step regions launch what the train and fine-tune steps do
+    for path, like in (("train_opts", "train"),
+                       ("finetune_opts", "finetune")):
+        assert {e.key: e.per_step[path] for e in on_path(path)} == \
+            {e.key: e.per_step[like] for e in on_path(like)}
     # one generate_beam call: K1 once a block of its one prefill, K2 at
     # the 25 norms of the prefill and of each of BEAM_NEW - 1 steps
     assert {e.key: e.per_step["beam"] for e in on_path("beam")} == {

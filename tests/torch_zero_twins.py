@@ -53,6 +53,9 @@ Twins (the JAX test each stands for, in brackets):
   trajectory's bands;
 - AdamW's decay mask by key name kept on the shards: sharded equals
   replicated;
+- AdamW under a warmup into a cosine, sharded: the losses, params and
+  the gathered state with the schedule's counter against the JAX
+  sharded wrapper's;
 - C4: dropout 0.5 under SYNC, the same rows on every rank: no rank's
   mask equals another's, the keep rate is 0.35–0.65, the params equal
   to the bit; a one-rank group's wrapper step equals ``net.fit``'s;
@@ -127,11 +130,12 @@ def _jax_net(kw, updater=None):
     return JaxNet(conf).init()
 
 
-def _port_opt(jax_opt, kw):
+def _port_opt(jax_opt, kw, updater=None):
     """A JAX optimizer state (the whole layout) in the port's layout,
     through ``opt_state_from_jax`` on a port net of the same kind."""
     b = (worker.NeuralNetConfiguration.builder().seed(kw["seed"])
-         .updater(worker.upd.Adam(learning_rate=kw["lr"])).list()
+         .updater(updater or worker.upd.Adam(learning_rate=kw["lr"]))
+         .list()
          .layer(worker.DenseLayer(n_out=kw["hidden"], activation=kw["act"]))
          .layer(worker.OutputLayer(n_out=kw["classes"],
                                    activation="softmax", loss="mcxent"))
@@ -220,6 +224,21 @@ def _jax_zero(inp, world):
     out["params"] = _flat(jax.tree.map(np.asarray, net.params), "params")
     out["opt"] = _flat(_port_opt(w.gather_opt_state(), worker.MLP), "opt")
     out["opt_bytes"] = jax_per_device_bytes(w._dp_state, world)
+    # AdamW under a warmup into a cosine, sharded
+    net = _jax_net(worker.MLP, updater=worker.sched_adamw(jupd))
+    w = JaxWrapper(net, workers=world, sharded_update=True,
+                   prefetch_buffer=0)
+    losses = []
+    for _ in range(3):
+        for ds in data:
+            w.fit([ds])
+            losses.append(float(net.score_))
+    out["sched/losses"] = losses
+    out["sched/params"] = _flat(jax.tree.map(np.asarray, net.params),
+                                "params")
+    out["sched/opt"] = _flat(_port_opt(
+        w.gather_opt_state(), worker.MLP, worker.sched_adamw(worker.upd)),
+        "opt")
     # the refusals' messages
     msgs = {}
     conf = (JaxConf.builder().seed(42)
@@ -415,7 +434,7 @@ def test_rank_holds_one_nth_of_the_moments(runs):
         assert [shards[k] for k in moments if "/mu/" in k] == want
         assert [shards[k] for k in moments if "/nu/" in k] == want
         assert log["traj/sh/opt_bytes"] == runs["jax"]["opt_bytes"]
-        assert log["traj/sh/gauge"]["layout=sharded"] == \
+        assert log["traj/sh/gauge"]['{layout="sharded"}'] == \
             log["traj/sh/opt_bytes"]
         assert log["traj/sh/evicted_device"] == ["cpu"]
 
@@ -492,6 +511,27 @@ def test_gather_opt_state_matches_jax(runs):
     for res, _ in runs["ranks"]:
         _moments_check(_sub(_under(res, "traj/sh"), "opt"),
                        runs["jax"]["opt"])
+
+
+def test_sharded_update_under_a_schedule_matches_jax(runs):
+    """AdamW under ``WarmupSchedule(CosineSchedule)``, 12 sharded steps
+    against the JAX sharded wrapper's: the losses and params in the
+    trajectory's bands, and the gathered state — the schedule's own
+    counter (``schedule_count``, 12) beside Adam's — in its moments
+    band."""
+    ref = runs["jax"]
+    for res, log in runs["ranks"]:
+        np.testing.assert_allclose(log["sched/sh/losses"],
+                                   ref["sched/losses"], rtol=LOSS_RTOL,
+                                   atol=0)
+        _param_check(_under(res, "sched/sh/params"),
+                     _under(ref["sched/params"], "params"),
+                     worker.MLP["lr"], STEPS)
+        got = _sub(_under(res, "sched/sh"), "opt")
+        counts = [k for k in got if k.endswith("/schedule_count")]
+        assert len(counts) == 2
+        assert all(int(got[k]) == STEPS for k in counts)
+        _moments_check(got, ref["sched/opt"])
 
 
 def test_resume_keeps_the_moments(runs):

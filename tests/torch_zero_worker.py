@@ -7,7 +7,8 @@
 Every world size runs, from the carried-across weights and the batches
 of ``DIR/inputs.npz`` (rank r fed its block of rows of each global
 batch): the sharded update's trajectory beside replicated SYNC and the
-overlap (``traj``), with AdamW's decay mask (``adamw``); the flat
+overlap (``traj``), with AdamW's decay mask (``adamw``), and under a
+warmup-into-cosine schedule (``sched``); the flat
 reduce-scatter and all-gather against the all-reduce mean (``rs``); the
 overlap against the end gather, reassigned params and a fit that raises
 (``overlap``); a resume inside the port and one from the JAX package's
@@ -64,6 +65,16 @@ SPARK_EPOCHS = 3
 GRAPH_MODES = ("sync", "encoded", "averaging", "async", "sharded")
 
 
+def sched_adamw(mod):
+    """AdamW under a warmup into a cosine, from the updaters module
+    ``mod`` (the port's here, the JAX package's in the twins): the
+    schedule's own counter rides the sharded state."""
+    return mod.AdamW(learning_rate=MLP["lr"], weight_decay=0.01,
+                     schedule=mod.WarmupSchedule(
+                         warmup_steps=4, base=mod.CosineSchedule(
+                             initial=MLP["lr"], max_iter=12)))
+
+
 def mlp_net(inp, key, kw, updater=None, gradient_normalization=None,
             dropout=None):
     """A dense net of ``kw`` (a hidden layer and a softmax output) with
@@ -117,7 +128,8 @@ def traj_cases(inp, mesh, res, log):
     3 epochs of 4 global batches of 64), ``:124`` (the params every rank
     ends with) and ``:145`` (the rank's moments and bytes), with
     replicated SYNC and the overlap from the same weights; then AdamW
-    with its decay mask by key, sharded and replicated."""
+    with its decay mask by key, sharded and replicated; then AdamW under
+    a schedule, sharded, with its gathered optimizer state."""
     r, n = mesh.index("data"), mesh.size("data")
     data = batches(inp, "mlp", r, n, 64)
     for name, kw in (("rep", {}), ("sh", {"sharded_update": True}),
@@ -144,6 +156,11 @@ def traj_cases(inp, mesh, res, log):
         w = ParallelWrapper(net, mesh=mesh, **kw)
         fit_losses(w, data, 1)
         put(res, f"adamw/{name}/params", net.params)
+    net = mlp_net(inp, "mlp", MLP, updater=sched_adamw(upd))
+    w = ParallelWrapper(net, mesh=mesh, sharded_update=True)
+    log["sched/sh/losses"] = fit_losses(w, data, 3)
+    put(res, "sched/sh/params", net.params)
+    put(res, "sched/sh/opt", w.gather_opt_state())
 
 
 def rs_cases(inp, mesh, res):

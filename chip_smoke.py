@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card (H100).
 
-    python3 chip_smoke.py               # phases 1-23 (needs one card)
+    python3 chip_smoke.py               # every phase (needs one card)
     python3 chip_smoke.py --phases train,train_agree,kernels
     python3 chip_smoke.py --phases finetune,finetune_agree,kernels
     python3 chip_smoke.py --phases longctx,longctx_agree,kernels
@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases zero,zero_agree,dp_graph,kernels
     python3 chip_smoke.py --phases eval,eval_agree,kernels
     python3 chip_smoke.py --phases serve_opts,serve_opts_agree,beam,kernels
+    python3 chip_smoke.py --phases lenet,lenet_agree,checkpoint,kernels
     python3 chip_smoke.py --phases profile    # device-time breakdown
 
 Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
@@ -206,8 +207,35 @@ Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
    nothing it leaves behind in the process can slow the host-bound serve
    step (``PERF.md`` records such a slowdown, cause not isolated).
 
+Before kernels, after the training-runtime phases (train_opts,
+train_opts_agree, finetune_opts — which profiles its K = 4 region once
+more with a ``ScoreIterationListener(1)`` attached: still one
+device-to-host copy and no host wait — and serve_fault):
+
+- lenet — LeNet at its published widths (1 256 080 parameters,
+  Nesterovs) on synthetic MNIST, 2048 training and 512 test examples,
+  batch 64, 2 epochs behind ``AsyncDataSetIterator(queue_size=4)`` with
+  the five listeners (Score, Performance, CollectScores, Evaluative a
+  epoch, Checkpoint a epoch keeping 2): the loss finite and falling,
+  test accuracy above 0.97, exactly 2 checkpoints that verify, the
+  newest restored on the card with the same output; the small CNN of
+  ``tests/test_real_digits.py`` to ≥ 0.95 on the real 8×8 digits; no
+  ported kernel launched; the mean step with listeners and without
+  (median of 3 turns), one checkpoint write and the zip's size, the
+  peak memory;
+- lenet_agree — LeNet in float32 (TF32 off) from a JAX-shaped numpy
+  weight tree: one step's loss and gradients and the output, card vs
+  the port on the CPU, in ``train_agree``'s bands; a zip written on the
+  card restored through the CPU port to the same output;
+- checkpoint — BERT-base's classifier at full width in float32 (TF32
+  off) on the finetune phase's batches: 2 steps, ``write_model`` with
+  the updater state, a restore on the card and 2 more steps against 4
+  uninterrupted, each loss within 1e-5 relative and each parameter
+  within 1e-3 of its largest value; K1, K3, K8 and K9 launch as in
+  finetune; the zip's size and the write and restore times.
+
 Each main path (serve, serve_opts, beam, train, finetune, longctx, dp,
-dp_packed, sp, zero, dp_graph, eval) zeroes
+dp_packed, sp, zero, dp_graph, eval, lenet, checkpoint) zeroes
 the launch counters of the kernels just before it runs and reads them
 just after; it fails if a kernel the registry lists for that path was
 not launched, and on a stepped path (all but serve; eval counts its
@@ -246,7 +274,8 @@ PHASES = ("device", "serve", "agree", "serve_opts", "serve_opts_agree",
           "finetune_agree", "longctx", "longctx_agree", "dp", "dp_packed",
           "dp_agree", "sp", "sp_agree", "zero", "zero_agree", "dp_graph",
           "eval", "eval_agree", "train_opts", "train_opts_agree",
-          "finetune_opts", "serve_fault", "kernels")
+          "finetune_opts", "serve_fault", "lenet", "lenet_agree",
+          "checkpoint", "kernels")
 
 # published peaks of one H100 SXM (dense): the bound of a kernel is the
 # larger of its operations over the peak rate for their type and its
@@ -3969,6 +3998,12 @@ def phase_finetune_opts(state):
 
     _region_profile("finetune_opts", group,
                     REGION_SCOPE.format("ComputationGraph"), 5, card)
+    # listeners run after the group's one copy: the region stays as it was
+    from deeplearning4j_tpu_torch.train import ScoreIterationListener
+    net.set_listeners(ScoreIterationListener(1))
+    _region_profile("finetune_opts+ScoreIterationListener(1)", group,
+                    REGION_SCOPE.format("ComputationGraph"), 5, card)
+    net.set_listeners()
     plain = BertBase(seed=2, compute_dtype="bfloat16").init_classifier(
         2, BERT_T)
     _grouped_vs_sequential("finetune_opts", net, plain,
@@ -4054,6 +4089,375 @@ def phase_serve_fault(state):
     finally:
         faults.reset()
         gw.shutdown(drain=False)
+
+
+# -- phases 28-30: LeNet on MNIST, the zip bridge ----------------------------
+#: the lenet phase: the reference's test_lenet_e2e on the card — synthetic
+#: MNIST (the checkout holds no IDX files), its sizes, batch and epochs
+LENET_TRAIN, LENET_TEST, LENET_B, LENET_EPOCHS = 2048, 512, 64, 2
+#: timed epochs, with listeners and without, taken in turns
+LENET_TURNS = 3
+LENET_ACC = 0.97                   # test accuracy after LENET_EPOCHS
+DIGITS_ACC = 0.95                  # the real-digits CNN's bar
+#: the restored checkpoint's output against the live network's: the same
+#: parameters through the same cuDNN calls
+LENET_RESTORE_RTOL = 1e-5
+LENET_RESTORE_ATOL = 1e-6
+#: checkpoint: the resumed run against the uninterrupted one — each loss
+#: to 1e-5 relative, each parameter tensor to 1e-3 of its largest value
+CKPT_LOSS_RTOL = 1e-5
+CKPT_PARAM_TOL = 1e-3
+
+
+def _mnist_dir() -> str:
+    """A data directory inside the checkout that holds no IDX files, so
+    the MNIST iterator takes its synthetic digits (and reads nothing
+    outside the checkout)."""
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "resources", "datasets", "mnist")
+
+
+@contextlib.contextmanager
+def _tf32(on: bool):
+    """TF32 for cuDNN convolutions and matmuls set to ``on`` inside, the
+    previous settings restored after."""
+    import torch
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = on
+    torch.backends.cuda.matmul.allow_tf32 = on
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+
+
+def _lenet_listeners(train_it, test_it, ckpt_dir, perf, evals):
+    from deeplearning4j_tpu_torch.train import (CheckpointListener,
+                                                CollectScoresListener,
+                                                EvaluativeListener,
+                                                PerformanceListener,
+                                                ScoreIterationListener)
+    return [ScoreIterationListener(10),
+            PerformanceListener(10, report=perf.append, iterator=train_it),
+            CollectScoresListener(),
+            EvaluativeListener(test_it, frequency_epochs=1,
+                               callback=evals.append),
+            CheckpointListener(ckpt_dir, save_every_n_epochs=1,
+                               keep_last=2)]
+
+
+def _digits_cnn(card) -> float:
+    """The small CNN of ``tests/test_real_digits.py`` trained 30 epochs
+    on the card; its accuracy on the real digits' test split. No ported
+    kernel may launch in its steps."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import kernel_registry
+    from deeplearning4j_tpu_torch.data import (RealDigitsDataSetIterator,
+                                               load_real_digits)
+    from deeplearning4j_tpu_torch.eval_ import Evaluation
+    from deeplearning4j_tpu_torch.nn import layers as pl
+    from deeplearning4j_tpu_torch.nn import updaters as upd
+    from deeplearning4j_tpu_torch.nn.config import (InputType,
+                                                    NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    conf = (NeuralNetConfiguration.builder().seed(5)
+            .updater(upd.Adam(learning_rate=2e-3))
+            .weight_init_fn("xavier").list()
+            .layer(pl.ConvolutionLayer(n_out=16, kernel_size=(3, 3),
+                                       padding="SAME", activation="relu"))
+            .layer(pl.SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2)))
+            .layer(pl.DenseLayer(n_out=64, activation="relu"))
+            .layer(pl.OutputLayer(n_out=10, activation="softmax",
+                                  loss="mcxent"))
+            .set_input_type(InputType.convolutional(8, 8, 1)).build())
+    net = MultiLayerNetwork(conf).init()
+    it = RealDigitsDataSetIterator(batch_size=64, train=True)
+    for e in kernel_registry.ported():
+        e.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.fit(it, epochs=30)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {e.key: e.launches() for e in kernel_registry.ported()}
+    _check_step_launches("lenet_digits", net.iteration, launches, card)
+    xt, yt = load_real_digits(train=False)
+    ev = Evaluation()
+    ev.eval(yt, net.output(xt).cpu().numpy())
+    log(f"lenet: real digits (8x8, {len(yt)} test digits) small CNN on "
+        f"{net.device}: {net.iteration} steps in {secs:.3f} s, test "
+        f"accuracy {ev.accuracy():.4f} (bar {DIGITS_ACC}) {card}")
+    return ev.accuracy()
+
+
+def phase_lenet(state):
+    """LeNet at its published widths on the card, the reference's
+    ``test_lenet_e2e`` path: synthetic MNIST behind the prefetch
+    iterator, ``fit`` with the five listeners, ``evaluate``, the
+    checkpoints, a restore; then the real-digits CNN; then the step
+    timed with and without listeners, the checkpoint write, the zip's
+    size and the peak memory. No ported kernel may launch."""
+    import math
+    import tempfile
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.data import (AsyncDataSetIterator,
+                                               MnistDataSetIterator)
+    from deeplearning4j_tpu_torch.ops import kernel_registry
+    from deeplearning4j_tpu_torch.resilience.checkpoint import \
+        verify_checkpoint
+    from deeplearning4j_tpu_torch.serialization import ModelSerializer
+    from deeplearning4j_tpu_torch.zoo import LeNet
+    card = state["card"]
+    _free_card("lenet", card)
+    torch.cuda.reset_peak_memory_stats()
+    base = MnistDataSetIterator(batch_size=LENET_B, train=True,
+                                n_examples=LENET_TRAIN,
+                                data_dir=_mnist_dir())
+    test_it = MnistDataSetIterator(batch_size=256, train=False,
+                                   n_examples=LENET_TEST,
+                                   data_dir=_mnist_dir())
+    assert base.synthetic and test_it.synthetic
+    train_it = AsyncDataSetIterator(base, queue_size=4)
+    net = LeNet(num_classes=10, seed=123).init()
+    assert net.num_params() == 1_256_080, net.num_params()
+    perf, evals = [], []
+    with tempfile.TemporaryDirectory() as tmp, _tf32(True):
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        listeners = _lenet_listeners(train_it, test_it, ckpt_dir, perf,
+                                     evals)
+        net.set_listeners(*listeners)
+        for e in kernel_registry.ported():
+            e.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(train_it, epochs=LENET_EPOCHS)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = {e.key: e.launches() for e in kernel_registry.ported()}
+        scores = [s for _, s in listeners[2].scores]
+        steps = len(scores)
+        log(f"lenet: LeNet {net.num_params()} params on {net.device}, "
+            f"synthetic MNIST {LENET_TRAIN}/{LENET_TEST} batch {LENET_B}, "
+            f"{LENET_EPOCHS} epochs behind AsyncDataSetIterator(4) with "
+            f"Score/Performance/CollectScores/Evaluative/Checkpoint "
+            f"listeners: {steps} steps in {fit_s:.3f} s; losses first "
+            f"{scores[0]:.4f} last {scores[-1]:.4f}; per-epoch test "
+            f"accuracy {[round(e.accuracy(), 4) for e in evals]}; "
+            f"PerformanceListener: {perf[-1] if perf else None} {card}")
+        assert steps == LENET_EPOCHS * LENET_TRAIN // LENET_B
+        assert all(math.isfinite(s) for s in scores)
+        assert np.mean(scores[-4:]) < np.mean(scores[:4]), scores
+        _check_step_launches("lenet", steps, launches, card)
+        acc_digits = _digits_cnn(card)
+        acc = net.evaluate(test_it).accuracy()
+        ckpts = sorted(os.listdir(ckpt_dir))
+        verified = [verify_checkpoint(os.path.join(ckpt_dir, c))
+                    for c in ckpts if c.endswith(".zip")]
+        log(f"lenet: test accuracy {acc:.4f} (bar {LENET_ACC}); "
+            f"checkpoint directory {ckpts}, verify {verified} {card}")
+        assert acc > LENET_ACC and len(evals) == LENET_EPOCHS
+        assert [c for c in ckpts if c.endswith(".zip")] == [
+            "checkpoint_epoch_0.zip", "checkpoint_epoch_1.zip"]
+        assert all(v == (True, "ok") for v in verified)
+        assert acc_digits >= DIGITS_ACC
+        newest = ModelSerializer.restore_multi_layer_network(
+            os.path.join(ckpt_dir, "checkpoint_epoch_1.zip"))
+        x = next(iter(test_it)).features
+        out, back = net.output(x), newest.output(x)
+        err = ((out - back).abs() / out.abs().clamp_min(1e-30)).max().item()
+        log(f"lenet: newest checkpoint restored on {newest.device}, "
+            f"iteration {newest.iteration}; output max rel diff {err:.3e} "
+            f"(rtol {LENET_RESTORE_RTOL:.0e}, atol "
+            f"{LENET_RESTORE_ATOL:.0e}) {card}")
+        assert newest.device.type == "cuda" and newest.iteration == steps
+        torch.testing.assert_close(back, out, rtol=LENET_RESTORE_RTOL,
+                                   atol=LENET_RESTORE_ATOL)
+        del newest
+        _lenet_timing(net, train_it, listeners, tmp, card)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"lenet: max_memory_allocated_gb={peak:.3f} {card}")
+
+
+def _lenet_timing(net, train_it, listeners, tmp, card) -> None:
+    """One epoch of ``LENET_TRAIN`` examples with the listeners and one
+    without, in ``LENET_TURNS`` turns: the mean step and samples/s of
+    each (medians), TF32 as set around it; then one checkpoint write
+    (ms, bytes)."""
+    import torch
+    from deeplearning4j_tpu_torch.serialization import ModelSerializer
+    rows = {"listeners": [], "bare": []}
+    steps = LENET_TRAIN // LENET_B
+    for _ in range(LENET_TURNS):
+        for name in rows:
+            net.set_listeners(*(listeners if name == "listeners" else ()))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            net.fit(train_it)
+            torch.cuda.synchronize()
+            rows[name].append((time.perf_counter() - t0) / steps * 1e3)
+    net.set_listeners()
+    med = {k: statistics.median(v) for k, v in rows.items()}
+    log("lenet: mean step ms, median of "
+        f"{LENET_TURNS} turns of one epoch ({steps} steps, batch "
+        f"{LENET_B}, cudnn.allow_tf32="
+        f"{torch.backends.cudnn.allow_tf32}): " + " ".join(
+            f"{k} {med[k]:.3f} ({' '.join(f'{x:.3f}' for x in v)}) "
+            f"samples_per_s={LENET_B / med[k] * 1e3:.1f}"
+            for k, v in rows.items()) + f" {card}")
+    path = os.path.join(tmp, "lenet.zip")
+    ModelSerializer.write_model(net, path)             # warm
+    t0 = time.perf_counter()
+    ModelSerializer.write_model(net, path)
+    ms = (time.perf_counter() - t0) * 1e3
+    log(f"lenet: ModelSerializer.write_model (updater state included) "
+        f"{ms:.3f} ms, zip {os.path.getsize(path)} bytes {card}")
+
+
+def _lenet_numpy_tree(seed: int):
+    """LeNet's parameters in the JAX package's layout (HWIO kernels,
+    [in, out] dense weights, names ``layer_<i>``/``W``/``b``) drawn from
+    ``np.random.default_rng(seed)`` with the fan-in scale."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    shapes = {"layer_0": (5, 5, 1, 20), "layer_2": (5, 5, 20, 50),
+              "layer_4": (7 * 7 * 50, 500), "layer_5": (500, 10)}
+    out = {"layer_1": {}, "layer_3": {}}
+    for name, shape in shapes.items():
+        fan_in = int(np.prod(shape[:-1]))
+        out[name] = {
+            "W": (rng.normal(size=shape) / np.sqrt(fan_in)).astype(
+                np.float32),
+            "b": (0.1 * rng.normal(size=shape[-1:])).astype(np.float32)}
+    return out
+
+
+def phase_lenet_agree(state):
+    """LeNet in float32 with TF32 off, weights carried across from a
+    JAX-shaped numpy tree: one step's loss and gradients and the output,
+    card against the port on the CPU (``train_agree``'s bands); then a
+    zip written on the card restored through the CPU port."""
+    import tempfile
+    import torch
+    from deeplearning4j_tpu_torch import tree
+    from deeplearning4j_tpu_torch.data import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.ops import kernel_registry
+    from deeplearning4j_tpu_torch.serialization import ModelSerializer
+    from deeplearning4j_tpu_torch.zoo import LeNet
+    card = state["card"]
+    for e in kernel_registry.ported():
+        e.reset()
+    batch = next(iter(MnistDataSetIterator(
+        batch_size=LENET_B, train=True, n_examples=LENET_B,
+        data_dir=_mnist_dir())))
+    x, y = batch.features, batch.labels
+    weights = _lenet_numpy_tree(7)
+    res = {}
+    with _tf32(False):
+        for dev in ("cuda", "cpu"):
+            net = LeNet().init(device=dev).params_from_jax(weights)
+            loss, grads, _ = net._loss_and_grads(
+                torch.as_tensor(x, device=dev),
+                torch.as_tensor(y, device=dev))
+            res[dev] = (loss.item(), tree.map_(lambda g: g.cpu(), grads),
+                        net.output(x).cpu(), net)
+        (l_card, g_card, o_card, card_net) = res["cuda"]
+        (l_cpu, g_cpu, o_cpu, _) = res["cpu"]
+        loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+        worst, key = max(tree.leaves(tree.map_with_path(
+            lambda p, a, b: (_rel_err(a, b), ".".join(p)), g_card, g_cpu)))
+        out_err = (o_card - o_cpu).abs().max().item()
+        log(f"lenet_agree: f32 TF32 off, batch {LENET_B}, card vs CPU: "
+            f"loss {l_card:.6f} vs {l_cpu:.6f} rel={loss_rel:.3e} "
+            f"tol={TRAIN_LOSS_RTOL:.0e}; worst gradient {key} "
+            f"max|d|/max|g|={worst:.3e} tol={TRAIN_GRAD_TOL:.0e}; output "
+            f"max|d|={out_err:.3e} tol={AGREE_TOL:.0e} {card}")
+        assert loss_rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_TOL
+        assert out_err <= AGREE_TOL
+        card_net.fit(x, y)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "card.zip")
+            ModelSerializer.write_model(card_net, path)
+            cpu_net = ModelSerializer.restore_multi_layer_network(
+                path, device="cpu")
+            zip_err = (card_net.output(x).cpu()
+                       - cpu_net.output(x)).abs().max().item()
+        log(f"lenet_agree: a zip written on the card after one step, "
+            f"restored through the CPU port (iteration "
+            f"{cpu_net.iteration}, on {cpu_net.device}): output "
+            f"max|d|={zip_err:.3e} tol={AGREE_TOL:.0e} {card}")
+        assert cpu_net.device.type == "cpu" and cpu_net.iteration == 1
+        assert zip_err <= AGREE_TOL
+    _check_step_launches("lenet_agree", 1, {
+        e.key: e.launches() for e in kernel_registry.ported()}, card)
+
+
+def phase_checkpoint(state):
+    """BERT-base's classifier at full width (the finetune phase's model
+    and batches, float32 with TF32 off): 2 steps, ``write_model`` with
+    the updater state, a restore on the card and 2 more steps, against
+    4 steps uninterrupted. K1, K3, K8 and K9 launch as many times a step
+    as in finetune."""
+    import math
+    import tempfile
+    import torch
+    from deeplearning4j_tpu_torch import tree
+    from deeplearning4j_tpu_torch.ops import kernel_registry
+    from deeplearning4j_tpu_torch.serialization import ModelSerializer
+    from deeplearning4j_tpu_torch.zoo.bert import BertBase
+    card = state["card"]
+    _free_card("checkpoint", card)
+    batches = [_finetune_batch(s, BERT_B, BERT_T) for s in range(4)]
+
+    def step(net, b):
+        tokens, segments, mask, labels = b
+        net.fit([tokens, segments], [labels], features_masks=[mask, mask])
+        return net.score()
+
+    with _tf32(False), tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bert.zip")
+        net = BertBase(seed=2).init_classifier(2, BERT_T)
+        for e in kernel_registry.ported():
+            e.reset()
+        ref = [step(net, b) for b in batches]
+        ref_params = tree.map_(lambda t: t.detach().clone(), net.params)
+        del net
+        net = BertBase(seed=2).init_classifier(2, BERT_T)
+        got = [step(net, b) for b in batches[:2]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ModelSerializer.write_model(net, path, save_updater=True)
+        write_ms = (time.perf_counter() - t0) * 1e3
+        nbytes = os.path.getsize(path)
+        del net
+        t0 = time.perf_counter()
+        net = ModelSerializer.restore_computation_graph(path)
+        torch.cuda.synchronize()
+        read_ms = (time.perf_counter() - t0) * 1e3
+        assert net.device.type == "cuda" and net.iteration == 2
+        got += [step(net, b) for b in batches[2:]]
+        torch.cuda.synchronize()
+        launches = {e.key: e.launches() for e in kernel_registry.ported()}
+    state.setdefault("launches", {})["checkpoint"] = launches
+    rel = [abs(a - b) / abs(a) for a, b in zip(ref, got)]
+    worst, key = max(tree.leaves(tree.map_with_path(
+        lambda p, a, b: (_rel_err(b, a), ".".join(p)), ref_params,
+        net.params)))
+    log(f"checkpoint: BERT-base f32 (TF32 off) B={BERT_B} T={BERT_T}, "
+        f"{net.num_params()} params: losses uninterrupted "
+        f"{' '.join(f'{l:.6f}' for l in ref)} resumed "
+        f"{' '.join(f'{l:.6f}' for l in got)} max rel={max(rel):.3e} "
+        f"tol={CKPT_LOSS_RTOL:.0e}; worst parameter {key} "
+        f"max|d|/max|p|={worst:.3e} tol={CKPT_PARAM_TOL:.0e} {card}")
+    log(f"checkpoint: write_model(save_updater=True) {write_ms:.3f} ms, "
+        f"zip {nbytes} bytes; restore_computation_graph on the card "
+        f"{read_ms:.3f} ms {card}")
+    assert all(math.isfinite(l) for l in ref + got)
+    assert max(rel) <= CKPT_LOSS_RTOL and worst <= CKPT_PARAM_TOL
+    _check_step_launches("checkpoint", 8, launches, card)
+    del net, ref_params
 
 
 def phase_profile(state):

@@ -6,16 +6,21 @@ The fluent builder of the reference: ``NeuralNetConfiguration.builder()
 :class:`MultiLayerConfiguration`, and ``.graph_builder()`` a
 ``nn.graph.GraphBuilder`` for a ``ComputationGraph``. Global defaults
 (activation, weight init, dropout, ...) flow into layers that leave them
-unset. JSON serialisation and input preprocessors come with the
-MultiLayerNetwork-core slice; truncated BPTT with the recurrent slice.
+unset; ``ListBuilder.input_pre_processor`` attaches an input preprocessor
+(``nn/preprocessors.py``) before a layer. ``to_json``/``from_json`` write
+and read the JAX package's JSON, so a ``configuration.json`` of either
+package parses in the other. Truncated BPTT comes with the recurrent
+slice: its fields are carried for the JSON, and the network refuses it.
 """
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
 from typing import Any, List, Optional, Tuple
 
 from deeplearning4j_tpu_torch.nn import updaters as upd
-from deeplearning4j_tpu_torch.nn.layers.base import Layer
+from deeplearning4j_tpu_torch.nn.layers.base import Layer, layer_from_dict
+from deeplearning4j_tpu_torch.nn.preprocessors import preprocessor_from_dict
 
 
 class InputType:
@@ -33,6 +38,23 @@ class InputType:
     @staticmethod
     def recurrent(n_features: int, timesteps: int = -1) -> "InputType":
         return InputType("rnn", (timesteps, n_features))
+
+    @staticmethod
+    def convolutional(height: int, width: int, channels: int
+                      ) -> "InputType":
+        """[H, W, C] images (the reference's NCHW data is NHWC here)."""
+        return InputType("cnn", (height, width, channels))
+
+    @staticmethod
+    def convolutional_3d(d: int, h: int, w: int, c: int) -> "InputType":
+        return InputType("cnn3d", (d, h, w, c))
+
+    def to_dict(self):
+        return {"kind": self.kind, "shape": list(self.shape)}
+
+    @staticmethod
+    def from_dict(d):
+        return InputType(d["kind"], tuple(d["shape"]))
 
     def __repr__(self):
         return f"InputType({self.kind}, {self.shape})"
@@ -55,6 +77,10 @@ class MultiLayerConfiguration:
     gradient_normalization_threshold: float = 1.0
     input_type: Optional[InputType] = None
     backprop_type: str = "Standard"        # "TruncatedBPTT" is refused
+    tbptt_fwd_length: int = 20
+    tbptt_back_length: int = 20
+    # per-layer-index input preprocessors (reference
+    # ListBuilder.inputPreProcessor(idx, proc))
     input_preprocessors: dict = field(default_factory=dict)
     # weight tying: [dst_layer, dst_param, src_layer, src_param,
     # transpose] — the dst param is not a master parameter; every
@@ -65,6 +91,53 @@ class MultiLayerConfiguration:
         if self.updater is None:
             self.updater = upd.Sgd(learning_rate=1e-2)
 
+    # -- serialization -----------------------------------------------------
+    def to_json(self) -> str:
+        """The JAX package's ``MultiLayerConfiguration.to_json``, key for
+        key and in its order."""
+        return json.dumps({
+            "layers": [l.to_dict() for l in self.layers],
+            "seed": self.seed,
+            "dtype": self.dtype,
+            "compute_dtype": self.compute_dtype,
+            "updater": self.updater.to_dict(),
+            "gradient_normalization": self.gradient_normalization,
+            "gradient_normalization_threshold":
+                self.gradient_normalization_threshold,
+            "input_type": self.input_type.to_dict()
+                if self.input_type else None,
+            "backprop_type": self.backprop_type,
+            "tbptt_fwd_length": self.tbptt_fwd_length,
+            "tbptt_back_length": self.tbptt_back_length,
+            "input_preprocessors": {
+                str(i): p.to_dict()
+                for i, p in self.input_preprocessors.items()},
+            "tied_weights": [list(t) for t in self.tied_weights],
+        }, indent=2)
+
+    @staticmethod
+    def from_json(s: str) -> "MultiLayerConfiguration":
+        d = json.loads(s)
+        conf = MultiLayerConfiguration(
+            layers=[layer_from_dict(ld) for ld in d["layers"]],
+            seed=d.get("seed", 12345),
+            dtype=d.get("dtype", "float32"),
+            compute_dtype=d.get("compute_dtype"),
+            updater=upd.updater_from_dict(d["updater"]),
+            gradient_normalization=d.get("gradient_normalization"),
+            gradient_normalization_threshold=d.get(
+                "gradient_normalization_threshold", 1.0),
+            backprop_type=d.get("backprop_type", "Standard"),
+            tbptt_fwd_length=d.get("tbptt_fwd_length", 20),
+            tbptt_back_length=d.get("tbptt_back_length", 20))
+        if d.get("input_type"):
+            conf.input_type = InputType.from_dict(d["input_type"])
+        conf.input_preprocessors = {
+            int(i): preprocessor_from_dict(pd)
+            for i, pd in (d.get("input_preprocessors") or {}).items()}
+        conf.tied_weights = [list(t) for t in d.get("tied_weights", [])]
+        return conf
+
 
 class ListBuilder:
     """Reference: NeuralNetConfiguration.ListBuilder."""
@@ -73,6 +146,7 @@ class ListBuilder:
         self._g = global_conf
         self._layers: List[Layer] = []
         self._input_type: Optional[InputType] = None
+        self._preprocessors: dict = {}
         self._tied: List[list] = []
 
     def layer(self, *args) -> "ListBuilder":
@@ -94,6 +168,12 @@ class ListBuilder:
 
     def set_input_type(self, input_type: InputType) -> "ListBuilder":
         self._input_type = input_type
+        return self
+
+    def input_pre_processor(self, idx: int, proc) -> "ListBuilder":
+        """Attach an input preprocessor before layer ``idx`` (reference
+        ListBuilder.inputPreProcessor)."""
+        self._preprocessors[idx] = proc
         return self
 
     def tie_weights(self, dst_layer: int, dst_param: str,
@@ -118,6 +198,7 @@ class ListBuilder:
             gradient_normalization=self._g.grad_norm_,
             gradient_normalization_threshold=self._g.grad_norm_threshold_,
             input_type=self._input_type,
+            input_preprocessors=dict(self._preprocessors),
             tied_weights=[list(t) for t in self._tied],
         )
 

@@ -15,9 +15,13 @@ thread through the graph as in the JAX package: a node takes the first
 mask of its inputs, a vertex passes it on through ``propagate_mask``,
 and a layer that removes the time axis (``ClsTokenPoolLayer``) ends it.
 
-Not in this slice (each raises ``NotImplementedError``): JSON
-serialisation, per-layer updaters, learning rates, l1/l2 and weight
-decay, frozen layers, constraints, weight noise, listeners, the
+``ComputationGraphConfiguration.to_json``/``from_json`` write and read
+the JAX package's JSON (layers and vertices through their registries),
+and training listeners are called as ``MultiLayerNetwork`` calls them.
+
+Not in this slice (each raises ``NotImplementedError``): per-layer
+updaters, learning rates, l1/l2 and weight decay, frozen layers,
+constraints, weight noise (the second half of ROADMAP A9), the
 numerics observatory, an ``RnnOutputLayer`` output — the JAX graph's fused
 head flattens its [B, T, F] input (``graph.py:290-298``), so the
 reference's BERT MLM head is red and the port does not copy it — and
@@ -30,6 +34,7 @@ structure (a padded BERT fine-tune keeps its region).
 """
 from __future__ import annotations
 
+import json
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
@@ -42,14 +47,17 @@ from deeplearning4j_tpu_torch.eval_.evaluation import Evaluation
 from deeplearning4j_tpu_torch.nn import updaters as upd
 from deeplearning4j_tpu_torch.nn.config import _GLOBAL_DEFAULTS, InputType
 from deeplearning4j_tpu_torch.nn.layers.base import (Layer, fold_in,
+                                                     layer_from_dict,
                                                      split_seed)
 from deeplearning4j_tpu_torch.nn.layers.core import OutputLayer
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     BaseRecurrentLayer, RnnOutputLayer)
 from deeplearning4j_tpu_torch.nn.multilayer import (
-    _FUSABLE, _UNPORTED_LAYER_OPTIONS, REGION_SCOPE, MultiLayerNetwork,
-    apply_updates, evaluate_batches, loss_and_grads, stage)
-from deeplearning4j_tpu_torch.nn.vertices import GraphVertex
+    _FUSABLE, _UNPORTED_LAYER_OPTIONS, LATER_A9, REGION_SCOPE,
+    MultiLayerNetwork, apply_updates, evaluate_batches, loss_and_grads,
+    notify_steps, stage)
+from deeplearning4j_tpu_torch.nn.vertices import (GraphVertex,
+                                                  vertex_from_dict)
 from deeplearning4j_tpu_torch.ops import losses as losses_mod
 from deeplearning4j_tpu_torch.resilience import faults
 
@@ -63,8 +71,7 @@ class _Node:
 
 
 class ComputationGraphConfiguration:
-    """Reference: ComputationGraphConfiguration (without JSON, which
-    comes with serialisation)."""
+    """Reference: ComputationGraphConfiguration."""
 
     def __init__(self, inputs: List[str], outputs: List[str],
                  nodes: List[_Node], seed: int = 12345,
@@ -84,6 +91,46 @@ class ComputationGraphConfiguration:
         self.gradient_normalization = gradient_normalization
         self.gradient_normalization_threshold = \
             gradient_normalization_threshold
+
+    def to_json(self) -> str:
+        """The JAX package's ``ComputationGraphConfiguration.to_json``,
+        key for key and in its order."""
+        return json.dumps({
+            "inputs": self.inputs,
+            "outputs": self.outputs,
+            "nodes": [{"name": n.name, "kind": n.kind,
+                       "inputs": n.inputs, "conf": n.obj.to_dict()}
+                      for n in self.nodes],
+            "seed": self.seed,
+            "updater": self.updater.to_dict(),
+            "dtype": self.dtype,
+            "compute_dtype": self.compute_dtype,
+            "input_types": {k: v.to_dict()
+                            for k, v in self.input_types.items()},
+            "gradient_normalization": self.gradient_normalization,
+            "gradient_normalization_threshold":
+                self.gradient_normalization_threshold,
+        }, indent=2)
+
+    @staticmethod
+    def from_json(s: str) -> "ComputationGraphConfiguration":
+        d = json.loads(s)
+        nodes = []
+        for nd in d["nodes"]:
+            obj = (layer_from_dict(nd["conf"]) if nd["kind"] == "layer"
+                   else vertex_from_dict(nd["conf"]))
+            nodes.append(_Node(nd["name"], nd["kind"], obj, nd["inputs"]))
+        return ComputationGraphConfiguration(
+            inputs=d["inputs"], outputs=d["outputs"], nodes=nodes,
+            seed=d.get("seed", 12345),
+            updater=upd.updater_from_dict(d["updater"]),
+            dtype=d.get("dtype", "float32"),
+            compute_dtype=d.get("compute_dtype"),
+            input_types={k: InputType.from_dict(v)
+                         for k, v in d.get("input_types", {}).items()},
+            gradient_normalization=d.get("gradient_normalization"),
+            gradient_normalization_threshold=d.get(
+                "gradient_normalization_threshold", 1.0))
 
 
 class GraphBuilder:
@@ -201,12 +248,11 @@ class ComputationGraph:
                 if getattr(layer, attr, None):
                     raise NotImplementedError(
                         f"node {node.name!r} ({type(layer).__name__}): "
-                        f"{what} ({attr}) comes with the "
-                        "MultiLayerNetwork-core slice")
+                        f"{what} ({attr}) comes with {LATER_A9}")
             if not layer.trainable:
                 raise NotImplementedError(
-                    f"node {node.name!r}: frozen layers come with the "
-                    "MultiLayerNetwork-core slice")
+                    f"node {node.name!r}: frozen layers come with "
+                    f"{LATER_A9}")
             if node.name in self.conf.outputs and isinstance(
                     layer, RnnOutputLayer):
                 raise NotImplementedError(
@@ -258,6 +304,7 @@ class ComputationGraph:
     _as_input = MultiLayerNetwork._as_input
     num_params = MultiLayerNetwork.num_params
     set_listeners = MultiLayerNetwork.set_listeners
+    add_listeners = MultiLayerNetwork.add_listeners
 
     # ------------------------------------------------------------------
     # forward
@@ -422,6 +469,8 @@ class ComputationGraph:
             self._fit_batch(xs, ys, features_masks, labels_masks)
             return self
         for _ in range(epochs):
+            for listener in self.listeners:
+                listener.on_epoch_start(self)
             if hasattr(features, "reset"):
                 features.reset()
             group: list = []
@@ -459,11 +508,12 @@ class ComputationGraph:
                     # the step's span starts at the batch's arrival
                     self._fit_batch(xs, ys, fms, lms, _t0=te1)
             self._flush_group(group)
+            for listener in self.listeners:
+                listener.on_epoch_end(self)
             self.epoch += 1
         return self
 
     _flush_group = MultiLayerNetwork._flush_group
-    _check_no_listeners = MultiLayerNetwork._check_no_listeners
 
     def _fit_group(self, group):
         """One K-step region over the K ``(xs, ys, fms, lms)`` batches of
@@ -471,8 +521,8 @@ class ComputationGraph:
         then each input, label and mask stacked on the host and moved to
         the device in one copy, the K updates in turn with their losses
         written into a [K] tensor on the device, and one copy of the K
-        losses to the host (as ``MultiLayerNetwork._fit_group``)."""
-        self._check_no_listeners()
+        losses to the host, then the listeners step by step (as
+        ``MultiLayerNetwork._fit_group``)."""
         t0 = obs.now()
         faults.inject("step")       # site: step dispatch (resilience/)
         dev = self.device
@@ -498,10 +548,9 @@ class ComputationGraph:
         t2 = obs.now()
         host = losses.cpu()         # the group's one device sync
         t3 = obs.now()
-        self.score_ = float(host[-1])
-        self.iteration += len(group)
         obs.record_step("ComputationGraph.fit", t0, t1, t2, t3,
                         args={"steps": len(group)})
+        notify_steps(self, "ComputationGraph.fit", host.tolist())
 
     def _update(self, xs, ys, fms, lms, rng):
         """One gradient + optimizer update; returns the loss (on the
@@ -515,16 +564,15 @@ class ComputationGraph:
         return loss
 
     def _fit_batch(self, xs, ys, fms=None, lms=None, _t0=None):
-        self._check_no_listeners()
         t0 = obs.now() if _t0 is None else _t0
         faults.inject("step")       # site: step dispatch (resilience/)
         rng = fold_in(self.conf.seed, self.iteration)
         t1 = obs.now()
         loss = self._update(xs, ys, fms, lms, rng)
         t2 = obs.now()
-        self.score_ = float(loss)     # blocking device sync
+        score = float(loss)           # blocking device sync
         obs.record_step("ComputationGraph.fit", t0, t1, t2, obs.now())
-        self.iteration += 1
+        notify_steps(self, "ComputationGraph.fit", [score])
 
     # ------------------------------------------------------------------
     # inference and scoring

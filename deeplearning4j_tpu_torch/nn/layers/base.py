@@ -8,9 +8,15 @@ JAX package. Randomness is explicit: ``init`` draws from a CPU
 seed (the counterpart of a ``jax.random`` key; :func:`split_seed` splits
 it) from which dropout builds its own generator — so recomputing a
 block (``remat``) draws the same mask.
+
+``Layer.to_dict`` and :func:`layer_from_dict` are the JAX package's
+JSON beans: a layer's dict names its class under ``"@class"`` and holds
+every dataclass field, so a configuration written by either package
+parses in the other.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
@@ -26,6 +32,36 @@ def register_layer(cls):
     """Class decorator adding the layer to the registry."""
     _LAYER_REGISTRY[cls.__name__] = cls
     return cls
+
+
+def layer_from_dict(d: Dict[str, Any]) -> "Layer":
+    """The layer a ``Layer.to_dict`` dict describes (a nested layer or a
+    per-layer updater is rebuilt too; the network refuses the latter at
+    ``init``, as today). Raises ``ValueError`` for a class the port does not
+    register, and ``NotImplementedError`` for a parameter constraint or
+    weight-noise bean, which come with ROADMAP A9's second half."""
+    d = dict(d)
+    kind = d.pop("@class")
+    if kind not in _LAYER_REGISTRY:
+        raise ValueError(f"Unknown layer class {kind!r}")
+    cls = _LAYER_REGISTRY[kind]
+    names = {f.name for f in dataclasses.fields(cls)}
+    kwargs = {}
+    for k, v in d.items():
+        if k not in names:
+            continue
+        if k in ("constraints", "weight_noise") and v:
+            raise NotImplementedError(
+                f"{kind}.{k}: parameter constraints and weight noise come "
+                "with the second half of ROADMAP A9")
+        if k == "updater" and isinstance(v, dict):
+            from deeplearning4j_tpu_torch.nn.updaters import \
+                updater_from_dict
+            v = updater_from_dict(v)
+        elif isinstance(v, dict) and "@class" in v:
+            v = layer_from_dict(v)
+        kwargs[k] = v
+    return cls(**kwargs)
 
 
 def split_seed(seed: int, n: int = 2) -> Tuple[int, ...]:
@@ -76,6 +112,20 @@ class Layer:
     #: mode; a string names the ROADMAP item that brings it there.
     #: False on the layers that act on each position alone.
     mixes_positions = True
+
+    def to_dict(self) -> Dict[str, Any]:
+        """The JSON bean: ``"@class"`` and every dataclass field, nested
+        beans (a layer, an updater, a schedule) as their own dicts."""
+        out = {"@class": type(self).__name__}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, list):
+                v = [e.to_dict() if hasattr(e, "to_dict") else e
+                     for e in v]
+            elif hasattr(v, "to_dict") and not isinstance(v, type):
+                v = v.to_dict()
+            out[f.name] = v
+        return out
 
     def init(self, gen, input_shape, dtype=torch.float32):
         raise NotImplementedError

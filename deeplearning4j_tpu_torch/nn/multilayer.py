@@ -15,10 +15,18 @@ sits inside the autograd graph, so gradients come back f32 for the
 update. An update rebinds ``params`` to new tensors, as the JAX package
 rebinds its donated arrays.
 
+Input preprocessors (``conf.input_preprocessors``, ``nn/preprocessors.py``)
+run before their layer in every forward, and training listeners
+(``train/listeners.py``) are called where the JAX network calls them:
+``on_epoch_start``/``on_epoch_end`` around each epoch of an iterator's
+``fit``, and ``iteration_done`` after each step's loss reached the host
+(in a K-step region, once per step after the group's one copy, each
+with that step's ``score_``).
+
 Not in this slice (each raises ``NotImplementedError`` naming the later
-slice): truncated BPTT, input preprocessors, listeners, l1/l2 and
-per-layer weight decay, per-layer updaters or learning rates, frozen
-layers, constraints, weight noise, the numerics observatory.
+slice): truncated BPTT, l1/l2 and per-layer weight decay, per-layer
+updaters or learning rates, frozen layers, constraints, weight noise
+(the second half of ROADMAP A9), the numerics observatory.
 
 ``fit(iterator, steps_per_loop=K)`` runs groups of K batches as one
 K-step region (:meth:`MultiLayerNetwork._fit_group`): the counterpart of
@@ -71,7 +79,8 @@ _FUSABLE = {
     ("sigmoid", "binary_xent"),
 }
 
-#: per-layer options of the JAX network this slice does not carry
+#: per-layer options of the JAX network this slice does not carry (the
+#: second half of ROADMAP A9)
 _UNPORTED_LAYER_OPTIONS = (
     ("l1", "l1 regularisation"), ("l2", "l2 regularisation"),
     ("weight_decay", "per-layer weight decay"),
@@ -96,6 +105,10 @@ _OPTAX_FIELDS = {
 }
 
 
+#: the slice that brings the refused per-layer options, named in their
+#: errors
+LATER_A9 = "the second half of the MultiLayerNetwork-core slice (ROADMAP A9)"
+
 #: the named device-time scope around a K-step region's updates (the
 #: network's class name filled in): a profiler window reads the region's
 #: own host calls — no device sync may fall inside it
@@ -104,6 +117,18 @@ REGION_SCOPE = "{}.fit/region"
 
 def _lname(i: int) -> str:
     return f"layer_{i}"
+
+
+def group_chain(layer) -> Tuple[str, ...]:
+    """The stages of the optax chain the JAX networks build for one
+    parameter group (``deeplearning4j_tpu/nn/multilayer.py:139-158``,
+    ``nn/graph.py:237-259``): the gradient normalisation, the decoupled
+    weight decay where the layer has one, then the updater. The port
+    applies the same stages in ``apply_updates``; ``serialization.py``
+    reads the updater's position from here."""
+    return (("gradient_normalization",)
+            + (("add_decayed_weights",) if layer.weight_decay else ())
+            + ("updater",))
 
 
 def _mesh():
@@ -196,6 +221,22 @@ def evaluate_batches(net, iterator, *evals):
     return list(evals)
 
 
+def notify_steps(net, entry: str, scores) -> None:
+    """After steps whose losses ``scores`` reached the host: advance
+    ``net.iteration`` by one a score, set ``net.score_`` to it and call
+    each listener's ``iteration_done``, step by step; with listeners and
+    tracing on, one ``<entry>/listeners`` span covers the calls (the JAX
+    networks' rule, ``deeplearning4j_tpu/nn/multilayer.py:512-522``)."""
+    tl0 = obs.now()
+    for score in scores:
+        net.score_ = float(score)
+        net.iteration += 1
+        for listener in net.listeners:
+            listener.iteration_done(net, net.iteration, net.epoch)
+    if net.listeners and obs.trace.enabled():
+        obs.trace.add_span(f"{entry}/listeners", tl0, obs.now())
+
+
 def stage(arrays, device, dtype=None) -> torch.Tensor:
     """The K arrays of one field of a ``steps_per_loop`` group stacked
     into [K, ...] on the host (on the device when they already lie
@@ -247,21 +288,15 @@ class MultiLayerNetwork:
             raise NotImplementedError(
                 f"backprop_type={conf.backprop_type!r}: truncated BPTT "
                 "comes with the recurrent slice")
-        if conf.input_preprocessors:
-            raise NotImplementedError(
-                "input preprocessors come with the MultiLayerNetwork-"
-                "core slice")
         for i, layer in enumerate(self.layers):
             for attr, what in _UNPORTED_LAYER_OPTIONS:
                 if getattr(layer, attr, None):
                     raise NotImplementedError(
                         f"layer_{i} ({type(layer).__name__}): {what} "
-                        f"({attr}) comes with the MultiLayerNetwork-core "
-                        "slice")
+                        f"({attr}) comes with {LATER_A9}")
             if not layer.trainable:
                 raise NotImplementedError(
-                    f"layer_{i}: frozen layers come with the "
-                    "MultiLayerNetwork-core slice")
+                    f"layer_{i}: frozen layers come with {LATER_A9}")
 
     def init(self, input_shape: Optional[Tuple[int, ...]] = None,
              device="cuda"):
@@ -285,6 +320,9 @@ class MultiLayerNetwork:
         self._input_shape = shape
         self._layer_shapes = []
         for i, layer in enumerate(self.layers):
+            proc = self.conf.input_preprocessors.get(i)
+            if proc is not None:
+                shape = proc.output_shape(shape)
             p, s, shape = layer.init(gen, shape, dtype)
             self.params[_lname(i)] = tree.map_(lambda t: t.to(device), p)
             self.state[_lname(i)] = s
@@ -413,8 +451,13 @@ class MultiLayerNetwork:
         params = self._materialize_ties(params)
         new_state = {}
         n = len(self.layers)
+        preprocs = self.conf.input_preprocessors
         for i, layer in enumerate(self.layers):
             name = _lname(i)
+            proc = preprocs.get(i)
+            if proc is not None:
+                x = proc.pre_process(x)
+                mask = proc.propagate_mask(mask)
             sub = None
             if rng is not None:
                 rng, sub = split_seed(rng)
@@ -597,6 +640,8 @@ class MultiLayerNetwork:
                             getattr(ds, "labels_mask", None))
             return self
         for _ in range(epochs):
+            for listener in self.listeners:
+                listener.on_epoch_start(self)
             if hasattr(features, "reset"):
                 features.reset()
             group: list = []
@@ -628,6 +673,8 @@ class MultiLayerNetwork:
                     # the step's span starts at the batch's arrival
                     self._fit_batch(x, y, fm, lm, _t0=te1)
             self._flush_group(group)
+            for listener in self.listeners:
+                listener.on_epoch_end(self)
             self.epoch += 1
         return self
 
@@ -648,8 +695,8 @@ class MultiLayerNetwork:
         one copy; the K updates then run in turn, update ``i`` with the
         dropout seed of iteration ``iteration + i`` and its loss written
         into a [K] tensor on the device, with no read-back between them;
-        the K losses come to the host in one copy at the end."""
-        self._check_no_listeners()
+        the K losses come to the host in one copy at the end, and the
+        listeners then see the K steps one by one (:func:`notify_steps`)."""
         t0 = obs.now()
         faults.inject("step")       # site: step dispatch (resilience/)
         xs = stage([x for x, _ in group], self.device)
@@ -664,19 +711,11 @@ class MultiLayerNetwork:
         t2 = obs.now()
         host = losses.cpu()         # the group's one device sync
         t3 = obs.now()
-        self.score_ = float(host[-1])
-        self.iteration += len(group)
         obs.record_step("MultiLayerNetwork.fit", t0, t1, t2, t3,
                         args={"steps": len(group)})
-
-    def _check_no_listeners(self):
-        if self.listeners:
-            raise NotImplementedError(
-                "training listeners come with the MultiLayerNetwork-core "
-                "slice")
+        notify_steps(self, "MultiLayerNetwork.fit", host.tolist())
 
     def _fit_batch(self, x, y, fmask=None, lmask=None, _t0=None):
-        self._check_no_listeners()
         t0 = obs.now() if _t0 is None else _t0
         faults.inject("step")       # site: step dispatch (resilience/)
         x, y = self._as_input(x), self._as_input(y)
@@ -686,9 +725,9 @@ class MultiLayerNetwork:
         t1 = obs.now()
         loss = self._update(x, y, fmask, lmask, rng)
         t2 = obs.now()
-        self.score_ = float(loss)   # blocking device sync
+        score = float(loss)         # blocking device sync
         obs.record_step("MultiLayerNetwork.fit", t0, t1, t2, obs.now())
-        self.iteration += 1
+        notify_steps(self, "MultiLayerNetwork.fit", [score])
 
     # ------------------------------------------------------------------
     # inference and scoring
@@ -756,9 +795,38 @@ class MultiLayerNetwork:
         return sum(math.prod(t.shape) for t in tree.leaves(self.params))
 
     def set_listeners(self, *listeners):
-        if listeners:
-            raise NotImplementedError(
-                "training listeners come with the MultiLayerNetwork-core "
-                "slice")
-        self.listeners = []
+        """Replace the training listeners (reference setListeners)."""
+        self.listeners = list(listeners)
         return self
+
+    def add_listeners(self, *listeners):
+        self.listeners.extend(listeners)
+        return self
+
+    def _activations(self, x, start: int, stop: int, train: bool):
+        """The activations of layers ``start`` .. ``stop - 1`` fed ``x``
+        at ``start``, each preprocessor applied before its layer."""
+        params = self._materialize_ties(self.params)
+        for i in range(start, stop):
+            proc = self.conf.input_preprocessors.get(i)
+            if proc is not None:
+                x = proc.pre_process(x)
+            x, _ = self.layers[i].apply(params.get(_lname(i), {}),
+                                        self.state.get(_lname(i), {}), x,
+                                        train=train, rng=None)
+            yield x
+
+    @torch.no_grad()
+    def feed_forward(self, x, train: bool = False):
+        """Every layer's activation (reference feedForward): a list, the
+        input first."""
+        x = self._as_input(x)
+        return [x, *self._activations(x, 0, len(self.layers), train)]
+
+    @torch.no_grad()
+    def activate_selected_layers(self, from_: int, to: int, x):
+        """The activation of layer ``to`` fed ``x`` at layer ``from_``
+        (reference activateSelectedLayers)."""
+        *_, out = self._activations(self._as_input(x), from_, to + 1,
+                                    False)
+        return out

@@ -259,6 +259,13 @@ class Updater:
     #: the optax state type that holds the direction's moments (read by
     #: ``MultiLayerNetwork.opt_state_from_jax``)
     optax_state = None
+    #: the stages of the optax chain the JAX bean's ``to_optax`` builds,
+    #: in order: ``"moments"`` holds the state of ``optax_state``,
+    #: ``"lr"`` is ``scale_by_learning_rate`` (a ``ScaleByScheduleState``
+    #: count under a schedule), any other name a stage without state.
+    #: ``serialization.py`` places the state's leaves in a zip's
+    #: ``updater.npz`` by their stage's position here.
+    optax_chain = ("moments", "lr")
 
     def init_state(self, params) -> dict:
         """The optimizer state of one parameter group: the direction's
@@ -304,7 +311,8 @@ class Updater:
 @register_updater
 @dataclass
 class Sgd(Updater):
-    pass
+    # optax.sgd without momentum: identity, then the learning rate
+    optax_chain = ("identity", "lr")
 
 
 @register_updater
@@ -352,6 +360,7 @@ class AdamW(Adam):
     # BERT-recipe decay masking: keys named like biases (b, bo, b1...)
     # or norm scales (gamma/beta) are excluded from decay
     exclude_bias_and_norm: bool = False
+    optax_chain = ("moments", "add_decayed_weights", "lr")
 
     def _decays(self, path) -> bool:
         key = path[-1]
@@ -484,6 +493,7 @@ class AdaDelta(Updater):
     epsilon: float = 1e-6
     _fixed_lr = 1.0
     optax_state = "ScaleByAdaDeltaState"
+    optax_chain = ("add_decayed_weights", "moments", "lr")
 
     def _init(self, params) -> dict:
         return {"e_g": tree.map_(torch.zeros_like, params),
@@ -506,6 +516,8 @@ class AdaDelta(Updater):
 @register_updater
 @dataclass
 class NoOp(Updater):
+    optax_chain = ("set_to_zero",)
+
     def init_state(self, params) -> dict:
         return {}
 

@@ -5,13 +5,14 @@ one dataclass per vertex with ``apply(inputs)`` on batched tensors and
 ``output_shape(shapes)`` on batchless shapes. A vertex that reads the
 sequence mask sets ``needs_mask`` (the graph then calls
 ``apply(inputs, mask=m)``); ``propagate_mask`` says what mask its
-consumers see. ``PreprocessorVertex`` (with the preprocessors) and
-``AttentionVertex`` come with later slices.
+consumers see. ``to_dict``/:func:`vertex_from_dict` are the JAX
+package's JSON beans. ``AttentionVertex`` comes with a later slice.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
@@ -22,6 +23,22 @@ def register_vertex(cls):
     """Class decorator adding the vertex to the registry."""
     _VERTEX_REGISTRY[cls.__name__] = cls
     return cls
+
+
+def vertex_from_dict(d: Dict[str, Any]):
+    """The vertex a ``GraphVertex.to_dict`` dict describes (a
+    ``PreprocessorVertex``'s preprocessor rebuilt too)."""
+    d = dict(d)
+    kind = d.pop("@class")
+    if kind not in _VERTEX_REGISTRY:
+        raise ValueError(f"Unknown vertex class {kind!r}")
+    cls = _VERTEX_REGISTRY[kind]
+    if isinstance(d.get("preprocessor"), dict):
+        from deeplearning4j_tpu_torch.nn.preprocessors import \
+            preprocessor_from_dict
+        d["preprocessor"] = preprocessor_from_dict(d["preprocessor"])
+    return cls(**{k: v for k, v in d.items()
+                  if k in {f.name for f in dataclasses.fields(cls)}})
 
 
 @dataclass
@@ -35,6 +52,12 @@ class GraphVertex:
 
     def output_shape(self, input_shapes: List[tuple]) -> tuple:
         raise NotImplementedError
+
+    def to_dict(self):
+        out = {"@class": type(self).__name__}
+        for f in dataclasses.fields(self):
+            out[f.name] = getattr(self, f.name)
+        return out
 
     def propagate_mask(self, mask):
         """Transform the incoming [B, T] mask for downstream nodes
@@ -309,3 +332,24 @@ class ReverseTimeSeriesVertex(GraphVertex):
 
     def output_shape(self, shapes):
         return tuple(shapes[0])
+
+
+@register_vertex
+@dataclass
+class PreprocessorVertex(GraphVertex):
+    """Wraps an input preprocessor (``nn/preprocessors.py``) as a vertex
+    (reference PreprocessorVertex)."""
+    preprocessor: Optional[Any] = None
+
+    def apply(self, inputs):
+        return self.preprocessor.pre_process(inputs[0])
+
+    def output_shape(self, shapes):
+        return self.preprocessor.output_shape(shapes[0])
+
+    def propagate_mask(self, mask):
+        return self.preprocessor.propagate_mask(mask)
+
+    def to_dict(self):
+        return {"@class": type(self).__name__,
+                "preprocessor": self.preprocessor.to_dict()}

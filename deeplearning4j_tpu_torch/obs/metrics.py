@@ -291,6 +291,12 @@ SYNC_SECONDS = REGISTRY.counter(
 FIT_ETL_SECONDS = REGISTRY.counter(
     "dl4j_tpu_fit_etl_seconds_total",
     "time the fit loop waited on its data iterator", ("entry",))
+PREFETCH_WAIT = REGISTRY.counter(
+    "dl4j_tpu_prefetch_wait_seconds_total",
+    "consumer wait on the AsyncDataSetIterator queue")
+PREFETCH_DEPTH = REGISTRY.gauge(
+    "dl4j_tpu_prefetch_depth",
+    "AsyncDataSetIterator queue depth after the last get")
 WORKER_STEP = REGISTRY.histogram(
     "dl4j_tpu_worker_step_latency_seconds",
     "ParallelWrapper per-worker step latency", ("worker",))

@@ -25,7 +25,9 @@ its attention runs unmasked; ``eval``: the same classifier's
 batch; ``beam``: one ``generate_beam`` call of ``BEAM_NEW`` tokens),
 its launches per step. ``train_opts`` and ``finetune_opts`` are the train
 and fine-tune steps in ``steps_per_loop`` regions under a learning-rate
-schedule, with the counts of ``train`` and ``finetune``; ``serve_fault``
+schedule, with the counts of ``train`` and ``finetune``; ``checkpoint``
+is the fine-tune step in float32 around a ``ModelSerializer`` write and
+restore, with the counts of ``finetune``; ``serve_fault``
 is the serving gateway under the ``serving`` fault site. ``serve``,
 ``serve_opts`` and ``serve_fault`` run no fixed steps:
 ``chip_smoke.py`` derives their exact counts from the admissions and
@@ -68,9 +70,9 @@ class KernelEntry:
     #: train LM data-parallel over one rank), ``sp`` (the long-context
     #: LM's zigzag ring at one rank), ``eval`` (BERT-base's classifier
     #: forward, per evaluated batch), ``beam`` (one ``generate_beam``
-    #: call), ``train_opts`` and ``finetune_opts`` (as ``train`` and
-    #: ``finetune``); ``serve``, ``serve_opts`` and ``serve_fault`` run
-    #: no fixed steps
+    #: call), ``train_opts``, ``finetune_opts`` and ``checkpoint`` (as
+    #: ``train`` and ``finetune``); ``serve``, ``serve_opts`` and
+    #: ``serve_fault`` run no fixed steps
     per_step: Dict[str, int] = field(default_factory=dict)
 
     def _resolve(self, ref: str) -> Callable:
@@ -95,9 +97,9 @@ _NORM = "deeplearning4j_tpu_torch.ops.fused_norms"
 #: the data-parallel paths, which run the train LM's step (``zero``
 #: through the sharded update)
 _DP = ("dp", "dp_packed", "zero")
-#: the fine-tune step's paths: alone, under the wrapper, and in K-step
-#: regions under a schedule
-_FT = ("finetune", "dp_graph", "finetune_opts")
+#: the fine-tune step's paths: alone, under the wrapper, in K-step
+#: regions under a schedule, and around a zip checkpoint and restore
+_FT = ("finetune", "dp_graph", "finetune_opts", "checkpoint")
 #: the train step's paths on one network: alone, and in K-step regions
 #: under a schedule
 _TR = ("train", "train_opts")

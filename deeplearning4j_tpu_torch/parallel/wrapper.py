@@ -75,9 +75,11 @@ import torch.distributed as dist
 
 from deeplearning4j_tpu_torch import obs, tree
 from deeplearning4j_tpu_torch.data.dataset import has_masks
+from deeplearning4j_tpu_torch.data.iterators import AsyncDataSetIterator
 from deeplearning4j_tpu_torch.nn.layers.base import fold_in
 from deeplearning4j_tpu_torch.nn.multilayer import (apply_updates,
-                                                    loss_and_grads)
+                                                    loss_and_grads,
+                                                    notify_steps)
 from deeplearning4j_tpu_torch.parallel.compression import \
     EncodedGradientsAccumulator
 from deeplearning4j_tpu_torch.parallel.mesh import (Mesh, all_gather_,
@@ -168,8 +170,9 @@ class ParallelWrapper:
         self.accumulator = accumulator or (
             EncodedGradientsAccumulator()
             if mode in (self.ENCODED, self.ASYNC) else None)
-        #: kept for the API: the port reads each batch when its step
-        #: runs (the data iterators' prefetch comes with the data slice)
+        #: batches drawn ahead of the step by an AsyncDataSetIterator
+        #: around the fit's iterator (0: each batch read when its step
+        #: runs), as the JAX wrapper does
         self.prefetch_buffer = prefetch_buffer
         self.sharded_update = bool(sharded_update)
         self.gather_overlap = bool(gather_overlap)
@@ -434,6 +437,9 @@ class ParallelWrapper:
             self._dp_state = self._init_sharded_opt()
             net.opt_state = tree.map_(lambda t: t.cpu(), net.opt_state)
             self._evicted_opt = net.opt_state
+            # ModelSerializer folds the live shards into a zip while this
+            # wrapper owns the optimizer state (the identity check)
+            net._zero_wrapper = weakref.ref(self)
         if self.gather_overlap and self._pshard is None:
             self._pshard = self._init_param_shards()
             self._params_stale = False
@@ -570,7 +576,10 @@ class ParallelWrapper:
         group (of ``len(iterator)`` and of the first batch's size); every
         array of a batch is cut to the agreed size, a smaller batch
         raises ``ValueError``, and every rank stops an epoch at the
-        agreed count, so their collectives stay in step. Under
+        agreed count, so their collectives stay in step. With a
+        ``prefetch_buffer`` the batches are drawn ahead by an
+        ``AsyncDataSetIterator``; after each step the net's listeners get
+        ``iteration_done``, as in the JAX wrapper. Under
         ``gather_overlap`` ``net.params`` is gathered from the shards on
         the way out, also when a step raises. Returns the net."""
         try:
@@ -596,14 +605,16 @@ class ParallelWrapper:
             # trains from them
             self._pshard = self._init_param_shards()
         n_steps, b = (None, None) if self.n == 1 else self._agree(iterator)
+        it = (AsyncDataSetIterator(iterator, self.prefetch_buffer)
+              if self.prefetch_buffer else iterator)
         # the liveness key: a heartbeat a step (obs.health), retired
         # when fit ends normally
         worker = f"proc{dist.get_rank() if dist.is_initialized() else 0}"
         for _ in range(epochs):
-            if hasattr(iterator, "reset"):
-                iterator.reset()
+            if hasattr(it, "reset"):
+                it.reset()
             i = 0
-            src = iter(iterator)
+            src = iter(it)
             while True:
                 te0 = obs.now()     # iterator wait = ETL attribution
                 try:
@@ -646,9 +657,9 @@ class ParallelWrapper:
                 t1 = obs.now()
                 loss = self._step(x, y, rng)
                 t2 = obs.now()
-                net.score_ = float(loss)     # blocking device sync
+                score = float(loss)          # blocking device sync
                 obs.record_worker_step(worker, t0, t1, t2, obs.now())
-                net.iteration += 1
+                notify_steps(net, "ParallelWrapper.fit", [score])
             net.epoch += 1
         # normal completion: retire the liveness beat, so a finished fit
         # does not read as a stale worker (a crashed loop keeps it)

@@ -15,11 +15,18 @@ site                where it fires
 ``serving``         the serving gateway's worker, before each decode step
                     (inside its ``try``: a fire sheds the in-flight
                     streams, as a failed step does)
+``iterator``        every batch a ``data/`` iterator yields
+                    (``DataSetIterator._apply_pp``), before the normaliser
+``ckpt_write``      ``ModelSerializer.write_model``, before the zip is built
+``ckpt_commit``     ``ModelSerializer.write_model``, after the tmp file's
+                    fsync and before its ``os.replace`` (a fire removes
+                    the tmp file and leaves the old checkpoint in place)
 ==================  ========================================================
 
-The JAX package's other sites (checkpoint IO, the iterator, the elastic
-fleet and the serving router) are validated by name here too, so a plan
-written for it parses; they fire once their modules are ported.
+The JAX package's other sites (``host_death``, ``coordinator``,
+``router``, ``replica_spawn``: the elastic fleet and the serving router,
+which the port does not carry) are validated by name too, so a plan
+written for the JAX package parses; nothing in the port evaluates them.
 
 Plans are env-gated (``DL4J_TPU_FAULT_PLAN``) and the **off path is one
 branch**: :func:`inject` returns after a single module-global ``None``
@@ -78,7 +85,7 @@ ERRORS = {
 #: parse time
 _UNPORTED_ERRORS = {"NonFiniteError": "obs/numerics.py (ROADMAP A14)"}
 
-#: every site of the JAX package (the port's three are in the table
+#: every site of the JAX package (the port's six are in the table
 #: above) — literal rule sites are validated against this at parse
 #: time, so a mistyped plan fails loudly instead of never firing
 KNOWN_SITES = frozenset({"ckpt_write", "ckpt_commit", "step",

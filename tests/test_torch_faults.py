@@ -132,7 +132,9 @@ def test_off_path_zero_evaluations():
         assert faults.stats() == {"step:error=InjectedFault:"
                                   "nth=1000000000": {"evals": 2,
                                                      "fires": 0}}
-    assert faults.evaluations() == 2
+    # the two groups' step site, and the iterator site at each of the
+    # 4 batches (data/iterators.py)
+    assert faults.evaluations() == 2 + 4
 
 
 def test_process_level_kinds():

@@ -266,8 +266,17 @@ def test_unported_options_raise_naming_the_slice():
     g.fit(iter([]), steps_per_loop=2)
     with pytest.raises(ValueError, match="steps_per_loop"):
         g.fit(iter([]), steps_per_loop=0)
-    with pytest.raises(NotImplementedError, match="listeners"):
-        g.set_listeners(object())
+    # listeners are ported: they now see the graph's steps
+    seen = []
+
+    class Listener:
+        def iteration_done(self, net, iteration, epoch):
+            seen.append(iteration)
+
+    g.set_listeners(Listener())
+    g.fit(np.zeros((3, 2), np.float32),
+          np.eye(2, dtype=np.float32)[[0, 1, 0]])
+    assert seen == [1]
     with pytest.raises(RuntimeError, match="init"):
         _graph_with().params_from_jax({})
     with pytest.raises(ValueError, match="no input shape"):

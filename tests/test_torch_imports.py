@@ -30,7 +30,17 @@ def test_importing_every_port_module_stays_light():
             "deeplearning4j_tpu_torch.environment",
             "deeplearning4j_tpu_torch.obs.trace",
             "deeplearning4j_tpu_torch.obs.health",
-            "deeplearning4j_tpu_torch.resilience.faults"} <= set(mods)
+            "deeplearning4j_tpu_torch.resilience.faults",
+            "deeplearning4j_tpu_torch.resilience.checkpoint",
+            "deeplearning4j_tpu_torch.serialization",
+            "deeplearning4j_tpu_torch.train.listeners",
+            "deeplearning4j_tpu_torch.data.mnist",
+            "deeplearning4j_tpu_torch.data.digits",
+            "deeplearning4j_tpu_torch.data.normalizers",
+            "deeplearning4j_tpu_torch.nn.preprocessors",
+            "deeplearning4j_tpu_torch.nn.layers.conv",
+            "deeplearning4j_tpu_torch.zoo.lenet",
+            "deeplearning4j_tpu_torch.zoo.pretrained"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"

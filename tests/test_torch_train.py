@@ -230,8 +230,25 @@ def test_unported_options_raise_naming_the_slice():
         with pytest.raises(NotImplementedError, match="slice"):
             net_with(**kw).init(device="cpu")
     net = net_with().init(device="cpu")
-    with pytest.raises(NotImplementedError, match="listeners"):
-        net.set_listeners(object())
+    # listeners and input preprocessors are ported: they now work
+    seen = []
+
+    class Listener:
+        def iteration_done(self, net, iteration, epoch):
+            seen.append((iteration, net.score_))
+
+    net.set_listeners(Listener())
+    x = np.zeros((2, 5), np.int32)
+    net.fit(x, x)
+    assert seen == [(1, net.score_)]
+    from deeplearning4j_tpu_torch.nn.preprocessors import \
+        FeedForwardToRnnPreProcessor
+    net.conf.input_preprocessors = {
+        0: FeedForwardToRnnPreProcessor(time_steps=5)}
+    pre = MultiLayerNetwork(net.conf).init(input_shape=(1,), device="cpu")
+    # [10, 1] → [2, 5, 1] before the embedding (without it: [10, 1, 8])
+    assert pre.output(x.reshape(10, 1)).shape == (2, 5, 1, 8)
+    net.conf.input_preprocessors = {}
     net.conf.backprop_type = "TruncatedBPTT"
     with pytest.raises(NotImplementedError, match="recurrent slice"):
         MultiLayerNetwork(net.conf).init(device="cpu")

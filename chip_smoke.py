@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases eval,eval_agree,kernels
     python3 chip_smoke.py --phases serve_opts,serve_opts_agree,beam,kernels
     python3 chip_smoke.py --phases lenet,lenet_agree,checkpoint,kernels
+    python3 chip_smoke.py --phases transfer,transfer_agree,kernels
     python3 chip_smoke.py --phases profile    # device-time breakdown
 
 Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
@@ -232,10 +233,37 @@ device-to-host copy and no host wait — and serve_fault):
   the updater state, a restore on the card and 2 more steps against 4
   uninterrupted, each loss within 1e-5 relative and each parameter
   within 1e-3 of its largest value; K1, K3, K8 and K9 launch as in
-  finetune; the zip's size and the write and restore times.
+  finetune; the zip's size and the write and restore times;
+- transfer — transfer learning on the train LM: the source trained as
+  phase train trains it (2 warm and 8 timed steps: the full fine-tune's
+  figures in this run), then ``TransferLearning.builder(net)`` with
+  ``FineTuneConfiguration(updater=Adam(1e-4), learning_rate=5e-5,
+  weight_decay=0.01, l2=1e-6)`` and ``set_feature_extractor(6)``: the
+  embedding and blocks 1–6 frozen (the tie to the embedding kept), 1
+  warm and 8 timed ``fit`` steps: the frozen groups equal to the bit,
+  every other group moved, the loss finite and falling, the launches
+  exactly K1 12, K2 13, K7 12 and — the backward stopping at block 7 —
+  K3 6 and K6 13 a step; the step ms, tokens/s, peak memory and
+  optimizer-state bytes beside the full fine-tune's. Then
+  ``TransferLearningHelper`` refusing the tie across the split, and, on
+  a head-swapped copy in f32 (TF32 off), one ``fit_featurized`` Sgd step
+  against one full-net step (train_agree's bands); then the net's zip
+  written and restored on the card and 2 more f32 steps on each (at
+  128 tokens, where K3's dq atomics commute) equal to the bit, the
+  parameters and every group's optimizer state;
+- transfer_agree — the LM at full width cut to 4 blocks (2 frozen), f32,
+  TF32 off, B = 2, T = 256, the same transfer with an l1 term and a
+  ``MaxNormConstraint(0.9)`` on the first trainable block: loss and
+  every gradient card vs CPU, the update of the card's gradient on both
+  (train_agree's bands), a ``fit`` step on the card (frozen equal,
+  the constraint held, launches K1 4, K2 5, K3 2, K6 5, K7 4 a step over
+  the two), weight noise on the card by its statistics (mean, standard
+  deviation, DropConnect's keep rate within 5 standard errors) and the
+  masters untouched by a noisy step.
 
 Each main path (serve, serve_opts, beam, train, finetune, longctx, dp,
-dp_packed, sp, zero, dp_graph, eval, lenet, checkpoint) zeroes
+dp_packed, sp, zero, dp_graph, eval, lenet, checkpoint, transfer,
+transfer_agree) zeroes
 the launch counters of the kernels just before it runs and reads them
 just after; it fails if a kernel the registry lists for that path was
 not launched, and on a stepped path (all but serve; eval counts its
@@ -275,7 +303,7 @@ PHASES = ("device", "serve", "agree", "serve_opts", "serve_opts_agree",
           "dp_agree", "sp", "sp_agree", "zero", "zero_agree", "dp_graph",
           "eval", "eval_agree", "train_opts", "train_opts_agree",
           "finetune_opts", "serve_fault", "lenet", "lenet_agree",
-          "checkpoint", "kernels")
+          "checkpoint", "transfer", "transfer_agree", "kernels")
 
 # published peaks of one H100 SXM (dense): the bound of a kernel is the
 # larger of its operations over the peak rate for their type and its
@@ -2391,26 +2419,39 @@ def _train_batch(seed: int, b: int, t: int, vocab: int):
 
 
 def _fit_steps(state, path: str, model_kw, b: int, t: int, warm: int,
-               steps: int, make_step=None):
+               steps: int, make_step=None, label=None, record=True):
     """The stepped LM path ``path``: ``CausalTransformerLM(**model_kw)``
     (bfloat16 compute) built by ``init(t)`` and trained on one fixed
-    [b, t] batch, ``warm`` steps, then ``steps`` timed ones between
-    zeroed and read launch counters. A step is ``net.fit(x, y)``, or the
-    callable ``make_step(net, x, y)`` returns (it ends in a device sync
-    and leaves the loss in ``net.score()``). Returns the net."""
-    import math
-    import torch
-    from deeplearning4j_tpu_torch.ops import kernel_registry
+    [b, t] batch by :func:`_timed_steps`. A step is ``net.fit(x, y)``,
+    or the callable ``make_step(net, x, y)`` returns (it ends in a device
+    sync and leaves the loss in ``net.score()``). Returns the net."""
     from deeplearning4j_tpu_torch.zoo.gpt import CausalTransformerLM
-    card = state["card"]
     model = CausalTransformerLM(compute_dtype="bfloat16", **model_kw)
     t0 = time.perf_counter()
     net = model.init(t)
     x, y = _train_batch(0, b, t, model.vocab_size)
-    log(f"{path}: init {net.num_params()} params "
+    log(f"{label or path}: init {net.num_params()} params "
         f"{time.perf_counter() - t0:.1f}s")
     step = (make_step(net, x, y) if make_step is not None
             else lambda: net.fit(x, y))
+    _timed_steps(state, path, net, step, b, t, warm, steps, label=label,
+                 record=record)
+    return net
+
+
+def _timed_steps(state, path: str, net, step, b: int, t: int, warm: int,
+                 steps: int, label=None, record=True):
+    """``warm`` calls of ``step``, then ``steps`` timed ones between
+    zeroed and read launch counters, from a reset peak of card memory:
+    every loss finite and the last below the first, each kernel launched
+    exactly its registry count for ``path`` a step (the counts kept for
+    the kernels line when ``record``). Prints and returns ``(losses,
+    mean_step_ms, tokens_per_s, max_memory_allocated_gb)`` under
+    ``label`` (default ``path``), also kept in ``state["timed"]``."""
+    import math
+    import torch
+    from deeplearning4j_tpu_torch.ops import kernel_registry
+    card, label = state["card"], label or path
     torch.cuda.reset_peak_memory_stats()
     losses = []
     for _ in range(warm):
@@ -2426,16 +2467,19 @@ def _fit_steps(state, path: str, model_kw, b: int, t: int, warm: int,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_start
     launches = {e.key: e.launches() for e in kernel_registry.ported()}
-    state.setdefault("launches", {})[path] = launches
+    if record:
+        state.setdefault("launches", {})[path] = launches
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"{path}: losses {' '.join(f'{l:.4f}' for l in losses)} {card}")
-    log(f"{path}: B={b} T={t} steps={steps} mean_step_ms="
-        f"{wall / steps * 1e3:.3f} tokens_per_s={b * t / wall * steps:.1f}"
+    step_ms, rate = wall / steps * 1e3, b * t / wall * steps
+    state.setdefault("timed", {})[label] = (losses, step_ms, rate, peak_gb)
+    log(f"{label}: losses {' '.join(f'{l:.4f}' for l in losses)} {card}")
+    log(f"{label}: B={b} T={t} steps={steps} mean_step_ms="
+        f"{step_ms:.3f} tokens_per_s={rate:.1f}"
         f" max_memory_allocated_gb={peak_gb:.3f} {card}")
     assert all(math.isfinite(l) for l in losses), losses
     assert losses[-1] < losses[0], losses
     _check_step_launches(path, steps, launches, card)
-    return net
+    return losses, step_ms, rate, peak_gb
 
 
 def phase_train(state):
@@ -2599,8 +2643,7 @@ def _packed_step(mesh, net, x, y):
         loss, g, net.state = grads()
         dec, carry["acc"] = acc.exchange_packed(g, carry["acc"], group)
         net.params, net.opt_state = apply_updates(
-            net.conf.updater, net._grad_norm, net.params, dec,
-            net.opt_state)
+            net._chains, net.params, dec, net.opt_state)
         net.score_ = mean_over(loss, group).item()     # device sync
         net.iteration += 1
 
@@ -3900,14 +3943,13 @@ def _sweep_step(card_net, cpu_net, x, y):
         yt = torch.as_tensor(y, device=net.device)
         results.append(net._loss_and_grads(xt, yt)[:2])
     (l_card, g_card), (l_cpu, g_cpu) = results
-    u = card_net.conf.updater
+    chains = card_net._chains            # the sweep's updater, each group
     card_net.params, card_net.opt_state = apply_updates(
-        u, card_net._grad_norm, card_net.params, g_card,
-        card_net.opt_state)
+        chains, card_net.params, g_card, card_net.opt_state)
     card_net.iteration += 1
     want_p, want_s = apply_updates(
-        u, cpu_net._grad_norm, cpu_net.params,
-        tree.map_(lambda t: t.cpu(), g_card), cpu_net.opt_state)
+        chains, cpu_net.params, tree.map_(lambda t: t.cpu(), g_card),
+        cpu_net.opt_state)
     grads = _worst_param(dict(_named(g_card)), dict(_named(g_cpu)),
                          flat=True)
     update = max(_worst_param(card_net.params, want_p),
@@ -4458,6 +4500,355 @@ def phase_checkpoint(state):
     assert max(rel) <= CKPT_LOSS_RTOL and worst <= CKPT_PARAM_TOL
     _check_step_launches("checkpoint", 8, launches, card)
     del net, ref_params
+
+
+# -- transfer learning ------------------------------------------------------
+#: ``set_feature_extractor``'s last frozen layer on the LM: the embedding
+#: (layer_0) and blocks 1-6 are frozen, blocks 7-12, the final norm and
+#: the head's bias train (the head's W stays tied to the frozen embedding)
+TRANSFER_FROZEN = 6
+TRANSFER_STEPS = 8
+#: the TransferLearningHelper check: one Sgd step at this rate on the
+#: featurized tail against one full-net step (a fresh untied head: the tied
+#: one crosses the split), both in f32 with TF32 off. The features are the
+#: prefix's f32 output (``activate_selected_layers`` runs the masters);
+#: under bf16 compute the full step would see the prefix's bf16 output
+#: instead, and the updates part by that rounding carried through six
+#: blocks (on the CPU at hidden 96, 9e-2 of a leaf's largest update),
+#: which would hide a fault. In f32 both see the same features, so the
+#: bands are train_agree's: the loss 1e-5 relative, each tail update
+#: within 1e-3 of its largest element.
+HELPER_LR = 1e-2
+#: the zip round trip's resumed steps: the tokens of the batch they take
+ZIP_RESUME_T = 128
+#: transfer_agree: the LM at full width with 2 frozen and 2 trainable
+#: blocks, f32, B = 2, T = 256; the first trainable block carries an l1
+#: term and a max-norm constraint (a column of a 768-wide xavier matrix
+#: has norm ~1, so 0.9 clips most of them)
+AGREE_LAYERS, AGREE_FROZEN = 4, 2
+AGREE_L1, AGREE_MAX_NORM = 1e-6, 0.9
+#: weight noise on the card, by its statistics over n draws (a block's
+#: Wg, 768 x 2048): the noise's mean, its standard deviation and
+#: DropConnect's keep rate each within this many standard errors of
+#: their targets (σ/√n, σ/√(2n) relative, √(p(1 − p)/n))
+NOISE_SIGMAS = 5
+
+
+def _transfer_ftc(upd, ftc):
+    """The fine-tune of phase transfer: Adam 1e-4 as the network's
+    updater, a per-layer rate of 5e-5 with decay 0.01 and l2 1e-6 on every
+    layer that trains."""
+    return ftc(updater=upd.Adam(learning_rate=1e-4), learning_rate=5e-5,
+               weight_decay=0.01, l2=1e-6)
+
+
+def _host_params(net):
+    """A host copy of every parameter group of ``net``."""
+    from deeplearning4j_tpu_torch import tree
+    return {n: tree.map_(lambda t: t.detach().cpu(), p)
+            for n, p in net.params.items()}
+
+
+def _same_groups(a, b):
+    """Group name → whether every leaf of ``a``'s group equals ``b``'s to
+    the bit (on the host)."""
+    import torch
+    from deeplearning4j_tpu_torch import tree
+    return {n: all(torch.equal(x.detach().cpu(), y.detach().cpu())
+                   for x, y in zip(tree.leaves(a[n]), tree.leaves(b[n])))
+            for n in a}
+
+
+def _opt_bytes(net) -> int:
+    from deeplearning4j_tpu_torch import tree
+    return sum(t.numel() * t.element_size()
+               for t in tree.leaves(net.opt_state))
+
+
+def phase_transfer(state):
+    """Transfer learning on the train LM at full width: the pretrained
+    source (phase train's step, timed as the full fine-tune), the
+    transferred net (``set_feature_extractor(6)`` under the fine-tune
+    chain) for 1 warm and 8 timed steps, the helper's featurized step
+    against a full-net step, and the zip round trip."""
+    import math
+    import tempfile
+    import torch
+    from deeplearning4j_tpu_torch import tree
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn import (FineTuneConfiguration,
+                                             TransferLearning,
+                                             TransferLearningHelper)
+    from deeplearning4j_tpu_torch.nn import updaters as upd
+    from deeplearning4j_tpu_torch.nn.layers import RnnOutputLayer
+    from deeplearning4j_tpu_torch.serialization import ModelSerializer
+    card = state["card"]
+    _free_card("transfer", card)
+    # 1. the source, trained as phase train trains it (its kernel counts
+    #    checked as train's; not recorded under transfer)
+    src = _fit_steps(state, "train", TRAIN, TRAIN_B, TRAIN_T, warm=2,
+                     steps=TRANSFER_STEPS, label="transfer/full",
+                     record=False)
+    full_opt = _opt_bytes(src)
+    _, full_ms, full_rate, full_peak = state["timed"]["transfer/full"]
+    x, y = _train_batch(0, TRAIN_B, TRAIN_T, TRAIN["vocab_size"])
+    # 2. the transferred net
+    t0 = time.perf_counter()
+    net = (TransferLearning.builder(src)
+           .fine_tune_configuration(_transfer_ftc(upd,
+                                                  FineTuneConfiguration))
+           .set_feature_extractor(TRANSFER_FROZEN).build())
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    del src
+    frozen = sorted(net._frozen())
+    assert frozen == sorted(f"layer_{i}"
+                            for i in range(TRANSFER_FROZEN + 1)), frozen
+    assert net.device.type == "cuda"
+    assert net.conf.tied_weights == [[TRAIN["n_layers"] + 2, "W", 0, "W",
+                                      True]], net.conf.tied_weights
+    n_frozen = sum(t.numel() for n in frozen
+                   for t in tree.leaves(net.params[n]))
+    log(f"transfer: build {build_s:.1f}s; frozen layer_0..layer_"
+        f"{TRANSFER_FROZEN} ({n_frozen} of {net.num_params()} params, no "
+        f"optimizer state), the tie to layer_0 kept; trainable groups' "
+        f"updater {type(net._chains['layer_7'].updater).__name__} at "
+        f"{net._chains['layer_7'].updater.learning_rate} after decay "
+        f"{net._chains['layer_7'].weight_decay}, l2 "
+        f"{net.layers[7].l2} {card}")
+    _free_card("transfer", card)
+    before = _host_params(net)
+    # 3. the timed fine-tune
+    losses, ms, rate, peak = _timed_steps(
+        state, "transfer", net, lambda: net.fit(x, y), TRAIN_B, TRAIN_T,
+        warm=1, steps=TRANSFER_STEPS)
+    same = _same_groups(net.params, before)
+    moved = sorted(n for n, s in same.items() if not s)
+    log(f"transfer: groups equal to the bit after {1 + TRANSFER_STEPS} "
+        f"steps: {sorted(n for n, s in same.items() if s)}; moved: "
+        f"{moved} {card}")
+    assert all(same[n] for n in frozen), same
+    assert len(moved) == len(same) - len(frozen), moved
+    log(f"transfer: frozen prefix vs the full fine-tune of phase train's "
+        f"step, same run: mean_step_ms {ms:.3f} vs {full_ms:.3f}, "
+        f"tokens_per_s {rate:.1f} vs {full_rate:.1f}, "
+        f"max_memory_allocated_gb {peak:.3f} vs {full_peak:.3f}, "
+        f"optimizer state {_opt_bytes(net) / 2 ** 30:.3f} vs "
+        f"{full_opt / 2 ** 30:.3f} GB {card}")
+    # 4. the helper: the tied head crosses the split and is refused; a
+    #    fresh untied head's tail trained on featurized data against one
+    #    full-net step from the same weights
+    try:
+        TransferLearningHelper(net)
+    except ValueError as e:
+        assert "crosses" in str(e), e
+    else:
+        raise AssertionError("a tie across the split was not refused")
+
+    def helper_net():
+        return (TransferLearning.builder(net)
+                .fine_tune_configuration(FineTuneConfiguration(
+                    updater=upd.Sgd(learning_rate=HELPER_LR),
+                    learning_rate=HELPER_LR))
+                .remove_output_layer()
+                .add_layer(RnnOutputLayer(n_out=TRAIN["vocab_size"],
+                                          activation="softmax",
+                                          loss="sparse_mcxent"))
+                .build())
+
+    full, tail_net = helper_net(), helper_net()
+    full.conf.compute_dtype = tail_net.conf.compute_dtype = None
+    helper = TransferLearningHelper(tail_net)
+    split = TRANSFER_FROZEN + 1
+    tail = [f"layer_{i}" for i in range(split, len(full.layers))]
+    start = {n: tree.map_(torch.clone, full.params[n]) for n in tail}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _tf32(False):
+        feats = helper.featurize(DataSet(x, y))
+        torch.cuda.synchronize()
+        feat_s = time.perf_counter() - t0
+        helper.fit_featurized(feats)
+        full.fit(x, y)
+    worst = max(tree.leaves(tree.map_with_path(
+        lambda p, h, f, s: (((h - s) - (f - s)).abs().max().item()
+                            / (f - s).abs().max().item(), ".".join(p)),
+        {n: helper.net.params[n] for n in tail},
+        {n: full.params[n] for n in tail}, start)))
+    loss_rel = (abs(helper.unfrozen_mln().score() - full.score())
+                / abs(full.score()))
+    log(f"transfer: TransferLearningHelper, f32 (TF32 off): featurize "
+        f"{tuple(feats.features.shape)} in {feat_s:.2f}s, one "
+        f"fit_featurized Sgd step at {HELPER_LR} vs one full-net step: "
+        f"loss {helper.unfrozen_mln().score():.6f} vs {full.score():.6f} "
+        f"rel={loss_rel:.3e} tol={TRAIN_LOSS_RTOL:.0e}; worst tail update "
+        f"{worst[1]} max|dh-df|/max|df|={worst[0]:.3e} "
+        f"tol={TRAIN_GRAD_TOL:.0e} {card}")
+    assert worst[0] <= TRAIN_GRAD_TOL and loss_rel <= TRAIN_LOSS_RTOL
+    assert all(_same_groups(helper.net.params, full.params)[f"layer_{i}"]
+               for i in range(split))
+    del full, helper, feats, start
+    # 5. the zip round trip: written and restored on the card, then 2 more
+    #    steps on both, in f32 with TF32 off on the batch's first
+    #    ZIP_RESUME_T tokens: K3 adds each dq row's share of every 64-key
+    #    tile by atomics, in an order that changes from run to run once
+    #    three tiles add (at T = 1024 the f32 steps part in the last bit
+    #    of the loss, run A of PR 17); at 128 tokens at most two add onto
+    #    zero, which commute, so the step repeats to the bit (as PR 16's
+    #    checkpoint phase at T = 128)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "transfer.zip")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ModelSerializer.write_model(net, path, save_updater=True)
+        write_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back = ModelSerializer.restore_multi_layer_network(path)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+    assert back.device.type == "cuda" and back.iteration == net.iteration
+    assert sorted(back._frozen()) == frozen
+    assert all(back.opt_state[n] == {} for n in frozen)
+    for a, b in ((net.params, back.params), (net.opt_state,
+                                             back.opt_state)):
+        assert all(_same_groups(a, b).values())
+    got = []
+    xs, ys = x[:, :ZIP_RESUME_T], y[:, :ZIP_RESUME_T]
+    with _tf32(False):
+        for n in (net, back):
+            n.conf.compute_dtype = None
+            for _ in range(2):
+                n.fit(xs, ys)
+                got.append(n.score())
+    same_p = _same_groups(net.params, back.params)
+    same_s = _same_groups(net.opt_state, back.opt_state)
+    log(f"transfer: zip {nbytes} bytes written in {write_s:.1f}s, restored "
+        f"on the card in {read_s:.1f}s; 2 more f32 steps each (TF32 off, "
+        f"T={ZIP_RESUME_T}): "
+        f"losses {got[0]:.6f} {got[1]:.6f} vs restored {got[2]:.6f} "
+        f"{got[3]:.6f}; parameters equal to the bit in "
+        f"{sum(same_p.values())}/{len(same_p)} groups, optimizer state in "
+        f"{sum(same_s.values())}/{len(same_s)} {card}")
+    assert got[:2] == got[2:] and all(same_p.values()) \
+        and all(same_s.values())
+    assert all(math.isfinite(l) for l in losses + got)
+
+
+def phase_transfer_agree(state):
+    """The transferred LM in f32 (TF32 off) at full width, 2 frozen and 2
+    trainable blocks, B = 2, T = 256, from the same weights on the card
+    and on the CPU: the loss and every gradient of one step (the l1 term
+    on the first trainable block), then the update of the card's
+    gradient on both (the per-group chains, the max-norm constraint on
+    that block), in train_agree's bands; then one ``fit`` step on the
+    card; weight noise on the card by its statistics."""
+    import math
+    import torch
+    from deeplearning4j_tpu_torch import tree
+    from deeplearning4j_tpu_torch.nn import (FineTuneConfiguration,
+                                             TransferLearning)
+    from deeplearning4j_tpu_torch.nn import updaters as upd
+    from deeplearning4j_tpu_torch.nn.constraints import (
+        DropConnect, MaxNormConstraint, WeightNoise)
+    from deeplearning4j_tpu_torch.nn.multilayer import apply_updates
+    from deeplearning4j_tpu_torch.ops import kernel_registry
+    from deeplearning4j_tpu_torch.zoo.gpt import CausalTransformerLM
+    card = state["card"]
+    _free_card("transfer_agree", card)
+    model = CausalTransformerLM(**dict(TRAIN, n_layers=AGREE_LAYERS))
+    x, y = _train_batch(1, 2, 256, model.vocab_size)
+    first = AGREE_FROZEN + 1             # the first trainable block
+    nets, results = {}, {}
+    with _tf32(False):
+        for dev in ("cuda", "cpu"):
+            net = (TransferLearning.builder(model.init(256, device=dev))
+                   .fine_tune_configuration(_transfer_ftc(
+                       upd, FineTuneConfiguration))
+                   .set_feature_extractor(AGREE_FROZEN).build())
+            net.layers[first].l1 = AGREE_L1
+            net.layers[first].constraints = [
+                MaxNormConstraint(max_norm=AGREE_MAX_NORM)]
+            nets[dev] = net
+        card_net, cpu_net = nets["cuda"], nets["cpu"]
+        before = _host_params(card_net)
+        for dev, net in nets.items():
+            xt, yt = (torch.as_tensor(a, device=dev) for a in (x, y))
+            loss, grads, _ = net._loss_and_grads(xt, yt)
+            host = tree.map_(lambda g: g.cpu(), grads)
+            # both devices update from the card's gradient (an element
+            # within rounding of zero may point either way on the two,
+            # and Adam's first step is ~lr whatever its size), as fit's
+            # update does: each group's chain, then the constraints
+            g = (grads if dev == "cuda" else
+                 tree.map_(lambda t: t.to(dev), results["cuda"][1]))
+            net.params, net.opt_state = apply_updates(
+                net._chains, net.params, g, net.opt_state)
+            results[dev] = (loss.item(), host, _host_params(net))
+            if dev == "cuda":
+                for e in kernel_registry.ported():
+                    e.reset()
+                net.fit(x, y)                # the entry point, once
+                torch.cuda.synchronize()
+                launches = {e.key: e.launches()
+                            for e in kernel_registry.ported()}
+    state.setdefault("launches", {})["transfer_agree"] = launches
+    _check_step_launches("transfer_agree", 1, launches, card)
+    (l_card, g_card, p_card), (l_cpu, g_cpu, p_cpu) = (results["cuda"],
+                                                       results["cpu"])
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    frozen = sorted(card_net._frozen())
+    for n in frozen:                     # zeros, as optax's set_to_zero
+        assert all(not g.any() for g in tree.leaves(g_card[n])), n
+    trained = {n: g for n, g in g_card.items() if n not in frozen}
+    g_worst = max(tree.leaves(tree.map_with_path(
+        lambda path, a, b: (_rel_err(a, b), ".".join(path)), trained,
+        {n: g_cpu[n] for n in trained})))
+    p_worst = max(tree.leaves(tree.map_with_path(
+        lambda path, a, b: (_rel_err(a, b), ".".join(path)), p_card,
+        p_cpu)))
+    fitted = _host_params(card_net)
+    same = _same_groups(fitted, before)
+    norms = [torch.sqrt((w ** 2).sum(0)).max().item() for k, w in
+             fitted[f"layer_{first}"]["mha"].items() if w.ndim == 2]
+    log(f"transfer_agree: f32 {AGREE_LAYERS} blocks ({AGREE_FROZEN} frozen) "
+        f"B=2 T=256, card vs CPU: loss {l_card:.6f} vs {l_cpu:.6f} "
+        f"rel={loss_rel:.3e} tol={TRAIN_LOSS_RTOL:.0e}; worst gradient "
+        f"{g_worst[1]} {g_worst[0]:.3e}, worst parameter updated from the "
+        f"card's gradient {p_worst[1]} {p_worst[0]:.3e} of its max, tol="
+        f"{TRAIN_GRAD_TOL:.0e}; after a further fit step on the card, "
+        f"frozen groups equal to the bit {[n for n in frozen if same[n]]}"
+        f", layer_{first} attention column norms ≤ {max(norms):.6f} "
+        f"(max_norm {AGREE_MAX_NORM}) {card}")
+    assert loss_rel <= TRAIN_LOSS_RTOL and g_worst[0] <= TRAIN_GRAD_TOL
+    assert p_worst[0] <= TRAIN_GRAD_TOL
+    assert all(same[n] for n in frozen)
+    assert max(norms) <= AGREE_MAX_NORM * (1 + 1e-6)
+    # weight noise on the card: the draws differ from the CPU's, so held
+    # by their statistics, and the masters untouched by a noisy step
+    w = card_net.params[f"layer_{first}"]["Wg"]
+    n = WeightNoise(stddev=0.05, mean=0.01).apply({"Wg": w}, 11)["Wg"] - w
+    kept = (DropConnect(weight_retain_prob=0.8).apply({"Wg": w}, 12)["Wg"]
+            != 0).float().mean().item()
+    se = NOISE_SIGMAS / math.sqrt(w.numel())
+    masters = _host_params(card_net)
+    xt, yt = (torch.as_tensor(a, device="cuda") for a in (x, y))
+    with _tf32(False):
+        clean = card_net._loss_and_grads(xt, yt, rng=3)[0].item()
+        card_net.layers[first].weight_noise = WeightNoise(stddev=0.05)
+        noisy = card_net._loss_and_grads(xt, yt, rng=3)[0].item()
+        again = card_net._loss_and_grads(xt, yt, rng=3)[0].item()
+    log(f"transfer_agree: on the card WeightNoise(0.05, mean 0.01) over "
+        f"{tuple(w.shape)}: mean {n.mean().item():.6f} std "
+        f"{n.std().item():.6f}; DropConnect(0.8) keep rate {kept:.6f}; "
+        f"the loss with WeightNoise(0.05) on layer_{first} {noisy:.6f} "
+        f"(without {clean:.6f}), the same from the same seed: "
+        f"{noisy == again}; the masters untouched {card}")
+    assert abs(n.mean().item() - 0.01) <= 0.05 * se
+    assert abs(n.std().item() / 0.05 - 1) <= se / math.sqrt(2)
+    assert abs(kept - 0.8) <= math.sqrt(0.8 * 0.2) * se
+    assert noisy != clean and noisy == again
+    assert all(_same_groups(card_net.params, masters).values())
 
 
 def phase_profile(state):

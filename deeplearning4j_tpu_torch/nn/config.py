@@ -251,6 +251,22 @@ class NeuralNetConfiguration:
         self.weight_init = w
         return self
 
+    def l1_(self, v: float):
+        """l1 on every layer that sets none (reference l1)."""
+        self.l1 = v
+        return self
+
+    def l2_(self, v: float):
+        """l2 on every layer that sets none (reference l2)."""
+        self.l2 = v
+        return self
+
+    def weight_decay_(self, v: float):
+        """Decoupled weight decay on every layer that sets none
+        (reference weightDecay)."""
+        self.weight_decay = v
+        return self
+
     def dropout_(self, v: float):
         self.dropout = v
         return self

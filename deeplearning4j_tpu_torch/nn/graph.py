@@ -19,10 +19,19 @@ and a layer that removes the time axis (``ClsTokenPoolLayer``) ends it.
 the JAX package's JSON (layers and vertices through their registries),
 and training listeners are called as ``MultiLayerNetwork`` calls them.
 
-Not in this slice (each raises ``NotImplementedError``): per-layer
-updaters, learning rates, l1/l2 and weight decay, frozen layers,
-constraints, weight noise (the second half of ROADMAP A9), the
-numerics observatory, an ``RnnOutputLayer`` output — the JAX graph's fused
+Per-node options, as the JAX graph applies them: each layer node is one
+parameter group with its own chain (``nn.updaters.GroupChain``: the
+node's updater, its ``weight_decay``); a frozen node (``FrozenLayer``,
+``FrozenLayerWithBackprop`` or ``trainable=False``) gets no update, no
+optimizer state and no gradient; weight noise perturbs the training
+forward's view of the masters, and constraints run after every update.
+``l1``, ``l2`` and ``learning_rate`` on a node are refused: the JAX graph
+silently ignores them (its optimizer never reads ``learning_rate`` and it
+has no regularisation term, ``deeplearning4j_tpu/nn/graph.py:237-259``),
+a gap of the reference the port does not copy (``ROADMAP.md`` C).
+
+Not in this slice (each raises ``NotImplementedError``): the numerics
+observatory, an ``RnnOutputLayer`` output — the JAX graph's fused
 head flattens its [B, T, F] input (``graph.py:290-298``), so the
 reference's BERT MLM head is red and the port does not copy it — and
 sequence-parallel layers under a ``distributed_context`` (ROADMAP item
@@ -53,13 +62,17 @@ from deeplearning4j_tpu_torch.nn.layers.core import OutputLayer
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     BaseRecurrentLayer, RnnOutputLayer)
 from deeplearning4j_tpu_torch.nn.multilayer import (
-    _FUSABLE, _UNPORTED_LAYER_OPTIONS, LATER_A9, REGION_SCOPE,
-    MultiLayerNetwork, apply_updates, evaluate_batches, loss_and_grads,
-    notify_steps, stage)
+    _FUSABLE, REGION_SCOPE, MultiLayerNetwork, apply_updates,
+    apply_weight_noise, check_frozen_options, evaluate_batches,
+    has_weight_noise, loss_and_grads, notify_steps, stage)
 from deeplearning4j_tpu_torch.nn.vertices import (GraphVertex,
                                                   vertex_from_dict)
 from deeplearning4j_tpu_torch.ops import losses as losses_mod
 from deeplearning4j_tpu_torch.resilience import faults
+
+
+#: per-node options the JAX graph silently ignores, which the port refuses
+_IGNORED_NODE_OPTIONS = ("l1", "l2", "learning_rate")
 
 
 @dataclass
@@ -244,15 +257,17 @@ class ComputationGraph:
             if node.kind != "layer":
                 continue
             layer = node.obj
-            for attr, what in _UNPORTED_LAYER_OPTIONS:
+            for attr in _IGNORED_NODE_OPTIONS:
                 if getattr(layer, attr, None):
                     raise NotImplementedError(
                         f"node {node.name!r} ({type(layer).__name__}): "
-                        f"{what} ({attr}) comes with {LATER_A9}")
-            if not layer.trainable:
-                raise NotImplementedError(
-                    f"node {node.name!r}: frozen layers come with "
-                    f"{LATER_A9}")
+                        f"{attr} on a ComputationGraph node — the JAX "
+                        "graph silently ignores it (deeplearning4j_tpu/"
+                        "nn/graph.py:237-259 never reads learning_rate, "
+                        "and the graph has no l1/l2 term), a gap of the "
+                        "reference the port refuses instead of copying "
+                        "(ROADMAP.md C)")
+            check_frozen_options(f"node {node.name!r}", layer)
             if node.name in self.conf.outputs and isinstance(
                     layer, RnnOutputLayer):
                 raise NotImplementedError(
@@ -296,11 +311,16 @@ class ComputationGraph:
         self._build_optimizer()
         return self
 
+    def _group_layers(self) -> Dict[str, Layer]:
+        """Parameter group → its layer: the layer nodes by name."""
+        return {n.name: n.obj for n in self.order if n.kind == "layer"}
+
     # the parameter and optimizer bookkeeping of MultiLayerNetwork, which
     # keys its groups by layer where this graph keys them by node
     params_from_jax = MultiLayerNetwork.params_from_jax
     opt_state_from_jax = MultiLayerNetwork.opt_state_from_jax
     _build_optimizer = MultiLayerNetwork._build_optimizer
+    _frozen = MultiLayerNetwork._frozen
     _as_input = MultiLayerNetwork._as_input
     num_params = MultiLayerNetwork.num_params
     set_listeners = MultiLayerNetwork.set_listeners
@@ -393,9 +413,15 @@ class ComputationGraph:
         return loss_name, fused
 
     def _loss_fn(self, params, state, inputs, labels, masks, lmasks, rng):
-        """The summed loss of every output, and the new state."""
+        """The summed loss of every output, and the new state (weight
+        noise on the forward's view of the masters, then the
+        compute-dtype cast)."""
         any_fused = any(self._out_loss(o)[1] for o in self.conf.outputs)
         cd = self.conf.compute_dtype
+        groups = self._group_layers()
+        if has_weight_noise(groups):
+            nrng, rng = split_seed(rng)
+            params = apply_weight_noise(groups, params, nrng)
         if cd is not None:
             # bf16 forward/backward, f32 master params: the cast is in
             # the autograd graph, so gradients come back f32
@@ -438,7 +464,8 @@ class ComputationGraph:
         inputs, labels, masks, lmasks = self._feed(xs, ys, fms, lms)
         return loss_and_grads(
             lambda p: self._loss_fn(p, self.state, inputs, labels, masks,
-                                    lmasks, rng), self.params)
+                                    lmasks, rng), self.params,
+            self._frozen())
 
     # ------------------------------------------------------------------
     # fit
@@ -558,8 +585,7 @@ class ComputationGraph:
         loss, grads, new_state = self._loss_and_grads(xs, ys, fms, lms,
                                                       rng)
         self.params, self.opt_state = apply_updates(
-            self.conf.updater, self._grad_norm, self.params, grads,
-            self.opt_state)
+            self._chains, self.params, grads, self.opt_state)
         self.state = new_state
         return loss
 

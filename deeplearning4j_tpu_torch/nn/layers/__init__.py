@@ -1,8 +1,9 @@
 """Layer implementations (port of ``deeplearning4j_tpu/nn/layers``): one
 dataclass per layer with ``init`` (parameters and shape inference) and
 ``apply``. The ported slices carry the layers the causal LM and BERT's
-classifier train with, and LeNet's convolution and pooling; gradients
-come from autograd and the kernels' backward Functions."""
+classifier train with, LeNet's convolution and pooling, and the two
+frozen wrappers of transfer learning; gradients come from autograd and
+the kernels' backward Functions."""
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
 from deeplearning4j_tpu_torch.nn.layers.core import (
     DenseLayer, OutputLayer, DropoutLayer, EmbeddingLayer,
@@ -17,5 +18,7 @@ from deeplearning4j_tpu_torch.nn.layers.attention import (
     ClsTokenPoolLayer, MultiHeadAttention, PositionalEmbeddingLayer,
     TransformerDecoderBlock, TransformerEncoderBlock,
 )
+from deeplearning4j_tpu_torch.nn.layers.special import FrozenLayer
+from deeplearning4j_tpu_torch.nn.layers.extra import FrozenLayerWithBackprop
 
 __all__ = [n for n in dir() if not n.startswith("_")]

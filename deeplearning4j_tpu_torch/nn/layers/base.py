@@ -35,11 +35,12 @@ def register_layer(cls):
 
 
 def layer_from_dict(d: Dict[str, Any]) -> "Layer":
-    """The layer a ``Layer.to_dict`` dict describes (a nested layer or a
-    per-layer updater is rebuilt too; the network refuses the latter at
-    ``init``, as today). Raises ``ValueError`` for a class the port does not
-    register, and ``NotImplementedError`` for a parameter constraint or
-    weight-noise bean, which come with ROADMAP A9's second half."""
+    """The layer a ``Layer.to_dict`` dict describes, nested beans rebuilt
+    as the JAX ``layer_from_dict`` rebuilds them: a wrapped layer, a
+    per-layer updater, parameter constraints and weight noise
+    (``nn/constraints.py``). Raises ``ValueError`` for a class the port
+    does not register."""
+    from deeplearning4j_tpu_torch.nn import constraints as cmod
     d = dict(d)
     kind = d.pop("@class")
     if kind not in _LAYER_REGISTRY:
@@ -50,16 +51,18 @@ def layer_from_dict(d: Dict[str, Any]) -> "Layer":
     for k, v in d.items():
         if k not in names:
             continue
-        if k in ("constraints", "weight_noise") and v:
-            raise NotImplementedError(
-                f"{kind}.{k}: parameter constraints and weight noise come "
-                "with the second half of ROADMAP A9")
         if k == "updater" and isinstance(v, dict):
             from deeplearning4j_tpu_torch.nn.updaters import \
                 updater_from_dict
             v = updater_from_dict(v)
+        elif k == "constraints" and isinstance(v, list):
+            v = [cmod.constraint_from_dict(c) if isinstance(c, dict)
+                 else c for c in v]
         elif isinstance(v, dict) and "@class" in v:
-            v = layer_from_dict(v)
+            v = (cmod.constraint_from_dict(v)
+                 if v["@class"] in cmod._CONSTRAINTS
+                 else cmod.noise_from_dict(v) if v["@class"] in cmod._NOISES
+                 else layer_from_dict(v))
         kwargs[k] = v
     return cls(**kwargs)
 

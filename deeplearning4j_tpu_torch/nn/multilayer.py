@@ -23,10 +23,22 @@ run before their layer in every forward, and training listeners
 (in a K-step region, once per step after the group's one copy, each
 with that step's ``score_``).
 
-Not in this slice (each raises ``NotImplementedError`` naming the later
-slice): truncated BPTT, l1/l2 and per-layer weight decay, per-layer
-updaters or learning rates, frozen layers, constraints, weight noise
-(the second half of ROADMAP A9), the numerics observatory.
+Per-layer options, as the JAX network applies them: each layer is one
+parameter group with its own chain (``nn.updaters.GroupChain``: the
+layer's updater or learning rate, its ``weight_decay``); a frozen layer
+(``FrozenLayer``, ``FrozenLayerWithBackprop`` or ``trainable=False``)
+gets no update and keeps no optimizer state, and its parameters take no
+gradient, so autograd stops the backward below the lowest layer that
+trains. ``l1``/``l2`` add to the loss over each layer's f32 masters
+(:func:`reg_score`), weight noise perturbs the training forward's view
+of the masters before the compute-dtype cast, and constraints run after
+every update (:func:`apply_updates`), in a K-step region too. A
+``FrozenLayerWithBackprop`` that carries ``l1``, ``l2`` or
+``weight_decay`` is refused (``ROADMAP.md`` C7: the JAX network moves
+its weights by them).
+
+Not in this slice (each raises ``NotImplementedError``): truncated BPTT,
+the numerics observatory.
 
 ``fit(iterator, steps_per_loop=K)`` runs groups of K batches as one
 K-step region (:meth:`MultiLayerNetwork._fit_group`): the counterpart of
@@ -67,8 +79,10 @@ from deeplearning4j_tpu_torch.nn.config import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.layers.base import (Layer, fold_in,
                                                      split_seed)
 from deeplearning4j_tpu_torch.nn.layers.core import OutputLayer
+from deeplearning4j_tpu_torch.nn.layers.extra import FrozenLayerWithBackprop
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     BaseRecurrentLayer, RnnOutputLayer)
+from deeplearning4j_tpu_torch.nn.layers.special import FrozenLayer
 from deeplearning4j_tpu_torch.ops import losses as losses_mod
 from deeplearning4j_tpu_torch.resilience import faults
 
@@ -78,17 +92,6 @@ _FUSABLE = {
     ("softmax", "sparse_mcxent"), ("sigmoid", "xent"),
     ("sigmoid", "binary_xent"),
 }
-
-#: per-layer options of the JAX network this slice does not carry (the
-#: second half of ROADMAP A9)
-_UNPORTED_LAYER_OPTIONS = (
-    ("l1", "l1 regularisation"), ("l2", "l2 regularisation"),
-    ("weight_decay", "per-layer weight decay"),
-    ("updater", "a per-layer updater"),
-    ("learning_rate", "a per-layer learning rate"),
-    ("constraints", "parameter constraints"),
-    ("weight_noise", "weight noise"))
-
 
 #: (optax state type, field) → the port's name for that state leaf
 #: (``nn/updaters.py``): every state an updater of the JAX package keeps
@@ -105,10 +108,6 @@ _OPTAX_FIELDS = {
 }
 
 
-#: the slice that brings the refused per-layer options, named in their
-#: errors
-LATER_A9 = "the second half of the MultiLayerNetwork-core slice (ROADMAP A9)"
-
 #: the named device-time scope around a K-step region's updates (the
 #: network's class name filled in): a profiler window reads the region's
 #: own host calls — no device sync may fall inside it
@@ -119,16 +118,109 @@ def _lname(i: int) -> str:
     return f"layer_{i}"
 
 
+def is_frozen(layer: Layer) -> bool:
+    """Does ``layer``'s group stay still: a ``FrozenLayer``, a
+    ``FrozenLayerWithBackprop`` (unlike the JAX networks, ``ROADMAP.md``
+    C7), or ``trainable=False``?"""
+    return (isinstance(layer, (FrozenLayer, FrozenLayerWithBackprop))
+            or not layer.trainable)
+
+
+def check_frozen_options(where: str, layer: Layer) -> None:
+    """Refuse ``l1``, ``l2`` or ``weight_decay`` on a
+    ``FrozenLayerWithBackprop``: the JAX networks build its group a full
+    chain and put the l2 gradient outside its ``stop_gradient``, so those
+    options move the weights it freezes; the port keeps them still and
+    refuses the options instead of giving them another meaning."""
+    if isinstance(layer, FrozenLayerWithBackprop):
+        for attr in ("l1", "l2", "weight_decay"):
+            if getattr(layer, attr, None):
+                raise NotImplementedError(
+                    f"{where}: {attr} on a FrozenLayerWithBackprop — the "
+                    "JAX network moves the frozen weights by it (a gap "
+                    "of the reference, ROADMAP.md C7); the port never "
+                    "updates a frozen layer")
+
+
 def group_chain(layer) -> Tuple[str, ...]:
     """The stages of the optax chain the JAX networks build for one
     parameter group (``deeplearning4j_tpu/nn/multilayer.py:139-158``,
-    ``nn/graph.py:237-259``): the gradient normalisation, the decoupled
-    weight decay where the layer has one, then the updater. The port
-    applies the same stages in ``apply_updates``; ``serialization.py``
-    reads the updater's position from here."""
+    ``nn/graph.py:237-259``): ``set_to_zero`` for a frozen group (no
+    state); else the gradient normalisation, the decoupled weight decay
+    where the layer has one, then the updater. The port applies the same
+    stages (``nn.updaters.GroupChain``); ``serialization.py`` reads the
+    updater's position from here."""
+    if is_frozen(layer):
+        return ("set_to_zero",)
     return (("gradient_normalization",)
             + (("add_decayed_weights",) if layer.weight_decay else ())
             + ("updater",))
+
+
+def build_chains(conf, groups) -> Dict[str, upd.GroupChain]:
+    """One ``GroupChain`` per parameter group of ``groups`` (name → its
+    layer): frozen, or the network's gradient normalisation, the layer's
+    ``weight_decay`` and its updater (``nn.updaters.layer_updater``);
+    either way the layer's constraints after the update."""
+    grad_norm = upd.gradient_normalization(
+        conf.gradient_normalization, conf.gradient_normalization_threshold)
+    return {name: (upd.GroupChain(None, grad_norm, layer=layer)
+                   if is_frozen(layer)
+                   else upd.GroupChain(upd.layer_updater(layer,
+                                                         conf.updater),
+                                       grad_norm, layer.weight_decay,
+                                       layer))
+            for name, layer in groups.items()}
+
+
+def reg_score(groups, params):
+    """The l1 and l2 terms of every group's layer over its leaves of
+    ``params`` (the JAX ``_reg_score``): ``l1·Σ|w| + ½·l2·Σw²``, frozen
+    layers included; 0.0 when no layer has either. The leaves of the
+    layers that share one (l1, l2) pair are joined into one vector, so
+    that each term is one reduction, not one a leaf."""
+    by_pair = {}
+    for name, layer in groups.items():
+        if layer.l1 or layer.l2:
+            by_pair.setdefault((layer.l1, layer.l2), []).extend(
+                t.reshape(-1) for t in tree.leaves(params[name]))
+    total = 0.0
+    for (l1v, l2v), leaves in by_pair.items():
+        w = torch.cat(leaves)
+        if l1v:
+            # |w| with jnp.abs's gradient, +1 at w = 0 (a zero bias steps
+            # under Adam; torch.abs's gradient there is 0)
+            total = total + l1v * torch.sum(torch.where(w >= 0, w, -w))
+        if l2v:
+            total = total + 0.5 * l2v * torch.sum(torch.square(w))
+    return total
+
+
+def apply_weight_noise(groups, params, seed: int):
+    """The training forward's view of ``params``: each group whose layer
+    has ``weight_noise`` perturbed from its own seed, split off ``seed``
+    in the groups' order (the JAX ``_apply_weight_noise``)."""
+    out = dict(params)
+    for name, layer in groups.items():
+        wn = layer.weight_noise
+        if wn is not None and name in out:
+            seed, sub = split_seed(seed)
+            out[name] = wn.apply(out[name], sub)
+    return out
+
+
+def has_weight_noise(groups) -> bool:
+    return any(layer.weight_noise is not None for layer in groups.values())
+
+
+def apply_constraints(chains, params):
+    """``params`` with each group's constraints applied by its chain of
+    ``chains`` (the JAX ``_apply_constraints``): for a caller that
+    updates with ``apply_updates(..., constrain=False)`` and constrains
+    a tree it gathers afterwards."""
+    with torch.no_grad():
+        return {name: chains[name].constrain(p)
+                for name, p in params.items()}
 
 
 def _mesh():
@@ -170,19 +262,31 @@ def _sum_over(group, loss, grads):
     return summed[0].reshape(()), tree.map_(lambda _: next(it), grads)
 
 
-def loss_and_grads(loss_fn, params):
+def loss_and_grads(loss_fn, params, frozen=()):
     """``(loss, gradients, aux)`` of ``loss_fn(params) -> (loss, aux)``
-    at ``params`` (a nested dict of tensors): the loss detached and a
-    gradient tree of the parameters' structure and dtype (zeros for a
-    parameter the loss does not reach). The training step of both
-    ``MultiLayerNetwork`` and ``ComputationGraph``."""
-    work = tree.map_(lambda t: t.detach().requires_grad_(True), params)
+    at ``params`` (a dict of parameter groups, each a nested dict of
+    tensors): the loss detached and a gradient tree of the parameters'
+    structure and dtype (zeros for a parameter the loss does not reach).
+    The groups named in ``frozen`` take no gradient: their leaves are
+    left without ``requires_grad``, so autograd never differentiates
+    through them (nor below them, when nothing below trains), and their
+    gradients are zeros, as optax's ``set_to_zero`` makes them. The
+    training step of both ``MultiLayerNetwork`` and
+    ``ComputationGraph``."""
+    work = {name: tree.map_(
+        (lambda t: t.detach()) if name in frozen
+        else (lambda t: t.detach().requires_grad_(True)), p)
+        for name, p in params.items()}
     loss, aux = loss_fn(work)
-    leaves = list(tree.leaves(work))
-    flat = torch.autograd.grad(loss, leaves, allow_unused=True)
+    leaves = [t for name, p in work.items() if name not in frozen
+              for t in tree.leaves(p)]
+    flat = (torch.autograd.grad(loss, leaves, allow_unused=True)
+            if leaves and loss.requires_grad else [None] * len(leaves))
     it = iter(torch.zeros_like(p) if g is None else g
               for p, g in zip(leaves, flat))
-    grads = tree.map_(lambda _: next(it), work)
+    grads = {name: tree.map_(torch.zeros_like if name in frozen
+                             else (lambda _: next(it)), p)
+             for name, p in work.items()}
     return loss.detach(), grads, aux
 
 
@@ -248,19 +352,26 @@ def stage(arrays, device, dtype=None) -> torch.Tensor:
     return t.to(device, dtype=dtype)
 
 
-def apply_updates(updater, grad_norm, params, grads, opt_state):
+def apply_updates(chains, params, grads, opt_state, constrain=True):
     """One optax-style update of every top-level group of ``params`` (a
-    layer, or a graph node) with its own gradient normalisation and
-    updater state, as the JAX networks' per-layer ``multi_transform``
-    does. Returns ``(new params, new optimizer state)``: new tensors,
-    the old trees untouched."""
+    layer, or a graph node) by its own chain of ``chains`` (name →
+    ``nn.updaters.GroupChain``) and state, as the JAX networks'
+    per-group ``multi_transform`` does: a frozen group keeps its tensors
+    and its empty state. Then (``constrain``) each group's constraints,
+    frozen groups included, as the JAX networks apply them after every
+    update. Returns ``(new params, new optimizer state)``: new tensors
+    for the groups that move, the old trees untouched."""
     with torch.no_grad(), obs.devtime.scope("optimizer.update"):
         new_params, new_opt = {}, {}
         for name, p in params.items():
-            u, new_opt[name] = updater.update(grad_norm(grads[name]),
-                                              opt_state[name], p)
-            new_params[name] = tree.map_(lambda a, d: (a + d).to(a.dtype),
-                                         p, u)
+            chain = chains[name]
+            if chain.frozen:
+                new_opt[name] = {}
+            else:
+                u, new_opt[name] = chain.update(grads[name],
+                                                opt_state[name], p)
+                p = tree.map_(lambda a, d: (a + d).to(a.dtype), p, u)
+            new_params[name] = chain.constrain(p) if constrain else p
     return new_params, new_opt
 
 
@@ -289,14 +400,7 @@ class MultiLayerNetwork:
                 f"backprop_type={conf.backprop_type!r}: truncated BPTT "
                 "comes with the recurrent slice")
         for i, layer in enumerate(self.layers):
-            for attr, what in _UNPORTED_LAYER_OPTIONS:
-                if getattr(layer, attr, None):
-                    raise NotImplementedError(
-                        f"layer_{i} ({type(layer).__name__}): {what} "
-                        f"({attr}) comes with {LATER_A9}")
-            if not layer.trainable:
-                raise NotImplementedError(
-                    f"layer_{i}: frozen layers come with {LATER_A9}")
+            check_frozen_options(f"layer_{i}", layer)
 
     def init(self, input_shape: Optional[Tuple[int, ...]] = None,
              device="cuda"):
@@ -362,7 +466,8 @@ class MultiLayerNetwork:
         and field that hold it (:data:`_OPTAX_FIELDS`: a schedule's
         ``ScaleByScheduleState.count`` becomes ``schedule_count``, apart
         from Adam's ``count``) and its parameter keys; the state type
-        must be the updater's (``Updater.optax_state``), and each leaf
+        must be the group's updater's (``Updater.optax_state``; a frozen
+        group has no state, as optax's ``set_to_zero``), and each leaf
         is checked for shape against this network's optimizer state.
         Returns self."""
         if self.opt_state is None:
@@ -399,11 +504,9 @@ class MultiLayerNetwork:
 
         walk(state_tree, ())
 
-        moments = self.conf.updater.optax_state
-
         def load(path, t):
             kind = ("ScaleByScheduleState" if path[1] == "schedule_count"
-                    else moments)
+                    else self._chains[path[0]].updater.optax_state)
             key = (path[0], kind) + path[1:]
             if key not in by_key:
                 raise ValueError(f"opt_state{list(path)}: not in the JAX "
@@ -430,12 +533,20 @@ class MultiLayerNetwork:
             out[_lname(di)] = blk
         return out
 
+    def _group_layers(self) -> Dict[str, Layer]:
+        """Parameter group → its layer (``layer_<i>``)."""
+        return {_lname(i): layer for i, layer in enumerate(self.layers)}
+
     def _build_optimizer(self):
-        self._grad_norm = upd.gradient_normalization(
-            self.conf.gradient_normalization,
-            self.conf.gradient_normalization_threshold)
-        self.opt_state = {name: self.conf.updater.init_state(p)
+        """Each group's chain (:func:`build_chains`) and its fresh
+        state."""
+        self._chains = build_chains(self.conf, self._group_layers())
+        self.opt_state = {name: self._chains[name].init_state(p)
                           for name, p in self.params.items()}
+
+    def _frozen(self):
+        """The names of the frozen groups, which take no gradient."""
+        return frozenset(n for n, c in self._chains.items() if c.frozen)
 
     # ------------------------------------------------------------------
     # forward
@@ -497,9 +608,23 @@ class MultiLayerNetwork:
                  and isinstance(last, OutputLayer))
         return loss_name, fused
 
-    def _loss_fn(self, params, state, x, y, mask, lmask, rng):
+    def _loss_fn(self, params, state, x, y, mask, lmask, rng, *,
+                 noise_rng=None, with_reg=True):
+        """The training loss at ``params`` (the f32 masters) and the new
+        state: weight noise on the forward's view of the masters, the
+        compute-dtype cast, the forward, the data loss, and the l1/l2
+        terms over the masters in f32. The noise draws from a seed split
+        off ``rng`` here, or from ``noise_rng`` where the caller split it
+        off already; ``with_reg=False`` leaves the l1/l2 terms out (see
+        :meth:`_loss_and_grads`)."""
         loss_name, fused = self._last_loss()
         cd = self.conf.compute_dtype
+        groups = self._group_layers()
+        master = params
+        if has_weight_noise(groups):
+            if noise_rng is None:
+                noise_rng, rng = split_seed(rng)
+            params = apply_weight_noise(groups, params, noise_rng)
         if cd is not None:
             # bf16 forward/backward, f32 master params: the cast is in
             # the autograd graph, so gradients come back f32
@@ -515,25 +640,37 @@ class MultiLayerNetwork:
                 out = out.float()
             kw = {"from_logits": True} if fused else {}
             loss = loss_fn(y, out, mask=lmask, **kw)
+            reg = reg_score(groups, master) if with_reg else 0.0
+            if torch.is_tensor(reg):
+                loss = loss + reg
         return loss, new_state
 
     def _loss_and_grads(self, x, y, mask=None, lmask=None, rng=None):
         """(loss, gradient tree, new state) at the current parameters;
         the gradients have the master parameters' dtype. Under a
         sequence-parallel context ``x``, ``y`` and the masks are the
-        global batch: the rank's tokens are taken here (and, past one rank,
-        its index folded into ``rng``, so that no two shards draw the
-        same dropout masks), and the loss and gradients come back summed
-        over the group."""
+        global batch: the rank's tokens are taken here, and the loss and
+        gradients come back summed over the group. Past one rank, the
+        rank's index is folded into the dropout seed, so that no two
+        shards draw the same dropout masks; the weight noise's seed is
+        split off before that fold, so that every shard of the sequence
+        runs through the same perturbed weights; and the l1/l2 terms
+        count on the first rank only, so that the sum holds them once,
+        as the global loss does."""
         sp = self._seq_parallel()
         x, y, mask, lmask = self._shard(sp, x, y, mask, lmask)
-        if sp is not None and sp[0].size > 1 and rng is not None:
-            # each rank draws the dropout masks of its own shard
-            rng = fold_in(rng, sp[0].index)
+        kw = {}
+        if sp is not None and sp[0].size > 1:
+            kw["with_reg"] = sp[0].index == 0
+            if rng is not None:
+                if has_weight_noise(self._group_layers()):
+                    kw["noise_rng"], rng = split_seed(rng)
+                rng = fold_in(rng, sp[0].index)
         with self._layout(sp):
             loss, grads, state = loss_and_grads(
                 lambda p: self._loss_fn(p, self.state, x, y, mask, lmask,
-                                        rng), self.params)
+                                        rng, **kw), self.params,
+                self._frozen())
         if sp is not None and sp[0].size > 1:
             loss, grads = _sum_over(sp[0].group, loss, grads)
         return loss, grads, state
@@ -603,8 +740,7 @@ class MultiLayerNetwork:
         loss, grads, new_state = self._loss_and_grads(x, y, mask, lmask,
                                                       rng)
         self.params, self.opt_state = apply_updates(
-            self.conf.updater, self._grad_norm, self.params, grads,
-            self.opt_state)
+            self._chains, self.params, grads, self.opt_state)
         self.state = new_state
         return loss
 

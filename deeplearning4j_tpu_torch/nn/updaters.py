@@ -35,9 +35,18 @@ Parameters and optimizer state are nested dicts of tensors on the
 parameters' device; an update returns new tensors (the JAX package's
 functional update), so a reader holding the old tree never sees it
 change.
+
+The networks build one :class:`GroupChain` per parameter group (a layer,
+or a graph node), the JAX networks' per-group optax chain under
+``multi_transform``: nothing for a frozen group (optax's
+``set_to_zero``, which keeps no state), else the gradient normalisation,
+``add_decayed_weights`` where the layer has a ``weight_decay``, and the
+group's own updater (:func:`layer_updater`: the layer's, or a copy of
+the global one at the layer's learning rate, or the global one).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses as dc
 import math
 from dataclasses import dataclass
@@ -523,6 +532,57 @@ class NoOp(Updater):
 
     def update(self, grads, state, params):
         return tree.map_(torch.zeros_like, grads), {}
+
+
+def layer_updater(layer, updater: Updater) -> Updater:
+    """The updater of ``layer``'s group (the JAX ``_layer_updater``,
+    ``deeplearning4j_tpu/nn/multilayer.py:130-137``): the layer's own;
+    else, with a per-layer ``learning_rate``, a deep copy of ``updater``
+    at that rate with its schedule dropped (the rate replaces a global
+    schedule for that layer); else ``updater``."""
+    u = layer.updater
+    if u is None and layer.learning_rate is not None:
+        u = copy.deepcopy(updater)
+        u.learning_rate = layer.learning_rate
+        u.schedule = None
+    return u or updater
+
+
+@dataclass
+class GroupChain:
+    """The optax chain of one parameter group: ``updater`` None for a
+    frozen group (no update, no state), else ``grad_norm`` (one group's
+    gradient normalisation), then ``add_decayed_weights(weight_decay)``
+    when it is set, then ``updater``; after the update, the constraints
+    of the group's ``layer``, read when they run, as the JAX
+    ``_apply_constraints`` reads them."""
+    updater: Optional[Updater]
+    grad_norm: Callable
+    weight_decay: Optional[float] = None
+    layer: Any = dc.field(default=None, repr=False, compare=False)
+
+    @property
+    def frozen(self) -> bool:
+        return self.updater is None
+
+    def init_state(self, params) -> dict:
+        """The group's optimizer state: empty for a frozen group."""
+        return {} if self.frozen else self.updater.init_state(params)
+
+    def constrain(self, params):
+        """``params`` with the layer's constraints applied in turn."""
+        for c in getattr(self.layer, "constraints", None) or ():
+            params = c.apply(params)
+        return params
+
+    def update(self, grads, state: dict, params):
+        """(updates, new state) of a group that is not frozen."""
+        g = self.grad_norm(grads)
+        wd = self.weight_decay
+        if wd:
+            # optax.add_decayed_weights: g + wd · p
+            g = tree.map_(lambda x, p: x + wd * p, g, params)
+        return self.updater.update(g, state, params)
 
 
 def gradient_normalization(mode: Optional[str],

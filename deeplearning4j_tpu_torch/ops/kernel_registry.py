@@ -8,7 +8,12 @@ main paths that launch it (``serve``, ``train``, ``finetune``,
 ``longctx``, ``dp``, ``dp_packed``, ``sp``, ``zero``, ``dp_graph``,
 ``eval``, ``serve_opts``: the serving gateway with int8 weights, the
 int8 KV cache, speculative decode and prefix sharing, ``beam``:
-``generate_beam``) and, for each path that runs in steps or batches (``train``,
+``generate_beam``; ``transfer``: the train LM transferred with its
+embedding and blocks 1-6 frozen, whose backward stops at block 7, so
+that K3 and K6 launch for the six trainable blocks and the final norm
+only; ``transfer_agree``: one f32 ``_loss_and_grads`` and one ``fit``
+step of the LM cut to 4 blocks, 2 of them frozen) and, for each path
+that runs in steps or batches (``train``,
 ``finetune``, ``longctx``: the LM trained at a 32 768-token context,
 where the backward takes the
 split pair K4 + K5 instead of K3; ``dp``: the train LM through
@@ -71,8 +76,9 @@ class KernelEntry:
     #: LM's zigzag ring at one rank), ``eval`` (BERT-base's classifier
     #: forward, per evaluated batch), ``beam`` (one ``generate_beam``
     #: call), ``train_opts``, ``finetune_opts`` and ``checkpoint`` (as
-    #: ``train`` and ``finetune``); ``serve``, ``serve_opts`` and
-    #: ``serve_fault`` run no fixed steps
+    #: ``train`` and ``finetune``), ``transfer`` (the train LM with its
+    #: prefix frozen) and ``transfer_agree`` (4 blocks, 2 frozen);
+    #: ``serve``, ``serve_opts`` and ``serve_fault`` run no fixed steps
     per_step: Dict[str, int] = field(default_factory=dict)
 
     def _resolve(self, ref: str) -> Callable:
@@ -103,6 +109,15 @@ _FT = ("finetune", "dp_graph", "finetune_opts", "checkpoint")
 #: the train step's paths on one network: alone, and in K-step regions
 #: under a schedule
 _TR = ("train", "train_opts")
+#: the transfer paths: the train LM with its embedding and blocks 1-6
+#: frozen (``transfer``), and cut to 4 blocks with 2 frozen, two steps a
+#: count in f32 (``transfer_agree``)
+_TL = ("transfer", "transfer_agree")
+
+
+def _tl(full: int, agree: int) -> Dict[str, int]:
+    """The counts a step of ``transfer`` and of ``transfer_agree``."""
+    return {"transfer": full, "transfer_agree": agree}
 #: parameter leaves of the train LM (tied: the embedding; 10 a block of
 #: 12; the final norm's gamma; the head's bias), ``len(list(tree.leaves(
 #: net.params)))``, held by ``tests/test_torch_threshold_codec.py`` and
@@ -148,10 +163,10 @@ KERNELS: Tuple[KernelEntry, ...] = (
         # once a block (the sp path: once a block pair; serving: once a
         # block of every prefill that is not a shared-prefix admission)
         paths=("serve", *_TR, *_FT, "longctx", *_DP, "sp", "eval",
-               "serve_opts", "beam", "serve_fault"),
+               "serve_opts", "beam", "serve_fault", *_TL),
         per_step={**_tr(12), **_ft(12), "longctx": 12,
                   **_dp(12), "sp": SP_PAIRS * 12, "eval": 12,
-                  "beam": 12}),
+                  "beam": 12, **_tl(12, 4)}),
     KernelEntry(
         "K2", "rms_norm_fwd", f"{_FN}:111", f"{_FN}:rms_norm", "ported",
         "serving", route="triton",
@@ -160,19 +175,20 @@ KERNELS: Tuple[KernelEntry, ...] = (
         # training: ln1 of 12 blocks, the final norm; decoding: ln1 and
         # ln2 of 12 blocks and the final norm, in every prefill and step
         paths=("serve", *_TR, "longctx", *_DP, "sp", "serve_opts",
-               "beam", "serve_fault"),
+               "beam", "serve_fault", *_TL),
         per_step={**_tr(13), "longctx": 13, **_dp(13), "sp": 13,
-                  "beam": 25 * BEAM_NEW}),
+                  "beam": 25 * BEAM_NEW, **_tl(13, 5)}),
     KernelEntry(
         "K3", "flash_attention_bwd_fused", f"{_PK}:488",
         f"{_PK}:_flash_bwd", "ported", "training", route="cuda",
         source="deeplearning4j_tpu_torch/csrc/flash_attention_bwd.cu",
         port=f"{_CK}:flash_attention_bwd",
         plain=f"{_CK}:flash_attention_bwd_reference",
-        paths=(*_TR, *_FT, *_DP, "sp"),
-        # once a block (the sp path: once a block pair)
+        paths=(*_TR, *_FT, *_DP, "sp", *_TL),
+        # once a block (the sp path: once a block pair; the transfer
+        # paths: once a trainable block)
         per_step={**_tr(12), **_ft(12), **_dp(12),
-                  "sp": SP_PAIRS * 12}),
+                  "sp": SP_PAIRS * 12, **_tl(6, 2)}),
     KernelEntry(
         "K4", "flash_attention_bwd_dq", f"{_PK}:418", f"{_PK}:_flash_bwd",
         "ported", "long-context", route="cuda",
@@ -193,18 +209,21 @@ KERNELS: Tuple[KernelEntry, ...] = (
         source="deeplearning4j_tpu_torch/csrc/norm_bwd.cu",
         port=f"{_NORM}:rms_norm_bwd",
         plain=f"{_NORM}:rms_norm_bwd_reference",
-        paths=(*_TR, "longctx", *_DP, "sp"),
+        paths=(*_TR, "longctx", *_DP, "sp", *_TL),
+        # all 25 norms; the transfer paths: ln1 and ln2 of each trainable
+        # block (ln1's dγ though its input takes no gradient) and the
+        # final norm
         per_step={**_tr(25), "longctx": 25, **_dp(25),
-                  "sp": 25}),                             # all 25 norms
+                  "sp": 25, **_tl(13, 5)}),
     KernelEntry(
         "K7", "add_rms_norm_fwd", f"{_FN}:218", f"{_FN}:add_rms_norm",
         "ported", "training", route="triton",
         source="deeplearning4j_tpu_torch/ops/fused_norms.py",
         port=f"{_NORM}:add_rms_norm",
         plain=f"{_NORM}:add_rms_norm_reference",
-        paths=(*_TR, "longctx", *_DP, "sp"),
+        paths=(*_TR, "longctx", *_DP, "sp", *_TL),
         per_step={**_tr(12), "longctx": 12, **_dp(12),
-                  "sp": 12}),                             # once a block
+                  "sp": 12, **_tl(12, 4)}),               # once a block
     KernelEntry(
         "K8", "layer_norm_fwd", f"{_FN}:298", f"{_FN}:layer_norm",
         "ported", "encoder", route="triton",
@@ -246,5 +265,6 @@ def on_path(path: str) -> Tuple[KernelEntry, ...]:
     """The ported rows a main path (``serve``, ``train``, ``finetune``,
     ``longctx``, ``dp``, ``dp_packed``, ``sp``, ``zero``, ``dp_graph``,
     ``eval``, ``serve_opts``, ``beam``, ``train_opts``,
-    ``finetune_opts``, ``serve_fault``) launches."""
+    ``finetune_opts``, ``serve_fault``, ``transfer``,
+    ``transfer_agree``) launches."""
     return tuple(e for e in ported() if path in e.paths)

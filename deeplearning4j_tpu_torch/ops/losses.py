@@ -2,12 +2,17 @@
 
 Every loss is ``fn(labels, preds, mask=None, weights=None) -> scalar``:
 the mean over the batch of per-example sums (masked steps contribute 0),
-the reference's ``BaseOutputLayer.computeScore`` semantics. The ported
-slices carry ``sparse_mcxent`` (the causal LM's loss), ``mcxent`` with
-its alias ``negativeloglikelihood`` (one-hot labels: BERT's classifier)
-and ``mse`` with its alias ``l2`` (a regression output of a multi-output
-graph under ``ParallelWrapper``); other names raise
-``NotImplementedError`` until the slice that needs them.
+the reference's ``BaseOutputLayer.computeScore`` semantics. Every loss
+of the JAX registry is here under its names, with its mask, weight and
+clipping rules: the regression losses (``mse``/``l2``, ``mae``/``l1``,
+``msle``, ``poisson``, ``cosine_proximity``, ``huber``, ``logcosh``),
+the cross-entropies (``mcxent``/``negativeloglikelihood``,
+``sparse_mcxent``, ``xent``/``binary_xent``/
+``reconstruction_crossentropy`` with its stable logit form), ``hinge``,
+``squared_hinge``, ``kl_divergence``/``kld``, ``wasserstein`` and the
+F-beta surrogate ``fmeasure``. A ``name:param`` suffix sets ``huber``'s
+δ and ``fmeasure``'s β; an unknown name raises ``ValueError``. The CTC
+loss is not ported.
 
 ``sparse_mcxent(..., from_logits=True)`` takes the logits in their own
 dtype: the logsumexp runs in f32, but on row chunks, so a bfloat16
@@ -17,6 +22,7 @@ JAX package gets from XLA's fusion.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict
 
 import torch
@@ -40,6 +46,13 @@ def _mean(raw, mask):
     an all-ones mask equals no mask, and longer active sequences weigh
     more."""
     return _per_example(raw, mask).mean()
+
+
+def _apply_weights(raw, weights):
+    if weights is not None:
+        raw = raw * torch.as_tensor(weights, dtype=raw.dtype,
+                                    device=raw.device)
+    return raw
 
 
 def _chunks(rows: int, v: int):
@@ -107,26 +120,125 @@ def mcxent(labels, preds, mask=None, weights=None, from_logits=False):
         logp = torch.log_softmax(preds, dim=-1)
     else:
         logp = torch.log(torch.clamp(preds, _EPS, 1.0))
-    raw = -labels * logp
-    if weights is not None:
-        raw = raw * torch.as_tensor(weights, dtype=raw.dtype,
-                                    device=raw.device)
-    return _mean(raw, mask)
+    return _mean(_apply_weights(-labels * logp, weights), mask)
 
 
 negativeloglikelihood = mcxent
 
 
+# -- regression ------------------------------------------------------------
+
 def mse(labels, preds, mask=None, weights=None):
     """Squared error, summed per example (reference LossMSE)."""
-    raw = torch.square(preds - labels)
-    if weights is not None:
-        raw = raw * torch.as_tensor(weights, dtype=raw.dtype,
-                                    device=raw.device)
-    return _mean(raw, mask)
+    return _mean(_apply_weights(torch.square(preds - labels), weights),
+                 mask)
+
+
+def mae(labels, preds, mask=None, weights=None):
+    return _mean(_apply_weights(torch.abs(preds - labels), weights), mask)
 
 
 l2 = mse
+l1 = mae
+
+
+def msle(labels, preds, mask=None, weights=None):
+    raw = torch.square(torch.log1p(torch.clamp(preds, min=-1 + _EPS))
+                       - torch.log1p(torch.clamp(labels, min=-1 + _EPS)))
+    return _mean(_apply_weights(raw, weights), mask)
+
+
+def poisson(labels, preds, mask=None, weights=None):
+    raw = preds - labels * torch.log(torch.clamp(preds, min=_EPS))
+    return _mean(_apply_weights(raw, weights), mask)
+
+
+def cosine_proximity(labels, preds, mask=None, weights=None):
+    ln = labels / torch.clamp(torch.linalg.vector_norm(
+        labels, dim=-1, keepdim=True), min=_EPS)
+    pn = preds / torch.clamp(torch.linalg.vector_norm(
+        preds, dim=-1, keepdim=True), min=_EPS)
+    raw = -torch.sum(_apply_weights(ln * pn, weights), dim=-1,
+                     keepdim=True)
+    return _mean(raw, mask)
+
+
+def huber(labels, preds, mask=None, weights=None, delta: float = 1.0):
+    d = torch.abs(preds - labels)
+    raw = torch.where(d <= delta, 0.5 * d * d, delta * (d - 0.5 * delta))
+    return _mean(_apply_weights(raw, weights), mask)
+
+
+def logcosh(labels, preds, mask=None, weights=None):
+    d = preds - labels
+    # log(cosh(d)) = d + softplus(-2d) - log 2, stable for large |d|
+    sp = torch.logaddexp(-2.0 * d, torch.zeros_like(d))
+    raw = d + sp - math.log(2.0)
+    return _mean(_apply_weights(raw, weights), mask)
+
+
+# -- classification --------------------------------------------------------
+
+def binary_xent(labels, preds, mask=None, weights=None,
+                from_logits=False):
+    """Binary cross-entropy (reference LossBinaryXENT / XENT). From
+    logits: max(x, 0) − x·z + log1p(exp(−|x|)), finite at any logit;
+    else the probabilities clipped into [1e-7, 1 − 1e-7]."""
+    if from_logits:
+        x = preds
+        raw = (torch.clamp(x, min=0) - x * labels
+               + torch.log1p(torch.exp(-torch.abs(x))))
+    else:
+        p = torch.clamp(preds, _EPS, 1.0 - _EPS)
+        raw = -(labels * torch.log(p) + (1.0 - labels) * torch.log1p(-p))
+    return _mean(_apply_weights(raw, weights), mask)
+
+
+def _signs(labels):
+    """Labels in {−1, +1}, or {0, 1} taken as {−1, +1}."""
+    return torch.where(labels > 0, 1.0, -1.0)
+
+
+def hinge(labels, preds, mask=None, weights=None):
+    raw = torch.clamp(1.0 - _signs(labels) * preds, min=0.0)
+    return _mean(_apply_weights(raw, weights), mask)
+
+
+def squared_hinge(labels, preds, mask=None, weights=None):
+    raw = torch.square(torch.clamp(1.0 - _signs(labels) * preds, min=0.0))
+    return _mean(_apply_weights(raw, weights), mask)
+
+
+def kl_divergence(labels, preds, mask=None, weights=None):
+    p = torch.clamp(labels, _EPS, 1.0)
+    q = torch.clamp(preds, _EPS, 1.0)
+    raw = p * (torch.log(p) - torch.log(q))
+    return _mean(_apply_weights(raw, weights), mask)
+
+
+def wasserstein(labels, preds, mask=None, weights=None):
+    return _mean(_apply_weights(labels * preds, weights), mask)
+
+
+def fmeasure(labels, preds, mask=None, weights=None, beta: float = 1.0):
+    """1 − the differentiable F-beta of binary predictions (reference
+    LossFMeasure): true and false positives and false negatives summed
+    over the whole batch, each element weighted by ``weights`` and by
+    its [B, T] ``mask`` row (the weights in the predictions' dtype)."""
+    w = torch.ones_like(preds)
+    if weights is not None:
+        w = w * torch.as_tensor(weights, dtype=preds.dtype,
+                                device=preds.device)
+    if mask is not None:
+        w = w * mask.reshape(tuple(mask.shape)
+                             + (1,) * (preds.ndim - mask.ndim))
+    tp = torch.sum(w * labels * preds)
+    fp = torch.sum(w * (1 - labels) * preds)
+    fn = torch.sum(w * labels * (1 - preds))
+    b2 = beta * beta
+    f = ((1 + b2) * tp) / torch.clamp((1 + b2) * tp + b2 * fn + fp,
+                                      min=_EPS)
+    return 1.0 - f
 
 
 def wants_f32_logits(fn, fused: bool) -> bool:
@@ -140,22 +252,64 @@ def wants_f32_logits(fn, fused: bool) -> bool:
 
 
 _REGISTRY: Dict[str, Callable] = {
-    "sparse_mcxent": sparse_mcxent,
-    "mcxent": mcxent,
-    "negativeloglikelihood": negativeloglikelihood,
     "mse": mse,
     "l2": l2,
+    "mae": mae,
+    "l1": l1,
+    "msle": msle,
+    "mean_squared_logarithmic_error": msle,
+    "poisson": poisson,
+    "cosine_proximity": cosine_proximity,
+    "mcxent": mcxent,
+    "negativeloglikelihood": negativeloglikelihood,
+    "sparse_mcxent": sparse_mcxent,
+    "xent": binary_xent,
+    "binary_xent": binary_xent,
+    "hinge": hinge,
+    "squared_hinge": squared_hinge,
+    "kl_divergence": kl_divergence,
+    "kld": kl_divergence,
+    "huber": huber,
+    "logcosh": logcosh,
+    "reconstruction_crossentropy": binary_xent,
+    "wasserstein": wasserstein,
+    "fmeasure": fmeasure,
 }
 
 
 def get(name_or_fn) -> Callable:
-    """Resolve a loss by name; a callable is returned as it is."""
+    """Resolve a loss by name; a callable is returned as it is.
+    ``"huber:2.0"`` sets δ, ``"fmeasure:2.0"`` β."""
     if callable(name_or_fn):
         return name_or_fn
     key = str(name_or_fn).lower()
+    if ":" in key:
+        base, _, arg = key.partition(":")
+        val = float(arg)
+        if base == "huber":
+            return lambda l, p, mask=None, weights=None: \
+                huber(l, p, mask, weights, delta=val)
+        if base == "fmeasure":
+            return lambda l, p, mask=None, weights=None: \
+                fmeasure(l, p, mask, weights, beta=val)
+        raise ValueError(f"loss {base!r} takes no parameter")
     if key not in _REGISTRY:
-        raise NotImplementedError(
-            f"loss {name_or_fn!r} is not ported yet (this slice has "
-            f"{sorted(_REGISTRY)}; the rest come with the "
-            "MultiLayerNetwork-core slice)")
+        raise ValueError(f"Unknown loss {name_or_fn!r}; known: "
+                         f"{sorted(_REGISTRY)}")
     return _REGISTRY[key]
+
+
+def score_array(name_or_fn, labels, preds, mask=None, weights=None,
+                **kw):
+    """Per-example scores [B] (reference ILossFunction.computeScoreArray):
+    the loss of each example alone, as the JAX package's vmap over the
+    batch axis takes it."""
+    fn = get(name_or_fn)
+    return torch.stack([
+        fn(labels[i:i + 1], preds[i:i + 1],
+           None if mask is None else mask[i:i + 1], weights, **kw)
+        for i in range(preds.shape[0])])
+
+
+def names():
+    return sorted(_REGISTRY)

@@ -60,6 +60,16 @@ broadcasts rank 0's params and optimizer state, the counterpart of JAX's
 replicated placement. After AVERAGING and ASYNC, ``fit`` folds the
 replicas back (``_sync_back``).
 
+Every mode updates each parameter group by the network's own chain
+(``net._chains``: a frozen group not at all, and its gradient is never
+computed), and runs the layers' constraints after the update; under
+``sharded_update`` the constraints run on the gathered params, and
+``gather_overlap``, which has no gathered tree after the update, is
+refused for a network with constraints, as in the JAX wrapper
+(``deeplearning4j_tpu/parallel/wrapper.py:256-309``). Weight noise
+draws from the step's seed, into which each rank past one has folded
+its index, as dropout does.
+
 Not in this slice (each raises ``NotImplementedError`` naming its
 slice): the numerics diagnostic steps, ``elastic``, checkpoints and
 ``warmup``.
@@ -77,7 +87,8 @@ from deeplearning4j_tpu_torch import obs, tree
 from deeplearning4j_tpu_torch.data.dataset import has_masks
 from deeplearning4j_tpu_torch.data.iterators import AsyncDataSetIterator
 from deeplearning4j_tpu_torch.nn.layers.base import fold_in
-from deeplearning4j_tpu_torch.nn.multilayer import (apply_updates,
+from deeplearning4j_tpu_torch.nn.multilayer import (apply_constraints,
+                                                    apply_updates,
                                                     loss_and_grads,
                                                     notify_steps)
 from deeplearning4j_tpu_torch.parallel.compression import \
@@ -277,16 +288,21 @@ class ParallelWrapper:
 
     # -- shared step pieces (every mode composes these) ----------------
     def _local_grads(self, params, x, y, rng):
-        """(loss, gradients, new layer state) of this rank's rows."""
-        return loss_and_grads(lambda p: self._loss(p, x, y, rng), params)
+        """(loss, gradients, new layer state) of this rank's rows; a
+        frozen group's gradients are zeros, never computed."""
+        return loss_and_grads(lambda p: self._loss(p, x, y, rng), params,
+                              self.net._frozen())
 
-    def _apply_update(self, params, opt_state, grads):
-        """One optimizer application: (new params, new optimizer
-        state). On flat shards the per-layer groups and every leaf's
-        key are the tree's own, so the updater's per-key rules hold."""
-        net = self.net
-        return apply_updates(net.conf.updater, net._grad_norm, params,
-                             grads, opt_state)
+    def _apply_update(self, params, opt_state, grads, constrain=True):
+        """One optimizer application by the network's per-group chains,
+        then (``constrain``) the layers' constraints: (new params, new
+        optimizer state). On flat shards the per-layer groups and every
+        leaf's key are the tree's own, so the updater's per-key rules
+        hold; constraints reduce over a whole leaf, so the sharded step
+        passes ``constrain=False`` and runs them on the gathered
+        params."""
+        return apply_updates(self.net._chains, params, grads, opt_state,
+                             constrain)
 
     def _replica(self):
         """(params, optimizer state) this rank trains: the net's own under
@@ -372,13 +388,14 @@ class ParallelWrapper:
         del params
         gshard = layout.scatter_mean(grads, self.group)
         del grads
-        pshard, self._dp_state = self._apply_update(pshard, self._dp_state,
-                                                    gshard)
+        pshard, self._dp_state = self._apply_update(
+            pshard, self._dp_state, gshard, constrain=False)
         if self.gather_overlap:
             self._pshard = pshard
             self._params_stale = True
         else:
-            net.params = layout.gather(pshard, self.group)
+            net.params = apply_constraints(net._chains,
+                                           layout.gather(pshard, self.group))
         return mean_over(loss, self.group)
 
     def _check_sharded_update_supported(self):
@@ -390,6 +407,15 @@ class ParallelWrapper:
                 "reduces across a whole layer/tree and would see only "
                 "the local shard — use sharded_update=False, or "
                 "elementwise clipping (ClipElementWiseAbsoluteValue)")
+        if self.gather_overlap and any(
+                layer.constraints
+                for layer in self.net._group_layers().values()):
+            raise ValueError(
+                "gather_overlap defers the post-update param gather "
+                "to the NEXT step's forward, so per-layer constraints "
+                "(full-tree reductions after the update) have no "
+                "gathered tree to run on — use gather_overlap=False "
+                "with constrained layers")
 
     def _init_sharded_opt(self):
         """This rank's optimizer state as 1/N shards of the flat layout,
@@ -401,7 +427,7 @@ class ParallelWrapper:
         net = self.net
         layout = self._layout()
         pshard = layout.shard(layout.flatten(net.params), self.index)
-        ref = {name: net.conf.updater.init_state(p)
+        ref = {name: net._chains[name].init_state(p)
                for name, p in pshard.items()}
         src = list(tree.leaves(net.opt_state))
         want = list(tree.leaves(ref))

@@ -19,7 +19,9 @@ zero-padded to a multiple of the rank count so that
 ``gather`` are one collective per leaf over the ``data`` group. Every
 method keeps the parameter tree's nested-dict keys, so the optimizer's
 per-key rules (AdamW's decay mask by key name, ``nn/updaters.py``) and
-the per-layer grouping of ``apply_updates`` hold on shards unchanged.
+the per-group chains of ``apply_updates`` hold on shards unchanged: a
+group's own updater, its decay, and a frozen group's shards passed
+through with no state.
 Elementwise optimizers are exact on shards; gradient normalisation that
 reduces across a layer or a tree is refused by ``ParallelWrapper``.
 

@@ -20,9 +20,13 @@ restores in the JAX package, the optimizer state included, and training
 resumes on the same trajectory. ``updater.npz``'s paths are built from
 the optax chain each side builds: per parameter group (a layer, or a
 graph node) the ``multi_transform`` group, the group's chain
-(``nn.multilayer.group_chain``: gradient normalisation, then the
-updater), the updater's own chain (``Updater.optax_chain``) and the
-state field (:data:`_FIELDS`), then the parameter path under the group.
+(``nn.multilayer.group_chain``: gradient normalisation, the decoupled
+weight decay where the layer has one, then the updater; a frozen group's
+``set_to_zero`` keeps no state and has no key), the group's own
+updater's chain (``Updater.optax_chain``) and the state field
+(:data:`_FIELDS`), then the parameter path under the group. The
+configuration carries the frozen wrappers, constraints and weight-noise
+beans as the JAX JSON does.
 
 ``write_model`` is atomic (``resilience/checkpoint.py``): the zip is
 built in memory, written to a same-directory tmp file, fsynced and moved
@@ -77,23 +81,17 @@ def _paths(t, keys=()):
         yield keys, t
 
 
-def _groups(net) -> Dict[str, object]:
-    """Parameter group → its layer: ``layer_<i>`` of a
-    ``MultiLayerNetwork``, the layer nodes of a ``ComputationGraph``."""
-    if hasattr(net, "order"):
-        return {n.name: n.obj for n in net.order if n.kind == "layer"}
-    return {f"layer_{i}": layer for i, layer in enumerate(net.layers)}
-
-
 def _updater_keys(net) -> Dict[Tuple[str, ...], str]:
     """Every leaf of ``net.opt_state`` (by its key path) → its key in the
     JAX package's ``updater.npz``."""
     from deeplearning4j_tpu_torch.nn.multilayer import group_chain
-    updater = net.conf.updater
-    layers = _groups(net)
+    layers = net._group_layers()
     out = {}
     for group, state in net.opt_state.items():
+        if not state:               # a frozen group: optax's EmptyState
+            continue
         at = group_chain(layers[group]).index("updater")
+        updater = net._chains[group].updater
         for path, _ in _paths(state):
             stage, field = _FIELDS.get(path[0], ("moments", path[0]))
             key = (f".inner_states/[{group!r}]/.inner_state/[{at}]/"

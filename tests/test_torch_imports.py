@@ -40,7 +40,11 @@ def test_importing_every_port_module_stays_light():
             "deeplearning4j_tpu_torch.nn.preprocessors",
             "deeplearning4j_tpu_torch.nn.layers.conv",
             "deeplearning4j_tpu_torch.zoo.lenet",
-            "deeplearning4j_tpu_torch.zoo.pretrained"} <= set(mods)
+            "deeplearning4j_tpu_torch.zoo.pretrained",
+            "deeplearning4j_tpu_torch.nn.constraints",
+            "deeplearning4j_tpu_torch.nn.layers.special",
+            "deeplearning4j_tpu_torch.nn.layers.extra",
+            "deeplearning4j_tpu_torch.nn.transferlearning"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"

@@ -312,21 +312,28 @@ def test_sparse_mcxent_probabilities_and_weights_match_jax():
 def test_activations_and_weight_inits():
     x = torch.linspace(-3, 3, 13)
     from deeplearning4j_tpu.ops import activations as jact
+    # every activation of the JAX registry now resolves in the port
+    assert pact.names() == jact.names()
     for name in ("identity", "linear", "softmax", "silu", "swish", "relu",
-                 "gelu", "gelu_tanh", "tanh"):
+                 "gelu", "gelu_tanh", "tanh", "elu"):
         np.testing.assert_allclose(
             pact.get(name)(x).numpy(),
             np.asarray(jact.get(name)(jnp.asarray(x.numpy()))),
             atol=1e-6)
-    with pytest.raises(NotImplementedError, match="elu"):
-        pact.get("elu")
+    with pytest.raises(ValueError, match="Unknown activation"):
+        pact.get("nope")
     g = torch.Generator().manual_seed(0)
     w = pweights.get("xavier")(g, (300, 500))
     assert abs(w.std().item() - (2 / 800) ** 0.5) < 1e-3
     e = pweights.get("normal")(g, (400, 256))
     assert abs(e.std().item() - 256 ** -0.5) < 1e-3
-    with pytest.raises(NotImplementedError, match="he_uniform"):
-        pweights.get("he_uniform")
+    # every weight init of the JAX registry now resolves in the port
+    from deeplearning4j_tpu.nn import weights as jweights
+    assert pweights.names() == sorted(jweights._REGISTRY)
+    u = pweights.get("he_uniform")(g, (400, 256))
+    assert abs(u.abs().max().item() - (6 / 400) ** 0.5) < 1e-3
+    with pytest.raises(ValueError, match="Unknown weight init"):
+        pweights.get("nope")
 
 
 def test_config_builder_flows_defaults_and_ties():

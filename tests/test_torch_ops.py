@@ -242,7 +242,8 @@ def test_registry_lists_every_tpu_kernel():
                                             "sp", "zero", "dp_graph",
                                             "eval", "serve_opts", "beam",
                                             "train_opts", "finetune_opts",
-                                            "serve_fault", "checkpoint"}
+                                            "serve_fault", "checkpoint",
+                                            "transfer", "transfer_agree"}
         # the stepped phases' expected launches per step: one positive
         # count for each stepped path of the row, none for the gateways
         stepped = set(e.paths) - {"serve", "serve_opts", "serve_fault"}
@@ -264,6 +265,14 @@ def test_registry_lists_every_tpu_kernel():
         "K1": 12, "K2": 25 * BEAM_NEW}
     assert {e.key for e in on_path("train")} == {"K1", "K2", "K3", "K6",
                                                  "K7"}
+    # the transferred LM: train's forward; the backward through the six
+    # trainable blocks (K3) and their two norms each and the final norm
+    # (K6) only; transfer_agree: 4 blocks, 2 of them frozen
+    assert {e.key: e.per_step["transfer"] for e in on_path("transfer")} \
+        == {"K1": 12, "K2": 13, "K3": 6, "K6": 13, "K7": 12}
+    assert {e.key: e.per_step["transfer_agree"]
+            for e in on_path("transfer_agree")} == {
+        "K1": 4, "K2": 5, "K3": 2, "K6": 5, "K7": 4}
     assert {e.key: e.per_step["finetune"]
             for e in on_path("finetune")} == {"K1": 12, "K3": 12,
                                               "K8": 26, "K9": 26}

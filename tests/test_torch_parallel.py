@@ -50,6 +50,8 @@ from deeplearning4j_tpu.parallel import master as jmaster
 from deeplearning4j_tpu.zoo.gpt import GPTNano as JaxGPTNano
 from deeplearning4j_tpu_torch.parallel import master as pmaster
 
+import torch_dp_worker as worker
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(ROOT, "tests", "torch_dp_worker.py")
 KW = dict(vocab_size=16, max_len=64, seed=5)
@@ -186,6 +188,19 @@ def _jax_wrappers(inp):
             losses.append(float(net.score_))
         res[mode] = (losses, _flat(jax.tree.map(np.asarray, net.params),
                                    "params"))
+    from deeplearning4j_tpu.nn import FineTuneConfiguration, TransferLearning
+    from deeplearning4j_tpu.nn.constraints import MaxNormConstraint
+    net = JaxGPTNano(**KW).init(seq_len=24)
+    net.params = jax.tree.map(jnp.asarray, weights)
+    net = worker.transfer_net(net, TransferLearning, FineTuneConfiguration,
+                              MaxNormConstraint)
+    w = JaxWrapper(net, workers=2, prefetch_buffer=0)
+    losses = []
+    for i in range(3):
+        w.fit([JaxDataSet(inp[f"x{i}"], inp[f"y{i}"])])
+        losses.append(float(net.score_))
+    res["transfer"] = (losses, _flat(jax.tree.map(np.asarray, net.params),
+                                     "params"))
     return res
 
 
@@ -264,6 +279,34 @@ def test_wrapper_trains_as_jax(runs, mode):
     for k in a:
         if k.startswith(f"wrapper/{mode}/params/"):
             np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_wrapper_trains_a_transferred_net_as_jax(runs):
+    """SYNC over a transferred GPTNano: per-layer chains (a fine-tune
+    rate, decay), the frozen embedding and blocks 1-2 (their tensors
+    untouched on every rank) and a max-norm constraint after each update,
+    against the JAX wrapper in SYNC's bands at the fine-tune's rate."""
+    losses, ref = runs["jax_w"]["transfer"]
+    for res, log in runs["dp2"]:
+        np.testing.assert_allclose(log["wrapper/transfer/losses"], losses,
+                                   rtol=LOSS_RTOL, atol=0)
+        got = {k.replace("wrapper/transfer/", ""): v for k, v in res.items()
+               if k.startswith("wrapper/transfer/params/")}
+        assert set(got) == set(ref)
+        d = np.concatenate([np.abs(got[k] - ref[k]).ravel() for k in ref])
+        assert (d <= 1e-6).mean() >= 0.999, (d <= 1e-6).mean()
+        assert (d > 1e-4).mean() <= OFF_SHARE["sync"], (d > 1e-4).sum()
+        assert d.max() <= 2 * worker.TRANSFER_LR * STEPS, d.max()
+        for layer in ("layer_0", "layer_1", "layer_2"):
+            for k, v in res.items():
+                if k.startswith(f"wrapper/transfer/params/{layer}/"):
+                    np.testing.assert_array_equal(
+                        v, res[k.replace("/params/", "/start/")])
+        mats = [v for k, v in got.items()
+                if k.startswith("params/layer_3/") and v.ndim == 2]
+        assert mats
+        for w in mats:
+            assert (np.sqrt((w ** 2).sum(0)) <= 1.0 + 1e-5).all()
 
 
 def test_shared_training_master_makes_an_encoded_wrapper(runs):

@@ -218,16 +218,34 @@ def test_graph_config_json_is_the_jax_packages_both_ways():
 
 
 def test_refused_layer_options_still_parse_and_refuse():
+    # the per-layer options parse and now train; their beans cross in
+    # the JAX JSON both ways
+    from deeplearning4j_tpu_torch.nn.constraints import (DropConnect,
+                                                         MaxNormConstraint)
     conf = _pconf()
     conf.layers[0].l2 = 1e-4
     back = MultiLayerConfiguration.from_json(conf.to_json())
     assert back.layers[0].l2 == 1e-4
-    with pytest.raises(NotImplementedError, match="second half.*A9"):
-        MultiLayerNetwork(back).init(device="cpu")
+    MultiLayerNetwork(back).init(device="cpu").fit(*_data())
     d = json.loads(conf.to_json())
-    d["layers"][0]["constraints"] = [{"@class": "MaxNormConstraint"}]
-    with pytest.raises(NotImplementedError, match="A9"):
-        MultiLayerConfiguration.from_json(json.dumps(d))
+    d["layers"][0]["constraints"] = [{"@class": "MaxNormConstraint",
+                                      "apply_to_bias": False,
+                                      "max_norm": 0.5}]
+    d["layers"][0]["weight_noise"] = {"@class": "DropConnect",
+                                      "apply_to_bias": False,
+                                      "weight_retain_prob": 0.9}
+    back = MultiLayerConfiguration.from_json(json.dumps(d))
+    assert back.layers[0].constraints == [MaxNormConstraint(max_norm=0.5)]
+    assert back.layers[0].weight_noise == DropConnect(
+        weight_retain_prob=0.9)
+    assert JMLConf.from_json(back.to_json()).to_json() == back.to_json()
+    # a FrozenLayerWithBackprop carrying l2 is still refused (C7)
+    from deeplearning4j_tpu_torch.nn.layers import FrozenLayerWithBackprop
+    conf = _pconf()
+    conf.layers[0] = FrozenLayerWithBackprop(underlying=conf.layers[0],
+                                             l2=1e-4)
+    with pytest.raises(NotImplementedError, match="C7"):
+        MultiLayerNetwork(conf).init(device="cpu")
 
 
 # -- one package's own round trip ---------------------------------------------
@@ -627,3 +645,89 @@ def test_zip_of_a_zero_wrapped_net_holds_the_live_moments(tmp_path):
             assert torch.equal(a, b)
     finally:
         dist.destroy_process_group()
+
+
+
+def _transferred(pkg_conf, inputs, dense, out, upd, tl, ftc, jax_side,
+                 layer_updater):
+    """A 3-layer net transferred with a frozen first layer under a
+    fine-tune chain (Adam, a per-layer rate, decay, l2); with
+    ``layer_updater`` its middle layer keeps its own updater bean."""
+    kw = ({"updater": upd.Nesterovs(learning_rate=0.05, momentum=0.8)}
+          if layer_updater else {})
+    conf = (pkg_conf.builder().seed(4)
+            .updater(upd.Sgd(learning_rate=0.1)).list()
+            .layer(dense(n_out=10, activation="tanh"))
+            .layer(dense(n_out=10, activation="tanh", **kw))
+            .layer(out(n_out=3, activation="softmax", loss="mcxent"))
+            .set_input_type(inputs.feed_forward(6)).build())
+    src = JNet(conf).init() if jax_side else MultiLayerNetwork(conf).init(
+        device="cpu")
+    return (tl.builder(src)
+            .fine_tune_configuration(ftc(updater=upd.Adam(
+                learning_rate=1e-2), learning_rate=5e-3,
+                weight_decay=0.01, l2=1e-4))
+            .set_feature_extractor(0).build())
+
+
+@pytest.mark.parametrize("layer_updater", [True, False],
+                         ids=["layer_updater", "layer_rate"])
+def test_transferred_net_zips_cross_both_ways(tmp_path, layer_updater):
+    """A transferred net (a frozen prefix, per-group updaters, weight
+    decay, l2) written by both packages: the same entries and
+    ``updater.npz`` keys (none for the frozen group, the updater at [2]
+    after ``add_decayed_weights``, each group's own updater); a JAX zip
+    resumes in the port on the JAX trajectory and a port zip in JAX on
+    the port's, the frozen group equal to the bit. A per-layer updater
+    bean the JAX package cannot read back (its ``layer_from_dict`` takes
+    it for a layer, ROADMAP.md C8), from either package's zip; the port
+    reads it."""
+    from deeplearning4j_tpu.nn import FineTuneConfiguration as JFTC
+    from deeplearning4j_tpu.nn import TransferLearning as JTL
+    from deeplearning4j_tpu_torch.nn import (FineTuneConfiguration,
+                                             TransferLearning)
+    jnet = _transferred(JConf, JInputType, JDense, JOut, jupd, JTL, JFTC,
+                        True, layer_updater)
+    pnet = _transferred(NeuralNetConfiguration, InputType, pl.DenseLayer,
+                        pl.OutputLayer, pupd, TransferLearning,
+                        FineTuneConfiguration, False, layer_updater)
+    pnet.params_from_jax(jax.tree.map(np.asarray, jnet.params))
+    _jfit(jnet, 2)
+    _pfit(pnet, 2)
+    JSerializer.write_model(jnet, tmp_path / "j.zip")
+    ModelSerializer.write_model(pnet, tmp_path / "p.zip")
+    with zipfile.ZipFile(tmp_path / "j.zip") as a, \
+            zipfile.ZipFile(tmp_path / "p.zip") as b:
+        assert a.read("configuration.json") == b.read("configuration.json")
+    keys = _jzip_keys(tmp_path / "j.zip")
+    assert keys == _jzip_keys(tmp_path / "p.zip")
+    upd_keys = keys["updater.npz"]
+    assert not any("['layer_0']/.inner_state" in k for k in upd_keys)
+    assert any(k.startswith(".inner_states/['layer_1']/.inner_state/[2]/"
+                            "[0]/" + (".trace" if layer_updater else ".mu"))
+               for k in upd_keys)
+    assert any(k.startswith(".inner_states/['layer_2']/.inner_state/[2]/"
+                            "[0]/.mu") for k in upd_keys)
+    frozen = pnet.params["layer_0"]["W"].clone()
+    pback = ModelSerializer.restore_multi_layer_network(tmp_path / "j.zip",
+                                                        device="cpu")
+    for _ in range(2):
+        _jfit(jnet, 1)
+        _pfit(pback, 1)
+        assert np.isclose(pback.score_, jnet.score_, rtol=CROSS_TOL, atol=0)
+    assert _worst(jnet.params, pback.params) <= CROSS_TOL
+    assert torch.equal(pback.params["layer_0"]["W"], frozen)
+    if layer_updater:
+        for path in ("j.zip", "p.zip"):
+            with pytest.raises(ValueError, match="Unknown layer class"):
+                JSerializer.restore_multi_layer_network(str(tmp_path / path))
+        return
+    jback = JSerializer.restore_multi_layer_network(str(tmp_path / "p.zip"))
+    for _ in range(2):
+        _jfit(jback, 1)
+        _pfit(pnet, 1)
+        assert np.isclose(pnet.score_, jback.score_, rtol=CROSS_TOL, atol=0)
+    assert _worst(jback.params, pnet.params) <= CROSS_TOL
+    assert torch.equal(pnet.params["layer_0"]["W"], frozen)
+    np.testing.assert_array_equal(np.asarray(jback.params["layer_0"]["W"]),
+                                  frozen.numpy())

@@ -225,10 +225,19 @@ def test_unported_options_raise_naming_the_slice():
                 .set_input_type(InputType.recurrent(1, 5)).build())
         return MultiLayerNetwork(conf)
 
+    # the per-layer options are ported: each now builds its group's
+    # chain and trains (tests/test_torch_layer_options.py holds them
+    # against JAX); a frozen head keeps its weights to the bit
+    x0 = np.zeros((2, 5), np.int32)
     for kw in ({"l2": 1e-4}, {"learning_rate": 0.1},
                {"weight_decay": 0.1}, {"trainable": False}):
-        with pytest.raises(NotImplementedError, match="slice"):
-            net_with(**kw).init(device="cpu")
+        n = net_with(**kw).init(device="cpu")
+        w0 = n.params["layer_1"]["W"].clone()
+        n.fit(x0, x0)
+        assert np.isfinite(n.score())
+        moved = not torch.equal(n.params["layer_1"]["W"], w0)
+        assert moved == ("trainable" not in kw), kw
+        assert n._chains["layer_1"].frozen == ("trainable" in kw), kw
     net = net_with().init(device="cpu")
     # listeners and input preprocessors are ported: they now work
     seen = []

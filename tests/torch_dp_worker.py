@@ -90,6 +90,22 @@ def nano_net(inp):
         tree.map_(lambda t: t.numpy(), nested(inp, "weights")))
 
 
+#: the transferred net of the wrapper's per-layer case: the embedding and
+#: blocks 1-2 frozen, a fine-tune chain at this rate with decay, and a
+#: max-norm constraint on block 3
+TRANSFER_LR = 1e-3
+
+
+def transfer_net(net, tl, ftc, constraint):
+    """``net`` transferred for the wrapper's per-layer case (the port's
+    classes, or the JAX package's in the twin)."""
+    new = (tl.builder(net).fine_tune_configuration(ftc(
+        learning_rate=TRANSFER_LR, weight_decay=0.01))
+        .set_feature_extractor(2).build())
+    new.layers[3].constraints = [constraint(max_norm=1.0)]
+    return new
+
+
 def batches(inp, rank, world=2):
     """Rank ``rank``'s rows of the three global batches: the block of
     rows ``P("data")`` gives device ``rank`` in the JAX wrapper."""
@@ -115,6 +131,19 @@ def run_wrappers(inp, mesh, res, log):
         put(res, f"wrapper/{mode}/params", net.params)
         if mode == "encoded":
             put(res, "wrapper/encoded/residual", w._acc_state["residual"])
+    from deeplearning4j_tpu_torch.nn import (FineTuneConfiguration,
+                                             TransferLearning)
+    from deeplearning4j_tpu_torch.nn.constraints import MaxNormConstraint
+    net = transfer_net(nano_net(inp), TransferLearning,
+                       FineTuneConfiguration, MaxNormConstraint)
+    put(res, "wrapper/transfer/start", net.params)
+    w = ParallelWrapper(net, mesh=mesh)
+    losses = []
+    for ds in batches(inp, rank):
+        w.fit([ds])
+        losses.append(net.score())
+    log["wrapper/transfer/losses"] = losses
+    put(res, "wrapper/transfer/params", net.params)
     shared = SharedTrainingMaster.Builder(2).threshold(1e-3).build()
     w = shared.make_wrapper(nano_net(inp), mesh)
     log["master/shared"] = [w.mode, w.accumulator.algo.initial,

@@ -250,11 +250,12 @@ def _jax_pos(inp):
                 table=np.asarray(net.params["layer_1"]["pos"]))
 
 
-def _jax_lm(inp, clip=None):
+def _jax_lm(inp, clip=None, frozen_until=None):
     """GPTNano, local (no context), from the same weights: ``output`` of
     the first batch, then 3 fit steps on the same global batches (their
     losses and the parameters after them) and ``score`` of the padded
-    one."""
+    one; with ``frozen_until``, transferred with that frozen prefix
+    and ``worker.FROZEN_L2`` first."""
     model = JaxGPTNano(**worker.NANO)
     conf = model.conf(worker.LM_T)
     if clip is not None:
@@ -264,6 +265,12 @@ def _jax_lm(inp, clip=None):
     net.params = jax.tree.map(jnp.asarray, _nested(
         {k[len("lm/weights/"):]: v for k, v in inp.items()
          if k.startswith("lm/weights/")}))
+    if frozen_until is not None:
+        from deeplearning4j_tpu.nn import (FineTuneConfiguration,
+                                           TransferLearning)
+        net = TransferLearning.builder(net).fine_tune_configuration(
+            FineTuneConfiguration(l2=worker.FROZEN_L2)) \
+            .set_feature_extractor(frozen_until).build()
     output = np.asarray(net.output(inp["lm/x0"]))
     losses = []
     for i in range(worker.LM_STEPS):
@@ -282,6 +289,16 @@ def _jax_lm(inp, clip=None):
                                            inp["lm/lmask2"])))
 
 
+def _port_local_noise(inp):
+    """The port's weight-noise case (``worker.frozen_net`` with noise),
+    local: 3 fit steps, their losses and the parameters after them."""
+    net = worker.frozen_net(inp, "zigzag_ring", noise=True)
+    losses = worker.fit_steps(net, inp)
+    res = {}
+    worker.put(res, "params", net.params)
+    return dict(losses=losses, params=res)
+
+
 @pytest.fixture(scope="module")
 def runs(world, tmp_path_factory):
     """The ranks of a {"seq": world} mesh, spawned once per module, and
@@ -294,7 +311,10 @@ def runs(world, tmp_path_factory):
         jax_res = dict(attn=_jax_attn(inp, world),
                        layer=_jax_layers(inp, world), pos=_jax_pos(inp),
                        lm=_jax_lm(inp),
-                       clip=_jax_lm(inp, worker.CLIP))
+                       clip=_jax_lm(inp, worker.CLIP),
+                       frozen=_jax_lm(inp,
+                                      frozen_until=worker.FROZEN_UNTIL),
+                       noise=_port_local_noise(inp))
     finally:
         ranks = _collect(procs, world, out_dir, timeout=600)
     return dict(inp=inp, ranks=ranks, n=world, **jax_res)
@@ -460,6 +480,52 @@ def test_gradient_clipping_sees_the_global_gradient(runs):
         got = {k.replace("lm/clip/", ""): v for k, v in res.items()
                if k.startswith("lm/clip/params/")}
         _param_check(got, ref["params"])
+
+
+def test_frozen_prefix_under_the_context_matches_jax(runs):
+    """GPTNano transferred with its embedding and blocks 1-2 frozen and
+    l2 on the rest, zigzag ring under the context: the frozen blocks
+    keep the network's mode through ``FrozenLayer`` (neither dropped
+    from the mode check nor refused as position-mixing), the frozen
+    groups stay equal to the bit, and the steps match the JAX network's
+    (local) in the LM's bands, the l2 term counted once in the summed
+    loss and gradient."""
+    ref = runs["frozen"]
+    for res, log in runs["ranks"]:
+        assert log["lm/frozen/mode"] == "zigzag_ring"
+        np.testing.assert_allclose(log["lm/frozen/losses"], ref["losses"],
+                                   rtol=LM_RTOL, atol=0)
+        got = {k.replace("lm/frozen/", ""): v for k, v in res.items()
+               if k.startswith("lm/frozen/params/")}
+        assert set(got) == set(ref["params"])
+        _param_check(got, ref["params"])
+        for k, v in res.items():
+            if any(k.startswith(f"lm/frozen/params/layer_{i}/")
+                   for i in range(worker.FROZEN_UNTIL + 1)):
+                np.testing.assert_array_equal(
+                    v, res[k.replace("/params/", "/start/")], err_msg=k)
+
+
+def test_weight_noise_under_the_context_is_one_draw(runs):
+    """The frozen case with weight noise on a trainable block, under the
+    context: every shard of the sequence runs through the same perturbed
+    weights, so the steps match the port's local run (which draws the
+    noise from the same seed) in the LM's bands, and the ranks end with
+    the same parameters to the bit. The JAX network's draws differ from
+    the port's, so it is not the reference here."""
+    ref = runs["noise"]
+    ranks = runs["ranks"]
+    for res, log in ranks:
+        np.testing.assert_allclose(log["lm/noise/losses"], ref["losses"],
+                                   rtol=LM_RTOL, atol=0)
+        got = {k.replace("lm/noise/", ""): v for k, v in res.items()
+               if k.startswith("lm/noise/params/")}
+        assert set(got) == set(ref["params"])
+        _param_check(got, ref["params"])
+    for res, _ in ranks[1:]:
+        for k, v in ranks[0][0].items():
+            if k.startswith("lm/noise/params/"):
+                np.testing.assert_array_equal(res[k], v, err_msg=k)
 
 
 def test_lm_trains_under_the_context(runs):

@@ -18,6 +18,8 @@ up through a file under ``DIR``, and runs under ``distributed_context``:
   3 ``fit`` steps on the global batches of the inputs (the third
   padded), then ``score``; the same in ring mode with per-layer L2
   clipping; 10 steps of GPTNano from its own seed (:data:`TRAINS`);
+- GPTNano transferred with a frozen prefix and l2 (:func:`frozen_net`),
+  3 ``fit`` steps in zigzag-ring mode; the same with weight noise;
 - a ring net with dropout on its embedding (:func:`dropout_cases`): the
   positions each rank kept in its first ``fit`` step, and its
   parameters after two;
@@ -89,6 +91,13 @@ TRAINS = 10
 #: the per-layer L2 clip of the clipped parity case (small enough that
 #: every layer clips)
 CLIP = ("ClipL2PerLayer", 0.05)
+#: the frozen parity case: the embedding and blocks 1-2 frozen, and l2
+#: on the layers that train (large enough that a term counted once per
+#: rank shows in the losses)
+FROZEN_UNTIL, FROZEN_L2 = 2, 1e-3
+#: the weight-noise case: the frozen case with Gaussian weight noise of
+#: this standard deviation on the first trainable block
+NOISE_STD = 0.05
 
 
 def put(res, prefix, t):
@@ -211,6 +220,22 @@ def nano_net(inp, mode, clip=None):
     return net.params_from_jax(nested(inp, "lm/weights"))
 
 
+def frozen_net(inp, mode, noise=False):
+    """GPTNano from the JAX weights, transferred with its embedding and
+    blocks 1-2 frozen and l2 on the rest; with ``noise``, weight noise on
+    the first trainable block."""
+    from deeplearning4j_tpu_torch.nn import (FineTuneConfiguration,
+                                             TransferLearning)
+    from deeplearning4j_tpu_torch.nn.constraints import WeightNoise
+    net = TransferLearning.builder(nano_net(inp, mode)) \
+        .fine_tune_configuration(FineTuneConfiguration(l2=FROZEN_L2)) \
+        .set_feature_extractor(FROZEN_UNTIL).build()
+    if noise:
+        net.layers[FROZEN_UNTIL + 1].weight_noise = WeightNoise(
+            stddev=NOISE_STD)
+    return net
+
+
 def fit_steps(net, inp):
     losses = []
     for i in range(LM_STEPS):
@@ -237,6 +262,18 @@ def lm_cases(inp, res, log):
     net = nano_net(inp, "ring", CLIP)
     log["lm/clip/losses"] = fit_steps(net, inp)
     put(res, "lm/clip/params", net.params)
+    # a frozen prefix under the context: the FrozenLayer-wrapped blocks
+    # keep their sequence_parallel mode (the network's mode check and
+    # the position-mixing check read it through the wrapper); l2 on the
+    # rest, and then weight noise on one block too
+    net = frozen_net(inp, "zigzag_ring")
+    log["lm/frozen/mode"] = net._seq_parallel()[1]
+    put(res, "lm/frozen/start", net.params)
+    log["lm/frozen/losses"] = fit_steps(net, inp)
+    put(res, "lm/frozen/params", net.params)
+    net = frozen_net(inp, "zigzag_ring", noise=True)
+    log["lm/noise/losses"] = fit_steps(net, inp)
+    put(res, "lm/noise/params", net.params)
     # tests/test_gpt.py:183: the LM trains under the context
     net = GPTNano(**NANO, sequence_parallel="ring").init(16, device="cpu")
     tokens = np.arange(17) % 5 + 1

@@ -38,7 +38,12 @@ Twins (the JAX test each stands for, in brackets):
   ``per_device_bytes(_dp_state, n)`` and the ``OPT_STATE_BYTES`` gauge;
 - the refused options [``:171``]: the cross-leaf clip and a mode other
   than SYNC raise ``ValueError`` with the JAX package's message; so does
-  ``gather_overlap`` without the sharded update;
+  ``gather_overlap`` without the sharded update, and with a layer's
+  constraints (``deeplearning4j_tpu/parallel/wrapper.py:292-298``);
+- per-layer chains (weight decay and a max-norm constraint on the hidden
+  layer, the output's own Nesterovs) and a frozen hidden layer: the
+  sharded update equal to the bit to replicated SYNC over an epoch, the
+  constraint held, the frozen layer's weights untouched;
 - the overlap bit for bit equal to the end gather
   [``tests/test_fused_kernels.py:296``]; params assigned between fits
   feed the next overlap fit [``:322``]; a fit that raises still
@@ -451,6 +456,31 @@ def test_refused_options_raise_as_jax(runs):
             assert msgs[name] == want, (name, msgs[name], want)
         assert "sharded_update" in msgs["cross_leaf_norm"]
         assert "SYNC" in msgs["not_sync"]
+        assert msgs["overlap_constraints"].startswith(
+            "ValueError: gather_overlap defers"), msgs["overlap_constraints"]
+
+
+def test_per_layer_chains_sharded_equal_replicated(runs):
+    """Per-layer chains and a frozen layer under the sharded update: the
+    rank's 1/N update by each group's own chain, the constraint on the
+    gathered params, the frozen group's shards untouched — equal to the
+    bit to replicated SYNC."""
+    for res, log in runs["ranks"]:
+        for case in worker.CHAIN_CASES:
+            assert log[f"{case}/sh/losses"] == log[f"{case}/rep/losses"]
+            rep, sh = (_under(res, f"{case}/{m}/params")
+                       for m in ("rep", "sh"))
+            assert rep and set(rep) == set(sh)
+            for k in rep:
+                np.testing.assert_array_equal(sh[k], rep[k],
+                                              err_msg=f"{case}/{k}")
+        norms = np.sqrt((_under(res, "chains/sh/params")["layer_0/W"] ** 2)
+                        .sum(0))
+        assert (norms <= 0.5 + 1e-6).all()
+        start = _under(res, "frozen/start")
+        for k in ("layer_0/W", "layer_0/b"):
+            np.testing.assert_array_equal(
+                _under(res, "frozen/sh/params")[k], start[k])
 
 
 def test_overlap_equals_end_gather(runs):

@@ -11,7 +11,9 @@ overlap (``traj``), with AdamW's decay mask (``adamw``), and under a
 warmup-into-cosine schedule (``sched``); the flat
 reduce-scatter and all-gather against the all-reduce mean (``rs``); the
 overlap against the end gather, reassigned params and a fit that raises
-(``overlap``); a resume inside the port and one from the JAX package's
+(``overlap``); per-layer chains (weight decay and a max-norm constraint
+on the hidden layer, the output's own updater) and a frozen hidden
+layer, sharded beside replicated (``chains``, ``frozen``); a resume inside the port and one from the JAX package's
 optimizer state (``resume``); ``zero_dp_report``; the dropout masks of
 the ranks and a one-rank group's seed (``c4``); and every refused
 option. At world size 2 also the multi-input graph in every mode and
@@ -37,10 +39,12 @@ from torch_dp_worker import nested, put  # noqa: E402
 from deeplearning4j_tpu_torch import tree  # noqa: E402
 from deeplearning4j_tpu_torch.data import DataSet, MultiDataSet  # noqa
 from deeplearning4j_tpu_torch.nn import updaters as upd  # noqa: E402
+from deeplearning4j_tpu_torch.nn.constraints import \
+    MaxNormConstraint  # noqa: E402
 from deeplearning4j_tpu_torch.nn.config import (  # noqa: E402
     InputType, NeuralNetConfiguration)
 from deeplearning4j_tpu_torch.nn.layers import (  # noqa: E402
-    DenseLayer, DropoutLayer, OutputLayer)
+    DenseLayer, DropoutLayer, FrozenLayer, OutputLayer)
 from deeplearning4j_tpu_torch.nn.multilayer import \
     MultiLayerNetwork  # noqa: E402
 from deeplearning4j_tpu_torch.obs.metrics import \
@@ -65,6 +69,17 @@ SPARK_EPOCHS = 3
 GRAPH_MODES = ("sync", "encoded", "averaging", "async", "sharded")
 
 
+#: per-layer chains under the wrapper: decay and a constraint on the
+#: hidden layer and the output's own updater; a frozen hidden layer
+CHAIN_CASES = {
+    "chains": {"hidden_kw": {"weight_decay": 0.05, "constraints": [
+        MaxNormConstraint(max_norm=0.5)]},
+        "out_kw": {"updater": upd.Nesterovs(learning_rate=0.05,
+                                            momentum=0.8)}},
+    "frozen": {"frozen": True},
+}
+
+
 def sched_adamw(mod):
     """AdamW under a warmup into a cosine, from the updaters module
     ``mod`` (the port's here, the JAX package's in the twins): the
@@ -76,20 +91,23 @@ def sched_adamw(mod):
 
 
 def mlp_net(inp, key, kw, updater=None, gradient_normalization=None,
-            dropout=None):
+            dropout=None, hidden_kw=None, out_kw=None, frozen=False):
     """A dense net of ``kw`` (a hidden layer and a softmax output) with
     the JAX weights ``key/weights`` of ``inp`` (a dropout layer, if
-    given, between the two; it holds no weights)."""
+    given, between the two; it holds no weights); ``hidden_kw`` and
+    ``out_kw`` are per-layer options, and ``frozen`` wraps the hidden
+    layer in ``FrozenLayer``."""
     b = (NeuralNetConfiguration.builder().seed(kw["seed"])
          .updater(updater or upd.Adam(learning_rate=kw["lr"])))
     if gradient_normalization:
         b = b.gradient_normalization(gradient_normalization)
-    b = b.list().layer(DenseLayer(n_out=kw["hidden"],
-                                  activation=kw["act"]))
+    hidden = DenseLayer(n_out=kw["hidden"], activation=kw["act"],
+                        **(hidden_kw or {}))
+    b = b.list().layer(FrozenLayer(underlying=hidden) if frozen else hidden)
     if dropout:
         b = b.layer(DropoutLayer(dropout=dropout))
     conf = (b.layer(OutputLayer(n_out=kw["classes"], activation="softmax",
-                                loss="mcxent"))
+                                loss="mcxent", **(out_kw or {})))
             .set_input_type(InputType.feed_forward(kw["features"])).build())
     net = MultiLayerNetwork(conf).init(device="cpu")
     if dropout:
@@ -161,6 +179,13 @@ def traj_cases(inp, mesh, res, log):
     log["sched/sh/losses"] = fit_losses(w, data, 3)
     put(res, "sched/sh/params", net.params)
     put(res, "sched/sh/opt", w.gather_opt_state())
+    for case, kw in CHAIN_CASES.items():
+        for name, wkw in (("rep", {}), ("sh", {"sharded_update": True})):
+            net = mlp_net(inp, "mlp", MLP, **kw)
+            put(res, f"{case}/start", net.params)
+            w = ParallelWrapper(net, mesh=mesh, **wkw)
+            log[f"{case}/{name}/losses"] = fit_losses(w, data, 1)
+            put(res, f"{case}/{name}/params", net.params)
 
 
 def rs_cases(inp, mesh, res):
@@ -382,6 +407,9 @@ def refusals(inp, mesh):
         sharded_update=True))
     expect("overlap_alone", lambda: ParallelWrapper(
         mlp_net(inp, "mlp", MLP), mesh=mesh, gather_overlap=True))
+    expect("overlap_constraints", lambda: ParallelWrapper(
+        mlp_net(inp, "mlp", MLP, **CHAIN_CASES["chains"]), mesh=mesh,
+        sharded_update=True, gather_overlap=True).fit(data[:1]))
     ds = data[0]
     masked = DataSet(ds.features, ds.labels,
                      labels_mask=np.ones(len(ds.features), np.float32))

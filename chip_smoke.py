@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases serve_opts,serve_opts_agree,beam,kernels
     python3 chip_smoke.py --phases lenet,lenet_agree,checkpoint,kernels
     python3 chip_smoke.py --phases transfer,transfer_agree,kernels
+    python3 chip_smoke.py --phases mlm,mlm_agree,resnet,resnet_agree
     python3 chip_smoke.py --phases profile    # device-time breakdown
 
 Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
@@ -259,11 +260,47 @@ device-to-host copy and no host wait — and serve_fault):
   the constraint held, launches K1 4, K2 5, K3 2, K6 5, K7 4 a step over
   the two), weight noise on the card by its statistics (mean, standard
   deviation, DropConnect's keep rate within 5 standard errors) and the
-  masters untouched by a noisy step.
+  masters untouched by a noisy step;
+- mlm — BERT-base's masked-LM head at full width built by
+  ``BertBase(...).init_mlm(128)`` (bfloat16 compute on f32 masters,
+  AdamW at BERT pretraining's 1e-4, dropout 0.1) and trained by
+  ``fit(BertIterator(...))`` at B = 32, T = 128 over a synthetic
+  WordPiece vocabulary of exactly 30 522 entries (Zipf-drawn words from
+  a seed; one-hot [B, T, V] labels, key masks, labels masks): 2 warm and
+  8 timed steps between zeroed and read launch counters (K1 12, K3 12,
+  K8 26, K9 26 a step, as finetune), then the same 8 steps from batches
+  built beforehand; the loss per scored position finite and falling,
+  the step ms and samples/s both ways, the iterator's batch build
+  alone, the peak memory, one profiled step's top kernels, the head's
+  three GEMMs (N = 30 522) alone with their cuBLAS kernels; ``output``
+  gives [B, T, V] rows summing to 1;
+- mlm_agree — the same head in f32 (dropout 0, TF32 off), one step at
+  B = 4 on an iterator batch: loss and every gradient card vs CPU in
+  train_agree's bands;
+- resnet — ``ResNet50(num_classes=1000, input_shape=(224, 224, 3),
+  compute_dtype="bfloat16").init()`` (25 557 032 parameters, the zoo's
+  Nesterovs 0.1/0.9) trained by ``fit(x, y)`` on one synthetic ImageNet
+  batch of 128 from a seed: 2 warm and 8 timed steps, every loss
+  finite, no ported kernel launched, images/s, the peak memory, one
+  batch norm's running statistics moved; ``output`` in eval mode rows
+  summing to 1; the trained net's zip restored on the card equal to the
+  bit (params, state, updater state); one profiled step's device time
+  split into convolution, batch norm/elementwise and the rest, the SAME
+  pads and cuDNN layout conversions counted, and the memory format
+  around every convolution of one forward and backward;
+- resnet_agree — ResNet-50 at 224², one step at B = 2 (TF32 off): in
+  f64, loss, every gradient and every running statistic card vs CPU
+  (train_agree's bands, the statistics within 1e-5 relative); in f32 the
+  loss and the statistics in the same bands and each device's gradient
+  against the CPU's f64 one, the card's no farther than twice the CPU's
+  (the f32 gradient is ill-conditioned at B = 2: either device's lies up
+  to ~20 % of a leaf's largest element from f64); then the eval output
+  and pooled features reading the step's statistics within
+  ``AGREE_TOL``.
 
 Each main path (serve, serve_opts, beam, train, finetune, longctx, dp,
 dp_packed, sp, zero, dp_graph, eval, lenet, checkpoint, transfer,
-transfer_agree) zeroes
+transfer_agree, mlm, resnet) zeroes
 the launch counters of the kernels just before it runs and reads them
 just after; it fails if a kernel the registry lists for that path was
 not launched, and on a stepped path (all but serve; eval counts its
@@ -303,7 +340,8 @@ PHASES = ("device", "serve", "agree", "serve_opts", "serve_opts_agree",
           "dp_agree", "sp", "sp_agree", "zero", "zero_agree", "dp_graph",
           "eval", "eval_agree", "train_opts", "train_opts_agree",
           "finetune_opts", "serve_fault", "lenet", "lenet_agree",
-          "checkpoint", "transfer", "transfer_agree", "kernels")
+          "checkpoint", "transfer", "transfer_agree", "mlm", "mlm_agree",
+          "resnet", "resnet_agree", "kernels")
 
 # published peaks of one H100 SXM (dense): the bound of a kernel is the
 # larger of its operations over the peak rate for their type and its
@@ -712,8 +750,8 @@ def phase_kernels(state):
 
 
 def _rel_err(out, ref) -> float:
-    return ((out.float() - ref.float()).abs().max()
-            / ref.float().abs().max().clamp_min(1e-30)).item()
+    return ((out.double() - ref.double()).abs().max()
+            / ref.double().abs().max().clamp_min(1e-30)).item()
 
 
 def _lengths_mask(b, t, g):
@@ -2957,7 +2995,8 @@ def phase_dp_graph(state):
     assert last < first, (first, last, losses)
     _check_step_launches("dp_graph", steps, launches, card)
     probs = net.output(tokens, segments)[0]
-    _check_prob_rows("dp_graph", probs, PROB_SUM_TOL["bfloat16"], card)
+    _check_prob_rows("dp_graph", probs, (BERT_B, 2),
+                     PROB_SUM_TOL["bfloat16"], card)
 
 
 # -- phases 9, 10 ----------------------------------------------------------
@@ -3244,51 +3283,33 @@ def phase_finetune(state):
     assert last < first, (first, last, losses)
     _check_step_launches("finetune", steps, launches, card)
     probs = net.output(tokens, segments, features_masks=[mask, mask])[0]
-    _check_prob_rows("finetune", probs, PROB_SUM_TOL["bfloat16"], card)
+    _check_prob_rows("finetune", probs, (BERT_B, 2),
+                     PROB_SUM_TOL["bfloat16"], card)
 
 
-def _check_prob_rows(phase, probs, tol, card) -> None:
-    """The classifier's output on the card: finite [B, 2] probabilities
-    whose rows each sum to 1 within ``tol``."""
+def _check_prob_rows(phase, probs, shape, tol, card) -> None:
+    """An output on the card: finite probabilities of ``shape`` whose
+    rows (over the last axis) each sum to 1 within ``tol``."""
     import torch
     row_err = (probs.sum(-1) - 1).abs().max().item()
     log(f"{phase}: output {tuple(probs.shape)} on {probs.device} "
         f"max|row sum - 1|={row_err:.2e} tol={tol:.1e} {card}")
-    assert probs.ndim == 2 and probs.shape[1] == 2 and probs.is_cuda
+    assert tuple(probs.shape) == tuple(shape) and probs.is_cuda
     assert bool(torch.isfinite(probs).all()) and row_err <= tol
 
 
 def phase_finetune_agree(state):
-    import torch
-    from deeplearning4j_tpu_torch import tree
     from deeplearning4j_tpu_torch.zoo.bert import BertBase
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     model = BertBase(seed=3, dropout=0.0)            # float32
     tokens, segments, mask, labels = _finetune_batch(1, 4, BERT_T)
-    results = {}
-    for dev in ("cuda", "cpu"):
-        net = model.init_classifier(2, BERT_T, device=dev)
-        loss, grads, _ = net._loss_and_grads(
-            [tokens, segments], [labels], [mask, mask])
-        results[dev] = (loss.item(), tree.map_(lambda g: g.cpu(), grads))
-        if dev == "cuda":
-            _check_prob_rows("finetune_agree", net.output(
-                tokens, segments, features_masks=[mask, mask])[0],
-                PROB_SUM_TOL["float32"], state["card"])
-        del net, grads
-    (l_card, g_card), (l_cpu, g_cpu) = results["cuda"], results["cpu"]
-    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
-    rels = tree.map_with_path(
-        lambda path, a, b: (_rel_err(a, b), ".".join(path)), g_card, g_cpu)
-    worst, worst_key = max(tree.leaves(rels))
-    log(f"finetune_agree: f32 B=4 T={BERT_T} key-masked one step, card vs "
-        f"CPU: loss {l_card:.6f} vs {l_cpu:.6f} rel={loss_rel:.3e} "
-        f"tol={TRAIN_LOSS_RTOL:.0e}; worst gradient {worst_key} "
-        f"max|d|/max|g|={worst:.3e} tol={TRAIN_GRAD_TOL:.0e} "
-        f"{state['card']}")
-    if not (loss_rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_TOL):
-        raise AssertionError("card and CPU fine-tune step disagree")
+    (net, *_), _ = _agree_step(
+        "finetune_agree",
+        lambda dev: model.init_classifier(2, BERT_T, device=dev),
+        [tokens, segments], [labels], [mask, mask], None, state["card"],
+        what=f"f32 B=4 T={BERT_T} key-masked")
+    _check_prob_rows("finetune_agree", net.output(
+        tokens, segments, features_masks=[mask, mask])[0], (4, 2),
+        PROB_SUM_TOL["float32"], state["card"])
 
 
 # -- phases 21, 22: evaluation ---------------------------------------------
@@ -4849,6 +4870,533 @@ def phase_transfer_agree(state):
     assert abs(kept - 0.8) <= math.sqrt(0.8 * 0.2) * se
     assert noisy != clean and noisy == again
     assert all(_same_groups(card_net.params, masters).values())
+
+
+# -- the masked-LM head and ResNet-50 -----------------------------------------
+#: the mlm phase: BERT-base's masked-LM head at B = 32, T = 128 over a
+#: WordPiece vocabulary of exactly BERT's 30 522 entries, 2 warm and 8
+#: timed steps through ``fit(BertIterator)``, then the same 8 steps from
+#: batches built beforehand
+MLM_B, MLM_T, MLM_VOCAB = 32, 128, 30522
+MLM_WARM, MLM_STEPS = 2, 8
+#: BERT pretraining's Adam learning rate (Devlin et al. 2019, with decay
+#: 0.01); the zoo's default AdamW 2e-5 is the fine-tuning rate
+MLM_LR = 1e-4
+#: the synthetic corpus: sentence lengths in words, and the Zipf exponent
+#: of the word draw (a frequency law of real text, so that the head has
+#: something to learn in a few steps)
+MLM_WORDS, MLM_ZIPF = (24, 140), 1.1
+#: the mlm_agree batch (card against CPU, f32)
+MLM_AGREE_B = 4
+#: ResNet-50 at the zoo's published shape: B = 128 synthetic ImageNet
+#: images (the TPU bench ran 256; the port's eager graph keeps more
+#: saved tensors a batch norm than a fused one does), bf16 compute on f32
+#: masters, the zoo's Nesterovs (0.1, 0.9)
+RESNET_B, RESNET_HW, RESNET_CLASSES = 128, 224, 1000
+RESNET_WARM, RESNET_STEPS = 2, 8
+#: resnet_agree: one f32 step at 224², B = 2, card against CPU; the
+#: running statistics to 1e-5 relative and the eval output to AGREE_TOL
+RESNET_AGREE_B = 2
+STATE_RTOL = 1e-5
+
+
+def _mlm_corpus(seed: int, n_sentences: int):
+    """A WordPiece vocabulary of exactly ``MLM_VOCAB`` entries and
+    ``n_sentences`` sentences over it, from ``np.random.default_rng(seed)``:
+    the five specials, the 26 letters and their ``##`` continuations (so
+    every word decomposes), then distinct random lowercase words of 3 to
+    10 letters; each sentence ``MLM_WORDS`` words long, the words drawn
+    by a Zipf law over their rank."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.nlp.bert_iterator import SPECIALS
+    rng = np.random.default_rng(seed)
+    letters = [chr(c) for c in range(ord("a"), ord("z") + 1)]
+    vocab = {t: i for i, t in enumerate(SPECIALS)}
+    for ch in letters:
+        for piece in (ch, "##" + ch):
+            vocab[piece] = len(vocab)
+    words = []
+    while len(vocab) < MLM_VOCAB:
+        w = "".join(rng.choice(letters, int(rng.integers(3, 11))))
+        if w not in vocab:
+            vocab[w] = len(vocab)
+            words.append(w)
+    p = 1.0 / np.arange(1, len(words) + 1) ** MLM_ZIPF
+    p /= p.sum()
+    sentences = [" ".join(words[i] for i in rng.choice(
+        len(words), int(rng.integers(*MLM_WORDS)), p=p))
+        for _ in range(n_sentences)]
+    return vocab, sentences
+
+
+class _MaskedCount:
+    """An iterator of ``MultiDataSet`` batches passed through, counting
+    the scored (labels-mask) positions of each batch it yields: the
+    masked-LM loss is a mean over the batch of per-example sums, so a
+    step's loss per scored position is ``loss · B / count``."""
+
+    def __init__(self, it):
+        self.it, self.counts = it, []
+
+    def reset(self):
+        self.it.reset()
+
+    def __iter__(self):
+        for mds in self.it:
+            self.counts.append(float(mds.labels_masks[0].sum()))
+            yield mds
+
+
+def _kernel_split(prof):
+    """(busy ms, {kernel name: (ms, launches)}) of the device kernels,
+    memcpys and memsets of a ``torch.profiler`` run (user annotations
+    not counted)."""
+    import collections
+    import torch
+    ms, n = collections.Counter(), collections.Counter()
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            ms[e.name] += e.device_time_total / 1e3
+            n[e.name] += 1
+    return sum(ms.values()), {k: (ms[k], n[k]) for k in ms}
+
+
+def _head_gemms(n_rows: int, card) -> None:
+    """The masked-LM head's three GEMMs alone in bf16 at the mlm step's
+    shapes — logits [n, 768] @ [768, V], dX = dZ @ Wᵀ and dW = Xᵀ @ dZ,
+    V = 30 522 (not a multiple of 8) — timed by CUDA events and
+    profiled once: the cuBLAS kernels they take, by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(n_rows, 768, device="cuda", generator=g).bfloat16()
+    w = torch.randn(768, MLM_VOCAB, device="cuda", generator=g).bfloat16()
+    dz = torch.randn(n_rows, MLM_VOCAB, device="cuda",
+                     generator=g).bfloat16()
+    calls = {"fwd": lambda: x @ w, "dx": lambda: dz @ w.t(),
+             "dw": lambda: x.t() @ dz}
+    flops = 2 * n_rows * 768 * MLM_VOCAB
+    for name, fn in calls.items():
+        ms = time_ms(fn, iters=20)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        _, kern = _kernel_split(prof)
+        log(f"mlm: head GEMM {name} {n_rows}x768x{MLM_VOCAB} bf16 "
+            f"{ms:.4f} ms {flops / ms / 1e9:.1f} TFLOP/s bound "
+            f"{bound_ms(flops, 0, PEAK_BF16_FLOPS)[0]:.4f} ms kernels "
+            f"{sorted(kern)} {card}")
+
+
+def phase_mlm(state):
+    """BERT-base's masked-LM head at full width trained through the
+    entry points a user calls: ``BertBase(...).init_mlm(128)`` (bfloat16
+    compute on f32 masters, AdamW at BERT pretraining's 1e-4, dropout
+    0.1) fed by ``fit(BertIterator(...))`` over a synthetic corpus of
+    BERT's vocabulary size (one-hot [B, T, V] labels, key masks, labels
+    masks of the 15 % masked positions); 2 warm and 8 timed steps
+    between zeroed and read launch counters (exactly the registry's
+    ``mlm`` count a step), then the same 8 steps from batches built
+    beforehand (the step without the iterator's batch build), the peak
+    memory, the batch build alone, one profiled step and the head's
+    GEMMs; ``output`` gives [B, T, V] rows summing to 1."""
+    import math
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from deeplearning4j_tpu_torch.nlp import (BertIterator,
+                                              BertWordPieceTokenizer)
+    from deeplearning4j_tpu_torch.nn import updaters as upd
+    from deeplearning4j_tpu_torch.ops import kernel_registry
+    from deeplearning4j_tpu_torch.train.listeners import \
+        CollectScoresListener
+    from deeplearning4j_tpu_torch.zoo.bert import BertBase
+    card = state["card"]
+    _free_card("mlm", card)
+    t0 = time.perf_counter()
+    n = MLM_B * (MLM_WARM + 2 * MLM_STEPS)
+    vocab, sentences = _mlm_corpus(0, n)
+    tok = BertWordPieceTokenizer(vocab)
+    assert len(vocab) == MLM_VOCAB
+
+    def iterator(lo, hi, seed):
+        return _MaskedCount(BertIterator(
+            tok, sentences[lo * MLM_B:hi * MLM_B], batch_size=MLM_B,
+            seq_len=MLM_T, seed=seed))
+
+    net = BertBase(seed=2, compute_dtype="bfloat16", updater=upd.AdamW(
+        learning_rate=MLM_LR, weight_decay=0.01,
+        exclude_bias_and_norm=True)).init_mlm(MLM_T)
+    scores = CollectScoresListener()
+    net.set_listeners(scores)
+    log(f"mlm: init {net.num_params()} params on {net.device}, vocabulary "
+        f"{len(vocab)}, {n} sentences {time.perf_counter() - t0:.1f}s")
+    torch.cuda.reset_peak_memory_stats()
+    its = [iterator(0, MLM_WARM, 1),
+           iterator(MLM_WARM, MLM_WARM + MLM_STEPS, 2),
+           iterator(MLM_WARM + MLM_STEPS, MLM_WARM + 2 * MLM_STEPS, 3)]
+    net.fit(its[0])                                     # warm steps
+    for e in kernel_registry.ported():
+        e.reset()
+    wall_it = _wall_ms(lambda: net.fit(its[1]))
+    launches = {e.key: e.launches() for e in kernel_registry.ported()}
+    state.setdefault("launches", {})["mlm"] = launches
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    t1 = time.perf_counter()
+    built = list(its[2])
+    build_ms = (time.perf_counter() - t1) * 1e3 / MLM_STEPS
+    wall_pre = _wall_ms(lambda: net.fit(built))
+    losses = [s for _, s in scores.scores]
+    counts = [c for it in its for c in it.counts]
+    assert len(losses) == len(counts) == MLM_WARM + 2 * MLM_STEPS
+    per_pos = [l * MLM_B / c for l, c in zip(losses, counts)]
+    lmask = built[0].labels_masks[0]
+    log(f"mlm: losses {' '.join(f'{l:.4f}' for l in losses)}; per scored "
+        f"position {' '.join(f'{l:.4f}' for l in per_pos)} {card}")
+    log(f"mlm: B={MLM_B} T={MLM_T} V={MLM_VOCAB} steps={MLM_STEPS} "
+        f"through fit(BertIterator): mean_step_ms="
+        f"{wall_it / MLM_STEPS:.3f} samples_per_s="
+        f"{MLM_B * MLM_STEPS / wall_it * 1e3:.1f}; from batches built "
+        f"beforehand: mean_step_ms={wall_pre / MLM_STEPS:.3f} "
+        f"samples_per_s={MLM_B * MLM_STEPS / wall_pre * 1e3:.1f}; the "
+        f"iterator's batch build alone {build_ms:.3f} ms a batch (one-hot "
+        f"labels {built[0].labels[0].nbytes / 2 ** 30:.3f} GB); masked "
+        f"positions {int(lmask.sum())} of {lmask.size}; "
+        f"max_memory_allocated_gb={peak_gb:.3f} {card}")
+    assert all(math.isfinite(l) for l in losses), losses
+    first, last = np.mean(per_pos[:2]), np.mean(per_pos[-2:])
+    assert last < first, (first, last, per_pos)
+    _check_step_launches("mlm", MLM_STEPS, launches, card)
+    one = built[:1]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        net.fit(one)
+        torch.cuda.synchronize()
+    busy, kern = _kernel_split(prof)
+    wall = _wall_ms(lambda: net.fit(one))
+    log(f"mlm: profiled step device_busy_ms={busy:.3f} wall_ms={wall:.3f} "
+        f"idle_share={1 - busy / wall:.3f} {card}")
+    for name, (ms, cnt) in sorted(kern.items(), key=lambda kv: -kv[1][0]
+                                  )[:10]:
+        log(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}% x{cnt:<5d} "
+            f"{name[:90]}")
+    _head_gemms(MLM_B * MLM_T, card)
+    b = built[0]
+    probs = net.output(*b.features, features_masks=b.features_masks)[0]
+    _check_prob_rows("mlm", probs, (MLM_B, MLM_T, MLM_VOCAB),
+                        PROB_SUM_TOL["bfloat16"], card)
+
+
+def _one_step(make, xs, ys, fms=None, lms=None):
+    """``(net, loss, gradients, new layer state)`` of one
+    ``_loss_and_grads`` of the network ``make()`` builds, the trees
+    copied to the host (the step not applied)."""
+    from deeplearning4j_tpu_torch import tree
+    net = make()
+    loss, grads, new_state = net._loss_and_grads(xs, ys, fms, lms)
+    return (net, loss.item(), tree.map_(lambda g: g.cpu(), grads),
+            tree.map_(lambda g: g.cpu(), new_state))
+
+
+def _worst_rel(a, b):
+    """The largest error of a leaf of ``a`` against the same leaf of
+    ``b``, relative to that leaf's largest magnitude, and its path."""
+    from deeplearning4j_tpu_torch import tree
+    return max(tree.leaves(tree.map_with_path(
+        lambda path, x, y: (_rel_err(x, y), ".".join(path)), a, b)),
+        default=(0.0, "(none)"))
+
+
+def _agree_step(name: str, make, xs, ys, fms, lms, card, what="f32"):
+    """One step of the network ``make(device)`` builds, on the card and
+    on the CPU from the same weights (TF32 off): the loss, every
+    gradient and the new layer state, card against CPU, in
+    train_agree's bands and ``STATE_RTOL``. Returns the two steps
+    (``_one_step``'s tuples), card first."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card_step, cpu_step = (_one_step(lambda: make(dev), xs, ys, fms, lms)
+                           for dev in ("cuda", "cpu"))
+    (_, l_card, g_card, s_card), (_, l_cpu, g_cpu, s_cpu) = (card_step,
+                                                             cpu_step)
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    worst, worst_key = _worst_rel(g_card, g_cpu)
+    s_worst, s_key = _worst_rel(s_card, s_cpu)
+    log(f"{name}: {what} one step, card vs CPU: loss {l_card:.6f} vs "
+        f"{l_cpu:.6f} rel={loss_rel:.3e} tol={TRAIN_LOSS_RTOL:.0e}; worst "
+        f"gradient {worst_key} max|d|/max|g|={worst:.3e} "
+        f"tol={TRAIN_GRAD_TOL:.0e}; worst running statistic {s_key} "
+        f"{s_worst:.3e} tol={STATE_RTOL:.0e} {card}")
+    if not (loss_rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_TOL
+            and s_worst <= STATE_RTOL):
+        raise AssertionError(f"card and CPU step disagree ({name})")
+    return card_step, cpu_step
+
+
+def phase_mlm_agree(state):
+    """BERT-base's masked-LM head in f32 (dropout 0, TF32 off), one step
+    at B = 4, T = 128 on a ``BertIterator`` batch (key masks, labels
+    masks, one-hot labels over 30 522): the card's loss and every
+    gradient against the port on the CPU, in train_agree's bands; then
+    the card's ``output`` rows sum to 1."""
+    from deeplearning4j_tpu_torch.nlp import (BertIterator,
+                                              BertWordPieceTokenizer)
+    from deeplearning4j_tpu_torch.zoo.bert import BertBase
+    card = state["card"]
+    _free_card("mlm_agree", card)
+    vocab, sentences = _mlm_corpus(1, MLM_AGREE_B)
+    b = next(iter(BertIterator(BertWordPieceTokenizer(vocab), sentences,
+                               batch_size=MLM_AGREE_B, seq_len=MLM_T,
+                               seed=5)))
+    model = BertBase(seed=3, dropout=0.0)                 # float32
+    (net, *_), _ = _agree_step(
+        "mlm_agree", lambda dev: model.init_mlm(MLM_T, device=dev),
+        b.features, b.labels, b.features_masks, b.labels_masks, card)
+    probs = net.output(*b.features, features_masks=b.features_masks)[0]
+    _check_prob_rows("mlm_agree", probs,
+                        (MLM_AGREE_B, MLM_T, MLM_VOCAB),
+                        PROB_SUM_TOL["float32"], card)
+
+
+def _resnet_batch(seed: int, b: int, hw: int):
+    """Synthetic ImageNet-shaped data from ``np.random.default_rng(seed)``,
+    as the repository's ``bench.py`` makes it: standard-normal
+    [b, hw, hw, 3] images and one-hot labels over 1000 classes."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, hw, hw, 3), dtype=np.float32)
+    y = np.eye(RESNET_CLASSES, dtype=np.float32)[
+        rng.integers(0, RESNET_CLASSES, b)]
+    return x, y
+
+
+def _conv_layouts(net, x, y):
+    """Every 2-D convolution of one forward and backward of ``net``
+    (``loss_and_grads``, no update) checked for the channels-last memory
+    format of its input and output: the counts of convolutions and of
+    those whose input or output is not channels-last."""
+    import torch
+    from deeplearning4j_tpu_torch.nn.layers import conv as conv_mod
+    seen = {"convs": 0, "input_not_cl": 0, "output_not_cl": 0}
+    plain = conv_mod._CONV[2]
+    cl = torch.channels_last
+
+    def audited(xc, w, **kw):
+        out = plain(xc, w, **kw)
+        seen["convs"] += 1
+        seen["input_not_cl"] += not xc.is_contiguous(memory_format=cl)
+        seen["output_not_cl"] += not out.is_contiguous(memory_format=cl)
+        return out
+
+    conv_mod._CONV[2] = audited
+    try:
+        net._loss_and_grads([x], [y])
+    finally:
+        conv_mod._CONV[2] = plain
+    return seen
+
+
+def _resnet_profile(net, x, y, card) -> None:
+    """One ``fit`` step under ``torch.profiler``: the device time split
+    into the convolutions (the inclusive device time of
+    ``aten::cudnn_convolution`` and ``aten::convolution_backward``),
+    batch norm and the other elementwise and reduction kernels
+    (PyTorch's ``elementwise``/``reduce`` kernels), and the rest; the
+    explicit SAME pads (``aten::constant_pad_nd``, a copy each), the
+    cuDNN layout conversions (kernels named ``nchwToNhwc``/``nhwcToNchw``),
+    the copy ops and the device-to-device memcpys counted; then the
+    memory format around every convolution."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        net.fit(x, y)
+        torch.cuda.synchronize()
+    busy, kern = _kernel_split(prof)
+    ops = {e.key: e for e in prof.key_averages()}
+
+    def dev_ms(key):
+        e = ops.get(key)
+        return 0.0 if e is None else e.device_time_total / 1e3
+
+    conv = dev_ms("aten::cudnn_convolution") + dev_ms(
+        "aten::convolution_backward")
+    elem = sum(ms for name, (ms, _) in kern.items()
+               if "elementwise" in name or "reduce" in name.lower())
+    layout = {name: cnt for name, (_, cnt) in kern.items()
+              if "nchwToNhwc" in name or "nhwcToNchw" in name}
+    pads = ops.get("aten::constant_pad_nd")
+    copies = {k: (ops[k].count, round(dev_ms(k), 3)) for k in (
+        "aten::copy_", "aten::clone", "aten::contiguous") if k in ops}
+    dtod = kern.get("Memcpy DtoD (Device -> Device)", (0.0, 0))
+    wall = _wall_ms(lambda: net.fit(x, y))
+    log(f"resnet: profiled step device_busy_ms={busy:.3f} wall_ms="
+        f"{wall:.3f} idle_share={1 - busy / wall:.3f}; convolution "
+        f"{conv:.3f} ms ({100 * conv / busy:.1f}%), batch norm and "
+        f"elementwise {elem:.3f} ms ({100 * elem / busy:.1f}%), rest "
+        f"{busy - conv - elem:.3f} ms; SAME pads (constant_pad_nd) "
+        f"{0 if pads is None else pads.count} calls "
+        f"{dev_ms('aten::constant_pad_nd'):.3f} ms; cuDNN layout "
+        f"conversions {sum(layout.values())} {sorted(layout)}; copy ops "
+        f"(calls, device ms) {copies}; device-to-device memcpys "
+        f"{dtod[1]} ({dtod[0]:.3f} ms) {card}")
+    for name, (ms, cnt) in sorted(kern.items(), key=lambda kv: -kv[1][0]
+                                  )[:10]:
+        log(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}% x{cnt:<5d} "
+            f"{name[:90]}")
+    log(f"resnet: memory format around the convolutions of one forward "
+        f"and backward: {_conv_layouts(net, x, y)} {card}")
+
+
+def phase_resnet(state):
+    """ResNet-50 at the zoo's published shape through the entry points a
+    user calls: ``ResNet50(num_classes=1000, input_shape=(224, 224, 3),
+    compute_dtype="bfloat16").init()`` (f32 masters, the zoo's Nesterovs
+    0.1/0.9) trained by ``fit(x, y)`` on one synthetic ImageNet batch of
+    128 from a seed: 2 warm and 8 timed steps between zeroed and read
+    launch counters (no ported kernel: convolution, batch norm and
+    pooling go to cuDNN and PyTorch's ops), every loss finite, the
+    images/s and peak memory, one batch norm's running statistics
+    moved from their init; ``output`` in eval mode gives rows summing to
+    1; the trained net's zip restored on the card equal to the bit
+    (params, state and updater state); one profiled step."""
+    import math
+    import tempfile
+    import torch
+    from deeplearning4j_tpu_torch import tree
+    from deeplearning4j_tpu_torch.ops import kernel_registry
+    from deeplearning4j_tpu_torch.serialization import ModelSerializer
+    from deeplearning4j_tpu_torch.train.listeners import \
+        CollectScoresListener
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+    card = state["card"]
+    _free_card("resnet", card)
+    t0 = time.perf_counter()
+    net = ResNet50(num_classes=RESNET_CLASSES,
+                   input_shape=(RESNET_HW, RESNET_HW, 3),
+                   compute_dtype="bfloat16").init()
+    xh, yh = _resnet_batch(0, RESNET_B, RESNET_HW)
+    x, y = torch.from_numpy(xh).cuda(), torch.from_numpy(yh).cuda()
+    scores = CollectScoresListener()
+    net.set_listeners(scores)
+    log(f"resnet: init {net.num_params()} params on {net.device}, "
+        f"{net.conf.updater.to_dict()} "
+        f"{time.perf_counter() - t0:.1f}s")
+    assert net.num_params() == 25_557_032
+    init_stats = tree.map_(torch.clone, net.state["res5_2_c_bn"])
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(RESNET_WARM):
+        net.fit(x, y)
+    for e in kernel_registry.ported():
+        e.reset()
+    wall = _wall_ms(lambda: [net.fit(x, y) for _ in range(RESNET_STEPS)])
+    launches = {e.key: e.launches() for e in kernel_registry.ported()}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [s for _, s in scores.scores]
+    moved = {k: (net.state["res5_2_c_bn"][k] - init_stats[k]).abs().max()
+             .item() for k in ("mean", "var")}
+    log(f"resnet: losses {' '.join(f'{l:.4f}' for l in losses)} {card}")
+    log(f"resnet: B={RESNET_B} {RESNET_HW}x{RESNET_HW} steps="
+        f"{RESNET_STEPS} mean_step_ms={wall / RESNET_STEPS:.3f} "
+        f"images_per_s={RESNET_B * RESNET_STEPS / wall * 1e3:.1f} "
+        f"max_memory_allocated_gb={peak_gb:.3f}; res5_2_c_bn running "
+        f"statistics moved from their init by max|d mean|="
+        f"{moved['mean']:.4e} max|d var|={moved['var']:.4e} {card}")
+    # finite, as the reference's own ResNet test asks: at lr 0.1 with no
+    # warmup the first steps on one random-label batch may climb before
+    # they fall, so the losses are printed, not ordered
+    assert all(math.isfinite(l) for l in losses), losses
+    assert moved["mean"] > 0 and moved["var"] > 0
+    assert all(t.dtype == torch.float32 for t in tree.leaves(net.state))
+    _check_step_launches("resnet", RESNET_STEPS, launches, card)
+    probs = net.output(xh[:32])[0]
+    _check_prob_rows("resnet", probs, (32, RESNET_CLASSES),
+                        PROB_SUM_TOL["bfloat16"], card)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "resnet50.zip")
+        t1 = time.perf_counter()
+        ModelSerializer.write_model(net, path)
+        t2 = time.perf_counter()
+        back = ModelSerializer.restore_computation_graph(path)
+        t3 = time.perf_counter()
+        size = os.path.getsize(path)
+    same = {what: all(torch.equal(a, b) for a, b in zip(
+        tree.leaves(getattr(back, what)), tree.leaves(getattr(net, what))))
+        for what in ("params", "state", "opt_state")}
+    log(f"resnet: zip {size} bytes written in {t2 - t1:.3f} s, restored "
+        f"on {back.device} in {t3 - t2:.3f} s; equal to the bit {same} "
+        f"{card}")
+    assert back.device.type == "cuda" and all(same.values())
+    del back
+    _resnet_profile(net, x, y, card)
+
+
+def phase_resnet_agree(state):
+    """ResNet-50 at 224×224×3, one step at B = 2 from the same weights on
+    the card and on the CPU (TF32 off). In float64 (cuDNN's f64
+    convolutions on the card): the loss, every gradient and every batch
+    norm's new running statistics in train_agree's bands and
+    ``STATE_RTOL``. In float32: the loss and the running statistics in
+    the same bands; the gradients each device's distance to the CPU's
+    f64 gradient, the card's no more than twice the CPU's — the f32
+    gradient of this randomly initialised net at B = 2 is itself
+    ill-conditioned (batch norm's backward over few samples a channel:
+    on either device a leaf lies up to ~20 % of its largest element from
+    the f64 one), so no f32 card-vs-CPU band of 1e-3 can hold. Then each
+    f32 net's eval-mode ``output`` and the pooled features its head
+    reads, with the step's running statistics, card against CPU within
+    ``AGREE_TOL``."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch import tree
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+    card = state["card"]
+    _free_card("resnet_agree", card)
+    model = ResNet50(num_classes=RESNET_CLASSES,
+                     input_shape=(RESNET_HW, RESNET_HW, 3))
+    x, y = _resnet_batch(1, RESNET_AGREE_B, RESNET_HW)
+
+    def f64(dev):
+        """The f32 net's weights and state in float64."""
+        net = model.init(device=dev)
+        net.params, net.state = (tree.map_(torch.Tensor.double, t)
+                                 for t in (net.params, net.state))
+        return net
+
+    _, (_, _, g64, _) = _agree_step(
+        "resnet_agree", f64, [x.astype(np.float64)],
+        [y.astype(np.float64)], None, None, card, what="f64")
+    card32, cpu32 = (_one_step(lambda: model.init(device=dev), [x], [y])
+                     for dev in ("cuda", "cpu"))
+    loss_rel = abs(card32[1] - cpu32[1]) / abs(cpu32[1])
+    s_worst, s_key = _worst_rel(card32[3], cpu32[3])
+    (c_err, c_key), (p_err, p_key) = (_worst_rel(step[2], g64)
+                                      for step in (card32, cpu32))
+    log(f"resnet_agree: f32 one step, card vs CPU: loss {card32[1]:.6f} "
+        f"vs {cpu32[1]:.6f} rel={loss_rel:.3e} tol={TRAIN_LOSS_RTOL:.0e}; "
+        f"worst running statistic {s_key} {s_worst:.3e} "
+        f"tol={STATE_RTOL:.0e}; worst gradient against the CPU's f64 one: "
+        f"card {c_key} {c_err:.3e}, CPU {p_key} {p_err:.3e} (card ≤ 2 × "
+        f"CPU) {card}")
+    assert loss_rel <= TRAIN_LOSS_RTOL and s_worst <= STATE_RTOL
+    assert c_err <= 2 * p_err
+    outs, pooled = [], []
+    for net, _, _, new_state in (card32, cpu32):
+        net.state = tree.map_(lambda t: t.to(net.device), new_state)
+        outs.append(net.output(x)[0].cpu())
+        with torch.no_grad():              # the features the head reads
+            acts, _ = net._forward(net.params, net.state, {
+                "input": torch.as_tensor(x, device=net.device)},
+                train=False, rng=None)
+        pooled.append(acts["avgpool"].cpu())
+    err, f_err = _rel_err(outs[0], outs[1]), _rel_err(*pooled)
+    log(f"resnet_agree: f32 eval mode reading the step's running "
+        f"statistics, card vs CPU: output max|d|/max|p|={err:.3e} (largest "
+        f"probability {outs[1].max().item():.4f}), pooled features "
+        f"{f_err:.3e}, tol={AGREE_TOL:.0e} {card}")
+    assert err <= AGREE_TOL and f_err <= AGREE_TOL
 
 
 def phase_profile(state):

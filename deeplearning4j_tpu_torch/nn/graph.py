@@ -30,12 +30,24 @@ silently ignores them (its optimizer never reads ``learning_rate`` and it
 has no regularisation term, ``deeplearning4j_tpu/nn/graph.py:237-259``),
 a gap of the reference the port does not copy (``ROADMAP.md`` C).
 
+An ``RnnOutputLayer`` output keeps its [B, T, F] input and gives
+[B, T, V] logits to the fused loss, the layer applied per time step as
+its documented rule says (``deeplearning4j_tpu/nn/layers/recurrent.py:
+378-392``), and a [B, T] labels mask scopes the loss: the BERT
+masked-LM head trains. The JAX graph's fused head flattens that input
+(``deeplearning4j_tpu/nn/graph.py:290-298``), so the reference fails
+there; the port does not copy the fault (``ROADMAP.md`` C).
+
+Layer state (batch norm's running statistics) lives on the graph's
+device beside the parameters: a training step returns each layer's new
+state and ``fit`` keeps it, in a K-step region too; ``output`` reads it
+(cast to the compute dtype with the parameters, as the JAX ``output``
+casts it); :meth:`ComputationGraph.state_from_jax` carries a JAX
+graph's across.
+
 Not in this slice (each raises ``NotImplementedError``): the numerics
-observatory, an ``RnnOutputLayer`` output — the JAX graph's fused
-head flattens its [B, T, F] input (``graph.py:290-298``), so the
-reference's BERT MLM head is red and the port does not copy it — and
-sequence-parallel layers under a ``distributed_context`` (ROADMAP item
-A4).
+observatory and sequence-parallel layers under a
+``distributed_context`` (ROADMAP item A4).
 
 ``fit(iterator, steps_per_loop=K)`` runs K-step regions as
 ``MultiLayerNetwork`` does, and groups masked batches of one mask
@@ -268,14 +280,6 @@ class ComputationGraph:
                         "reference the port refuses instead of copying "
                         "(ROADMAP.md C)")
             check_frozen_options(f"node {node.name!r}", layer)
-            if node.name in self.conf.outputs and isinstance(
-                    layer, RnnOutputLayer):
-                raise NotImplementedError(
-                    f"output {node.name!r}: an RnnOutputLayer output is "
-                    "not ported — the JAX graph's fused head flattens "
-                    "its [B, T, F] input (deeplearning4j_tpu/nn/"
-                    "graph.py:290-298), so the reference's BERT MLM head "
-                    "fails; a later slice decides it")
 
     def init(self, input_shapes: Optional[Dict[str, tuple]] = None,
              device="cuda"):
@@ -303,7 +307,8 @@ class ComputationGraph:
                 p, s, out = node.obj.init(gen, in_shapes[0], dtype)
                 self.params[node.name] = tree.map_(
                     lambda t: t.to(device), p)
-                self.state[node.name] = s
+                self.state[node.name] = tree.map_(
+                    lambda t: t.to(device), s)
             else:
                 out = node.obj.output_shape(in_shapes)
             shapes[node.name] = out
@@ -318,6 +323,7 @@ class ComputationGraph:
     # the parameter and optimizer bookkeeping of MultiLayerNetwork, which
     # keys its groups by layer where this graph keys them by node
     params_from_jax = MultiLayerNetwork.params_from_jax
+    state_from_jax = MultiLayerNetwork.state_from_jax
     opt_state_from_jax = MultiLayerNetwork.opt_state_from_jax
     _build_optimizer = MultiLayerNetwork._build_optimizer
     _frozen = MultiLayerNetwork._frozen
@@ -377,9 +383,10 @@ class ComputationGraph:
                     rng, sub = split_seed(rng)
                 if (pre_output and node.name in out_set
                         and isinstance(layer, OutputLayer)):
-                    # pre-activation logits for the fused loss, [B, F]
+                    # pre-activation logits for the fused loss: [B, F],
+                    # or [B, T, F] per time step for an RnnOutputLayer
                     x = xs[0]
-                    if x.ndim > 2:
+                    if x.ndim > 2 and not isinstance(layer, RnnOutputLayer):
                         x = x.reshape(x.shape[0], -1)
                     z = x @ params[node.name]["W"]
                     if layer.has_bias:

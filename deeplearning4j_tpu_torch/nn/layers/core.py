@@ -1,7 +1,20 @@
 """Core layers (port of ``deeplearning4j_tpu/nn/layers/core.py``): the
-dense and output layers, standalone dropout, the embeddings, LayerNorm
-and RMSNorm. BatchNorm and the other feed-forward layers come with the
-MultiLayerNetwork-core slice.
+dense and output layers, the activation layer, standalone dropout, the
+embeddings, batch normalisation, LayerNorm, RMSNorm and local response
+normalisation.
+
+``BatchNormalization`` is the first layer whose ``state`` changes in
+training: ``apply(train=True)`` returns the new running statistics
+(detached: they take no gradient), and the networks carry them from
+step to step as the JAX networks carry theirs. Its arithmetic is the
+JAX layer's, written in torch ops: the batch statistics in the promoted
+dtype (f32 for a half-precision input), the one-pass variance
+``E[x²] − E[x]²`` clamped at 0 for bf16 and f16 inputs and the shifted
+two-pass variance otherwise, the *biased* variance in the running
+update ``decay·old + (1 − decay)·batch``, and the output folded into
+``x·a + b``. PyTorch's ``F.batch_norm`` keeps the unbiased variance in
+its running statistics and picks its own variance formula, so it is not
+used.
 """
 from __future__ import annotations
 
@@ -10,6 +23,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.nn import weights as winit
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
@@ -62,6 +76,19 @@ class OutputLayer(DenseLayer):
     step, fused with the activation where it can (softmax + cross
     entropy from the logits)."""
     loss: str = "mcxent"
+
+
+@register_layer
+@dataclass
+class ActivationLayer(Layer):
+    """Stateless activation (reference ActivationLayer)."""
+    mixes_positions = False
+
+    def init(self, gen, input_shape, dtype=torch.float32):
+        return {}, {}, tuple(input_shape)
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        return self._act()(x), state
 
 
 @register_layer
@@ -125,6 +152,63 @@ class EmbeddingSequenceLayer(EmbeddingLayer):
 
 @register_layer
 @dataclass
+class BatchNormalization(Layer):
+    """Batch norm over the trailing feature/channel axis (reference
+    BatchNormalization): parameters ``gamma``, ``beta`` (none with
+    ``lock_gamma_beta``), running ``mean`` and ``var`` in ``state``.
+    The statistics reduce over every axis but the last, so a [B, T, F]
+    input under a sequence-parallel context would need every rank's
+    share: the layer mixes positions."""
+    decay: float = 0.9
+    eps: float = 1e-5
+    lock_gamma_beta: bool = False
+
+    def init(self, gen, input_shape, dtype=torch.float32):
+        c = input_shape[-1]
+        params = {} if self.lock_gamma_beta else {
+            "gamma": torch.ones((c,), dtype=dtype),
+            "beta": torch.zeros((c,), dtype=dtype)}
+        state = {"mean": torch.zeros((c,), dtype=dtype),
+                 "var": torch.ones((c,), dtype=dtype)}
+        return params, state, tuple(input_shape)
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        axes = tuple(range(x.ndim - 1))
+        sdt = torch.promote_types(x.dtype, torch.float32)  # f64 stays f64
+        if train:
+            xf = x.to(sdt)
+            mu = xf.mean(dim=axes)
+            if x.dtype in (torch.bfloat16, torch.float16):
+                # one pass: E[x²] − E[x]², the squares summed in f32
+                var = torch.clamp_min(
+                    torch.square(xf).mean(dim=axes) - torch.square(mu),
+                    0.0)
+            else:
+                # full precision: the shifted two-pass variance
+                var = torch.square(xf - mu).mean(dim=axes)
+            new_state = {
+                "mean": (self.decay * state["mean"]
+                         + (1 - self.decay) * mu.detach()),
+                "var": (self.decay * state["var"]
+                        + (1 - self.decay) * var.detach()),
+            }
+        else:
+            mu = state["mean"].to(sdt)
+            var = state["var"].to(sdt)
+            new_state = state
+        # y = a·x + b with per-channel a, b
+        inv = torch.rsqrt(var + self.eps)
+        if not self.lock_gamma_beta:
+            inv = inv * params["gamma"].to(sdt)
+            b = params["beta"].to(sdt) - mu * inv
+        else:
+            b = -mu * inv
+        y = x * inv.to(x.dtype) + b.to(x.dtype)
+        return self._act()(y), new_state
+
+
+@register_layer
+@dataclass
 class LayerNormalization(Layer):
     """Layer norm over the trailing axis, through
     ``ops.fused_norms.layer_norm``: the kernels (forward K8 in Triton,
@@ -161,3 +245,27 @@ class RMSNorm(Layer):
     def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         return fused_norms.rms_norm(x, params["gamma"],
                                     eps=self.eps), state
+
+
+@register_layer
+@dataclass
+class LocalResponseNormalization(Layer):
+    """LRN across channels (reference LocalResponseNormalization, the
+    AlexNet-era layer), channels-last: ``x / (k + α·Σ x²)^β`` over a
+    window of ``n`` channels, the window sums taken as differences of a
+    cumulative sum, as the JAX layer takes them."""
+    k: float = 2.0
+    n: int = 5
+    alpha: float = 1e-4
+    beta: float = 0.75
+    mixes_positions = False
+
+    def init(self, gen, input_shape, dtype=torch.float32):
+        return {}, {}, tuple(input_shape)
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        half = self.n // 2
+        cs = torch.cumsum(F.pad(torch.square(x), (half, half)), dim=-1)
+        cs = torch.cat([torch.zeros_like(cs[..., :1]), cs], dim=-1)
+        win = cs[..., self.n:] - cs[..., :-self.n]
+        return x / torch.pow(self.k + self.alpha * win, self.beta), state

@@ -1,9 +1,11 @@
 """Recurrent layers (port of ``deeplearning4j_tpu/nn/layers/recurrent.py``).
 
-This slice carries the per-timestep output head the causal LM ends in,
-:class:`RnnOutputLayer`, and the :class:`BaseRecurrentLayer` marker that
-``MultiLayerNetwork`` tests for. The recurrent cells (LSTM, GravesLSTM,
-SimpleRnn, bidirectional wrappers) come with the recurrent slice.
+The port carries the per-timestep output head, :class:`RnnOutputLayer`
+— the causal LM's head in a ``MultiLayerNetwork`` and BERT's masked-LM
+head in a ``ComputationGraph``, both applying it per time step over
+[B, T, F] — and the :class:`BaseRecurrentLayer` marker that the
+networks test for. The recurrent cells (LSTM, GravesLSTM, SimpleRnn,
+bidirectional wrappers) come with ROADMAP item A11.
 """
 from __future__ import annotations
 

@@ -13,7 +13,11 @@ directly (:meth:`MultiLayerNetwork.params_from_jax`). With
 ``compute_dtype`` the forward and backward run in that dtype: the cast
 sits inside the autograd graph, so gradients come back f32 for the
 update. An update rebinds ``params`` to new tensors, as the JAX package
-rebinds its donated arrays.
+rebinds its donated arrays. Layer state (batch norm's running
+statistics) lives on the device beside the parameters: a training step
+returns each layer's new state, ``fit`` keeps it (in a K-step region
+too), ``output`` reads it, and :meth:`MultiLayerNetwork.state_from_jax`
+carries a JAX network's across.
 
 Input preprocessors (``conf.input_preprocessors``, ``nn/preprocessors.py``)
 run before their layer in every forward, and training listeners
@@ -429,7 +433,7 @@ class MultiLayerNetwork:
                 shape = proc.output_shape(shape)
             p, s, shape = layer.init(gen, shape, dtype)
             self.params[_lname(i)] = tree.map_(lambda t: t.to(device), p)
-            self.state[_lname(i)] = s
+            self.state[_lname(i)] = tree.map_(lambda t: t.to(device), s)
             self._layer_shapes.append(shape)
         self._output_shape = shape
         # tied params are NOT master parameters: drop them after init
@@ -456,6 +460,17 @@ class MultiLayerNetwork:
         want = tree.map_(lambda t: tuple(t.shape), self.params)
         self.params = tree.from_numpy(want, params_tree, self.device)
         self._build_optimizer()
+        return self
+
+    def state_from_jax(self, state_tree):
+        """Load a JAX network's layer state (batch norm's running
+        statistics): ``state_tree`` is ``jax.tree.map(np.asarray,
+        net.state)``, checked key for key and shape for shape against
+        this network's state. Returns self."""
+        if not self.params:
+            raise RuntimeError("call init() before state_from_jax()")
+        want = tree.map_(lambda t: tuple(t.shape), self.state)
+        self.state = tree.from_numpy(want, state_tree, self.device)
         return self
 
     def opt_state_from_jax(self, state_tree):

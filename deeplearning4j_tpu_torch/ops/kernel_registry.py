@@ -27,7 +27,9 @@ sharded update; ``dp_graph``: BERT-base's classifier, a
 ``ComputationGraph``, through the same wrapper on full-length rows, so
 its attention runs unmasked; ``eval``: the same classifier's
 ``evaluate`` on full-length rows, a forward alone, counted per evaluated
-batch; ``beam``: one ``generate_beam`` call of ``BEAM_NEW`` tokens),
+batch; ``beam``: one ``generate_beam`` call of ``BEAM_NEW`` tokens;
+``mlm``: BERT-base's masked-LM head trained through ``BertIterator``
+batches, the fine-tune step's trunk under a [B, T, V] head),
 its launches per step. ``train_opts`` and ``finetune_opts`` are the train
 and fine-tune steps in ``steps_per_loop`` regions under a learning-rate
 schedule, with the counts of ``train`` and ``finetune``; ``checkpoint``
@@ -75,9 +77,10 @@ class KernelEntry:
     #: train LM data-parallel over one rank), ``sp`` (the long-context
     #: LM's zigzag ring at one rank), ``eval`` (BERT-base's classifier
     #: forward, per evaluated batch), ``beam`` (one ``generate_beam``
-    #: call), ``train_opts``, ``finetune_opts`` and ``checkpoint`` (as
-    #: ``train`` and ``finetune``), ``transfer`` (the train LM with its
-    #: prefix frozen) and ``transfer_agree`` (4 blocks, 2 frozen);
+    #: call), ``train_opts``, ``finetune_opts``, ``checkpoint`` and
+    #: ``mlm`` (as ``train`` and ``finetune``), ``transfer`` (the train
+    #: LM with its prefix frozen) and ``transfer_agree`` (4 blocks, 2
+    #: frozen);
     #: ``serve``, ``serve_opts`` and ``serve_fault`` run no fixed steps
     per_step: Dict[str, int] = field(default_factory=dict)
 
@@ -104,8 +107,9 @@ _NORM = "deeplearning4j_tpu_torch.ops.fused_norms"
 #: through the sharded update)
 _DP = ("dp", "dp_packed", "zero")
 #: the fine-tune step's paths: alone, under the wrapper, in K-step
-#: regions under a schedule, and around a zip checkpoint and restore
-_FT = ("finetune", "dp_graph", "finetune_opts", "checkpoint")
+#: regions under a schedule, and around a zip checkpoint and restore; and
+#: the masked-LM step (``mlm``), which runs the same BERT-base trunk
+_FT = ("finetune", "dp_graph", "finetune_opts", "checkpoint", "mlm")
 #: the train step's paths on one network: alone, and in K-step regions
 #: under a schedule
 _TR = ("train", "train_opts")
@@ -266,5 +270,5 @@ def on_path(path: str) -> Tuple[KernelEntry, ...]:
     ``longctx``, ``dp``, ``dp_packed``, ``sp``, ``zero``, ``dp_graph``,
     ``eval``, ``serve_opts``, ``beam``, ``train_opts``,
     ``finetune_opts``, ``serve_fault``, ``transfer``,
-    ``transfer_agree``) launches."""
+    ``transfer_agree``, ``mlm``) launches."""
     return tuple(e for e in ported() if path in e.paths)

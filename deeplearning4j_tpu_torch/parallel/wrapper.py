@@ -322,9 +322,12 @@ class ParallelWrapper:
         loss, grads, new_state = self._local_grads(self._replica()[0], x,
                                                    y, rng)
         if self.mode == self.SYNC:
-            # the autograd gradients are fresh tensors: summed in place
+            # the autograd gradients are fresh tensors, summed in place; a
+            # convolution's kernel gradient comes back in the permuted
+            # (channels-last) layout, so it is made contiguous first
             grads = tree.map_(
-                lambda g: all_reduce_sum(g, self.group) / self.n, grads)
+                lambda g: all_reduce_sum(g.contiguous(), self.group)
+                / self.n, grads)
         elif self.mode == self.ENCODED:
             grads, self._acc_state = self.accumulator.exchange(
                 grads, self._acc_state, self.group)

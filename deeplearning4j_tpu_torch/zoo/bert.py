@@ -10,10 +10,14 @@ softmax trained by cross-entropy from the logits. On the card a
 fine-tune step runs the flash-attention kernels (K1, K3: non-causal,
 key-masked) and the LayerNorm kernels (K8, K9) of every block.
 
-The masked-LM head is not ported: the JAX graph's fused head flattens
-its ``RnnOutputLayer``'s [B, T, F] input, so ``conf_mlm`` fails in the
-reference (``ROADMAP.md`` C); :meth:`Bert.conf_mlm` and
-:meth:`Bert.init_mlm` raise until a later slice decides it.
+The masked-LM head (:meth:`Bert.conf_mlm`) ends the trunk in an
+``RnnOutputLayer`` over the vocabulary, a per-position softmax trained
+by cross-entropy from the [B, T, V] logits under the labels mask of the
+masked positions (``nlp.BertIterator`` makes such batches). The JAX
+graph's fused head flattens that layer's input, so the reference's
+``fit`` of this head fails; the port applies the layer per time step,
+its documented rule (``ROADMAP.md`` C). On the card an MLM step runs
+K1, K3, K8 and K9 as the fine-tune step does.
 """
 from __future__ import annotations
 
@@ -29,15 +33,9 @@ from deeplearning4j_tpu_torch.nn.layers import (ClsTokenPoolLayer,
                                                 LayerNormalization,
                                                 OutputLayer,
                                                 PositionalEmbeddingLayer,
+                                                RnnOutputLayer,
                                                 TransformerEncoderBlock)
 from deeplearning4j_tpu_torch.nn.vertices import ElementWiseVertex
-
-_MLM_FAULT = (
-    "the BERT masked-LM head is not ported: in the JAX package "
-    "ComputationGraph._forward's fused head flattens the RnnOutputLayer's "
-    "[B, T, F] input (deeplearning4j_tpu/nn/graph.py:290-298), so "
-    "Bert.conf_mlm fails there; a later slice decides the head")
-
 
 class Bert:
     """Configurable BERT encoder. ``BertBase()`` / ``BertTiny()`` give
@@ -119,7 +117,14 @@ class Bert:
         return b.build()
 
     def conf_mlm(self, seq_len: int = 128):
-        raise NotImplementedError(_MLM_FAULT)
+        """Masked-LM pretraining head: a per-position softmax over the
+        vocabulary (a labels mask scores the masked positions only)."""
+        b, x = self._trunk(seq_len)
+        b.add_layer("mlm", RnnOutputLayer(n_out=self.vocab_size,
+                                          activation="softmax",
+                                          loss="mcxent"), x)
+        b.set_outputs("mlm")
+        return b.build()
 
     def init_classifier(self, num_classes: int, seq_len: int = 128,
                         device="cuda") -> ComputationGraph:
@@ -130,8 +135,12 @@ class Bert:
                 {"tokens": (seq_len,), "segments": (seq_len,)},
                 device=device)
 
-    def init_mlm(self, seq_len: int = 128, device="cuda"):
-        raise NotImplementedError(_MLM_FAULT)
+    def init_mlm(self, seq_len: int = 128,
+                 device="cuda") -> ComputationGraph:
+        """A new masked-LM graph with random weights (from the model's
+        seed) on ``device``, ready for ``fit``."""
+        return ComputationGraph(self.conf_mlm(seq_len)).init(
+            {"tokens": (seq_len,), "segments": (seq_len,)}, device=device)
 
 
 def BertBase(**kw) -> Bert:

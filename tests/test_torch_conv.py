@@ -195,5 +195,24 @@ def test_conv_output_flattens_in_hwc_order():
 
 
 def test_other_spatial_ranks_are_refused_naming_a10():
-    with pytest.raises(NotImplementedError, match="A10"):
+    """The other spatial ranks are built, as the JAX package builds them:
+    ``ConvolutionLayer`` with ``_spatial`` 1 or 3 (the 1-D and 3-D
+    layers' base) gives the JAX layer's output, and a 2-D kernel size on
+    a 1-D layer is refused as there (``tests/test_torch_cnn_layers.py``
+    holds the 1-D and 3-D classes)."""
+    for spatial, shape, kernel in ((1, (5, 3), (2,)),
+                                   (3, (3, 4, 5, 2), (2, 2, 2))):
+        kw = dict(n_out=2, kernel_size=kernel, stride=(1,) * spatial,
+                  dilation=(1,) * spatial, padding="SAME",
+                  _spatial=spatial)
+        layer = ConvolutionLayer(**kw)
+        params, _, out = layer.init(GEN, shape)
+        assert out == JConv(**kw).init(jax.random.PRNGKey(0), shape)[2]
+        x = np.random.default_rng(spatial).normal(
+            size=(2,) + shape).astype(np.float32)
+        errs = _twin(JConv(**kw), layer,
+                     {k: jnp.asarray(v.numpy()) for k, v in params.items()},
+                     x)
+        assert max(errs.values()) <= TOL, errs
+    with pytest.raises(ValueError, match="1-tuple"):
         ConvolutionLayer(n_out=2, _spatial=1).init(GEN, (5, 3))

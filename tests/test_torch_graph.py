@@ -261,10 +261,20 @@ def test_unported_options_raise_naming_the_slice():
     for kw in ({"weight_decay": 0.1}, {"trainable": False},
                {"updater": pupd.Sgd()}):
         _graph_with(**kw).init(device="cpu")
-    rnn_out = _graph_with(pl.RnnOutputLayer(n_out=2, activation="softmax",
-                                            loss="mcxent"))
-    with pytest.raises(NotImplementedError, match="graph.py:290-298"):
-        rnn_out.init(device="cpu")
+    # an RnnOutputLayer output is ported (the JAX graph's fused head
+    # flattens its input, graph.py:290-298; the port applies it per
+    # time step): on [B, F] rows it is the OutputLayer head
+    rnn_out = _graph_with(pl.RnnOutputLayer(
+        n_out=2, activation="softmax", loss="mcxent")).init(device="cpu")
+    dense_out = _graph_with().init(device="cpu")
+    dense_out.params_from_jax(tree.map_(lambda t: t.numpy(),
+                                        rnn_out.params))
+    xy = (np.array([[0.5, -1.0], [2.0, 0.1], [0.0, 0.3]], np.float32),
+          np.eye(2, dtype=np.float32)[[0, 1, 1]])
+    for g in (rnn_out, dense_out):
+        g.fit(*xy)
+    assert np.isfinite(rnn_out.score()) and rnn_out.score_ == \
+        dense_out.score_
     g = _graph_with().init(device="cpu")
     # steps_per_loop is ported; below 1 it is refused
     g.fit(iter([]), steps_per_loop=2)

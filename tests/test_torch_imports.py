@@ -44,7 +44,14 @@ def test_importing_every_port_module_stays_light():
             "deeplearning4j_tpu_torch.nn.constraints",
             "deeplearning4j_tpu_torch.nn.layers.special",
             "deeplearning4j_tpu_torch.nn.layers.extra",
-            "deeplearning4j_tpu_torch.nn.transferlearning"} <= set(mods)
+            "deeplearning4j_tpu_torch.nn.transferlearning",
+            "deeplearning4j_tpu_torch.nlp",
+            "deeplearning4j_tpu_torch.nlp.tokenization",
+            "deeplearning4j_tpu_torch.nlp.bert_iterator",
+            "deeplearning4j_tpu_torch.zoo.resnet",
+            "deeplearning4j_tpu_torch.zoo.alexnet",
+            "deeplearning4j_tpu_torch.zoo.vgg",
+            "deeplearning4j_tpu_torch.zoo.simple_cnn"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"

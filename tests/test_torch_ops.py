@@ -243,7 +243,8 @@ def test_registry_lists_every_tpu_kernel():
                                             "eval", "serve_opts", "beam",
                                             "train_opts", "finetune_opts",
                                             "serve_fault", "checkpoint",
-                                            "transfer", "transfer_agree"}
+                                            "transfer", "transfer_agree",
+                                            "mlm"}
         # the stepped phases' expected launches per step: one positive
         # count for each stepped path of the row, none for the gateways
         stepped = set(e.paths) - {"serve", "serve_opts", "serve_fault"}
@@ -252,11 +253,12 @@ def test_registry_lists_every_tpu_kernel():
     assert {e.key for e in on_path("serve")} == {"K1", "K2"}
     assert {e.key for e in on_path("serve_opts")} == {"K1", "K2"}
     assert {e.key for e in on_path("serve_fault")} == {"K1", "K2"}
-    # the K-step regions, and the fine-tune steps around a zip
-    # checkpoint, launch what the train and fine-tune steps do
+    # the K-step regions, the fine-tune steps around a zip checkpoint
+    # and the masked-LM step on BERT-base's trunk launch what the train
+    # and fine-tune steps do
     for path, like in (("train_opts", "train"),
                        ("finetune_opts", "finetune"),
-                       ("checkpoint", "finetune")):
+                       ("checkpoint", "finetune"), ("mlm", "finetune")):
         assert {e.key: e.per_step[path] for e in on_path(path)} == \
             {e.key: e.per_step[like] for e in on_path(like)}
     # one generate_beam call: K1 once a block of its one prefill, K2 at

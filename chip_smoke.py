@@ -13,6 +13,7 @@
     python3 chip_smoke.py --phases lenet,lenet_agree,checkpoint,kernels
     python3 chip_smoke.py --phases transfer,transfer_agree,kernels
     python3 chip_smoke.py --phases mlm,mlm_agree,resnet,resnet_agree
+    python3 chip_smoke.py --phases charrnn,charrnn_agree
     python3 chip_smoke.py --phases profile    # device-time breakdown
 
 Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
@@ -296,11 +297,35 @@ device-to-host copy and no host wait — and serve_fault):
   (the f32 gradient is ill-conditioned at B = 2: either device's lies up
   to ~20 % of a leaf's largest element from f64); then the eval output
   and pooled features reading the step's statistics within
-  ``AGREE_TOL``.
+  ``AGREE_TOL``;
+- charrnn — the BASELINE's config #3, the GravesLSTM char-RNN built by
+  ``TextGenerationLSTM(vocab_size=77, hidden=512, layers=2,
+  tbptt=50).init()`` (f32, the zoo's Adam 1e-3) and trained by
+  ``fit(x, y)`` with truncated BPTT on one-hot [64, 200, 77] batches of
+  a seeded Markov text (4 segments a batch): 2 warm and 8 timed batches,
+  synchronised card to card, between zeroed and read launch counters
+  (no ported kernel); the loss finite and falling; ms a batch and a
+  segment, chars/s, the peak memory; one profiled batch: the kernel
+  launches, GEMM against elementwise device time, busy against idle;
+  then ``rnn_clear_previous_state`` and 200 greedy characters through
+  ``rnn_time_step``, one at a time (ms a step, chars/s, two runs equal);
+- charrnn_agree — in f32 (TF32 off): one tBPTT batch of the char-RNN at
+  hidden 512 (B = 4, T = 100, k = 50; Sgd in place of Adam) on the card
+  and on the CPU from the same weights, the last segment's loss within
+  1e-5 relative and every parameter within 1e-3 of its leaf's largest
+  value, then 16 ``rnn_time_step`` steps within ``CHARRNN_STEP_TOL``;
+  the golden ``TextGenerationLSTM`` zip restored on the card against its
+  minting forward within ``CHARRNN_GOLDEN_TOL``; and a
+  ``SelfAttentionLayer`` → LSTM → ``RecurrentAttentionLayer`` →
+  ``LearnedSelfAttentionLayer`` net (n_out 256, 4 heads of 64, a key
+  mask) whose forward and backward on the card launch K1 and K3 exactly
+  ``CHARRNN_ATT_T + 2`` times each (Tq = 1 in the recurrent layer's
+  steps, Tq = 4 learned queries), its loss and gradients against the CPU
+  in train_agree's bands.
 
 Each main path (serve, serve_opts, beam, train, finetune, longctx, dp,
 dp_packed, sp, zero, dp_graph, eval, lenet, checkpoint, transfer,
-transfer_agree, mlm, resnet) zeroes
+transfer_agree, mlm, resnet, charrnn, charrnn_agree) zeroes
 the launch counters of the kernels just before it runs and reads them
 just after; it fails if a kernel the registry lists for that path was
 not launched, and on a stepped path (all but serve; eval counts its
@@ -341,7 +366,7 @@ PHASES = ("device", "serve", "agree", "serve_opts", "serve_opts_agree",
           "eval", "eval_agree", "train_opts", "train_opts_agree",
           "finetune_opts", "serve_fault", "lenet", "lenet_agree",
           "checkpoint", "transfer", "transfer_agree", "mlm", "mlm_agree",
-          "resnet", "resnet_agree", "kernels")
+          "resnet", "resnet_agree", "charrnn", "charrnn_agree", "kernels")
 
 # published peaks of one H100 SXM (dense): the bound of a kernel is the
 # larger of its operations over the peak rate for their type and its
@@ -5397,6 +5422,298 @@ def phase_resnet_agree(state):
         f"probability {outs[1].max().item():.4f}), pooled features "
         f"{f_err:.3e}, tol={AGREE_TOL:.0e} {card}")
     assert err <= AGREE_TOL and f_err <= AGREE_TOL
+
+
+# -- the char-RNN ------------------------------------------------------------
+#: the BASELINE's config #3 (``tools/perf_dossier.py:379-410``): the
+#: GravesLSTM char-RNN at its published widths, B = 64 sequences of 200
+#: characters, truncated BPTT in segments of 50
+CHARRNN = dict(vocab_size=77, hidden=512, layers=2, tbptt=50)
+CHARRNN_B, CHARRNN_T = 64, 200
+CHARRNN_WARM, CHARRNN_BATCHES = 2, 8
+#: greedy characters generated one ``rnn_time_step`` at a time
+CHARRNN_GEN = 200
+#: the seeded Markov text: each character has this many successors,
+#: equally likely, so that the loss has something to fall to
+CHARRNN_SUCCESSORS = 4
+#: charrnn_agree: one tBPTT batch card vs CPU (B, T; k = 50), its Sgd
+#: rate, and the stored-state steps compared after it
+CHARRNN_AGREE_B, CHARRNN_AGREE_T, CHARRNN_AGREE_LR = 4, 100, 0.1
+CHARRNN_AGREE_STEPS = 16
+#: the output probabilities of 16 stored-state steps, card vs CPU in
+#: f32: f32 sums in another order through 2 × 512-wide cells a step
+CHARRNN_STEP_TOL = 2e-3
+#: the golden zip's forward (a 16-wide GravesLSTM over 20 steps) on the
+#: card against the probabilities minted by the JAX package on a CPU:
+#: f32 in another summation order, ~1e-7 a step
+CHARRNN_GOLDEN_TOL = 1e-5
+
+
+def _charrnn_text(seed: int, n: int, b: int, t: int, vocab: int):
+    """``n`` batches of one-hot [b, t, vocab] characters and their
+    next characters, from ``np.random.default_rng(seed)``: a Markov text
+    in which each character has ``CHARRNN_SUCCESSORS`` successors, drawn
+    alike. Returns ([(x, y)], the successor table)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    succ = rng.integers(0, vocab, (vocab, CHARRNN_SUCCESSORS))
+    ids = np.empty((n * b, t + 1), np.int64)
+    ids[:, 0] = rng.integers(0, vocab, n * b)
+    for j in range(1, t + 1):
+        ids[:, j] = succ[ids[:, j - 1],
+                         rng.integers(0, CHARRNN_SUCCESSORS, n * b)]
+    eye = np.eye(vocab, dtype=np.float32)
+    return ([(eye[ids[i * b:(i + 1) * b, :-1]],
+              eye[ids[i * b:(i + 1) * b, 1:]]) for i in range(n)], succ)
+
+
+def _is_gemm(name: str) -> bool:
+    low = name.lower()
+    return any(k in low for k in ("gemm", "gemv", "xmma", "cutlass"))
+
+
+def _greedy(net, first: int, n: int):
+    """``n`` greedy characters from ``first``, one ``rnn_time_step`` a
+    character, the next input built on the card (no read-back); returns
+    the ids on the card."""
+    import torch
+    vocab = net.layers[-1].n_out
+    net.rnn_clear_previous_state()
+    cur = torch.nn.functional.one_hot(
+        torch.tensor([first], device=net.device), vocab).float()
+    out = []
+    for _ in range(n):
+        nxt = net.rnn_time_step(cur).argmax(-1)
+        out.append(nxt)
+        cur = torch.nn.functional.one_hot(nxt, vocab).float()
+    return torch.cat(out)
+
+
+def phase_charrnn(state):
+    """The BASELINE's config #3 through the entry points a user calls:
+    ``TextGenerationLSTM(**CHARRNN).init()`` → ``fit(x, y)`` (truncated
+    BPTT, 4 segments a batch) → ``rnn_time_step`` generation. The
+    batches lie on the card before the timing, so a batch's time is the
+    four segments' updates. No ported kernel may launch."""
+    import math
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from deeplearning4j_tpu_torch.ops import kernel_registry
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+    card = state["card"]
+    _free_card("charrnn", card)
+    v, b, t = CHARRNN["vocab_size"], CHARRNN_B, CHARRNN_T
+    host, succ = _charrnn_text(0, CHARRNN_WARM + CHARRNN_BATCHES, b, t, v)
+    batches = [(torch.as_tensor(x, device="cuda"),
+                torch.as_tensor(y, device="cuda")) for x, y in host]
+    net = TextGenerationLSTM(**CHARRNN).init()
+    segments = -(-t // net.conf.tbptt_fwd_length)
+    losses = []
+
+    def fit(group):
+        for x, y in group:
+            net.fit(x, y)
+            losses.append(net.score_)
+
+    fit(batches[:CHARRNN_WARM])
+    torch.cuda.reset_peak_memory_stats()
+    for e in kernel_registry.ported():
+        e.reset()
+    wall = _wall_ms(lambda: fit(batches[CHARRNN_WARM:]))
+    launches = {e.key: e.launches() for e in kernel_registry.ported()}
+    state.setdefault("launches", {})["charrnn"] = launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_char = [l / net.conf.tbptt_fwd_length for l in losses]
+    ms = wall / CHARRNN_BATCHES
+    log(f"charrnn: {net.num_params()} params on {net.device}; losses "
+        f"a character (last segment) "
+        f"{' '.join(f'{l:.4f}' for l in per_char)} (ln {v} = "
+        f"{math.log(v):.4f}, the text's entropy ln "
+        f"{CHARRNN_SUCCESSORS} = {math.log(CHARRNN_SUCCESSORS):.4f}) "
+        f"{card}")
+    log(f"charrnn: B={b} T={t} k={net.conf.tbptt_fwd_length} "
+        f"batches={CHARRNN_BATCHES} ms_per_batch={ms:.3f} "
+        f"ms_per_segment={ms / segments:.3f} "
+        f"chars_per_s={b * t / ms * 1e3:.1f} "
+        f"max_memory_allocated_gb={peak:.3f}; dossier FLOPs a batch "
+        f"{_charrnn_flops() / 1e12:.4f} TFLOP, bound at the f32 peak "
+        f"{bound_ms(_charrnn_flops(), 0, PEAK_F32_FLOPS)[0]:.3f} ms {card}")
+    assert all(math.isfinite(l) for l in losses), losses
+    assert np.mean(losses[-2:]) < np.mean(losses[:2]), losses
+    _check_step_launches("charrnn", CHARRNN_BATCHES, launches, card)
+    x, y = batches[-1]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        net.fit(x, y)
+        torch.cuda.synchronize()
+    busy, kern = _kernel_split(prof)
+    one = statistics.median(_wall_ms(lambda: net.fit(x, y))
+                            for _ in range(3))
+    n_kern = sum(cnt for name, (_, cnt) in kern.items()
+                 if not name.startswith(("Memcpy", "Memset")))
+    gemm = sum(ms_ for name, (ms_, _) in kern.items() if _is_gemm(name))
+    elem = sum(ms_ for name, (ms_, _) in kern.items()
+               if not _is_gemm(name) and ("elementwise" in name
+                                          or "reduce" in name.lower()))
+    log(f"charrnn: profiled batch device_busy_ms={busy:.3f} wall_ms="
+        f"{one:.3f} (median of 3 unprofiled) idle_share="
+        f"{1 - busy / one:.3f} kernel_launches="
+        f"{n_kern} ({n_kern / segments:.0f} a segment); GEMM {gemm:.3f} "
+        f"ms ({100 * gemm / busy:.1f}%), elementwise and reductions "
+        f"{elem:.3f} ms ({100 * elem / busy:.1f}%), rest "
+        f"{busy - gemm - elem:.3f} ms {card}")
+    for name, (ms_, cnt) in sorted(kern.items(), key=lambda kv: -kv[1][0]
+                                   )[:8]:
+        log(f"  {ms_:9.3f} ms {100 * ms_ / busy:5.1f}% x{cnt:<6d} "
+            f"{name[:90]}")
+    for e in kernel_registry.ported():
+        e.reset()
+    first = int(np.argmax(host[0][0][0, 0]))
+    _greedy(net, first, 3)                          # warm
+    box = {}
+    gen_ms = _wall_ms(lambda: box.update(ids=_greedy(net, first,
+                                                     CHARRNN_GEN)))
+    again = _greedy(net, first, CHARRNN_GEN)
+    assert all(e.launches() == 0 for e in kernel_registry.ported())
+    chars = [first] + box["ids"].tolist()
+    legal = np.mean([c in succ[p] for p, c in zip(chars, chars[1:])])
+    log(f"charrnn: {CHARRNN_GEN} greedy characters through rnn_time_step "
+        f"(B=1): ms_per_step={gen_ms / CHARRNN_GEN:.3f} chars_per_s="
+        f"{CHARRNN_GEN / gen_ms * 1e3:.1f}; transitions the text allows "
+        f"{legal:.3f}; first 24 ids {chars[:24]} {card}")
+    assert torch.equal(box["ids"], again), "greedy generation not repeatable"
+    assert all(0 <= c < v for c in chars)
+
+
+def _charrnn_flops() -> float:
+    """A batch's operations by ``tools/perf_dossier.py:406-408``: the
+    2-layer 512-wide cell's GEMMs, forward and backward (3×)."""
+    v, d = CHARRNN["vocab_size"], CHARRNN["hidden"]
+    return (3 * 2 * (4 * (v * d + d * d) + 4 * 2 * d * d)
+            * CHARRNN_T * CHARRNN_B)
+
+
+def _charrnn_agree_tbptt(card) -> None:
+    """One tBPTT batch of the char-RNN on the card and on the CPU from
+    the same weights (the zoo's configuration, Sgd in place of Adam: run
+    free, Adam steps a gradient element within f32 rounding of zero by
+    about its rate either way, see ``_sweep_step``), then the stored-state
+    steps."""
+    import torch
+    from deeplearning4j_tpu_torch.nn import updaters as upd
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+    v = CHARRNN["vocab_size"]
+    [(x, y)], _ = _charrnn_text(1, 1, CHARRNN_AGREE_B, CHARRNN_AGREE_T, v)
+    nets = {}
+    for dev in ("cuda", "cpu"):
+        conf = TextGenerationLSTM(**CHARRNN).conf()
+        conf.updater = upd.Sgd(learning_rate=CHARRNN_AGREE_LR)
+        nets[dev] = MultiLayerNetwork(conf).init(input_shape=(None, v),
+                                                 device=dev)
+        nets[dev].fit(x, y)
+    l_card, l_cpu = nets["cuda"].score_, nets["cpu"].score_
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    worst, key = _worst_param(nets["cuda"].params, nets["cpu"].params)
+    outs = {}
+    for dev, net in nets.items():
+        net.rnn_clear_previous_state()
+        outs[dev] = torch.stack([net.rnn_time_step(x[:, i]).cpu()
+                                 for i in range(CHARRNN_AGREE_STEPS)])
+    step_err = (outs["cuda"] - outs["cpu"]).abs().max().item()
+    log(f"charrnn_agree: one tBPTT batch B={CHARRNN_AGREE_B} "
+        f"T={CHARRNN_AGREE_T} k={nets['cpu'].conf.tbptt_fwd_length} f32, "
+        f"card vs CPU: last segment's loss {l_card:.6f} vs {l_cpu:.6f} "
+        f"rel={loss_rel:.3e} tol={TRAIN_LOSS_RTOL:.0e}; worst parameter "
+        f"{key} max|d|/max|p|={worst:.3e} tol={TRAIN_GRAD_TOL:.0e}; "
+        f"{CHARRNN_AGREE_STEPS} rnn_time_step outputs max|d|={step_err:.3e}"
+        f" tol={CHARRNN_STEP_TOL:.0e} {card}")
+    assert loss_rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_TOL
+    assert step_err <= CHARRNN_STEP_TOL
+
+
+def _charrnn_att_net(dev):
+    """SelfAttentionLayer → LSTM → RecurrentAttentionLayer →
+    LearnedSelfAttentionLayer → RnnOutputLayer, n_out 256 and 4 heads of
+    64 each, on ``dev`` (f32). Each attention reads rows that differ: a
+    self-attention at its initial weights averages its values near
+    uniformly, so behind one the keys of the next attention would be
+    alike, its softmax flat whatever the query, and its query and key
+    gradients a cancellation residue (~1e-9 of the others, measured on
+    the CPU against f64) that f32 rounding decides on either device; the
+    LSTM's recurrence makes the rows differ again."""
+    from deeplearning4j_tpu_torch.nn.config import (InputType,
+                                                    NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import kernel_registry
+    t = kernel_registry.CHARRNN_ATT_T
+    conf = (NeuralNetConfiguration.builder().seed(9).list()
+            .layer(L.SelfAttentionLayer(n_out=256, n_heads=4))
+            .layer(L.LSTM(n_out=256))
+            .layer(L.RecurrentAttentionLayer(n_out=256, n_heads=4))
+            .layer(L.LearnedSelfAttentionLayer(n_out=256, n_heads=4,
+                                               n_queries=4))
+            .layer(L.RnnOutputLayer(n_out=8, activation="softmax",
+                                    loss="mcxent"))
+            .set_input_type(InputType.recurrent(32, t)).build())
+    return MultiLayerNetwork(conf).init(device=dev)
+
+
+def phase_charrnn_agree(state):
+    """The char-RNN and the reference's attention layers in f32, TF32
+    off: the tBPTT batch and stored-state steps card vs CPU; the golden
+    zip on the card; the attention net's step card vs CPU, its K1 and K3
+    launches exact."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch import tree
+    from deeplearning4j_tpu_torch.ops import kernel_registry
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+    card = state["card"]
+    _free_card("charrnn_agree", card)
+    with _tf32(False):
+        _charrnn_agree_tbptt(card)
+        base = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "resources", "pretrained")
+        golden = TextGenerationLSTM.init_pretrained(base_dir=base)
+        io = np.load(os.path.join(base, "TextGenerationLSTM",
+                                  "default_golden_io.npz"))
+        err = float(np.abs(golden.output(io["x"]).cpu().numpy()
+                           - io["y"]).max())
+        log(f"charrnn_agree: golden TextGenerationLSTM zip restored on "
+            f"{golden.device}: output {tuple(io['y'].shape)} against the "
+            f"minting forward max|d|={err:.3e} tol={CHARRNN_GOLDEN_TOL:.0e}"
+            f" {card}")
+        assert golden.device.type == "cuda" and err <= CHARRNN_GOLDEN_TOL
+        t = kernel_registry.CHARRNN_ATT_T
+        rng = np.random.default_rng(4)
+        x = rng.standard_normal((2, t, 32)).astype(np.float32)
+        y = np.eye(8, dtype=np.float32)[rng.integers(0, 8, (2, 4))]
+        fm = (np.arange(t)[None, :] < np.array([[t], [t - 5]])).astype(
+            np.float32)
+        steps = {}
+        for dev in ("cuda", "cpu"):
+            net = _charrnn_att_net(dev)
+            on = [torch.as_tensor(a, device=dev) for a in (x, y, fm)]
+            for e in kernel_registry.ported():
+                e.reset()
+            loss, grads, _ = net._loss_and_grads(*on, None)
+            if dev == "cuda":
+                launches = {e.key: e.launches()
+                            for e in kernel_registry.ported()}
+            steps[dev] = (loss.item(), tree.map_(lambda g: g.cpu(), grads))
+    (l_card, g_card), (l_cpu, g_cpu) = steps["cuda"], steps["cpu"]
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    worst, key = _worst_rel(g_card, g_cpu)
+    log(f"charrnn_agree: attention net (T={t}, key mask) one f32 step, "
+        f"card vs CPU: loss {l_card:.6f} vs {l_cpu:.6f} rel={loss_rel:.3e}"
+        f" tol={TRAIN_LOSS_RTOL:.0e}; worst gradient {key} "
+        f"max|d|/max|g|={worst:.3e} tol={TRAIN_GRAD_TOL:.0e} {card}")
+    assert loss_rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_TOL
+    state.setdefault("launches", {})["charrnn_agree"] = launches
+    _check_step_launches("charrnn_agree", 1, launches, card)
 
 
 def phase_profile(state):

@@ -8,8 +8,9 @@ Every batch an iterator of this package yields passes through
 :meth:`DataSetIterator._apply_pp`: the ``iterator`` fault site fires
 there (``resilience/faults.py``; with no plan active it costs one
 branch), then the normaliser set by ``set_pre_processor`` transforms the
-features. ``TfDataSetIterator`` (no TensorFlow on the card's machine)
-and ``BucketedSequenceIterator`` (ROADMAP A11) are not ported.
+features. ``BucketedSequenceIterator`` pads variable-length sequence
+batches to a few lengths. ``TfDataSetIterator`` (no TensorFlow on the
+card's machine) is not ported.
 """
 from __future__ import annotations
 
@@ -207,3 +208,52 @@ class IteratorDataSetIterator(DataSetIterator):
                 xs, ys = [], []
         if xs:
             yield self._apply_pp(DataSet(np.stack(xs), np.stack(ys)))
+
+
+class BucketedSequenceIterator(DataSetIterator):
+    """Pads each sequence batch's time axis up to the smallest bucket
+    length that holds it (a batch past the largest bucket passes as it
+    is), masks keeping the math exact: the padded steps are masked out
+    of the features and of [B, T, C] labels, a batch without masks gets
+    ones over its real steps, and per-sequence labels (and their mask)
+    are left alone. The JAX package buckets to bound its recompiles; in
+    the port it bounds the distinct shapes a run sees. The batches come
+    from ``base``, which already passed each through its own fault site
+    and normaliser."""
+
+    def __init__(self, base, buckets=(32, 64, 128, 256)):
+        super().__init__(getattr(base, "batch_size", None))
+        self.base = base
+        self.buckets = sorted(buckets)
+
+    def reset(self):
+        if hasattr(self.base, "reset"):
+            self.base.reset()
+
+    def _bucket_for(self, t: int) -> int:
+        return next((b for b in self.buckets if t <= b), t)
+
+    def __iter__(self):
+        for ds in self.base:
+            t = ds.features.shape[1]
+            pad = self._bucket_for(t) - t
+            if not pad:
+                yield ds
+                continue
+
+            def pad_time(a):
+                width = [(0, 0)] * a.ndim
+                width[1] = (0, pad)
+                return np.pad(np.asarray(a), width)
+
+            fm = ds.features_mask
+            if fm is None:            # padding needs a mask to be exact
+                fm = np.ones(ds.features.shape[:2], np.float32)
+            seq_labels = ds.labels is not None and ds.labels.ndim >= 3
+            lm = ds.labels_mask
+            if lm is None and seq_labels:
+                lm = np.ones(ds.labels.shape[:2], np.float32)
+            yield DataSet(pad_time(ds.features),
+                          pad_time(ds.labels) if seq_labels else ds.labels,
+                          features_mask=pad_time(fm),
+                          labels_mask=pad_time(lm) if seq_labels else lm)

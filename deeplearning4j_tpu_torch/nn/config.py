@@ -9,8 +9,10 @@ The fluent builder of the reference: ``NeuralNetConfiguration.builder()
 unset; ``ListBuilder.input_pre_processor`` attaches an input preprocessor
 (``nn/preprocessors.py``) before a layer. ``to_json``/``from_json`` write
 and read the JAX package's JSON, so a ``configuration.json`` of either
-package parses in the other. Truncated BPTT comes with the recurrent
-slice: its fields are carried for the JSON, and the network refuses it.
+package parses in the other. ``ListBuilder.backprop_type("TruncatedBPTT")``
+with ``tbptt_fwd_length(k)`` trains sequences in segments of k steps
+(``MultiLayerNetwork._fit_tbptt``); ``tbptt_back_length`` is carried for
+the JSON and read nowhere, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -76,7 +78,7 @@ class MultiLayerConfiguration:
     gradient_normalization: Optional[str] = None
     gradient_normalization_threshold: float = 1.0
     input_type: Optional[InputType] = None
-    backprop_type: str = "Standard"        # "TruncatedBPTT" is refused
+    backprop_type: str = "Standard"        # or "TruncatedBPTT"
     tbptt_fwd_length: int = 20
     tbptt_back_length: int = 20
     # per-layer-index input preprocessors (reference
@@ -186,6 +188,24 @@ class ListBuilder:
                            bool(transpose)])
         return self
 
+    def backprop_type(self, t: str) -> "ListBuilder":
+        """``"Standard"`` or ``"TruncatedBPTT"`` (reference
+        ListBuilder.backpropType)."""
+        self._g.backprop_type_ = t
+        return self
+
+    def tbptt_fwd_length(self, k: int) -> "ListBuilder":
+        """The truncated-BPTT segment length (reference
+        tBPTTForwardLength)."""
+        self._g.tbptt_fwd_ = k
+        return self
+
+    def tbptt_back_length(self, k: int) -> "ListBuilder":
+        """Carried for the JSON (reference tBPTTBackwardLength); the
+        backward of a segment spans the whole segment."""
+        self._g.tbptt_back_ = k
+        return self
+
     def build(self) -> MultiLayerConfiguration:
         if any(l is None for l in self._layers):
             raise ValueError("gap in layer indices")
@@ -198,6 +218,9 @@ class ListBuilder:
             gradient_normalization=self._g.grad_norm_,
             gradient_normalization_threshold=self._g.grad_norm_threshold_,
             input_type=self._input_type,
+            backprop_type=self._g.backprop_type_,
+            tbptt_fwd_length=self._g.tbptt_fwd_,
+            tbptt_back_length=self._g.tbptt_back_,
             input_preprocessors=dict(self._preprocessors),
             tied_weights=[list(t) for t in self._tied],
         )
@@ -219,6 +242,9 @@ class NeuralNetConfiguration:
         self.dropout = None
         self.grad_norm_ = None
         self.grad_norm_threshold_ = 1.0
+        self.backprop_type_ = "Standard"
+        self.tbptt_fwd_ = 20
+        self.tbptt_back_ = 20
 
     @staticmethod
     def builder() -> "NeuralNetConfiguration":

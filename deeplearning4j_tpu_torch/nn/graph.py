@@ -72,7 +72,7 @@ from deeplearning4j_tpu_torch.nn.layers.base import (Layer, fold_in,
                                                      split_seed)
 from deeplearning4j_tpu_torch.nn.layers.core import OutputLayer
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
-    BaseRecurrentLayer, RnnOutputLayer)
+    RnnOutputLayer, returns_carries)
 from deeplearning4j_tpu_torch.nn.multilayer import (
     _FUSABLE, REGION_SCOPE, MultiLayerNetwork, apply_updates,
     apply_weight_noise, check_frozen_options, evaluate_batches,
@@ -400,8 +400,7 @@ class ComputationGraph:
                                    train=train, rng=sub, mask=m)
             acts[node.name] = y
             new_state[node.name] = (state.get(node.name, {})
-                                    if isinstance(layer, BaseRecurrentLayer)
-                                    else s)
+                                    if returns_carries(layer) else s)
             masks[node.name] = layer.propagate_mask(m, None)
         return acts, new_state
 

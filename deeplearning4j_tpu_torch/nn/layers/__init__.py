@@ -3,11 +3,12 @@ dataclass per layer with ``init`` (parameters and shape inference) and
 ``apply``. The ported slices carry the layers the causal LM and BERT
 train with (its classifier and its masked-LM head), the convolution,
 pooling, batch-norm and spatial layers of ResNet-50 and the CNN zoo,
-and the two frozen wrappers of transfer learning; gradients come from
+the recurrent layers and the reference's attention layers, and the two
+frozen wrappers of transfer learning; gradients come from
 autograd and the kernels' backward Functions."""
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
 from deeplearning4j_tpu_torch.nn.layers.core import (
-    ActivationLayer, BatchNormalization, DenseLayer, OutputLayer,
+    ActivationLayer, BatchNormalization, DenseLayer, LossLayer, OutputLayer,
     DropoutLayer, EmbeddingLayer, EmbeddingSequenceLayer,
     LayerNormalization, LocalResponseNormalization, RMSNorm,
 )
@@ -20,10 +21,13 @@ from deeplearning4j_tpu_torch.nn.layers.conv import (
     ZeroPaddingLayer,
 )
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
-    BaseRecurrentLayer, RnnOutputLayer,
+    BaseRecurrentLayer, Bidirectional, ConvLSTM2D, GravesBidirectionalLSTM,
+    GravesLSTM, GRU, LastTimeStep, LSTM, MaskZeroLayer, RnnLossLayer,
+    RnnOutputLayer, SimpleRnn, TimeDistributed,
 )
 from deeplearning4j_tpu_torch.nn.layers.attention import (
-    ClsTokenPoolLayer, MultiHeadAttention, PositionalEmbeddingLayer,
+    ClsTokenPoolLayer, LearnedSelfAttentionLayer, MultiHeadAttention,
+    PositionalEmbeddingLayer, RecurrentAttentionLayer, SelfAttentionLayer,
     TransformerDecoderBlock, TransformerEncoderBlock,
 )
 from deeplearning4j_tpu_torch.nn.layers.special import FrozenLayer

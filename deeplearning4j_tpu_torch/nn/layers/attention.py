@@ -7,8 +7,13 @@ under a ``parallel.distributed_context`` its ``sequence_parallel`` mode
 on the rank's shard of the sequence, at the rank's global positions),
 the pre-RMSNorm :class:`TransformerDecoderBlock`, and BERT's layers — the
 learned :class:`PositionalEmbeddingLayer`, the pre-LayerNorm
-:class:`TransformerEncoderBlock` and the :class:`ClsTokenPoolLayer`.
-Learned and recurrent attention come with a later slice. Shapes are the
+:class:`TransformerEncoderBlock` and the :class:`ClsTokenPoolLayer` —
+and the reference's :class:`SelfAttentionLayer`,
+:class:`LearnedSelfAttentionLayer` and :class:`RecurrentAttentionLayer`.
+On the card each of them reaches the flash kernels through
+``scaled_dot_attention``, whatever its query length (one query a step in
+the recurrent layer; a head dim outside K1's 16, 32, 64 and 128 raises
+there). Shapes are the
 JAX package's: [B, T, H, D], head axis 2; key mask [B, Tk].
 """
 from __future__ import annotations
@@ -23,6 +28,9 @@ import torch.utils.checkpoint
 from deeplearning4j_tpu_torch.nn import weights as winit
 from deeplearning4j_tpu_torch.nn.layers.base import (Layer, register_layer,
                                                      split_seed)
+from deeplearning4j_tpu_torch.nn.layers.recurrent import (SEQ_REFUSAL,
+                                                          _emit, _hold,
+                                                          _time_mask)
 
 
 def rotary_embedding(x, theta: float = 10000.0, offset=0):
@@ -236,6 +244,50 @@ class MultiHeadAttention(Layer):
 
 @register_layer
 @dataclass
+class SelfAttentionLayer(MultiHeadAttention):
+    """Reference SelfAttentionLayer: self-attention, output per time
+    step."""
+
+
+@register_layer
+@dataclass
+class LearnedSelfAttentionLayer(Layer):
+    """Attention with ``n_queries`` learned query vectors (reference
+    LearnedSelfAttentionLayer): pools [B, T, F] to [B, Q, F_out]. On the
+    card the attention is K1 with Tq = ``n_queries`` (and K3 backward)."""
+    n_in: Optional[int] = None
+    n_out: int = 0
+    n_heads: int = 1
+    n_queries: int = 1
+    #: pools the sequence into its queries: under a sequence-parallel
+    #: context with GlobalPoolingLayer
+    mixes_positions = "ROADMAP item A10"
+
+    def init(self, gen, input_shape, dtype=torch.float32):
+        n_in = self.n_in or input_shape[-1]
+        n_out = self.n_out or n_in
+        wi = winit.get(self.weight_init or "xavier")
+        params = {"Q": wi(gen, (self.n_queries, n_out), dtype),
+                  "Wk": wi(gen, (n_in, n_out), dtype),
+                  "Wv": wi(gen, (n_in, n_out), dtype)}
+        return params, {}, (self.n_queries, n_out)
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        b = x.shape[0]
+        # every row's copy of the queries, dense (as XLA's broadcast)
+        q = params["Q"].expand((b,) + tuple(params["Q"].shape)).contiguous()
+        q = _split_heads(q, self.n_heads)
+        k = _split_heads(x @ params["Wk"], self.n_heads)
+        v = _split_heads(x @ params["Wv"], self.n_heads)
+        o = _merge_heads(scaled_dot_attention(q, k, v, mask))
+        return self._act()(o), state
+
+    def propagate_mask(self, mask, input_shape):
+        return None  # a fixed n_queries output, fully valid
+
+
+@register_layer
+@dataclass
 class TransformerDecoderBlock(Layer):
     """Pre-RMSNorm causal decoder block: grouped-query attention with
     rotary embeddings and a SwiGLU MLP, residuals around both. The
@@ -415,3 +467,58 @@ class ClsTokenPoolLayer(Layer):
 
     def propagate_mask(self, mask, input_shape):
         return None                # the sequence axis is gone
+
+
+@register_layer
+@dataclass
+class RecurrentAttentionLayer(Layer):
+    """Reference RecurrentAttentionLayer: a SimpleRnn whose step also
+    attends over the WHOLE input sequence with the previous hidden state
+    as its query, ``h_t = act(x_t W + b + h_{t-1} U + attn(h_{t-1} Wq,
+    X Wk, X Wv) Wo)``. The key and value projections are one GEMM each
+    before the time loop; each step runs the query, one attention with
+    Tq = 1 (K1 on the card, K3 in the backward) and the update. Masked
+    steps hold the state and emit zeros; the mask is also the key
+    mask."""
+    n_in: Optional[int] = None
+    n_out: int = 0
+    n_heads: int = 1
+    #: a time loop, as the recurrent layers
+    mixes_positions = SEQ_REFUSAL
+
+    def init(self, gen, input_shape, dtype=torch.float32):
+        n_in = self.n_in or input_shape[-1]
+        h = self.n_out
+        if h % self.n_heads:
+            raise ValueError(f"n_out={h} % n_heads={self.n_heads} != 0")
+        wi = winit.get(self.weight_init or "xavier")
+        params = {"W": wi(gen, (n_in, h), dtype),
+                  "U": wi(gen, (h, h), dtype),
+                  "Wq": wi(gen, (h, h), dtype),
+                  "Wk": wi(gen, (n_in, h), dtype),
+                  "Wv": wi(gen, (n_in, h), dtype),
+                  "Wo": wi(gen, (h, h), dtype),
+                  "b": torch.zeros((h,), dtype=dtype)}
+        return params, {}, (input_shape[0], h)
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        b, t, _ = x.shape
+        h, nh = self.n_out, self.n_heads
+        hd = h // nh
+        act = self._act("tanh")
+        xg = x @ params["W"] + params["b"]
+        k = (x @ params["Wk"]).reshape(b, t, nh, hd)
+        v = (x @ params["Wv"]).reshape(b, t, nh, hd)
+        m = _time_mask(mask, x.dtype)
+        U, Wq, Wo = params["U"], params["Wq"], params["Wo"]
+        hp = x.new_zeros((b, h))
+        ys = []
+        for s in range(t):
+            q = (hp @ Wq).reshape(b, 1, nh, hd)
+            a = scaled_dot_attention(q, k, v, mask).reshape(b, h)
+            hh = act(xg[:, s] + hp @ U + a @ Wo)
+            mt = None if m is None else m[:, s]
+            hp = _hold(mt, hh, hp)
+            ys.append(_emit(mt, hh))
+        y = torch.stack(ys, dim=1)
+        return self._maybe_dropout(y, train, rng), state

@@ -1,5 +1,5 @@
 """Core layers (port of ``deeplearning4j_tpu/nn/layers/core.py``): the
-dense and output layers, the activation layer, standalone dropout, the
+dense, output and loss layers, the activation layer, standalone dropout, the
 embeddings, batch normalisation, LayerNorm, RMSNorm and local response
 normalisation.
 
@@ -76,6 +76,21 @@ class OutputLayer(DenseLayer):
     step, fused with the activation where it can (softmax + cross
     entropy from the logits)."""
     loss: str = "mcxent"
+
+
+@register_layer
+@dataclass
+class LossLayer(Layer):
+    """Loss-only layer, no parameters (reference LossLayer): applies its
+    activation; the network applies ``loss`` to its output, unfused."""
+    loss: str = "mse"
+    mixes_positions = False
+
+    def init(self, gen, input_shape, dtype=torch.float32):
+        return {}, {}, tuple(input_shape)
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        return self._act()(x), state
 
 
 @register_layer

@@ -41,8 +41,24 @@ every update (:func:`apply_updates`), in a K-step region too. A
 ``weight_decay`` is refused (``ROADMAP.md`` C7: the JAX network moves
 its weights by them).
 
-Not in this slice (each raises ``NotImplementedError``): truncated BPTT,
-the numerics observatory.
+Truncated BPTT (``backprop_type="TruncatedBPTT"``, a [B, T, F] input):
+``fit`` cuts the batch's time axis into segments of ``tbptt_fwd_length``
+steps (the last one shorter when the length does not divide T) and
+makes one update a segment (:meth:`MultiLayerNetwork._fit_tbptt`, the
+JAX ``_fit_tbptt``): the recurrent layers' final carries of a segment,
+detached, are the next segment's initial state; a [B, T, C] label and
+the masks are cut alike, a 2-D label goes whole to every segment; every
+segment of a batch draws from the batch's one seed, ``fold_in(seed,
+iteration)``. The optimizer's count moves once a segment, ``iteration``
+once a batch; ``score_`` is the last segment's loss, read back once a
+batch, and the listeners are called once a batch. Such batches never
+join a ``steps_per_loop`` region. ``rnn_time_step`` runs the forward
+from the carries the previous call left (the reference's stored-state
+inference; ``rnn_clear_previous_state`` forgets them), in the masters'
+dtype, as the JAX network does.
+
+Not in this slice (it raises ``NotImplementedError``): the numerics
+observatory.
 
 ``fit(iterator, steps_per_loop=K)`` runs groups of K batches as one
 K-step region (:meth:`MultiLayerNetwork._fit_group`): the counterpart of
@@ -85,7 +101,7 @@ from deeplearning4j_tpu_torch.nn.layers.base import (Layer, fold_in,
 from deeplearning4j_tpu_torch.nn.layers.core import OutputLayer
 from deeplearning4j_tpu_torch.nn.layers.extra import FrozenLayerWithBackprop
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
-    BaseRecurrentLayer, RnnOutputLayer)
+    BaseRecurrentLayer, RnnOutputLayer, returns_carries)
 from deeplearning4j_tpu_torch.nn.layers.special import FrozenLayer
 from deeplearning4j_tpu_torch.ops import losses as losses_mod
 from deeplearning4j_tpu_torch.resilience import faults
@@ -240,12 +256,16 @@ def _check_seq_layer(i: int, layer: Layer) -> None:
     does not mix positions (``Layer.mixes_positions``)."""
     why = layer.mixes_positions
     if why and not hasattr(layer, "sequence_parallel"):
+        if not isinstance(why, str):
+            why = ""
+        elif why.startswith("ROADMAP.md C"):
+            why = f": it stays refused there by design ({why})"
+        else:
+            why = f": it comes there with {why}"
         raise NotImplementedError(
             f"layer_{i} ({type(layer).__name__}) mixes positions, so it "
             "cannot run on a rank's shard of the sequence under a "
-            "sequence-parallel context"
-            + (f": it comes there with {why}" if isinstance(why, str)
-               else ""))
+            "sequence-parallel context" + why)
 
 
 def _sum_over(group, loss, grads):
@@ -393,16 +413,13 @@ class MultiLayerNetwork:
         self.epoch = 0
         self.score_ = float("nan")
         self.device: Optional[torch.device] = None
+        #: the recurrent layers' carries that ``rnn_time_step`` resumes
+        self._rnn_state: Optional[Dict[str, Any]] = None
 
     # ------------------------------------------------------------------
     # init
     # ------------------------------------------------------------------
     def _check_supported(self) -> None:
-        conf = self.conf
-        if conf.backprop_type != "Standard":
-            raise NotImplementedError(
-                f"backprop_type={conf.backprop_type!r}: truncated BPTT "
-                "comes with the recurrent slice")
         for i, layer in enumerate(self.layers):
             check_frozen_options(f"layer_{i}", layer)
 
@@ -567,15 +584,18 @@ class MultiLayerNetwork:
     # forward
     # ------------------------------------------------------------------
     def _forward(self, params, state, x, *, train, rng, mask=None,
-                 pre_output_last: bool = False):
-        """Returns (activation, new_state). ``rng``: an integer seed (or
-        None), split once per layer."""
+                 rnn_init=None, pre_output_last: bool = False):
+        """Returns (activation, new_state, rnn_states). ``rng``: an integer
+        seed (or None), split once per layer. ``rnn_init`` (layer name →
+        carries) is each recurrent layer's initial state; ``rnn_states``
+        holds their final carries, and the layer state of a recurrent
+        layer or of its wrapper stays as it was."""
         if not params:
             raise RuntimeError(
                 "Network has no parameters — call init() before "
                 "fit()/output() (reference: MultiLayerNetwork.init()).")
         params = self._materialize_ties(params)
-        new_state = {}
+        new_state, rnn_states = {}, {}
         n = len(self.layers)
         preprocs = self.conf.input_preprocessors
         for i, layer in enumerate(self.layers):
@@ -587,6 +607,9 @@ class MultiLayerNetwork:
             sub = None
             if rng is not None:
                 rng, sub = split_seed(rng)
+            recurrent = isinstance(layer, BaseRecurrentLayer)
+            kwargs = ({"initial_state": rnn_init.get(name)}
+                      if recurrent and rnn_init else {})
             with obs.devtime.scope(f"{name}.{type(layer).__name__}"):
                 if (pre_output_last and i == n - 1
                         and isinstance(layer, OutputLayer)):
@@ -602,12 +625,13 @@ class MultiLayerNetwork:
                     continue
                 x, s = layer.apply(params.get(name, {}),
                                    state.get(name, {}), x, train=train,
-                                   rng=sub, mask=mask)
-            new_state[name] = (state.get(name, {})
-                               if isinstance(layer, BaseRecurrentLayer)
+                                   rng=sub, mask=mask, **kwargs)
+            if recurrent:
+                rnn_states[name] = s
+            new_state[name] = (state.get(name, {}) if returns_carries(layer)
                                else s)
             mask = layer.propagate_mask(mask, None)
-        return x, new_state
+        return x, new_state, rnn_states
 
     # ------------------------------------------------------------------
     # loss
@@ -624,14 +648,17 @@ class MultiLayerNetwork:
         return loss_name, fused
 
     def _loss_fn(self, params, state, x, y, mask, lmask, rng, *,
-                 noise_rng=None, with_reg=True):
+                 noise_rng=None, with_reg=True, rnn_init=None,
+                 rnn_out=None):
         """The training loss at ``params`` (the f32 masters) and the new
         state: weight noise on the forward's view of the masters, the
         compute-dtype cast, the forward, the data loss, and the l1/l2
         terms over the masters in f32. The noise draws from a seed split
         off ``rng`` here, or from ``noise_rng`` where the caller split it
         off already; ``with_reg=False`` leaves the l1/l2 terms out (see
-        :meth:`_loss_and_grads`)."""
+        :meth:`_loss_and_grads`). The recurrent layers start from
+        ``rnn_init``, and their final carries go into the dict
+        ``rnn_out`` when one is given (truncated BPTT)."""
         loss_name, fused = self._last_loss()
         cd = self.conf.compute_dtype
         groups = self._group_layers()
@@ -645,9 +672,11 @@ class MultiLayerNetwork:
             # the autograd graph, so gradients come back f32
             params = dtypes.cast_float_tree(params, cd)
             x = dtypes.cast_float_tree(x, cd)
-        out, new_state = self._forward(params, state, x, train=True,
-                                       rng=rng, mask=mask,
-                                       pre_output_last=fused)
+        out, new_state, rnn_states = self._forward(
+            params, state, x, train=True, rng=rng, mask=mask,
+            rnn_init=rnn_init, pre_output_last=fused)
+        if rnn_out is not None:
+            rnn_out.update(rnn_states)
         loss_fn = losses_mod.get(loss_name)
         with obs.devtime.scope(f"loss.{loss_name}"):
             if cd is not None and losses_mod.wants_f32_logits(loss_fn,
@@ -660,7 +689,8 @@ class MultiLayerNetwork:
                 loss = loss + reg
         return loss, new_state
 
-    def _loss_and_grads(self, x, y, mask=None, lmask=None, rng=None):
+    def _loss_and_grads(self, x, y, mask=None, lmask=None, rng=None,
+                        **rnn):
         """(loss, gradient tree, new state) at the current parameters;
         the gradients have the master parameters' dtype. Under a
         sequence-parallel context ``x``, ``y`` and the masks are the
@@ -671,10 +701,11 @@ class MultiLayerNetwork:
         split off before that fold, so that every shard of the sequence
         runs through the same perturbed weights; and the l1/l2 terms
         count on the first rank only, so that the sum holds them once,
-        as the global loss does."""
+        as the global loss does. ``rnn`` (``rnn_init``, ``rnn_out``)
+        goes to :meth:`_loss_fn`."""
         sp = self._seq_parallel()
         x, y, mask, lmask = self._shard(sp, x, y, mask, lmask)
-        kw = {}
+        kw = dict(rnn)
         if sp is not None and sp[0].size > 1:
             kw["with_reg"] = sp[0].index == 0
             if rng is not None:
@@ -749,11 +780,11 @@ class MultiLayerNetwork:
     # ------------------------------------------------------------------
     # fit
     # ------------------------------------------------------------------
-    def _update(self, x, y, mask, lmask, rng):
+    def _update(self, x, y, mask, lmask, rng, **rnn):
         """One gradient + optimizer update; returns the loss (on the
-        device)."""
+        device). ``rnn`` as :meth:`_loss_and_grads` takes it."""
         loss, grads, new_state = self._loss_and_grads(x, y, mask, lmask,
-                                                      rng)
+                                                      rng, **rnn)
         self.params, self.opt_state = apply_updates(
             self._chains, self.params, grads, self.opt_state)
         self.state = new_state
@@ -775,9 +806,10 @@ class MultiLayerNetwork:
         ``steps_per_loop`` > 1 groups mask-free batches of one shape into
         K-step regions (:meth:`_fit_group`), the JAX package's rule
         (``deeplearning4j_tpu/nn/multilayer.py:575-593``): a batch with
-        masks runs alone and flushes the group, a change of shape
-        flushes it, and a group of one runs as a single batch. The
-        numbers equal those of one ``fit`` a batch."""
+        masks, or a truncated-BPTT batch, runs alone and flushes the
+        group, a change of shape flushes it, and a group of one runs as
+        a single batch. The numbers equal those of one ``fit`` a
+        batch."""
         if steps_per_loop < 1:
             raise ValueError(f"steps_per_loop={steps_per_loop} < 1")
         if labels is not None:
@@ -812,7 +844,10 @@ class MultiLayerNetwork:
                 else:
                     x, y = ds
                     fm = lm = None
-                if steps_per_loop > 1 and fm is None and lm is None:
+                tbptt = (self.conf.backprop_type == "TruncatedBPTT"
+                         and np.ndim(x) == 3)
+                if (steps_per_loop > 1 and fm is None and lm is None
+                        and not tbptt):
                     if group and (np.shape(group[-1][0]) != np.shape(x)
                                   or np.shape(group[-1][1]) != np.shape(y)):
                         self._flush_group(group)
@@ -874,11 +909,34 @@ class MultiLayerNetwork:
         lmask = self._as_input(lmask, torch.float32)
         rng = fold_in(self.conf.seed, self.iteration)
         t1 = obs.now()
-        loss = self._update(x, y, fmask, lmask, rng)
+        if self.conf.backprop_type == "TruncatedBPTT" and x.ndim == 3:
+            loss = self._fit_tbptt(x, y, fmask, lmask, rng)
+            entry = "MultiLayerNetwork.fit_tbptt"
+        else:
+            loss = self._update(x, y, fmask, lmask, rng)
+            entry = "MultiLayerNetwork.fit"
         t2 = obs.now()
         score = float(loss)         # blocking device sync
-        obs.record_step("MultiLayerNetwork.fit", t0, t1, t2, obs.now())
+        obs.record_step(entry, t0, t1, t2, obs.now())
         notify_steps(self, "MultiLayerNetwork.fit", [score])
+
+    def _fit_tbptt(self, x, y, fmask, lmask, rng):
+        """One truncated-BPTT batch (the JAX ``_fit_tbptt``): an update a
+        segment of ``tbptt_fwd_length`` steps, each segment's recurrent
+        layers starting from the previous one's final carries, detached,
+        and every segment with the batch's seed ``rng``. Returns the last
+        segment's loss, on the device: no segment reads back."""
+        k = self.conf.tbptt_fwd_length
+        rnn, loss = None, None
+        for s0 in range(0, x.shape[1], k):
+            cut = lambda a: None if a is None else a[:, s0:s0 + k]
+            out = {}
+            loss = self._update(cut(x), cut(y) if y.ndim == 3 else y,
+                                cut(fmask), cut(lmask), rng, rnn_init=rnn,
+                                rnn_out=out)
+            rnn = {name: tree.map_(torch.Tensor.detach, carries)
+                   for name, carries in out.items()}
+        return loss
 
     # ------------------------------------------------------------------
     # inference and scoring
@@ -898,8 +956,8 @@ class MultiLayerNetwork:
             state = dtypes.cast_float_tree(state, cd)
             x = dtypes.cast_float_tree(x, cd)
         with self._layout(sp):
-            out, _ = self._forward(params, state, x, train=train, rng=None,
-                                   mask=mask)
+            out, _, _ = self._forward(params, state, x, train=train,
+                                      rng=None, mask=mask)
         if sp is not None and sp[0].size > 1:
             ctx, mode = sp
             out = _mesh().unshard_sequence(
@@ -922,15 +980,40 @@ class MultiLayerNetwork:
         sp = self._seq_parallel()
         x, y, fmask, lmask = self._shard(sp, x, y, fmask, lmask)
         with self._layout(sp):
-            out, _ = self._forward(self.params, self.state, x, train=False,
-                                   rng=None, mask=fmask,
-                                   pre_output_last=fused)
+            out, _, _ = self._forward(self.params, self.state, x,
+                                      train=False, rng=None, mask=fmask,
+                                      pre_output_last=fused)
         kw = {"from_logits": True} if fused else {}
         loss = losses_mod.get(loss_name)(y, out, mask=lmask, **kw)
         if sp is not None and sp[0].size > 1:
             loss = _mesh().all_reduce_sum(loss.reshape(1).contiguous(),
                                            sp[0].group)
         return float(loss)
+
+    def rnn_clear_previous_state(self):
+        """Forget the carries of :meth:`rnn_time_step` (reference
+        rnnClearPreviousState)."""
+        self._rnn_state = None
+
+    @torch.no_grad()
+    def rnn_time_step(self, x, mask=None):
+        """Stateful inference (reference rnnTimeStep): the forward over
+        ``x`` ([B, F] for one step, or [B, T, F]) from the recurrent
+        layers' carries the previous call left, which it then replaces.
+        A [B, F] input gives the last step's [B, C] output. Runs on the
+        masters' dtype (no ``compute_dtype`` cast), as the JAX network
+        does."""
+        x = self._as_input(x)
+        squeeze = x.ndim == 2
+        if squeeze:
+            x = x[:, None, :]
+        out, _, self._rnn_state = self._forward(
+            self.params, self.state, x, train=False, rng=None,
+            mask=self._as_input(mask, torch.float32),
+            rnn_init=self._rnn_state)
+        if squeeze and out.ndim == 3:
+            out = out[:, -1]
+        return out
 
     def evaluate(self, iterator) -> Evaluation:
         """Classification evaluation over ``iterator`` (reference

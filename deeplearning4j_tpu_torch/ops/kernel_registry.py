@@ -29,8 +29,12 @@ its attention runs unmasked; ``eval``: the same classifier's
 ``evaluate`` on full-length rows, a forward alone, counted per evaluated
 batch; ``beam``: one ``generate_beam`` call of ``BEAM_NEW`` tokens;
 ``mlm``: BERT-base's masked-LM head trained through ``BertIterator``
-batches, the fine-tune step's trunk under a [B, T, V] head),
-its launches per step. ``train_opts`` and ``finetune_opts`` are the train
+batches, the fine-tune step's trunk under a [B, T, V] head;
+``charrnn_agree``: one f32 forward and backward of a
+``SelfAttentionLayer`` → LSTM → ``RecurrentAttentionLayer`` →
+``LearnedSelfAttentionLayer`` net over ``CHARRNN_ATT_T`` steps),
+its launches per step. The char-RNN's own path (``charrnn``) launches
+none. ``train_opts`` and ``finetune_opts`` are the train
 and fine-tune steps in ``steps_per_loop`` regions under a learning-rate
 schedule, with the counts of ``train`` and ``finetune``; ``checkpoint``
 is the fine-tune step in float32 around a ``ModelSerializer`` write and
@@ -149,6 +153,12 @@ def _tr(n: int) -> Dict[str, int]:
 #: 12 blocks, the final norm)
 BEAM_NEW = 32
 
+#: time steps of the ``charrnn_agree`` attention net: K1 forward and K3
+#: backward once for its ``SelfAttentionLayer``, once a step of its
+#: ``RecurrentAttentionLayer`` (one query, Tq = 1) and once for its
+#: ``LearnedSelfAttentionLayer`` (Tq = its 4 queries)
+CHARRNN_ATT_T = 16
+
 #: flash block pairs a layer of the ``sp`` step: the zigzag ring at one
 #: rank runs one ring step of four half-chunk pairs (q half × k half),
 #: one of them wholly above the diagonal; each pair is one K1 launch
@@ -167,10 +177,11 @@ KERNELS: Tuple[KernelEntry, ...] = (
         # once a block (the sp path: once a block pair; serving: once a
         # block of every prefill that is not a shared-prefix admission)
         paths=("serve", *_TR, *_FT, "longctx", *_DP, "sp", "eval",
-               "serve_opts", "beam", "serve_fault", *_TL),
+               "serve_opts", "beam", "serve_fault", *_TL, "charrnn_agree"),
         per_step={**_tr(12), **_ft(12), "longctx": 12,
                   **_dp(12), "sp": SP_PAIRS * 12, "eval": 12,
-                  "beam": 12, **_tl(12, 4)}),
+                  "beam": 12, **_tl(12, 4),
+                  "charrnn_agree": CHARRNN_ATT_T + 2}),
     KernelEntry(
         "K2", "rms_norm_fwd", f"{_FN}:111", f"{_FN}:rms_norm", "ported",
         "serving", route="triton",
@@ -188,11 +199,12 @@ KERNELS: Tuple[KernelEntry, ...] = (
         source="deeplearning4j_tpu_torch/csrc/flash_attention_bwd.cu",
         port=f"{_CK}:flash_attention_bwd",
         plain=f"{_CK}:flash_attention_bwd_reference",
-        paths=(*_TR, *_FT, *_DP, "sp", *_TL),
+        paths=(*_TR, *_FT, *_DP, "sp", *_TL, "charrnn_agree"),
         # once a block (the sp path: once a block pair; the transfer
         # paths: once a trainable block)
         per_step={**_tr(12), **_ft(12), **_dp(12),
-                  "sp": SP_PAIRS * 12, **_tl(6, 2)}),
+                  "sp": SP_PAIRS * 12, **_tl(6, 2),
+                  "charrnn_agree": CHARRNN_ATT_T + 2}),
     KernelEntry(
         "K4", "flash_attention_bwd_dq", f"{_PK}:418", f"{_PK}:_flash_bwd",
         "ported", "long-context", route="cuda",
@@ -270,5 +282,5 @@ def on_path(path: str) -> Tuple[KernelEntry, ...]:
     ``longctx``, ``dp``, ``dp_packed``, ``sp``, ``zero``, ``dp_graph``,
     ``eval``, ``serve_opts``, ``beam``, ``train_opts``,
     ``finetune_opts``, ``serve_fault``, ``transfer``,
-    ``transfer_agree``, ``mlm``) launches."""
+    ``transfer_agree``, ``mlm``, ``charrnn_agree``) launches."""
     return tuple(e for e in ported() if path in e.paths)

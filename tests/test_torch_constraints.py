@@ -5,9 +5,9 @@ Twins of ``tests/test_constraints.py:25`` (the constraints' math, the
 bias left alone), ``:56`` (constraints enforced after every update —
 here also trajectory for trajectory against JAX, and for a graph node),
 ``:74`` (weight noise in training only), ``:91`` (DropConnect learns)
-and ``:105`` (the JSON round trip, across the packages). ``:118``
-(constraints and noise in the truncated-BPTT path) waits for the
-recurrent slice (ROADMAP.md A11), which brings truncated BPTT.
+and ``:105`` (the JSON round trip, across the packages). The twin of
+``:118`` (constraints and noise in the truncated-BPTT path) is in
+``tests/test_torch_tbptt.py``.
 
 Noise is drawn from the port's own seeds (``split_seed``), not
 ``jax.random``'s, so it is held by its statistics and by the masters

@@ -51,7 +51,9 @@ def test_importing_every_port_module_stays_light():
             "deeplearning4j_tpu_torch.zoo.resnet",
             "deeplearning4j_tpu_torch.zoo.alexnet",
             "deeplearning4j_tpu_torch.zoo.vgg",
-            "deeplearning4j_tpu_torch.zoo.simple_cnn"} <= set(mods)
+            "deeplearning4j_tpu_torch.zoo.simple_cnn",
+            "deeplearning4j_tpu_torch.nn.layers.recurrent",
+            "deeplearning4j_tpu_torch.zoo.textgen_lstm"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"

@@ -31,7 +31,7 @@ from deeplearning4j_tpu_torch.nn.layers.attention import (
     _use_flash, repeat_kv_heads, rotary_embedding, scaled_dot_attention)
 from deeplearning4j_tpu_torch.ops import cuda_kernels, fused_norms
 from deeplearning4j_tpu_torch.ops.kernel_registry import (
-    BEAM_NEW, KERNELS, LM_LEAVES, on_path, ported)
+    BEAM_NEW, CHARRNN_ATT_T, KERNELS, LM_LEAVES, on_path, ported)
 
 F32_NORM_TOL = 1e-5
 F32_ATTN_TOL = 2e-5
@@ -244,7 +244,7 @@ def test_registry_lists_every_tpu_kernel():
                                             "train_opts", "finetune_opts",
                                             "serve_fault", "checkpoint",
                                             "transfer", "transfer_agree",
-                                            "mlm"}
+                                            "mlm", "charrnn_agree"}
         # the stepped phases' expected launches per step: one positive
         # count for each stepped path of the row, none for the gateways
         stepped = set(e.paths) - {"serve", "serve_opts", "serve_fault"}
@@ -267,6 +267,12 @@ def test_registry_lists_every_tpu_kernel():
         "K1": 12, "K2": 25 * BEAM_NEW}
     assert {e.key for e in on_path("train")} == {"K1", "K2", "K3", "K6",
                                                  "K7"}
+    # the char-RNN launches none; the attention net of charrnn_agree K1
+    # and K3 once a layer and once a step of its recurrent attention
+    assert not on_path("charrnn")
+    assert {e.key: e.per_step["charrnn_agree"]
+            for e in on_path("charrnn_agree")} == {
+        "K1": CHARRNN_ATT_T + 2, "K3": CHARRNN_ATT_T + 2}
     # the transferred LM: train's forward; the backward through the six
     # trainable blocks (K3) and their two norms each and the final norm
     # (K6) only; transfer_agree: 4 blocks, 2 of them frozen

@@ -258,9 +258,13 @@ def test_unported_options_raise_naming_the_slice():
     # [10, 1] → [2, 5, 1] before the embedding (without it: [10, 1, 8])
     assert pre.output(x.reshape(10, 1)).shape == (2, 5, 1, 8)
     net.conf.input_preprocessors = {}
+    # truncated BPTT is ported (tests/test_torch_tbptt.py): the
+    # configuration builds, and a [B, T] token batch, which has no
+    # feature axis to cut, trains whole as in the JAX network
     net.conf.backprop_type = "TruncatedBPTT"
-    with pytest.raises(NotImplementedError, match="recurrent slice"):
-        MultiLayerNetwork(net.conf).init(device="cpu")
+    tbptt = MultiLayerNetwork(net.conf).init(device="cpu")
+    tbptt.fit(x, x)
+    assert np.isfinite(tbptt.score()) and tbptt.iteration == 1
 
 
 def test_entry_points_default_to_the_card():

@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases longctx,longctx_agree,kernels
     python3 chip_smoke.py --phases dp,dp_packed,dp_agree,kernels
     python3 chip_smoke.py --phases sp,sp_agree,kernels
+    python3 chip_smoke.py --phases sp_graph,sp_graph_agree,kernels
     python3 chip_smoke.py --phases zero,zero_agree,dp_graph,kernels
     python3 chip_smoke.py --phases eval,eval_agree,kernels
     python3 chip_smoke.py --phases serve_opts,serve_opts_agree,beam,kernels
@@ -129,6 +130,30 @@ Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
    ``zigzag_ring`` and ``ulysses``: the card's loss and every gradient
    against the same step without the context on the card, and against
    the same step under the context on the CPU;
+   sp_graph — BERT-base's classifier (``BertBase(...).conf_classifier(2,
+   512)``, bfloat16 compute, dropout 0.1, the model's AdamW) with every
+   encoder block's ``sequence_parallel="ring"``, a ``ComputationGraph``
+   trained by ``fit([tokens, segments], [labels], features_masks=[m,
+   m])`` under the seq-1 context on one fixed padded batch of 16 x 512
+   (``_finetune_batch(4, 16, 512)``: lengths 68..502, 3 850 live
+   tokens): 2 warm and 8 timed steps between zeroed and read
+   launch counters (K1 12, K3 12, K8 26, K9 26 a step: the ring's one
+   block pair a layer, the LayerNorms), the loss finite and falling, ms
+   a step, samples/s and the peak memory; then the context's cost at one
+   rank: ``SP_GRAPH_PAIRS`` pairs of one step with the context and one
+   without, alternating which goes first, each pair's difference and
+   their mean with two standard errors (the host's spread moves both
+   steps of a pair alike, so the pairs separate a cost of about 1 %);
+   ``output`` under the context gives rows summing to 1;
+   sp_graph_agree — in f32 (TF32 off, dropout 0), one step of that
+   classifier at B = 2, T = 512 for each of ``ring`` and ``ulysses``,
+   and of three pooled ``MultiLayerNetwork``s on [2, 256, 128] inputs
+   (a causal ``zigzag_ring`` encoder block, then: masked average
+   ``GlobalPoolingLayer`` → ``OutputLayer``; ``LearnedSelfAttentionLayer``
+   → ``DenseLayer`` on [B, Q, F] → ``OutputLayer``; an ``OutputLayer``
+   flattening [B, T, F]): the card under the context against the card
+   without it and against the CPU under it, the loss and every gradient
+   in train_agree's bands, K1 and K3 launched;
 18. zero — the train phase's LM and batch through ``ParallelWrapper(net,
    mesh=data_parallel_mesh(), sharded_update=True)`` on the one-rank
    group of the dp phases (the ZeRO sharded update: one reduce-scatter a
@@ -362,7 +387,8 @@ import time
 PHASES = ("device", "serve", "agree", "serve_opts", "serve_opts_agree",
           "beam", "train", "train_agree", "finetune",
           "finetune_agree", "longctx", "longctx_agree", "dp", "dp_packed",
-          "dp_agree", "sp", "sp_agree", "zero", "zero_agree", "dp_graph",
+          "dp_agree", "sp", "sp_agree", "sp_graph", "sp_graph_agree",
+          "zero", "zero_agree", "dp_graph",
           "eval", "eval_agree", "train_opts", "train_opts_agree",
           "finetune_opts", "serve_fault", "lenet", "lenet_agree",
           "checkpoint", "transfer", "transfer_agree", "mlm", "mlm_agree",
@@ -452,6 +478,15 @@ LONGCTX_B, LONGCTX_T = 1, 32768
 # sequence parallelism: the long-context LM, zigzag ring over one rank
 SP = dict(LONGCTX, sequence_parallel="zigzag_ring")
 SP_MODES = ("ring", "zigzag_ring", "ulysses")
+# sp_graph: BERT-base's classifier sequence-parallel (ring, one rank) at
+# its max_len, on padded rows; pairs of single steps with and without
+# the context
+SP_GRAPH_B, SP_GRAPH_T = 16, 512
+SP_GRAPH_PAIRS = 64
+# sp_graph_agree: BERT-base's rows, and the pooled nets' width, heads
+# (head dim 64, one of K1's), steps and learned queries
+SP_AGREE_B = 2
+SP_POOL_F, SP_POOL_HEADS, SP_POOL_T, SP_POOL_Q = 128, 2, 256, 4
 # the ring's block pairs in the kernels phase: T_loc rows a rank, the
 # causal ring of SP_RING ranks, the zigzag ring of SP_ZIGZAG ranks
 SP_T_LOC, SP_RING, SP_ZIGZAG = 2048, 4, 2
@@ -3111,6 +3146,232 @@ def phase_sp_agree(state):
             raise AssertionError(f"sp_agree {mode}: the step disagrees")
         # the attention went through the kernels: K1 forward, K3 backward
         assert launches["K1"] > 0 and launches["K3"] > 0, launches
+
+
+def _sp_bert_conf(mode, **kw):
+    """``BertBase(**kw).conf_classifier(2, SP_GRAPH_T)`` with every
+    encoder block's ``sequence_parallel`` set to ``mode`` (a field of the
+    block, as in the JAX package: ``zoo/bert.py`` takes no option)."""
+    from deeplearning4j_tpu_torch.nn.layers import TransformerEncoderBlock
+    from deeplearning4j_tpu_torch.zoo.bert import BertBase
+    conf = BertBase(**kw).conf_classifier(2, SP_GRAPH_T)
+    for node in conf.nodes:
+        if isinstance(node.obj, TransformerEncoderBlock):
+            node.obj.sequence_parallel = mode
+    return conf
+
+
+def phase_sp_graph(state):
+    """BERT-base's classifier sequence-parallel ("ring") under the seq-1
+    context at B = 16, T = 512, bfloat16: 2 warm and 8 timed ``fit``
+    steps with the launch counts, then the context's cost from pairs of
+    one step with it and one without, then ``output``."""
+    import math
+    import statistics
+    import torch
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.ops import kernel_registry
+    from deeplearning4j_tpu_torch.parallel import distributed_context
+    card = state["card"]
+    ctx = distributed_context(_seq_mesh(state))
+    t0 = time.perf_counter()
+    net = ComputationGraph(_sp_bert_conf(
+        "ring", seed=2, compute_dtype="bfloat16")).init(
+            {"tokens": (SP_GRAPH_T,), "segments": (SP_GRAPH_T,)})
+    tokens, segments, mask, labels = _finetune_batch(4, SP_GRAPH_B,
+                                                     SP_GRAPH_T)
+    log(f"sp_graph: init {net.num_params()} params on {net.device} "
+        f"{time.perf_counter() - t0:.1f}s; row lengths "
+        f"{sorted(int(n) for n in mask.sum(1))}")
+
+    def step():
+        net.fit([tokens, segments], [labels], features_masks=[mask, mask])
+        return net.score()                   # fit ends in a device sync
+
+    torch.cuda.reset_peak_memory_stats()
+    with ctx:
+        losses = [step() for _ in range(2)]  # warm steps
+        for e in kernel_registry.ported():
+            e.reset()
+        torch.cuda.synchronize()
+        steps = 8
+        t_start = time.perf_counter()
+        losses += [step() for _ in range(steps)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+        launches = {e.key: e.launches() for e in kernel_registry.ported()}
+    state.setdefault("launches", {})["sp_graph"] = launches
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"sp_graph: losses {' '.join(f'{l:.4f}' for l in losses)} {card}")
+    log(f"sp_graph: B={SP_GRAPH_B} T={SP_GRAPH_T} steps={steps} "
+        f"mean_step_ms={wall / steps * 1e3:.3f} samples_per_s="
+        f"{SP_GRAPH_B * steps / wall:.1f} max_memory_allocated_gb="
+        f"{peak_gb:.3f} {card}")
+    assert all(math.isfinite(l) for l in losses), losses
+    first, last = sum(losses[:2]) / 2, sum(losses[-2:]) / 2
+    assert last < first, (first, last, losses)
+    _check_step_launches("sp_graph", steps, launches, card)
+
+    def timed(inside):
+        with ctx if inside else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step()
+            torch.cuda.synchronize()         # the update after the loss
+            return (time.perf_counter() - t) * 1e3
+    # pairs of single steps: with, without; without, with; ...
+    walls = {True: [], False: []}
+    for i in range(SP_GRAPH_PAIRS):
+        for inside in ((True, False) if i % 2 == 0 else (False, True)):
+            walls[inside].append(timed(inside))
+    diffs = [a - b for a, b in zip(walls[True], walls[False])]
+    cost = statistics.fmean(diffs)
+    err = 2 * statistics.stdev(diffs) / math.sqrt(len(diffs))
+    without_ms = statistics.median(walls[False])
+    log(f"sp_graph: {SP_GRAPH_PAIRS} pairs of one step under the seq-1 "
+        f"context and one without it: medians "
+        f"{statistics.median(walls[True]):.3f} and {without_ms:.3f} ms "
+        f"(single steps {min(min(w) for w in walls.values()):.3f}.."
+        f"{max(max(w) for w in walls.values()):.3f}); the context's cost "
+        f"a step {cost:.3f} +- {err:.3f} ms (2 standard errors of the "
+        f"pairs' mean), {cost / without_ms * 100:.2f} +- "
+        f"{err / without_ms * 100:.2f} % of the step: "
+        f"{'resolved' if abs(cost) > err else 'not resolved'} {card}")
+    with ctx:
+        probs = net.output(tokens, segments, features_masks=[mask, mask])[0]
+    _check_prob_rows("sp_graph", probs, (SP_GRAPH_B, 2),
+                     PROB_SUM_TOL["bfloat16"], card)
+
+
+def _graph_like(conf, donor):
+    """A ``ComputationGraph`` of ``conf`` holding ``donor``'s parameters
+    and state on its device (the same tensors; a fresh optimizer)."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    net = ComputationGraph(conf)
+    net.params, net.state, net.device = (donor.params, donor.state,
+                                         donor.device)
+    net._build_optimizer()
+    return net
+
+
+def _host_step(net, args, ctx=None):
+    """(loss, gradients on the host) of one ``_loss_and_grads(*args)`` of
+    ``net``, under ``ctx`` when given."""
+    from deeplearning4j_tpu_torch import tree
+    with ctx if ctx is not None else contextlib.nullcontext():
+        loss, grads, _ = net._loss_and_grads(*args)
+    return loss.item(), tree.map_(lambda g: g.cpu(), grads)
+
+
+def _sp_agree_check(name, steps, launches, card):
+    """``steps``: the card's step under the context, then the references
+    by name; raises unless each is within train_agree's bands and K1 and
+    K3 were launched under the context."""
+    got, ok = steps[0], True
+    for ref_name, ref in steps[1:]:
+        loss_rel, worst, key = _compare_steps(got, ref)
+        log(f"sp_graph_agree {name}: card under the seq-1 context vs "
+            f"{ref_name}: loss {got[0]:.6f} vs {ref[0]:.6f} "
+            f"rel={loss_rel:.3e} tol={TRAIN_LOSS_RTOL:.0e}; worst gradient "
+            f"{key} max|d|/max|g|={worst:.3e} tol={TRAIN_GRAD_TOL:.0e} "
+            f"{card}")
+        ok = ok and loss_rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_TOL
+    log(f"sp_graph_agree {name}: card launches {launches} {card}")
+    if not ok:
+        raise AssertionError(f"sp_graph_agree {name}: the step disagrees")
+    assert launches["K1"] > 0 and launches["K3"] > 0, launches
+
+
+def _pooled_nets(mode):
+    """The pooled ``MultiLayerNetwork`` configurations of sp_graph_agree:
+    a causal encoder block in ``mode``, then masked average pooling; the
+    learned queries and a dense layer on their [B, Q, F]; an output
+    layer flattening [B, T, F]."""
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn.config import (InputType,
+                                                    NeuralNetConfiguration)
+
+    def net(*tail):
+        b = (NeuralNetConfiguration.builder().seed(7).list()
+             .layer(L.TransformerEncoderBlock(n_heads=SP_POOL_HEADS,
+                                              causal=True,
+                                              sequence_parallel=mode)))
+        for layer in tail:
+            b.layer(layer)
+        b.layer(L.OutputLayer(n_out=2, activation="softmax",
+                              loss="mcxent"))
+        return b.set_input_type(InputType.recurrent(SP_POOL_F,
+                                                    SP_POOL_T)).build()
+    return {"avg_pool": net(L.GlobalPoolingLayer(pooling_type="avg")),
+            "learned_dense": net(
+                L.LearnedSelfAttentionLayer(n_out=SP_POOL_F,
+                                            n_heads=SP_POOL_HEADS,
+                                            n_queries=SP_POOL_Q),
+                L.DenseLayer(n_out=32, activation="tanh")),
+            "flatten_output": net()}
+
+
+def phase_sp_graph_agree(state):
+    """In f32 (TF32 off): one step of BERT-base's classifier at B = 2,
+    T = 512 in "ring" and "ulysses", and of the pooled nets in
+    "zigzag_ring": the card under the seq-1 context against the card
+    without it and the CPU under it."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import kernel_registry
+    from deeplearning4j_tpu_torch.parallel import distributed_context
+    card = state["card"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = distributed_context(_seq_mesh(state))
+
+    def counted(fn):
+        for e in kernel_registry.ported():
+            e.reset()
+        out = fn()
+        return out, {e.key: e.launches() for e in kernel_registry.ported()}
+
+    tokens, segments, mask, labels = _finetune_batch(5, SP_AGREE_B,
+                                                     SP_GRAPH_T)
+    args = ([tokens, segments], [labels], [mask, mask])
+    shapes = {"tokens": (SP_GRAPH_T,), "segments": (SP_GRAPH_T,)}
+    donors = {dev: ComputationGraph(_sp_bert_conf(
+        None, seed=3, dropout=0.0)).init(shapes, device=dev)
+        for dev in ("cuda", "cpu")}
+    local = _host_step(donors["cuda"], args)
+    for mode in ("ring", "ulysses"):
+        conf = lambda: _sp_bert_conf(mode, seed=3, dropout=0.0)
+        got, launches = counted(lambda: _host_step(
+            _graph_like(conf(), donors["cuda"]), args, ctx))
+        cpu = _host_step(_graph_like(conf(), donors["cpu"]), args, ctx)
+        _sp_agree_check(f"bert {mode}", [got, ("card without the context",
+                                               local),
+                                         ("CPU under the context", cpu)],
+                        launches, card)
+    del donors
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((SP_AGREE_B, SP_POOL_T, SP_POOL_F)).astype(
+        np.float32)
+    y = np.eye(2, dtype=np.float32)[[0, 1]]
+    fmask = (np.arange(SP_POOL_T)[None, :]
+             < np.array([[SP_POOL_T], [37]])).astype(np.float32)
+    for name, conf in _pooled_nets("zigzag_ring").items():
+        steps = {}
+        for dev in ("cuda", "cpu"):
+            net = MultiLayerNetwork(conf).init(device=dev)
+            fm = fmask if name == "avg_pool" else None
+            a = (net._as_input(x), net._as_input(y),
+                 None if fm is None else net._as_input(fm, torch.float32))
+            steps[dev] = counted(lambda: _host_step(net, a, ctx))
+            if dev == "cuda":
+                steps["local"] = _host_step(net, a)
+        (got, launches), (cpu, _) = steps["cuda"], steps["cpu"]
+        _sp_agree_check(name, [got, ("card without the context",
+                                     steps["local"]),
+                               ("CPU under the context", cpu)], launches,
+                        card)
 
 
 def _check_flash_blocks(rows, card):

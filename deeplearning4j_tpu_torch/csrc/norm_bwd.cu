@@ -52,15 +52,22 @@
 //    not fast.
 //  - dgamma and dbeta on chip, in a fixed order: the warps of a block
 //    summed in warp order in shared memory; the blocks of a thread-block
-//    cluster (up to 8) summed in rank order through distributed shared
-//    memory, rank r a slice r of the columns, so that one f32 row per
-//    cluster reaches device memory; the last of the blocks of rank r to
-//    take rank r's ticket (an atomic counter, reset by that block so a
-//    replayed CUDA graph starts from 0) sums slice r over the clusters'
-//    rows in cluster order and writes it in gamma's dtype. The order of
-//    every sum depends on (rows, grid) alone: dgamma and dbeta are the
-//    same to the bit from run to run, as the TPU kernel's sequential
-//    accumulation over its grid is. There is no grid-wide barrier.
+//    cluster (1, 2, 4 or 8) summed in rank order through distributed
+//    shared memory, rank r a slice r of the columns, so that one f32 row
+//    per cluster reaches device memory. On the warp path each block
+//    pushes its values of slice r into rank r's inbox (`st.async`, each
+//    store counted on r's inbox barrier), so a rank waits only for its
+//    own slice's data, with no cluster barrier between the rows and the
+//    sums (at a few hundred rows a block's finish is most of its launch;
+//    tools/torch_norm_bwd_timing.py times it). The block path reads the
+//    peers' partials after a cluster barrier. The last of the blocks of
+//    rank r to take rank r's ticket (an atomic counter, reset by that
+//    block so a replayed CUDA graph starts from 0) sums slice r over the
+//    clusters' rows in cluster order and writes it in gamma's dtype. The
+//    order of every sum depends on (rows, grid) alone: dgamma and dbeta
+//    are the same to the bit from run to run, as the TPU kernel's
+//    sequential accumulation over its grid is. There is no grid-wide
+//    barrier.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -208,6 +215,18 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
   } while (!done);
 }
+// the same, acquiring at cluster scope what peers' `st.async` wrote
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1],"
+        " %2;\n selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
 // 1-D TMA: `bytes` (a multiple of 16) from global to this block's
 // shared memory, counted against `bar`'s transaction bytes
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
@@ -222,8 +241,35 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
 }
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+// `v` into block rank q's shared memory at the offset of `local` in this
+// block (every block of a launch has the same layout), its 4 bytes
+// counted against rank q's barrier at the offset of `bar`
+__device__ __forceinline__ void push_f32(const float* local, int q,
+                                         float v, uint64_t* bar) {
+  uint32_t ra, rb;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(ra) : "r"(smem_u32(local)), "r"(q));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(rb) : "r"(smem_u32(bar)), "r"(q));
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32"
+      " [%0], %1, [%2];"
+      :: "r"(ra), "r"(__float_as_uint(v)), "r"(rb) : "memory");
+}
+// rank q's slice of ncol columns among a cluster of 2^sh blocks:
+// [lo(q), lo(q + 1))
+__device__ __forceinline__ int slice_lo(int ncol, int q, int sh) {
+  return (ncol * q) >> sh;
+}
+// the rank whose slice holds column j: the largest q with lo(q) <= j
+__device__ __forceinline__ int slice_owner(int j, int ncol, int sh) {
+  return (((j + 1) << sh) + ncol - 1) / ncol - 1;
 }
 
 __host__ __device__ constexpr int align_up(int v, int a) {
@@ -231,15 +277,17 @@ __host__ __device__ constexpr int align_up(int v, int a) {
 }
 
 // Shared-memory layout (byte offsets). Both kernels: gamma as f32, the
-// block's partial [ncol] (dgamma, then dbeta), the finisher's scratch
-// [NT] and its flag. The warp kernel: gamma lane-major (element e of
-// lane l at e*32 + l: gam_n = 32 * E, conflict-free), the stages'
-// mbarriers and, 128-aligned, the TMA ring [warp][stage][x | dy][F] of
-// T, which after the rows holds the warps' partials, lane-major as gamma
-// ([NW][gam_n] of dgamma, then as many of dbeta). The block kernel:
-// gamma [F] and the reduction scratch [2][NW][4].
+// finisher's scratch [NT] and its flag. The warp kernel: gamma
+// lane-major (element e of lane l at e*32 + l: gam_n = 32 * E,
+// conflict-free), the stages' mbarriers, the inbox's mbarrier and the
+// inbox (the cluster's partials of this rank's slice of the columns, [cs]
+// rows of the slice's width, at most ncol + 8 floats) and, 128-aligned,
+// the TMA ring [warp][stage][x | dy][F] of T, which after the rows holds
+// the warps' partials, lane-major as gamma ([NW][gam_n] of dgamma, then
+// as many of dbeta). The block kernel: gamma [F], the block's partial
+// [ncol] (dgamma, then dbeta) and the reduction scratch [2][NW][4].
 struct Layout {
-  int bars, gam, blk, fin, flag, red, ring, total;
+  int bars, gam, blk, fin, flag, ibar, inbox, red, ring, total;
 };
 __host__ __device__ inline Layout layout(int f, int esize, bool ln,
                                          bool warp_rows, int gam_n,
@@ -252,11 +300,14 @@ __host__ __device__ inline Layout layout(int f, int esize, bool ln,
   L.gam = off;
   off = align_up(off + 4 * gam_n, 16);
   L.blk = off;
-  off = align_up(off + 4 * ncol, 16);
+  off = align_up(off + (warp_rows ? 0 : 4 * ncol), 16);
   L.fin = off;
   off += 4 * NT;
   L.flag = off;
+  L.ibar = off + 8;
   off += 16;
+  L.inbox = off;
+  off += warp_rows ? 4 * (ncol + 8) : 0;
   L.red = off;
   off += warp_rows ? 0 : 4 * 2 * NW * 4;
   L.ring = align_up(off, 128);
@@ -266,37 +317,20 @@ __host__ __device__ inline Layout layout(int f, int esize, bool ln,
   return L;
 }
 
-// The block's partial [ncol] → its cluster's row of `part` → `out`,
-// every sum in a fixed order. Rank r of each cluster sums its slice of
-// the columns over the cluster's blocks (distributed shared memory, rank
-// order) into `part`; the last of the n_clusters blocks of rank r to
-// take rank r's ticket sums that slice over the clusters (cluster order)
-// into `out` and resets the ticket.
-__device__ void cluster_finish(const float* blk, int ncol,
-                               float* __restrict__ part, int* tickets,
-                               void* out, int gcode, float* fin,
-                               int* flag) {
-  cg::cluster_group cl = cg::this_cluster();
-  const int cs = (int)cl.num_blocks();
-  const int rank = (int)cl.block_rank();
+// Rank r's slice of the columns, summed over its cluster's blocks into
+// the cluster's row of `part` → `out`: the last of the n_clusters blocks
+// of rank r to take rank r's ticket sums that slice over the clusters
+// (cluster order) into `out` and resets the ticket. Every sum runs in a
+// fixed order.
+__device__ void grid_finish(int ncol, float* __restrict__ part,
+                            int* tickets, void* out, int gcode, float* fin,
+                            int* flag) {
+  const int cs = (int)cg::this_cluster().num_blocks();
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int sh = __ffs(cs) - 1;
   const int tid = threadIdx.x;
   const int n_clusters = gridDim.x / cs;
-  const long long cid = blockIdx.x / cs;
-  const int c0 = (int)((long long)ncol * rank / cs);
-  const int c1 = (int)((long long)ncol * (rank + 1) / cs);
-  cl.sync();                          // every block's partial complete
-  for (int j = c0 + tid; j < c1; j += NT) {
-    float v[8];                       // the peers' values, all in flight
-#pragma unroll
-    for (int q = 0; q < 8; ++q)
-      v[q] = q < cs ? cl.map_shared_rank(blk, q)[j] : 0.f;
-    float s = 0.f;
-#pragma unroll
-    for (int q = 0; q < 8; ++q)
-      if (q < cs) s += v[q];
-    part[cid * ncol + j] = s;
-  }
-  cluster_arrive();                   // done reading the peers' partials
+  const int c0 = slice_lo(ncol, rank, sh), c1 = slice_lo(ncol, rank + 1, sh);
   __syncthreads();                    // the block's slice is written
   if (tid == 0) {
     // release: the block's slice (ordered before by the barrier) is
@@ -367,6 +401,35 @@ __device__ void cluster_finish(const float* blk, int ncol,
       }
     }
   }
+}
+
+// The block kernel's finish: the block's partial [ncol] in `blk`; rank r
+// reads its slice from the cluster's blocks (distributed shared memory,
+// rank order), then grid_finish.
+__device__ void cluster_finish(const float* blk, int ncol,
+                               float* __restrict__ part, int* tickets,
+                               void* out, int gcode, float* fin,
+                               int* flag) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int cs = (int)cl.num_blocks();
+  const int rank = (int)cl.block_rank();
+  const int sh = __ffs(cs) - 1;
+  const long long cid = blockIdx.x / cs;
+  cl.sync();                          // every block's partial complete
+  for (int j = slice_lo(ncol, rank, sh) + threadIdx.x;
+       j < slice_lo(ncol, rank + 1, sh); j += NT) {
+    float v[8];                       // the peers' values, all in flight
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      v[q] = q < cs ? cl.map_shared_rank(blk, q)[j] : 0.f;
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      if (q < cs) s += v[q];
+    part[cid * ncol + j] = s;
+  }
+  cluster_arrive();                   // done reading the peers' partials
+  grid_finish(ncol, part, tickets, out, gcode, fin, flag);
   cluster_wait();   // no block leaves while a peer may read its partial
 }
 
@@ -428,6 +491,20 @@ norm_bwd_warp_kernel(const T* __restrict__ x, const T* __restrict__ dy,
             (size_t)warp * stages * 2 * f;
   uint64_t* wbar = reinterpret_cast<uint64_t*>(smem + L.bars) +
                    warp * stages;
+  // the cluster: rank r sums columns [c0, c1) over the cluster's blocks,
+  // each of which pushes its values of them into row `its rank` of r's
+  // inbox
+  cg::cluster_group cl = cg::this_cluster();
+  const int cs = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  const int sh = __ffs(cs) - 1;
+  const int c0 = slice_lo(ncol, rank, sh), c1 = slice_lo(ncol, rank + 1, sh);
+  uint64_t* ibar = reinterpret_cast<uint64_t*>(smem + L.ibar);
+  float* inbox = reinterpret_cast<float*>(smem + L.inbox);
+  if (tid == 0) {   // the inbox's barrier, before any peer may push
+    mbar_init(ibar, 1);
+    mbar_expect_tx(ibar, (uint32_t)(4 * cs * (c1 - c0)));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
   // gamma's entries of this thread's share of the lane-major table, read
   // first, ahead of the rows' traffic
   constexpr int GPT = (32 * E + NT - 1) / NT;
@@ -485,6 +562,7 @@ norm_bwd_warp_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   for (int u = 0; u < GPT; ++u)
     if (tid + u * NT < 32 * E) gam[tid + u * NT] = gv[u];
   __syncthreads();
+  cluster_arrive_relaxed();   // this block's inbox is ready
 
   float acc_g[E], acc_b[LN ? E : 1];
 #pragma unroll
@@ -625,8 +703,15 @@ norm_bwd_warp_kernel(const T* __restrict__ x, const T* __restrict__ dy,
     if constexpr (LN) wb[(warp * E + e) * 32 + lane] = acc_b[e];
   }
   __syncthreads();
-  // the warps summed in warp order, lane-major entry i to its column
-  float* blk = reinterpret_cast<float*>(smem + L.blk);
+  cluster_wait();   // every peer's inbox is ready (long since, as a rule)
+  // the warps summed in warp order, lane-major entry i to its column,
+  // pushed to the column's owner as this rank's row of its inbox
+  auto push = [&](int j, float v) {
+    const int q = slice_owner(j, ncol, sh);
+    const int lo = slice_lo(ncol, q, sh);
+    const int w = slice_lo(ncol, q + 1, sh) - lo;
+    push_f32(inbox + rank * w + (j - lo), q, v, ibar);
+  };
   for (int i = tid; i < 32 * E; i += NT) {
     const int e = i >> 5, l = i & 31;
     const int col = (l + 32 * (e / V)) * V + e % V;
@@ -637,13 +722,26 @@ norm_bwd_warp_kernel(const T* __restrict__ x, const T* __restrict__ dy,
         s += wg[w * 32 * E + i];
         if constexpr (LN) sb += wb[w * 32 * E + i];
       }
-      blk[col] = s;
-      if constexpr (LN) blk[f + col] = sb;
+      push(col, s);
+      if constexpr (LN) push(f + col, sb);
     }
   }
-  cluster_finish(blk, ncol, part, tickets, out, gcode,
-                 reinterpret_cast<float*>(smem + L.fin),
-                 reinterpret_cast<int*>(smem + L.flag));
+  cluster_arrive_relaxed();   // this block's pushes are issued
+  // this rank's slice over the cluster's blocks, in rank order
+  mbar_wait_cluster(ibar, 0);
+  const long long cid = blockIdx.x / cs;
+  const int nc = c1 - c0;
+  for (int j = tid; j < nc; j += NT) {
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      if (q < cs) s += inbox[q * nc + j];
+    part[cid * ncol + c0 + j] = s;
+  }
+  grid_finish(ncol, part, tickets, out, gcode,
+              reinterpret_cast<float*>(smem + L.fin),
+              reinterpret_cast<int*>(smem + L.flag));
+  cluster_wait();   // no block leaves while its pushes may be in flight
 }
 
 // K sums over the block, the same bits in every thread: per warp by
@@ -942,7 +1040,8 @@ int dl4j_norm_bwd_grid(int dtype, int ln, int path, int f, void* result) {
 // gamma [f] of gdtype; out [f] (K6: dgamma) or [2f] (K9: dgamma then
 // dbeta) of gdtype; part: f32 [grid / cluster, f or 2f] scratch;
 // tickets: int32 [cluster] in device memory, 0 before the launch and 0
-// after it. grid a multiple of cluster, at most what dl4j_norm_bwd_grid
+// after it. cluster 1, 2, 4 or 8, as dl4j_norm_bwd_grid gives it; grid a
+// multiple of cluster, at most what dl4j_norm_bwd_grid
 // gave (which must have run first for this configuration on this
 // device). Returns 0, a cudaError_t code, or -1 for arguments it does
 // not take.
@@ -951,7 +1050,8 @@ int dl4j_norm_bwd(int dtype, int gdtype, int ln, int path, const void* x,
                   void* tickets, void* out, long long rows, int f,
                   float eps, int grid, int cluster, void* stream) {
   if (rows < 1 || grid < 1 || cluster < 1 || cluster > 8 ||
-      grid % cluster || gdtype < F32 || gdtype > F16)
+      (cluster & (cluster - 1)) || grid % cluster || gdtype < F32 ||
+      gdtype > F16)
     return -1;
   if (path != PATH_BLOCK && path != PATH_WARP &&
       !(aligned16(x) && aligned16(dy) && aligned16(dx)))

@@ -45,9 +45,23 @@ state and ``fit`` keeps it, in a K-step region too; ``output`` reads it
 casts it); :meth:`ComputationGraph.state_from_jax` carries a JAX
 graph's across.
 
-Not in this slice (each raises ``NotImplementedError``): the numerics
-observatory and sequence-parallel layers under a
-``distributed_context`` (ROADMAP item A4).
+Under a ``parallel.distributed_context`` a graph whose layers carry a
+``sequence_parallel`` mode trains and infers sequence-parallel, by the
+per-process rule of ``parallel/mesh.py`` (:meth:`ComputationGraph.
+_seq_parallel`): every input of a recurrent input type is the sequence,
+so each rank keeps its tokens of it and of its mask, and so does every
+node fed from one — until a layer or vertex that reduces the sequence
+(``pools_sequence``: BERT's CLS pool), after which the nodes are the
+replicated tail. An output that keeps its time axis takes the rank's
+tokens of its labels and labels mask, and ``output`` gathers it; an
+output of the tail takes them whole, ``output`` returns it as it is, and
+its loss counts on the first rank only. The loss and the gradients are
+summed over the ``seq`` group before the update. A node that cannot run
+where it sits is refused as in ``MultiLayerNetwork``
+(``nn.multilayer._check_seq_layer``).
+
+Not in this slice (it raises ``NotImplementedError``): the numerics
+observatory.
 
 ``fit(iterator, steps_per_loop=K)`` runs K-step regions as
 ``MultiLayerNetwork`` does, and groups masked batches of one mask
@@ -74,9 +88,10 @@ from deeplearning4j_tpu_torch.nn.layers.core import OutputLayer
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     RnnOutputLayer, returns_carries)
 from deeplearning4j_tpu_torch.nn.multilayer import (
-    _FUSABLE, REGION_SCOPE, MultiLayerNetwork, apply_updates,
-    apply_weight_noise, check_frozen_options, evaluate_batches,
-    has_weight_noise, loss_and_grads, notify_steps, stage)
+    _FUSABLE, REGION_SCOPE, MultiLayerNetwork, _check_seq_layer, _mesh,
+    _sum_over, apply_updates, apply_weight_noise, check_frozen_options,
+    evaluate_batches, has_weight_noise, loss_and_grads, notify_steps,
+    stage)
 from deeplearning4j_tpu_torch.nn.vertices import (GraphVertex,
                                                   vertex_from_dict)
 from deeplearning4j_tpu_torch.ops import losses as losses_mod
@@ -333,76 +348,135 @@ class ComputationGraph:
     add_listeners = MultiLayerNetwork.add_listeners
 
     # ------------------------------------------------------------------
+    # sequence parallelism
+    # ------------------------------------------------------------------
+    def _seq_parallel(self):
+        """``(context, mode, sharded)`` when this graph runs
+        sequence-parallel: a ``distributed_context`` is active and its
+        layers carry a ``sequence_parallel`` mode; None otherwise (the
+        context does not touch a graph without one, as in the JAX
+        graph). ``sharded`` names the inputs (those of a recurrent input
+        type) and the nodes whose activations are the rank's shard of
+        the sequence: a node fed from one, unless it reduces the
+        sequence. Raises when the layers disagree on the mode, when no
+        input is a sequence, or when a node cannot run where it sits
+        (``nn.multilayer._check_seq_layer``)."""
+        ctx = _mesh().active_context()
+        if ctx is None:
+            return None
+        modes = {n.obj.sequence_parallel for n in self.order
+                 if n.kind == "layer" and hasattr(n.obj, "sequence_parallel")}
+        if modes <= {None}:
+            return None
+        if len(modes) > 1:
+            raise ValueError(
+                f"the graph's attention layers disagree on "
+                f"sequence_parallel ({sorted(map(str, modes))}): under a "
+                "sequence-parallel context every one takes the same mode")
+        mode = modes.pop()
+        if mode not in _mesh().SP_MODES:
+            raise ValueError(f"unknown sequence_parallel mode {mode!r} "
+                             "(ring|ulysses|zigzag_ring)")
+        sharded = {name for name in self.conf.inputs
+                   if getattr(self.conf.input_types.get(name), "kind",
+                              None) == "rnn"}
+        if not sharded:
+            raise ValueError(
+                "a sequence-parallel graph shards the inputs of a "
+                "recurrent input type (set_input_types), and has none")
+        for node in self.order:
+            fed = any(i in sharded for i in node.inputs)
+            _check_seq_layer(f"node {node.name!r}", node.obj, fed)
+            if fed and not node.obj.pools_sequence:
+                sharded.add(node.name)
+        return ctx, mode, frozenset(sharded)
+
+    def _shard_feed(self, sp, inputs, labels, masks, lmasks):
+        """:meth:`_feed`'s inputs, labels and masks with the rank's tokens
+        taken of those that ``sp`` (:meth:`_seq_parallel`) shards: the
+        sequence inputs and their masks, and the labels and labels masks
+        of the outputs that keep their time axis; as they are when ``sp``
+        is None."""
+        if sp is None:
+            return inputs, labels, masks, lmasks
+        ctx, mode, sharded = sp
+
+        def cut(name, a):
+            return (_mesh().shard_sequence(a, mode, ctx.size, ctx.index)
+                    if name in sharded else a)
+        return ({k: cut(k, a) for k, a in inputs.items()},
+                [cut(o, y) for o, y in zip(self.conf.outputs, labels)],
+                {k: cut(k, a) for k, a in masks.items()},
+                {k: cut(k, a) for k, a in lmasks.items()})
+
+    # ------------------------------------------------------------------
     # forward
     # ------------------------------------------------------------------
-    def _check_no_seq_context(self) -> None:
-        """A graph whose layers carry a ``sequence_parallel`` mode is
-        refused under a ``distributed_context``: each rank would hold
-        its shard of the tokens (``parallel/mesh.py``), which the graph
-        does not feed yet (ROADMAP item A4). Outside a context the mode
-        is inert, as in the JAX graph."""
-        from deeplearning4j_tpu_torch.parallel.mesh import active_context
-        if active_context() is None:
-            return
-        for node in self.order:
-            if (node.kind == "layer"
-                    and getattr(node.obj, "sequence_parallel", None)):
-                raise NotImplementedError(
-                    f"node {node.name!r}: a ComputationGraph with "
-                    "sequence-parallel layers under a distributed_context "
-                    "comes with ROADMAP item A4")
-
     def _forward(self, params, state, inputs: Dict[str, torch.Tensor], *,
-                 train: bool, rng, masks=None, pre_output: bool = False):
+                 train: bool, rng, masks=None, pre_output: bool = False,
+                 sp=None):
         """Returns (activations by node name, new state). ``rng``: an
         integer seed (or None), split once per layer node in topological
-        order; ``masks``: [B, T] masks by input name."""
+        order; ``masks``: [B, T] masks by input name. Under ``sp``
+        (:meth:`_seq_parallel`) the context's ``layout`` is set around
+        each node fed the rank's shard and cleared around the others
+        (``PositionalEmbeddingLayer`` and the layers and vertices that
+        reduce the sequence read it), and such a layer's seed has the
+        rank's index folded in past one rank."""
         if not params:
             raise RuntimeError(
                 "Graph has no parameters — call init() before "
                 "fit()/output() (reference: ComputationGraph.init()).")
-        self._check_no_seq_context()
-        acts: Dict[str, torch.Tensor] = dict(inputs)
-        new_state = {}
-        masks = dict(masks or {})
-        out_set = set(self.conf.outputs)
-        for node in self.order:
-            xs = [acts[i] for i in node.inputs]
-            m = next((masks[i] for i in node.inputs
-                      if masks.get(i) is not None), None)
-            with obs.devtime.scope(f"{node.name}.{type(node.obj).__name__}"):
-                if node.kind == "vertex":
-                    acts[node.name] = (node.obj.apply(xs, mask=m)
-                                       if node.obj.needs_mask
-                                       else node.obj.apply(xs))
-                    masks[node.name] = node.obj.propagate_mask(m)
-                    continue
-                layer = node.obj
-                sub = None
-                if rng is not None:
-                    rng, sub = split_seed(rng)
-                if (pre_output and node.name in out_set
-                        and isinstance(layer, OutputLayer)):
-                    # pre-activation logits for the fused loss: [B, F],
-                    # or [B, T, F] per time step for an RnnOutputLayer
-                    x = xs[0]
-                    if x.ndim > 2 and not isinstance(layer, RnnOutputLayer):
-                        x = x.reshape(x.shape[0], -1)
-                    z = x @ params[node.name]["W"]
-                    if layer.has_bias:
-                        z = z + params[node.name]["b"]
-                    acts[node.name] = z
-                    new_state[node.name] = state.get(node.name, {})
-                    masks[node.name] = m
-                    continue
-                y, s = layer.apply(params.get(node.name, {}),
-                                   state.get(node.name, {}), xs[0],
-                                   train=train, rng=sub, mask=m)
-            acts[node.name] = y
-            new_state[node.name] = (state.get(node.name, {})
-                                    if returns_carries(layer) else s)
-            masks[node.name] = layer.propagate_mask(m, None)
-        return acts, new_state
+        ctx, mode, sharded = sp if sp is not None else (None, None, ())
+        # the context's layout is restored after the walk
+        with MultiLayerNetwork._layout(None if sp is None else sp[:2]):
+            acts: Dict[str, torch.Tensor] = dict(inputs)
+            new_state = {}
+            masks = dict(masks or {})
+            out_set = set(self.conf.outputs)
+            for node in self.order:
+                xs = [acts[i] for i in node.inputs]
+                m = next((masks[i] for i in node.inputs
+                          if masks.get(i) is not None), None)
+                fed = any(i in sharded for i in node.inputs)
+                if ctx is not None:
+                    ctx.layout = mode if fed else None
+                scope = f"{node.name}.{type(node.obj).__name__}"
+                with obs.devtime.scope(scope):
+                    if node.kind == "vertex":
+                        acts[node.name] = (node.obj.apply(xs, mask=m)
+                                           if node.obj.needs_mask
+                                           else node.obj.apply(xs))
+                        masks[node.name] = node.obj.propagate_mask(m)
+                        continue
+                    layer = node.obj
+                    sub = None
+                    if rng is not None:
+                        rng, sub = split_seed(rng)
+                        if fed and ctx.size > 1:
+                            sub = fold_in(sub, ctx.index)
+                    if (pre_output and node.name in out_set
+                            and isinstance(layer, OutputLayer)):
+                        # pre-activation logits for the fused loss: [B, F],
+                        # or [B, T, F] per time step for an RnnOutputLayer
+                        x = xs[0]
+                        if not isinstance(layer, RnnOutputLayer):
+                            x = layer.flat_input(x)
+                        z = x @ params[node.name]["W"]
+                        if layer.has_bias:
+                            z = z + params[node.name]["b"]
+                        acts[node.name] = z
+                        new_state[node.name] = state.get(node.name, {})
+                        masks[node.name] = m
+                        continue
+                    y, s = layer.apply(params.get(node.name, {}),
+                                       state.get(node.name, {}), xs[0],
+                                       train=train, rng=sub, mask=m)
+                acts[node.name] = y
+                new_state[node.name] = (state.get(node.name, {})
+                                        if returns_carries(layer) else s)
+                masks[node.name] = layer.propagate_mask(m, None)
+            return acts, new_state
 
     # ------------------------------------------------------------------
     # loss
@@ -418,10 +492,13 @@ class ComputationGraph:
                  and isinstance(layer, OutputLayer))
         return loss_name, fused
 
-    def _loss_fn(self, params, state, inputs, labels, masks, lmasks, rng):
+    def _loss_fn(self, params, state, inputs, labels, masks, lmasks, rng,
+                 sp=None):
         """The summed loss of every output, and the new state (weight
         noise on the forward's view of the masters, then the
-        compute-dtype cast)."""
+        compute-dtype cast). Under ``sp`` past one rank, the loss of an
+        output in the replicated tail counts on the first rank only
+        (weighed 0 elsewhere, its backward kept)."""
         any_fused = any(self._out_loss(o)[1] for o in self.conf.outputs)
         cd = self.conf.compute_dtype
         groups = self._group_layers()
@@ -435,7 +512,10 @@ class ComputationGraph:
             inputs = dtypes.cast_float_tree(inputs, cd)
         acts, new_state = self._forward(params, state, inputs, train=True,
                                         rng=rng, masks=masks,
-                                        pre_output=any_fused)
+                                        pre_output=any_fused, sp=sp)
+        # the outputs whose loss another rank counts (parallel/mesh.py)
+        skip = (() if sp is None or sp[0].size == 1 or sp[0].index == 0
+                else set(self.conf.outputs) - sp[2])
         total = 0.0
         for name, y in zip(self.conf.outputs, labels):
             loss_name, fused = self._out_loss(name)
@@ -446,7 +526,8 @@ class ComputationGraph:
                                                                   fused):
                     logits = logits.float()
                 kw = {"from_logits": True} if fused else {}
-                total = total + fn(y, logits, mask=lmasks.get(name), **kw)
+                loss = fn(y, logits, mask=lmasks.get(name), **kw)
+                total = total + (loss * 0.0 if name in skip else loss)
         return total, new_state
 
     def _feed(self, xs, ys=(), fms=None, lms=None):
@@ -466,12 +547,20 @@ class ComputationGraph:
     def _loss_and_grads(self, xs, ys, fms=None, lms=None, rng=None):
         """(loss, gradient tree, new state) at the current parameters
         for one batch given as in ``fit``; the gradients have the master
-        parameters' dtype."""
-        inputs, labels, masks, lmasks = self._feed(xs, ys, fms, lms)
-        return loss_and_grads(
+        parameters' dtype. Under a sequence-parallel context the batch is
+        the global one: the rank's tokens are taken here
+        (:meth:`_shard_feed`), and the loss and gradients come back
+        summed over the group."""
+        sp = self._seq_parallel()
+        inputs, labels, masks, lmasks = self._shard_feed(
+            sp, *self._feed(xs, ys, fms, lms))
+        loss, grads, state = loss_and_grads(
             lambda p: self._loss_fn(p, self.state, inputs, labels, masks,
-                                    lmasks, rng), self.params,
+                                    lmasks, rng, sp), self.params,
             self._frozen())
+        if sp is not None and sp[0].size > 1:
+            loss, grads = _sum_over(sp[0].group, loss, grads)
+        return loss, grads, state
 
     # ------------------------------------------------------------------
     # fit
@@ -581,9 +670,9 @@ class ComputationGraph:
         t2 = obs.now()
         host = losses.cpu()         # the group's one device sync
         t3 = obs.now()
-        obs.record_step("ComputationGraph.fit", t0, t1, t2, t3,
-                        args={"steps": len(group)})
         notify_steps(self, "ComputationGraph.fit", host.tolist())
+        obs.record_step("ComputationGraph.fit", t0, t1, t2, t3,
+                        args={"steps": len(group)}, turn=True)
 
     def _update(self, xs, ys, fms, lms, rng):
         """One gradient + optimizer update; returns the loss (on the
@@ -603,8 +692,9 @@ class ComputationGraph:
         loss = self._update(xs, ys, fms, lms, rng)
         t2 = obs.now()
         score = float(loss)           # blocking device sync
-        obs.record_step("ComputationGraph.fit", t0, t1, t2, obs.now())
+        t3 = obs.now()
         notify_steps(self, "ComputationGraph.fit", [score])
+        obs.record_step("ComputationGraph.fit", t0, t1, t2, t3, turn=True)
 
     # ------------------------------------------------------------------
     # inference and scoring
@@ -616,17 +706,27 @@ class ComputationGraph:
         ComputationGraph.output), on the graph's device (f32 under
         ``compute_dtype``). ``features_masks`` (aligned with the
         inputs) masks padded keys as in ``fit``; the JAX ``output``
-        takes none."""
+        takes none. Under a sequence-parallel context every rank is given
+        the global inputs, and an output that keeps its time axis is
+        gathered from the ranks' shards."""
         cd = self.conf.compute_dtype
         params, state = self.params, self.state
-        inputs, _, masks, _ = self._feed(features, fms=features_masks)
+        sp = self._seq_parallel()
+        inputs, _, masks, _ = self._shard_feed(
+            sp, *self._feed(features, fms=features_masks))
         if cd is not None:
             params = dtypes.cast_float_tree(params, cd)
             state = dtypes.cast_float_tree(state, cd)
             inputs = dtypes.cast_float_tree(inputs, cd)
         acts, _ = self._forward(params, state, inputs, train=train,
-                                rng=None, masks=masks)
+                                rng=None, masks=masks, sp=sp)
         outs = [acts[o] for o in self.conf.outputs]
+        if sp is not None and sp[0].size > 1:
+            ctx, mode, sharded = sp
+            outs = [_mesh().unshard_sequence(
+                _mesh().all_gather(o, ctx.group), mode)
+                if name in sharded else o
+                for name, o in zip(self.conf.outputs, outs)]
         return [o.float() for o in outs] if cd is not None else outs
 
     def output_single(self, *features, features_masks=None):

@@ -18,6 +18,7 @@ JAX package's: [B, T, H, D], head axis 2; key mask [B, Tk].
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional
 
@@ -27,6 +28,7 @@ import torch.utils.checkpoint
 
 from deeplearning4j_tpu_torch.nn import weights as winit
 from deeplearning4j_tpu_torch.nn.layers.base import (Layer, register_layer,
+                                                     sharded_input,
                                                      split_seed)
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (SEQ_REFUSAL,
                                                           _emit, _hold,
@@ -254,14 +256,15 @@ class SelfAttentionLayer(MultiHeadAttention):
 class LearnedSelfAttentionLayer(Layer):
     """Attention with ``n_queries`` learned query vectors (reference
     LearnedSelfAttentionLayer): pools [B, T, F] to [B, Q, F_out]. On the
-    card the attention is K1 with Tq = ``n_queries`` (and K3 backward)."""
+    card the attention is K1 with Tq = ``n_queries`` (and K3 backward).
+    On the rank's shard of a sequence (under a sequence-parallel
+    context) each rank attends the queries over its own keys and the
+    ranks' partials merge by their logsumexps (:class:`_PooledAttnFn`)."""
     n_in: Optional[int] = None
     n_out: int = 0
     n_heads: int = 1
     n_queries: int = 1
-    #: pools the sequence into its queries: under a sequence-parallel
-    #: context with GlobalPoolingLayer
-    mixes_positions = "ROADMAP item A10"
+    pools_sequence = True
 
     def init(self, gen, input_shape, dtype=torch.float32):
         n_in = self.n_in or input_shape[-1]
@@ -279,11 +282,70 @@ class LearnedSelfAttentionLayer(Layer):
         q = _split_heads(q, self.n_heads)
         k = _split_heads(x @ params["Wk"], self.n_heads)
         v = _split_heads(x @ params["Wv"], self.n_heads)
-        o = _merge_heads(scaled_dot_attention(q, k, v, mask))
-        return self._act()(o), state
+        sp = sharded_input()
+        if sp is None:
+            o = scaled_dot_attention(q, k, v, mask)
+        else:
+            o = _PooledAttnFn.apply(q, k, v, mask, sp[0].group)
+        return self._act()(_merge_heads(o)), state
 
     def propagate_mask(self, mask, input_shape):
         return None  # a fixed n_queries output, fully valid
+
+
+def _merge_over(o, lse, group):
+    """The ranks' partial attentions of the same queries, each over its
+    own keys (``o`` [B, Q, H, D], ``lse`` [B, H, Q] f32), merged exactly
+    over ``group`` as ``parallel.ring_attention._merge_blocks`` merges
+    two blocks: out = Σ o_r·exp(lse_r − M) / Σ exp(lse_r − M), M the
+    max lse over the ranks. A rank with no live key (lse −inf) weighs
+    exactly 0; a row with none anywhere gives zeros and lse −inf, as
+    the kernel does. Returns (out f32, lse f32)."""
+    from deeplearning4j_tpu_torch.parallel.mesh import max_over, reduce_sum
+    top = max_over(lse, group)
+    safe = torch.where(torch.isinf(top), 0.0, top)
+    w = torch.where(torch.isinf(lse), 0.0, torch.exp(lse - safe))
+    den = reduce_sum(w, group)
+    rows = lambda t: t.transpose(1, 2)[..., None]          # [B, Q, H, 1]
+    num = reduce_sum(o.float() * rows(w), group)
+    live = den > 0
+    out = torch.where(rows(live), num / rows(torch.where(live, den, 1.0)),
+                      0.0)
+    return out, torch.where(live, safe + torch.log(den), -math.inf)
+
+
+class _PooledAttnFn(torch.autograd.Function):
+    """The learned queries' attention over the keys of every rank of
+    ``group``, each rank holding its shard of the keys: the forward is
+    one ``flash_block_fwd`` of the queries over the rank's keys (K1 on
+    the card) and the lse merge over the group (:func:`_merge_over`);
+    the backward sums the ranks' cotangents of the (replicated) output
+    and runs ``flash_block_bwd`` (K3) of the rank's keys against the
+    merged output and lse — the rank's dk, dv and its share of dq, which
+    the network's sum over the group completes. No gradient for the
+    mask."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, group):
+        from deeplearning4j_tpu_torch.ops.cuda_kernels import \
+            flash_block_fwd
+        o, lse = flash_block_fwd(q, k, v, mask)
+        out, lse = _merge_over(o, lse, group)
+        out = out.to(q.dtype)
+        ctx.save_for_backward(q, k, v, mask, out, lse)
+        ctx.group = group
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        from deeplearning4j_tpu_torch.ops.cuda_kernels import \
+            flash_block_bwd
+        from deeplearning4j_tpu_torch.parallel.mesh import reduce_sum
+        q, k, v, mask, out, lse = ctx.saved_tensors
+        dout = reduce_sum(dout.contiguous(), ctx.group)
+        dq, dk, dv = flash_block_bwd(q, k, v, out, lse.contiguous(),
+                                     dout.contiguous(), mask)
+        return dq, dk, dv, None, None
 
 
 @register_layer
@@ -440,12 +502,15 @@ class TransformerEncoderBlock(Layer):
 @dataclass
 class ClsTokenPoolLayer(Layer):
     """[B, T, F] -> [B, F]: the first (CLS) token, optionally through a
-    tanh pooler dense (BERT's pooler). Ends the sequence mask."""
+    tanh pooler dense (BERT's pooler). Ends the sequence mask. The
+    holder of global position 0 gives its row, and the sum over the ranks
+    is the CLS vector: on the rank's shard of a sequence (under a
+    sequence-parallel context) every other rank gives zeros and the sum
+    is an all-reduce, so the pooler runs in the replicated tail; on the
+    whole sequence the sum is the identity."""
     n_out: int = 0                 # 0: no pooler dense, raw CLS vector
     pooler: bool = False
-    #: pools the sequence: under a sequence-parallel context with
-    #: GlobalPoolingLayer and conv.py
-    mixes_positions = "ROADMAP item A10"
+    pools_sequence = True
 
     def init(self, gen, input_shape, dtype=torch.float32):
         t, f = input_shape
@@ -460,7 +525,14 @@ class ClsTokenPoolLayer(Layer):
         return {}, {}, (f,)
 
     def apply(self, params, state, x, *, train=False, rng=None, mask=None):
-        cls = x[:, 0, :]
+        from deeplearning4j_tpu_torch.parallel.mesh import (local_index,
+                                                            reduce_sum,
+                                                            shard_group)
+        at = local_index(x.shape[1], 0)
+        # zeros that stay in autograd's graph, so that every rank's
+        # backward runs the sum's collective
+        cls = reduce_sum(x[:, 0, :] * 0.0 if at is None else x[:, at, :],
+                         shard_group())
         if self.pooler:
             cls = torch.tanh(cls @ params["W"] + params["b"])
         return cls, state

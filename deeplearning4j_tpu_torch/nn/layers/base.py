@@ -81,6 +81,15 @@ def fold_in(seed: int, data: int) -> int:
                .generate_state(1)[0])
 
 
+def sharded_input():
+    """``(context, mode)`` while a sequence-parallel network feeds the
+    calling layer the rank's shard of the sequence, else None
+    (``parallel.mesh.sharded_input``, imported at the call: ``parallel``
+    imports the networks)."""
+    from deeplearning4j_tpu_torch.parallel.mesh import sharded_input as s
+    return s()
+
+
 @dataclass
 class Layer:
     """Base config bean + runtime for all layers.
@@ -115,6 +124,13 @@ class Layer:
     #: mode; a string names the ROADMAP item that brings it there.
     #: False on the layers that act on each position alone.
     mixes_positions = True
+    #: whether the layer reduces the sequence axis (pooling, the CLS
+    #: token, learned queries, a dense layer's flatten). Under a
+    #: sequence-parallel context such a layer runs on the rank's shard
+    #: and combines the ranks' partials over the group, and the layers
+    #: after it see the same whole [B, …] on every rank: the replicated
+    #: tail of ``parallel/mesh.py``'s rule.
+    pools_sequence = False
 
     def to_dict(self) -> Dict[str, Any]:
         """The JSON bean: ``"@class"`` and every dataclass field, nested

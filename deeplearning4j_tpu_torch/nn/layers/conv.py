@@ -32,8 +32,9 @@ of the flipped kernel, cut or zero-extended to XLA's padding.
 ``GlobalPoolingLayer`` pools a [B, T, F] sequence under its [B, T] mask
 (masked steps left out of every pooling type), and always collapses the
 pooled axes, as the JAX layer does. Under a sequence-parallel context it
-is refused (``Layer.mixes_positions``): pooling there, as an all-reduce
-of each rank's partial pool, comes with ROADMAP item A10.
+pools the rank's shard and all-reduces the partial pools over the
+``seq`` group (``Layer.pools_sequence``, the replicated tail of
+``parallel/mesh.py``).
 """
 from __future__ import annotations
 
@@ -418,47 +419,52 @@ class GlobalPoolingLayer(Layer):
     """Global pooling over every spatial or time axis (reference
     GlobalPoolingLayer, MAX, AVG, SUM and PNORM): [B, *axes, C] → [B, C].
     A [B, T, F] input with a [B, T] mask pools its unmasked steps only
-    (an all-masked row averages to 0); the mask ends here."""
+    (an all-masked row averages to 0); the mask ends here. One body for
+    every input: the partial pool of what the layer is fed, its
+    reduction over the ranks, then the finish. On the rank's shard of a
+    sequence (under a sequence-parallel context) the reduction is an
+    all-reduce of the ranks' partial pools, else the identity; a 4-D
+    input is never a shard. ``max`` reduces the partial maxima; ``avg``
+    the partial sums and counts (the mask's, or the steps), divided
+    after; ``sum`` the partial sums; ``pnorm`` the sums of ``|x|^p``
+    before the root. The sums accumulate in f32 at least, so an average
+    rounds once, as a mean does."""
     pooling_type: str = "max"
     pnorm: int = 2
     collapse_dimensions: bool = True
-    #: pools the whole sequence: under a sequence-parallel context that is
-    #: an all-reduce of the ranks' partial pools
-    mixes_positions = "ROADMAP item A10"
+    pools_sequence = True
 
     def init(self, gen, input_shape, dtype=torch.float32):
         return {}, {}, (input_shape[-1],)
 
     def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        from deeplearning4j_tpu_torch.parallel.mesh import (reduce_max,
+                                                            reduce_sum,
+                                                            shard_group)
         pt = self.pooling_type.lower()
-        if mask is not None and x.ndim == 3:
-            m = mask[..., None].to(x.dtype)
-            if pt == "max":
-                y = torch.where(m > 0, x, -math.inf).amax(dim=1)
-            elif pt in ("avg", "mean"):
-                y = (x * m).sum(dim=1) / torch.clamp_min(m.sum(dim=1),
-                                                        1e-9)
-            elif pt == "sum":
-                y = (x * m).sum(dim=1)
-            elif pt == "pnorm":
-                p = float(self.pnorm)
-                y = ((x.abs() * m) ** p).sum(dim=1) ** (1 / p)
-            else:
-                raise ValueError(self.pooling_type)
-            return y, state
+        if pt not in ("max", "avg", "mean", "sum", "pnorm"):
+            raise ValueError(f"unknown pooling type {self.pooling_type!r}")
+        g = shard_group() if x.ndim == 3 else None
         axes = tuple(range(1, x.ndim - 1))
+        m = (None if mask is None or x.ndim != 3
+             else mask[..., None].to(x.dtype))
         if pt == "max":
-            y = x.amax(dim=axes)
-        elif pt in ("avg", "mean"):
-            y = x.mean(dim=axes)
-        elif pt == "sum":
-            y = x.sum(dim=axes)
-        elif pt == "pnorm":
+            part = x if m is None else torch.where(m > 0, x, -math.inf)
+            return reduce_max(part.amax(dim=axes), g), state
+        acc = torch.promote_types(x.dtype, torch.float32)
+        if pt == "pnorm":
             p = float(self.pnorm)
-            y = (x.abs() ** p).sum(dim=axes) ** (1 / p)
-        else:
-            raise ValueError(self.pooling_type)
-        return y, state
+            a = x.abs() if m is None else x.abs() * m
+            y = reduce_sum((a ** p).sum(dim=axes, dtype=acc), g) ** (1 / p)
+            return y.to(x.dtype), state
+        y = reduce_sum((x if m is None else x * m).sum(dim=axes, dtype=acc),
+                       g)
+        if pt in ("avg", "mean"):
+            count = (torch.full((1, 1), math.prod(x.shape[1:-1]), dtype=acc,
+                                device=x.device) if m is None
+                     else m.sum(dim=1, dtype=acc))
+            y = y / torch.clamp_min(reduce_sum(count, g), 1e-9)
+        return y.to(x.dtype), state
 
     def propagate_mask(self, mask, input_shape):
         return None                       # pooled away

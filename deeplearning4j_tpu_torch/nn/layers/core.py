@@ -26,7 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.nn import weights as winit
-from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
+from deeplearning4j_tpu_torch.nn.layers.base import (Layer, register_layer,
+                                                     sharded_input)
 from deeplearning4j_tpu_torch.ops import fused_norms
 
 #: default RMSNorm epsilon — ``zoo/gpt.py``'s decode path uses the same
@@ -41,9 +42,11 @@ class DenseLayer(Layer):
     n_out: int = 0
     has_layer_norm: bool = False
     has_bias: bool = True
-    #: flattens a [B, T, F] input: under a sequence-parallel context the
-    #: pooling layer ahead of it comes with GlobalPoolingLayer and conv.py
-    mixes_positions = "ROADMAP item A10"
+    #: acts on each row; its flatten of a [B, T, F] input reduces the
+    #: sequence (under a sequence-parallel context the ranks' shards are
+    #: gathered in global order first)
+    mixes_positions = False
+    pools_sequence = True
 
     def init(self, gen, input_shape, dtype=torch.float32):
         if self.has_layer_norm:
@@ -58,10 +61,22 @@ class DenseLayer(Layer):
                                      dtype=dtype)
         return params, {}, (self.n_out,)
 
+    @staticmethod
+    def flat_input(x):
+        """The [B, F] the weights take: a [B, T, …] input flattened, as
+        the JAX ``reshape(B, -1)``. The rank's shard of a sequence
+        (``parallel.mesh.sharded_input``) is gathered in global order
+        first, so the flatten follows global positions in every mode."""
+        sp = sharded_input() if x.ndim > 2 else None
+        if sp is not None:
+            ctx, mode = sp
+            from deeplearning4j_tpu_torch.parallel.mesh import \
+                gather_sequence
+            x = gather_sequence(x, mode, ctx.group)
+        return x.reshape(x.shape[0], -1) if x.ndim > 2 else x
+
     def apply(self, params, state, x, *, train=False, rng=None, mask=None):
-        if x.ndim > 2:
-            x = x.reshape(x.shape[0], -1)
-        z = x @ params["W"]
+        z = self.flat_input(x) @ params["W"]
         if self.has_bias:
             z = z + params["b"]
         y = self._act()(z)

@@ -370,7 +370,12 @@ class MaskZeroLayer(Layer):
 @dataclass
 class TimeDistributed(Layer):
     """Applies a feed-forward layer to each time step alone (reference
-    misc.TimeDistributed): time folded into the batch around one call."""
+    misc.TimeDistributed): time folded into the batch around one call.
+    The underlying layer sees single positions as rows, so on the rank's
+    shard of a sequence it runs with the context's layout cleared
+    (``parallel.mesh.unsharded``): a dense layer does not gather them as
+    a sequence. It mixes positions where the underlying layer mixes rows
+    (batch norm)."""
     underlying: Optional[Layer] = None
 
     @property
@@ -384,8 +389,10 @@ class TimeDistributed(Layer):
     def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         b, t = x.shape[:2]
         flat = x.reshape((b * t,) + tuple(x.shape[2:]))
-        y, s = self.underlying.apply(params, state, flat, train=train,
-                                     rng=rng)
+        from deeplearning4j_tpu_torch.parallel.mesh import unsharded
+        with unsharded():
+            y, s = self.underlying.apply(params, state, flat, train=train,
+                                         rng=rng)
         return y.reshape((b, t) + tuple(y.shape[1:])), s
 
 
@@ -395,6 +402,7 @@ class RnnOutputLayer(OutputLayer):
     """Per-timestep dense + loss head over [B, T, F] (reference
     RnnOutputLayer)."""
     mixes_positions = False
+    pools_sequence = False
 
     def init(self, gen, input_shape, dtype=torch.float32):
         n_in = self.n_in or input_shape[-1]

@@ -7,11 +7,11 @@ they take no gradient and keep no optimizer state. Transfer learning's
 ``set_feature_extractor`` wraps the frozen prefix in it.
 
 The wrapper answers for its layer where the networks ask a layer:
-``propagate_mask``, ``mixes_positions`` and ``sequence_parallel`` (absent
-when the underlying layer has none), so a frozen block keeps its place
-in a sequence-parallel network. Its JSON nests the underlying layer, as
-the JAX ``to_dict`` does. The other classes of the JAX file are not
-ported (``ROADMAP.md``).
+``propagate_mask``, ``mixes_positions``, ``pools_sequence`` and
+``sequence_parallel`` (absent when the underlying layer has none), so a
+frozen block keeps its place in a sequence-parallel network. Its JSON
+nests the underlying layer, as the JAX ``to_dict`` does. The other
+classes of the JAX file are not ported (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -37,6 +37,10 @@ class _Wrapper(Layer):
     @property
     def mixes_positions(self):
         return self.underlying.mixes_positions
+
+    @property
+    def pools_sequence(self):
+        return self.underlying.pools_sequence
 
     @property
     def sequence_parallel(self):

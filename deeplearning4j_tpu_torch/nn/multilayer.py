@@ -72,13 +72,20 @@ per-process rule of ``parallel/mesh.py``: every rank is given the same
 global batch and keeps its own tokens of the inputs, labels and masks;
 its loss over them is its share of the global loss, and the loss and
 the gradients are summed over the ``seq`` group before the update;
-``output`` gathers the shards back. Layers that mix positions
-(``Layer.mixes_positions``) other than the sequence-parallel attention
-are refused under the context (:func:`_check_seq_layer`). Past one rank
-each rank draws its own shard's dropout masks, so the masks are not
-those of a one-card run (nor the JAX package's, whose generator
-differs). A network without such a mode ignores the context, as the
-JAX network does.
+``output`` gathers the shards back. A layer that reduces the sequence
+(``Layer.pools_sequence``: pooling, the CLS token, learned queries, a
+dense layer's flatten) combines the ranks' partials over the group, and
+the layers after it — the replicated tail — see the same whole [B, …]
+on every rank: the labels and labels mask then stay whole, ``output``
+returns the tail's output as it is, and the loss counts on the first
+rank only. Layers that mix positions (``Layer.mixes_positions``) other
+than the sequence-parallel attention and those pooling layers are
+refused before the reduction, and a sequence-parallel layer after it
+(:func:`_check_seq_layer`). Past one rank each rank draws its own
+shard's dropout masks in the layers before the reduction (so the masks
+are not those of a one-card run, nor the JAX package's, whose generator
+differs) and the same masks in the tail. A network without such a mode
+ignores the context, as the JAX network does.
 """
 from __future__ import annotations
 
@@ -250,12 +257,24 @@ def _mesh():
     return mesh
 
 
-def _check_seq_layer(i: int, layer: Layer) -> None:
-    """Raise ``NotImplementedError`` unless ``layer`` runs on the rank's
-    shard of the sequence: it has a ``sequence_parallel`` mode, or it
-    does not mix positions (``Layer.mixes_positions``)."""
+def _check_seq_layer(where: str, layer, sharded: bool) -> None:
+    """Raise unless ``layer`` (or a graph vertex) can run where it sits
+    in a sequence-parallel network. Fed the rank's shard of the sequence
+    (``sharded``) it must have a ``sequence_parallel`` mode, reduce the
+    sequence over the group (``pools_sequence``) or not mix positions
+    (``mixes_positions``), else ``NotImplementedError``; in the
+    replicated tail it must not carry a ``sequence_parallel`` mode, which
+    would split its whole input as a shard (``ValueError``)."""
+    if not sharded:
+        if getattr(layer, "sequence_parallel", None) is not None:
+            raise ValueError(
+                f"{where} ({type(layer).__name__}) is sequence-parallel "
+                "but comes after the layer that reduces the sequence: "
+                "every rank holds the whole input there")
+        return
     why = layer.mixes_positions
-    if why and not hasattr(layer, "sequence_parallel"):
+    if (why and not hasattr(layer, "sequence_parallel")
+            and not layer.pools_sequence):
         if not isinstance(why, str):
             why = ""
         elif why.startswith("ROADMAP.md C"):
@@ -263,7 +282,7 @@ def _check_seq_layer(i: int, layer: Layer) -> None:
         else:
             why = f": it comes there with {why}"
         raise NotImplementedError(
-            f"layer_{i} ({type(layer).__name__}) mixes positions, so it "
+            f"{where} ({type(layer).__name__}) mixes positions, so it "
             "cannot run on a rank's shard of the sequence under a "
             "sequence-parallel context" + why)
 
@@ -589,7 +608,12 @@ class MultiLayerNetwork:
         seed (or None), split once per layer. ``rnn_init`` (layer name →
         carries) is each recurrent layer's initial state; ``rnn_states``
         holds their final carries, and the layer state of a recurrent
-        layer or of its wrapper stays as it was."""
+        layer or of its wrapper stays as it was. Inside a
+        sequence-parallel forward (the context's ``layout`` set, see
+        :meth:`_layout`) a layer fed the rank's shard takes a seed with
+        the rank's index folded in past one rank, and the first layer
+        that reduces the sequence clears the layout: the layers after it
+        run on the whole [B, …]."""
         if not params:
             raise RuntimeError(
                 "Network has no parameters — call init() before "
@@ -598,6 +622,9 @@ class MultiLayerNetwork:
         new_state, rnn_states = {}, {}
         n = len(self.layers)
         preprocs = self.conf.input_preprocessors
+        shard = _mesh().active_context()
+        if shard is not None and shard.layout is None:
+            shard = None
         for i, layer in enumerate(self.layers):
             name = _lname(i)
             proc = preprocs.get(i)
@@ -607,6 +634,8 @@ class MultiLayerNetwork:
             sub = None
             if rng is not None:
                 rng, sub = split_seed(rng)
+                if shard is not None and shard.size > 1:
+                    sub = fold_in(sub, shard.index)
             recurrent = isinstance(layer, BaseRecurrentLayer)
             kwargs = ({"initial_state": rnn_init.get(name)}
                       if recurrent and rnn_init else {})
@@ -614,9 +643,8 @@ class MultiLayerNetwork:
                 if (pre_output_last and i == n - 1
                         and isinstance(layer, OutputLayer)):
                     # pre-activation logits for the fused loss
-                    z = (x.reshape(x.shape[0], -1)
-                         if not isinstance(layer, RnnOutputLayer)
-                         and x.ndim > 2 else x)
+                    z = (x if isinstance(layer, RnnOutputLayer)
+                         else layer.flat_input(x))
                     z = z @ params[name]["W"]
                     if layer.has_bias:
                         z = z + params[name]["b"]
@@ -631,6 +659,9 @@ class MultiLayerNetwork:
             new_state[name] = (state.get(name, {}) if returns_carries(layer)
                                else s)
             mask = layer.propagate_mask(mask, None)
+            if shard is not None and layer.pools_sequence:
+                shard.layout = None          # the replicated tail
+                shard = None
         return x, new_state, rnn_states
 
     # ------------------------------------------------------------------
@@ -648,15 +679,15 @@ class MultiLayerNetwork:
         return loss_name, fused
 
     def _loss_fn(self, params, state, x, y, mask, lmask, rng, *,
-                 noise_rng=None, with_reg=True, rnn_init=None,
+                 with_reg=True, count_loss=True, rnn_init=None,
                  rnn_out=None):
         """The training loss at ``params`` (the f32 masters) and the new
-        state: weight noise on the forward's view of the masters, the
-        compute-dtype cast, the forward, the data loss, and the l1/l2
-        terms over the masters in f32. The noise draws from a seed split
-        off ``rng`` here, or from ``noise_rng`` where the caller split it
-        off already; ``with_reg=False`` leaves the l1/l2 terms out (see
-        :meth:`_loss_and_grads`). The recurrent layers start from
+        state: weight noise on the forward's view of the masters (from a
+        seed split off ``rng``), the compute-dtype cast, the forward, the
+        data loss, and the l1/l2 terms over the masters in f32.
+        ``with_reg=False`` leaves the l1/l2 terms out and
+        ``count_loss=False`` weighs the data loss 0, its backward kept
+        (see :meth:`_loss_and_grads`). The recurrent layers start from
         ``rnn_init``, and their final carries go into the dict
         ``rnn_out`` when one is given (truncated BPTT)."""
         loss_name, fused = self._last_loss()
@@ -664,8 +695,7 @@ class MultiLayerNetwork:
         groups = self._group_layers()
         master = params
         if has_weight_noise(groups):
-            if noise_rng is None:
-                noise_rng, rng = split_seed(rng)
+            noise_rng, rng = split_seed(rng)
             params = apply_weight_noise(groups, params, noise_rng)
         if cd is not None:
             # bf16 forward/backward, f32 master params: the cast is in
@@ -684,6 +714,8 @@ class MultiLayerNetwork:
                 out = out.float()
             kw = {"from_logits": True} if fused else {}
             loss = loss_fn(y, out, mask=lmask, **kw)
+            if not count_loss:
+                loss = loss * 0.0
             reg = reg_score(groups, master) if with_reg else 0.0
             if torch.is_tensor(reg):
                 loss = loss + reg
@@ -694,24 +726,26 @@ class MultiLayerNetwork:
         """(loss, gradient tree, new state) at the current parameters;
         the gradients have the master parameters' dtype. Under a
         sequence-parallel context ``x``, ``y`` and the masks are the
-        global batch: the rank's tokens are taken here, and the loss and
+        global batch: the rank's tokens are taken here (of the labels
+        only when the output keeps its time axis), and the loss and
         gradients come back summed over the group. Past one rank, the
-        rank's index is folded into the dropout seed, so that no two
-        shards draw the same dropout masks; the weight noise's seed is
-        split off before that fold, so that every shard of the sequence
-        runs through the same perturbed weights; and the l1/l2 terms
-        count on the first rank only, so that the sum holds them once,
-        as the global loss does. ``rnn`` (``rnn_init``, ``rnn_out``)
-        goes to :meth:`_loss_fn`."""
+        rank's index is folded into the dropout seeds of the layers
+        before the reduction (:meth:`_forward`), so that no two shards
+        draw the same dropout masks; the weight noise's seed is split
+        off the unfolded seed, so that every shard of the sequence runs
+        through the same perturbed weights; and the l1/l2 terms, and the
+        data loss of a replicated tail, count on the first rank only, so
+        that the sum holds them once, as the global loss does. ``rnn``
+        (``rnn_init``, ``rnn_out``) goes to :meth:`_loss_fn`."""
         sp = self._seq_parallel()
-        x, y, mask, lmask = self._shard(sp, x, y, mask, lmask)
+        tail = sp is not None and self._pooled_at() is not None
+        x, mask = self._shard(sp, x, mask)
+        if not tail:
+            y, lmask = self._shard(sp, y, lmask)
         kw = dict(rnn)
         if sp is not None and sp[0].size > 1:
             kw["with_reg"] = sp[0].index == 0
-            if rng is not None:
-                if has_weight_noise(self._group_layers()):
-                    kw["noise_rng"], rng = split_seed(rng)
-                rng = fold_in(rng, sp[0].index)
+            kw["count_loss"] = not tail or sp[0].index == 0
         with self._layout(sp):
             loss, grads, state = loss_and_grads(
                 lambda p: self._loss_fn(p, self.state, x, y, mask, lmask,
@@ -729,7 +763,11 @@ class MultiLayerNetwork:
         a ``distributed_context`` is active and its layers carry a
         ``sequence_parallel`` mode. None otherwise (the context does not
         touch a network without one). Raises when the layers disagree on
-        the mode, or hold a layer that cannot run on a shard."""
+        the mode, or hold a layer that cannot run where it sits
+        (:func:`_check_seq_layer`: before the first layer that reduces
+        the sequence, on the rank's shard; after it, in the replicated
+        tail), or an input preprocessor on the rank's shard, which would
+        reshape it as if it were the whole sequence."""
         ctx = _mesh().active_context()
         if ctx is None:
             return None
@@ -746,9 +784,27 @@ class MultiLayerNetwork:
         if mode not in _mesh().SP_MODES:
             raise ValueError(f"unknown sequence_parallel mode {mode!r} "
                              "(ring|ulysses|zigzag_ring)")
+        pooled = self._pooled_at()
         for i, layer in enumerate(self.layers):
-            _check_seq_layer(i, layer)
+            sharded = pooled is None or i <= pooled
+            proc = self.conf.input_preprocessors.get(i)
+            if sharded and proc is not None:
+                from deeplearning4j_tpu_torch.nn.vertices import SEQ_ITEM
+                raise NotImplementedError(
+                    f"layer_{i}'s input preprocessor "
+                    f"({type(proc).__name__}) would reshape the rank's "
+                    "shard of the sequence under a sequence-parallel "
+                    f"context: it comes there with {SEQ_ITEM}")
+            _check_seq_layer(f"layer_{i}", layer, sharded)
         return ctx, mode
+
+    def _pooled_at(self) -> Optional[int]:
+        """The index of the first layer that reduces the sequence
+        (``Layer.pools_sequence``), after which a sequence-parallel
+        network's activations are the replicated tail; None when the
+        output keeps its time axis."""
+        return next((i for i, layer in enumerate(self.layers)
+                     if layer.pools_sequence), None)
 
     @staticmethod
     def _shard(sp, *arrays):
@@ -765,8 +821,10 @@ class MultiLayerNetwork:
     @contextlib.contextmanager
     def _layout(sp):
         """Under ``sp = (context, mode)``, the context's ``layout`` set
-        to ``mode`` around a forward (``PositionalEmbeddingLayer`` reads
-        it); nothing when ``sp`` is None."""
+        to ``mode`` around a forward (``PositionalEmbeddingLayer`` and
+        the layers that reduce the sequence read it; the forward clears
+        it for the replicated tail), and restored after; nothing when
+        ``sp`` is None."""
         if sp is None:
             yield
             return
@@ -897,9 +955,9 @@ class MultiLayerNetwork:
         t2 = obs.now()
         host = losses.cpu()         # the group's one device sync
         t3 = obs.now()
-        obs.record_step("MultiLayerNetwork.fit", t0, t1, t2, t3,
-                        args={"steps": len(group)})
         notify_steps(self, "MultiLayerNetwork.fit", host.tolist())
+        obs.record_step("MultiLayerNetwork.fit", t0, t1, t2, t3,
+                        args={"steps": len(group)}, turn=True)
 
     def _fit_batch(self, x, y, fmask=None, lmask=None, _t0=None):
         t0 = obs.now() if _t0 is None else _t0
@@ -917,8 +975,9 @@ class MultiLayerNetwork:
             entry = "MultiLayerNetwork.fit"
         t2 = obs.now()
         score = float(loss)         # blocking device sync
-        obs.record_step(entry, t0, t1, t2, obs.now())
+        t3 = obs.now()
         notify_steps(self, "MultiLayerNetwork.fit", [score])
+        obs.record_step(entry, t0, t1, t2, t3, turn=True)
 
     def _fit_tbptt(self, x, y, fmask, lmask, rng):
         """One truncated-BPTT batch (the JAX ``_fit_tbptt``): an update a
@@ -958,7 +1017,8 @@ class MultiLayerNetwork:
         with self._layout(sp):
             out, _, _ = self._forward(params, state, x, train=train,
                                       rng=None, mask=mask)
-        if sp is not None and sp[0].size > 1:
+        if (sp is not None and sp[0].size > 1
+                and self._pooled_at() is None):
             ctx, mode = sp
             out = _mesh().unshard_sequence(
                 _mesh().all_gather(out, ctx.group), mode)
@@ -978,14 +1038,18 @@ class MultiLayerNetwork:
         lmask = self._as_input(getattr(dataset, "labels_mask", None),
                                torch.float32)
         sp = self._seq_parallel()
-        x, y, fmask, lmask = self._shard(sp, x, y, fmask, lmask)
+        tail = sp is not None and self._pooled_at() is not None
+        x, fmask = self._shard(sp, x, fmask)
+        if not tail:
+            y, lmask = self._shard(sp, y, lmask)
         with self._layout(sp):
             out, _, _ = self._forward(self.params, self.state, x,
                                       train=False, rng=None, mask=fmask,
                                       pre_output_last=fused)
         kw = {"from_logits": True} if fused else {}
         loss = losses_mod.get(loss_name)(y, out, mask=lmask, **kw)
-        if sp is not None and sp[0].size > 1:
+        # a replicated tail's loss is already the global one on every rank
+        if sp is not None and sp[0].size > 1 and not tail:
             loss = _mesh().all_reduce_sum(loss.reshape(1).contiguous(),
                                            sp[0].group)
         return float(loss)

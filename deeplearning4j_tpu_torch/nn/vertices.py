@@ -6,7 +6,21 @@ one dataclass per vertex with ``apply(inputs)`` on batched tensors and
 sequence mask sets ``needs_mask`` (the graph then calls
 ``apply(inputs, mask=m)``); ``propagate_mask`` says what mask its
 consumers see. ``to_dict``/:func:`vertex_from_dict` are the JAX
-package's JSON beans. ``AttentionVertex`` comes with a later slice.
+package's JSON beans.
+
+Under a sequence-parallel context a vertex fed the rank's shard of a
+sequence answers as a layer does (``Layer.mixes_positions``,
+``Layer.pools_sequence``): the vertices that act on each position (or on
+the feature or batch axis) run on the shard; ``LastTimeStepVertex``
+takes each row's last step from the rank that holds it and sums it over
+the group (the replicated tail of ``parallel/mesh.py``);
+``DuplicateToTimeSeriesVertex`` spreads its vector over the rank's
+steps; and the vertices that reorder, flatten or attend along the time
+axis — ``ReverseTimeSeriesVertex``, ``FlattenVertex``,
+``ReshapeVertex``, ``AttentionVertex``, a ``MergeVertex`` on the time
+axis and the others that read the whole input — are refused there,
+naming :data:`SEQ_ITEM`. Outside the sharded part of a graph they run as
+anywhere.
 """
 from __future__ import annotations
 
@@ -17,6 +31,10 @@ from typing import Any, Dict, List, Optional, Sequence
 import torch
 
 _VERTEX_REGISTRY: Dict[str, type] = {}
+
+#: the ROADMAP item of the vertices that cannot run on the rank's shard
+#: of a sequence (they reorder, flatten or attend along the time axis)
+SEQ_ITEM = "ROADMAP item A16"
 
 
 def register_vertex(cls):
@@ -46,6 +64,12 @@ class GraphVertex:
     #: subclasses that consume the sequence mask set this True; the
     #: graph then calls ``apply(inputs, mask=m)``
     needs_mask = False
+    #: as ``Layer.mixes_positions``: False where the vertex acts on each
+    #: position alone (so it runs on the rank's shard of a sequence), a
+    #: string naming the ROADMAP item that would bring it there
+    mixes_positions = SEQ_ITEM
+    #: as ``Layer.pools_sequence``: the vertex reduces the time axis
+    pools_sequence = False
 
     def apply(self, inputs: List[torch.Tensor]) -> torch.Tensor:
         raise NotImplementedError
@@ -71,6 +95,11 @@ class MergeVertex(GraphVertex):
     """Concatenate along the feature axis (reference MergeVertex)."""
     axis: int = -1
 
+    @property
+    def mixes_positions(self):
+        # axis 1 of a [B, T, F] input is the time axis
+        return self.axis in (1, -2) and SEQ_ITEM
+
     def apply(self, inputs):
         return torch.cat(inputs, dim=self.axis)
 
@@ -92,6 +121,7 @@ class MergeVertex(GraphVertex):
 @dataclass
 class ElementWiseVertex(GraphVertex):
     """Elementwise add/sub/mul/avg/max (reference ElementWiseVertex.Op)."""
+    mixes_positions = False
     op: str = "add"
 
     def apply(self, inputs):
@@ -123,6 +153,7 @@ class ElementWiseVertex(GraphVertex):
 @dataclass
 class SubsetVertex(GraphVertex):
     """Feature range [from, to], inclusive (reference SubsetVertex)."""
+    mixes_positions = False
     from_: int = 0
     to: int = 0
 
@@ -139,6 +170,7 @@ class SubsetVertex(GraphVertex):
 @dataclass
 class StackVertex(GraphVertex):
     """Stack along the batch axis (reference StackVertex)."""
+    mixes_positions = False
 
     def apply(self, inputs):
         return torch.cat(inputs, dim=0)
@@ -152,6 +184,7 @@ class StackVertex(GraphVertex):
 class UnstackVertex(GraphVertex):
     """Slice ``index`` of ``num`` along the batch axis (reference
     UnstackVertex)."""
+    mixes_positions = False
     index: int = 0
     num: int = 2
 
@@ -167,6 +200,7 @@ class UnstackVertex(GraphVertex):
 @register_vertex
 @dataclass
 class ScaleVertex(GraphVertex):
+    mixes_positions = False
     scale: float = 1.0
 
     def apply(self, inputs):
@@ -179,6 +213,7 @@ class ScaleVertex(GraphVertex):
 @register_vertex
 @dataclass
 class ShiftVertex(GraphVertex):
+    mixes_positions = False
     shift: float = 0.0
 
     def apply(self, inputs):
@@ -191,6 +226,7 @@ class ShiftVertex(GraphVertex):
 @register_vertex
 @dataclass
 class L2NormalizeVertex(GraphVertex):
+    mixes_positions = False
     eps: float = 1e-8
 
     def apply(self, inputs):
@@ -279,16 +315,26 @@ class L2Vertex(GraphVertex):
 @dataclass
 class LastTimeStepVertex(GraphVertex):
     """The last unmasked timestep of [B, T, F] → [B, F] (reference
-    LastTimeStepVertex)."""
+    LastTimeStepVertex): each row's live steps are counted over the
+    ranks, and the rank that holds the last one gives it, summed over the
+    ranks. On the rank's shard of a sequence (under a sequence-parallel
+    context) the sums are all-reduces and every other rank gives zeros;
+    on the whole sequence they are the identity."""
     needs_mask = True
+    mixes_positions = False
+    pools_sequence = True
 
     def apply(self, inputs, mask=None):
+        from deeplearning4j_tpu_torch.parallel.mesh import (
+            global_positions, reduce_sum, shard_group)
         x = inputs[0]
-        if mask is None:
-            return x[:, -1, :]
-        lengths = torch.sum(mask.to(torch.int64), dim=1)
-        idx = torch.clamp(lengths - 1, min=0)
-        return x[torch.arange(x.shape[0], device=x.device), idx]
+        g = shard_group()
+        live = (torch.ones(x.shape[:2], dtype=torch.int64, device=x.device)
+                if mask is None else mask.to(torch.int64))
+        idx = torch.clamp(reduce_sum(live.sum(dim=1), g) - 1, min=0)
+        hit = global_positions(x.shape[1], x.device)[None, :] == idx[:, None]
+        # one row's step or nothing: a sum of it and zeros, exact
+        return reduce_sum(torch.where(hit[..., None], x, 0).sum(dim=1), g)
 
     def output_shape(self, shapes):
         return (shapes[0][-1],)
@@ -301,7 +347,9 @@ class LastTimeStepVertex(GraphVertex):
 @dataclass
 class DuplicateToTimeSeriesVertex(GraphVertex):
     """Broadcast a [B, F] vector across the time axis of a reference
-    sequence → [B, T, F]; inputs = [vector, time-series reference]."""
+    sequence → [B, T, F]; inputs = [vector, time-series reference]. On
+    the rank's shard of the reference it spans the rank's steps."""
+    mixes_positions = False
 
     def apply(self, inputs):
         vec, ts = inputs[0], inputs[1]
@@ -353,3 +401,34 @@ class PreprocessorVertex(GraphVertex):
     def to_dict(self):
         return {"@class": type(self).__name__,
                 "preprocessor": self.preprocessor.to_dict()}
+
+
+@register_vertex
+@dataclass
+class AttentionVertex(GraphVertex):
+    """Cross-attention vertex (reference AttentionVertex over
+    multi_head_dot_product_attention): inputs [queries, keys, values]
+    (or [q, kv]), each [B, T, F] split into ``n_heads`` heads.
+    Parameter-free scaled dot-product attention through the port's
+    ``scaled_dot_attention``: on the card the flash kernels (K1 forward,
+    K3 backward; head dims 16, 32, 64 and 128). For projected attention
+    use ``nn.layers.attention.MultiHeadAttention``."""
+    n_heads: int = 1
+
+    def apply(self, inputs):
+        from deeplearning4j_tpu_torch.nn.layers.attention import \
+            scaled_dot_attention
+        q = inputs[0]
+        k = inputs[1]
+        v = inputs[2] if len(inputs) > 2 else inputs[1]
+
+        def split(x):
+            b, t, f = x.shape
+            return x.reshape(b, t, self.n_heads, f // self.n_heads)
+
+        out = scaled_dot_attention(split(q), split(k), split(v))
+        b, t, h, d = out.shape
+        return out.reshape(b, t, h * d)
+
+    def output_shape(self, shapes):
+        return tuple(shapes[0])

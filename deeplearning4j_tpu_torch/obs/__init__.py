@@ -30,15 +30,20 @@ from deeplearning4j_tpu_torch.obs.trace import now as now, span as span
 
 
 def record_step(entry: str, t0: float, t1: float, t2: float,
-                t3: float, args: Optional[Dict[str, Any]] = None
-                ) -> None:
+                t3: float, args: Optional[Dict[str, Any]] = None,
+                turn: bool = False) -> None:
     """One completed train/serve step (or a fit loop's group of steps)
     with phase attribution: ``t0→t1`` host→device feed, ``t1→t2``
     dispatch (the launches queued on the card), ``t2→t3`` blocking
-    device sync. Metrics always; spans when tracing."""
+    device sync. Metrics always; spans when tracing. ``turn=True`` (the
+    fit loops, which call it after their listeners) runs the ``/step``
+    span on to its own emission, over the loop's work after the sync:
+    the listeners' calls and the step's metrics. The step's metrics
+    stay ``t0→t3``."""
     metrics.observe_step(entry, t3 - t0, t1 - t0, t3 - t2)
     if trace.enabled():
-        trace.add_spans(((entry + "/step", t0, t3, args),
+        end = now() if turn else t3
+        trace.add_spans(((entry + "/step", t0, end, args),
                          (entry + "/h2d", t0, t1, None),
                          (entry + "/dispatch", t1, t2, None),
                          (entry + "/sync", t2, t3, None)))

@@ -30,7 +30,10 @@ its attention runs unmasked; ``eval``: the same classifier's
 batch; ``beam``: one ``generate_beam`` call of ``BEAM_NEW`` tokens;
 ``mlm``: BERT-base's masked-LM head trained through ``BertIterator``
 batches, the fine-tune step's trunk under a [B, T, V] head;
-``charrnn_agree``: one f32 forward and backward of a
+``sp_graph``: BERT-base's classifier at T = 512 with its encoder blocks'
+``sequence_parallel="ring"`` under a one-rank ``{"seq": 1}`` context,
+each layer's attention one block pair through ``flash_block_fwd``/
+``flash_block_bwd``; ``charrnn_agree``: one f32 forward and backward of a
 ``SelfAttentionLayer`` → LSTM → ``RecurrentAttentionLayer`` →
 ``LearnedSelfAttentionLayer`` net over ``CHARRNN_ATT_T`` steps),
 its launches per step. The char-RNN's own path (``charrnn``) launches
@@ -111,9 +114,12 @@ _NORM = "deeplearning4j_tpu_torch.ops.fused_norms"
 #: through the sharded update)
 _DP = ("dp", "dp_packed", "zero")
 #: the fine-tune step's paths: alone, under the wrapper, in K-step
-#: regions under a schedule, and around a zip checkpoint and restore; and
-#: the masked-LM step (``mlm``), which runs the same BERT-base trunk
-_FT = ("finetune", "dp_graph", "finetune_opts", "checkpoint", "mlm")
+#: regions under a schedule, and around a zip checkpoint and restore; the
+#: masked-LM step (``mlm``), which runs the same BERT-base trunk; and the
+#: classifier sequence-parallel at one rank (``sp_graph``: the ring's one
+#: block pair a layer, K1 and K3 once each)
+_FT = ("finetune", "dp_graph", "finetune_opts", "checkpoint", "mlm",
+       "sp_graph")
 #: the train step's paths on one network: alone, and in K-step regions
 #: under a schedule
 _TR = ("train", "train_opts")

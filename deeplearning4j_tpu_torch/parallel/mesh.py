@@ -51,14 +51,36 @@ layer:
   are summed over the group before the update, so gradient-norm
   clipping sees the global norm, ``score()`` is the global loss, and
   every rank's parameters stay the same to the bit.
+- *The replicated tail.* A layer that reduces the sequence axis
+  (``Layer.pools_sequence``: global pooling, the CLS pool, the learned
+  queries' attention, a dense layer that flattens [B, T, F]; the
+  ``LastTimeStepVertex``) combines the ranks' partials over the group
+  by the differentiable collectives below — an all-reduce of the
+  partial pools, the sum of the one rank's CLS row, an lse merge of the
+  partial attentions, the shards gathered in global order — so every
+  rank then holds the same [B, …] activations, and computes the same
+  labels' loss. That loss counts on the first rank of the group only
+  (the others weigh it 0, so their backward still runs the
+  collectives): the sum over the group is then the global loss and
+  gradient, not n times it, and it adds only zeros to the first rank's,
+  with no rounding (a 1/n share each would round at n not a power of
+  two). The collectives' backward is the adjoint of their forward: the
+  sum of every rank's cotangent, routed back to the rank's own
+  contribution. Dropout in the tail draws the same mask on every rank
+  (the rank's index is folded into the seeds of the layers before the
+  reduction only), so the ranks' parameters stay the same.
 - *Refused.* ``batch_axis``/``head_axis`` and a mesh with any axis but
   the sequence axis (composed DP × SP × TP, ROADMAP item A3) raise
   ``NotImplementedError``; so do layers that mix positions other than
-  the sequence-parallel attention (``nn/multilayer.py``), and a
-  ``ComputationGraph`` under the context (item A4).
+  the sequence-parallel attention and the pooling layers above
+  (``nn/multilayer.py``), a sequence-parallel layer after the
+  reduction, and the graph vertices that reorder or flatten a time
+  axis (``nn/vertices.py``) and the input preprocessors that reshape
+  it, on the rank's shard (item A16).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import threading
 from typing import Dict, Optional, Sequence, Tuple
@@ -162,6 +184,103 @@ def all_gather(tensor: torch.Tensor, group=None):
            for _ in range(dist.get_world_size(group))]
     dist.all_gather(out, tensor, group=group)
     return out
+
+
+def _all_reduce(tensor: torch.Tensor, op, group) -> torch.Tensor:
+    """``op`` over ``group`` of a contiguous copy of ``tensor``."""
+    out = tensor.contiguous().clone()
+    check_backend(out, group)
+    dist.all_reduce(out, op=op, group=group)
+    return out
+
+
+# -- differentiable collectives of the replicated tail (the rule above) ------
+class _ReduceSum(torch.autograd.Function):
+    """The sum over the group; its adjoint is the sum of the cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, dist.ReduceOp.SUM, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, dist.ReduceOp.SUM, ctx.group), None
+
+
+class _ReduceMax(torch.autograd.Function):
+    """The elementwise max over the group. The gradient of an element
+    goes whole to its owning rank: the first in the group that holds the
+    max (a tie between ranks is not split)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = _all_reduce(x, dist.ReduceOp.MAX, group)
+        me = dist.get_rank(group)
+        held = torch.where(x == y, me, dist.get_world_size(group))
+        owner = _all_reduce(held, dist.ReduceOp.MIN, group)
+        ctx.group = group
+        ctx.save_for_backward(owner == me)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        mine, = ctx.saved_tensors
+        g = _all_reduce(g, dist.ReduceOp.SUM, ctx.group)
+        return torch.where(mine, g, torch.zeros_like(g)), None
+
+
+class _GatherSequence(torch.autograd.Function):
+    """Every rank's shard of the sequence, put back in global order; the
+    backward keeps the rank's own positions of the summed cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group, mode):
+        ctx.args = (group, mode, dist.get_world_size(group),
+                    dist.get_rank(group), x.shape[1])
+        return unshard_sequence(all_gather(x, group), mode)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, mode, n, m, _ = ctx.args
+        g = _all_reduce(g, dist.ReduceOp.SUM, group)
+        return shard_sequence(g, mode, n, m).contiguous(), None, None
+
+
+def _alone(group) -> bool:
+    return group is None or dist.get_world_size(group) == 1
+
+
+def reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of ``x`` over ``group``, differentiable (the JAX ``psum``):
+    every rank's cotangents are summed back to each rank. ``x`` itself
+    when ``group`` is None (an input that is not a shard,
+    :func:`shard_group`) or has one rank."""
+    return x if _alone(group) else _ReduceSum.apply(x, group)
+
+
+def reduce_max(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The elementwise max of ``x`` over ``group``, differentiable: the
+    summed cotangent goes to the first rank holding each max. ``x``
+    itself when ``group`` is None or has one rank."""
+    return x if _alone(group) else _ReduceMax.apply(x, group)
+
+
+def gather_sequence(x: torch.Tensor, mode: str,
+                    group=None) -> torch.Tensor:
+    """The global [B, T, ...] from every rank's shard ``x`` [B, T_loc,
+    ...] in the layout of ``mode``, differentiable: the inverse of
+    :func:`shard_sequence`, whose backward keeps the rank's positions of
+    the summed cotangent. ``x`` itself when ``group`` is None or has one
+    rank."""
+    return x if _alone(group) else _GatherSequence.apply(x, group, mode)
+
+
+def max_over(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The elementwise max of ``x`` over ``group``, outside autograd
+    (:func:`reduce_max` also finds each element's owner); ``x`` itself
+    when ``group`` is None or has one rank."""
+    return x if _alone(group) else _all_reduce(x, dist.ReduceOp.MAX, group)
 
 
 # the flat collectives' current names (torch 2.13); older releases have
@@ -322,8 +441,10 @@ class distributed_context:
             net.fit(x, y)     # every rank: the same global batch
 
     Per-thread, as in JAX. ``layout`` is the mode whose layout the
-    running network holds its tokens in (set by the network around its
-    forward; None outside one): ``PositionalEmbeddingLayer`` reads it.
+    running network holds its tokens in, set by the network for each
+    layer or vertex it feeds the rank's shard (None outside a forward and
+    in the replicated tail): ``PositionalEmbeddingLayer`` and the layers
+    that reduce the sequence read it (:func:`sharded_input`).
     ``batch_axis``/``head_axis`` and a mesh with other axes (composed
     DP × SP × TP) raise ``NotImplementedError``: ROADMAP item A3."""
 
@@ -445,3 +566,67 @@ def unshard_sequence(shards: Sequence[torch.Tensor], mode: str,
             at += ln
     runs.sort(key=lambda r: r[0])
     return torch.cat([r[1] for r in runs], dim=axis)
+
+
+def sharded_input():
+    """``(context, mode)`` while a sequence-parallel network's forward
+    feeds a layer (or vertex) the rank's shard of the sequence (the
+    context's ``layout`` set); None otherwise — outside a context, in a
+    network that does not run sequence-parallel, and in the replicated
+    tail after the reduction, where a layer sees the whole [B, …]."""
+    ctx = active_context()
+    if ctx is None or ctx.layout is None:
+        return None
+    return ctx, ctx.layout
+
+
+@contextlib.contextmanager
+def unsharded():
+    """The active context's ``layout`` cleared around a call that feeds a
+    layer single positions as rows, not the rank's shard of a sequence
+    (``TimeDistributed``): :func:`sharded_input` is None inside it."""
+    ctx = active_context()
+    if ctx is None:
+        yield
+        return
+    prev, ctx.layout = ctx.layout, None
+    try:
+        yield
+    finally:
+        ctx.layout = prev
+
+
+def shard_group():
+    """The ``seq`` group over which the calling layer's input is sharded
+    (:func:`sharded_input`), or None when it is fed the whole sequence:
+    the collectives above are then the identity."""
+    sp = sharded_input()
+    return None if sp is None else sp[0].group
+
+
+def global_positions(t_loc: int, device=None) -> torch.Tensor:
+    """The global position of each of the ``t_loc`` tokens the calling
+    layer is fed, in the order it holds them (int64 [t_loc]): the rank's
+    under :func:`sharded_input`, else ``0 … t_loc − 1``."""
+    sp = sharded_input()
+    if sp is None:
+        return torch.arange(t_loc, device=device)
+    ctx, mode = sp
+    return torch.cat([
+        torch.arange(off, off + ln, device=device)
+        for off, ln in sequence_segments(mode, ctx.size, ctx.index, t_loc)])
+
+
+def local_index(t_loc: int, position: int) -> Optional[int]:
+    """Where among the ``t_loc`` tokens the calling layer is fed the
+    global ``position`` lies, or None when another rank holds it."""
+    sp = sharded_input()
+    if sp is None:
+        return position if 0 <= position < t_loc else None
+    ctx, mode = sp
+    at = 0
+    for off, ln in sequence_segments(mode, ctx.size, ctx.index, t_loc):
+        if off <= position < off + ln:
+            return at + position - off
+        at += ln
+    return None

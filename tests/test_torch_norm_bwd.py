@@ -77,6 +77,28 @@ def test_kernel_computes_the_wrappers_partition():
     assert text.count("rows * (blockIdx.x + 1) / gridDim.x") == 2
 
 
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_cluster_slices_and_their_owners_cover_every_column_once(cluster):
+    """The finish's slices of the columns, rank q's [lo(q), lo(q + 1)),
+    and the owner a warp-path block pushes column j to: the kernel's two
+    formulas, evaluated here for every column of every width the kernel
+    takes up to 2 x 1024 (the warp path's widest LayerNorm row), and the
+    launch entry's refusal of a cluster that is not a power of two."""
+    text = _cu_text()
+    assert "return (ncol * q) >> sh;" in text
+    assert "return (((j + 1) << sh) + ncol - 1) / ncol - 1;" in text
+    assert "(cluster & (cluster - 1))" in text
+    sh = cluster.bit_length() - 1
+    for ncol in range(1, 2 * fused_norms._WARP_MAX_F + 1):
+        lo = [(ncol * q) >> sh for q in range(cluster + 1)]
+        assert lo[0] == 0 and lo[-1] == ncol
+        assert all(a <= b for a, b in zip(lo, lo[1:]))
+        owner = [(((j + 1) << sh) + ncol - 1) // ncol - 1
+                 for j in range(ncol)]
+        assert owner == [q for q in range(cluster)
+                         for _ in range(lo[q], lo[q + 1])]
+
+
 @pytest.mark.parametrize("rows,unit,max_blocks,cluster,want", [
     (16384, 8, 264, 8, 264),      # the train path: every co-resident block
     (2048, 8, 264, 8, 256),       # a warp a row, 256 blocks

@@ -244,7 +244,8 @@ def test_registry_lists_every_tpu_kernel():
                                             "train_opts", "finetune_opts",
                                             "serve_fault", "checkpoint",
                                             "transfer", "transfer_agree",
-                                            "mlm", "charrnn_agree"}
+                                            "mlm", "charrnn_agree",
+                                            "sp_graph"}
         # the stepped phases' expected launches per step: one positive
         # count for each stepped path of the row, none for the gateways
         stepped = set(e.paths) - {"serve", "serve_opts", "serve_fault"}
@@ -253,12 +254,14 @@ def test_registry_lists_every_tpu_kernel():
     assert {e.key for e in on_path("serve")} == {"K1", "K2"}
     assert {e.key for e in on_path("serve_opts")} == {"K1", "K2"}
     assert {e.key for e in on_path("serve_fault")} == {"K1", "K2"}
-    # the K-step regions, the fine-tune steps around a zip checkpoint
-    # and the masked-LM step on BERT-base's trunk launch what the train
-    # and fine-tune steps do
+    # the K-step regions, the fine-tune steps around a zip checkpoint,
+    # the masked-LM step on BERT-base's trunk and the classifier at one
+    # rank of the ring (one block pair a layer) launch what the train and
+    # fine-tune steps do
     for path, like in (("train_opts", "train"),
                        ("finetune_opts", "finetune"),
-                       ("checkpoint", "finetune"), ("mlm", "finetune")):
+                       ("checkpoint", "finetune"), ("mlm", "finetune"),
+                       ("sp_graph", "finetune")):
         assert {e.key: e.per_step[path] for e in on_path(path)} == \
             {e.key: e.per_step[like] for e in on_path(like)}
     # one generate_beam call: K1 once a block of its one prefill, K2 at

@@ -2,8 +2,11 @@
 ``tests/test_torch_sequence_parallel.py`` (n = 2) and
 ``tests/test_torch_sequence_parallel_4.py`` (n = 4), which import these
 checks and give the module fixture ``world``: the port's ring, zigzag
-ring and Ulysses attention, the layer API under ``distributed_context``
-and GPTNano trained sequence-parallel, run as gloo ranks
+ring and Ulysses attention, the layer API under ``distributed_context``,
+GPTNano trained sequence-parallel, the layers and the vertex that reduce
+the sequence (pooling, the CLS token, learned queries, a flattening
+dense layer, the last time step), a pooled net and a BERT classifier
+graph trained sequence-parallel, run as gloo ranks
 (``tests/torch_sp_worker.py``, one process per rank, a ``{"seq": n}``
 mesh) against the JAX package on as many of its CPU devices
 (``make_mesh({"seq": n})``), from the same numpy inputs and
@@ -35,6 +38,21 @@ Tolerances:
   1e-4 and all within 2 · lr · steps (Adam's step is ~lr wherever a
   gradient is within rounding of zero). Every rank's parameters are the
   same to the bit.
+- the reductions (``worker.POOL_CASES``), each on the rank's shard in
+  each mode against the JAX layer on the global input (the JAX layers
+  do not read the context): the pooled output, the gradient of the
+  rank's tokens and the parameters' gradients summed over the group,
+  in the attention band; every rank's output the same to the bit.
+- the pooled net (``tests/test_parallel.py:621``, ``:665``) and the BERT
+  classifier graph, from the JAX weights, against the JAX networks under
+  ``distributed_context(make_mesh({"seq": n}))`` on the same batches:
+  the losses in the LM's band, the parameters as the LM's (with each
+  net's learning rate and step count), the BERT ``output`` in the
+  attention band; every rank's parameters the same to the bit.
+- a ``TimeDistributed`` dense layer before the pool (``worker.td_case``),
+  against the port's run of the same net outside the context: the loss
+  in the LM's band, the output in the attention band, the parameters as
+  the LM's; every rank's parameters the same to the bit.
 """
 import json
 import os
@@ -47,6 +65,14 @@ import numpy as np
 import pytest
 
 from deeplearning4j_tpu.data.dataset import DataSet as JaxDataSet
+from deeplearning4j_tpu.nn import layers as jax_layers
+from deeplearning4j_tpu.nn import updaters as jax_updaters
+from deeplearning4j_tpu.nn import vertices as jax_vertices
+from deeplearning4j_tpu.nn.config import InputType as JaxInputType
+from deeplearning4j_tpu.nn.config import \
+    NeuralNetConfiguration as JaxNNC
+from deeplearning4j_tpu.nn.graph import \
+    ComputationGraph as JaxComputationGraph
 from deeplearning4j_tpu.nn.layers import MultiHeadAttention as JaxMHA
 from deeplearning4j_tpu.nn.multilayer import \
     MultiLayerNetwork as JaxMultiLayerNetwork
@@ -57,6 +83,7 @@ from deeplearning4j_tpu.parallel import (distributed_context, make_mesh,
                                          zigzag_ring_self_attention,
                                          zigzag_unpermute)
 from deeplearning4j_tpu.parallel.ring_attention import zigzag_order
+from deeplearning4j_tpu.zoo.bert import Bert as JaxBert
 from deeplearning4j_tpu.zoo.gpt import GPTNano as JaxGPTNano
 
 import torch_sp_worker as worker
@@ -93,7 +120,99 @@ def _lengths_mask(lengths, b, t):
     return (np.arange(t)[None, :] < lens[:, None]).astype(np.float32)
 
 
-def _inputs():
+#: the parameter shapes of the reductions that have some
+_POOL_PARAMS = {
+    "cls_pooler": {"W": (worker.POOL_F, worker.POOL_F),
+                   "b": (worker.POOL_F,)},
+    "learned": {"Q": (worker.LEARNED["n_queries"], worker.LEARNED["n_out"]),
+                "Wk": (worker.POOL_F, worker.LEARNED["n_out"]),
+                "Wv": (worker.POOL_F, worker.LEARNED["n_out"])},
+    "dense": {"W": (worker.POOL_T * worker.POOL_F, 4), "b": (4,)},
+}
+#: the widths of the reductions' outputs ([B] + these)
+_POOL_OUT = {"learned": (worker.LEARNED["n_queries"],
+                         worker.LEARNED["n_out"]),
+             "dense": (4,)}
+#: the BERT batches' key-mask lengths: a rank past the first holds no
+#: live token of some rows
+_BERT_LENGTHS = ((worker.BERT_T, 13), (21, worker.BERT_T),
+                 (worker.BERT_T, 6))
+
+
+def _numpy(tree_):
+    return {k: _numpy(v) if isinstance(v, dict) else v.detach().numpy()
+            for k, v in tree_.items()}
+
+
+def _jax_net(cls, conf, weights):
+    """The JAX network of ``conf`` (class ``cls``) holding ``weights``
+    (nested numpy arrays by group; a group without parameters may be
+    left out), with a fresh optimizer. Its
+    ``init`` runs only abstractly (``jax.eval_shape``: it fills in the
+    layers' inferred sizes, but compiles no ``jax.random`` program per
+    parameter shape, seconds each on the CPU)."""
+    held = {}
+
+    def build():
+        held["net"] = net = cls(conf).init()
+        return net.params, net.state
+    shapes, states = jax.eval_shape(build)
+    net = held["net"]
+    net.params = {k: jax.tree.map(lambda s, w: jnp.asarray(w, s.dtype),
+                                  shape, weights.get(k, {}))
+                  for k, shape in shapes.items()}
+    net.state = jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype), states)
+    net._build_optimizer()
+    return net
+
+
+def _pool_inputs(inp, rng, nets):
+    b, t, f = worker.POOL_B, worker.POOL_T, worker.POOL_F
+    inp["pool/x"] = rng.standard_normal((b, t, f)).astype(np.float32)
+    inp["pool/mask"] = _lengths_mask(worker.POOL_LENGTHS, b, t)
+    for kind in dict.fromkeys(k for k, _ in worker.POOL_CASES):
+        for name, shape in _POOL_PARAMS.get(kind, {}).items():
+            inp[f"pool/{kind}/{name}"] = (0.3 * rng.standard_normal(
+                shape)).astype(np.float32)
+        inp[f"pool/{kind}/co"] = rng.standard_normal(
+            (b,) + _POOL_OUT.get(kind, (f,))).astype(np.float32)
+    from deeplearning4j_tpu_torch.nn import layers as port_layers
+    from deeplearning4j_tpu_torch.nn import updaters as port_updaters
+    from deeplearning4j_tpu_torch.nn.config import InputType as PortInputType
+    from deeplearning4j_tpu_torch.nn.config import \
+        NeuralNetConfiguration as PortNNC
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.zoo.bert import Bert
+    weights = _numpy(MultiLayerNetwork(worker.pool_net_conf(
+        PortNNC.builder, port_layers, port_updaters,
+        PortInputType)).init(device="cpu").params)
+    inp.update(_flat(weights, "poolnet/weights"))
+    nets["poolnet"] = _jax_net(JaxMultiLayerNetwork, worker.pool_net_conf(
+        JaxNNC.builder, jax_layers, jax_updaters, JaxInputType), weights)
+    inp["poolnet/x"] = rng.standard_normal(
+        (worker.POOLNET_B, worker.POOLNET_T, 16)).astype(np.float32)
+    inp["poolnet/y"] = np.eye(2, dtype=np.float32)[
+        rng.integers(0, 2, worker.POOLNET_B)]
+    nets["bert"] = weights = _numpy(ComputationGraph(
+        worker.bert_conf(Bert, None)).init(device="cpu").params)
+    inp.update(_flat(weights, "bert/weights"))
+    b, t = worker.BERT_B, worker.BERT_T
+    for i, lengths in enumerate(_BERT_LENGTHS):
+        inp[f"bert/tok{i}"] = rng.integers(
+            0, worker.BERT["vocab_size"], (b, t)).astype(np.int32)
+        split = rng.integers(1, t, b)
+        inp[f"bert/seg{i}"] = (np.arange(t)[None, :]
+                               >= split[:, None]).astype(np.int32)
+        inp[f"bert/mask{i}"] = _lengths_mask(lengths, b, t)
+        inp[f"bert/y{i}"] = np.eye(2, dtype=np.float32)[
+            rng.integers(0, 2, b)]
+
+
+def _inputs(nets=None):
+    """The global inputs of every case, from numpy seeds (and the JAX
+    networks' initial weights); the JAX networks made for them go into
+    ``nets`` when given."""
     rng = np.random.default_rng(0)
     inp = {}
     for name, (_, (b, t, h, hkv, d), _, lengths, self_attn, loss) in \
@@ -125,6 +244,7 @@ def _inputs():
         inp[f"lm/y{i}"] = toks[:, 1:].astype(np.int32)
     mask = _lengths_mask((t, 21), b, t)
     inp["lm/fmask2"] = inp["lm/lmask2"] = mask
+    _pool_inputs(inp, np.random.default_rng(1), {} if nets is None else nets)
     return inp
 
 
@@ -289,6 +409,90 @@ def _jax_lm(inp, clip=None, frozen_until=None):
                                            inp["lm/lmask2"])))
 
 
+def _jax_pool(inp):
+    """Each of ``worker.POOL_CASES`` through the JAX layer or vertex on
+    the global input: the output and the gradients of ``sum(y · co)``
+    (every case in one jitted function: one compile)."""
+
+    def cases(x, mask, arrays):
+        res = {}
+        for kind, masked in worker.POOL_CASES:
+            layer, names = worker.pool_layer(kind, jax_layers, jax_vertices)
+            m = mask if masked else None
+
+            def fwd(x, p, layer=layer, kind=kind, m=m):
+                if kind == "last":
+                    return layer.apply([x], mask=m)
+                return layer.apply(p, {}, x, mask=m)[0]
+            params = {k: arrays[f"pool/{kind}/{k}"] for k in names}
+            co = arrays[f"pool/{kind}/co"]
+            key = f"pool/{kind}/{int(masked)}"
+            res[f"{key}/out"] = fwd(x, params)
+            res[f"{key}/dx"], gp = jax.grad(
+                lambda x, p: jnp.sum(fwd(x, p) * co), argnums=(0, 1))(
+                    x, params)
+            for k in names:
+                res[f"{key}/d{k}"] = gp[k]
+        return res
+
+    arrays = {k: v for k, v in inp.items() if k.startswith("pool/")
+              and k not in ("pool/x", "pool/mask")}
+    return jax.tree.map(np.asarray, jax.jit(cases)(
+        inp["pool/x"], inp["pool/mask"], arrays))
+
+
+def _on_mesh(net, mesh):
+    """``net``'s arrays replicated over ``mesh``, where its
+    sequence-parallel train step leaves them: the step then compiles
+    once under the context, not again for its own outputs' placement."""
+    rep = jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec())
+    net.params, net.opt_state, net.state = jax.device_put(
+        (net.params, net.opt_state, net.state), rep)
+
+
+def _jax_pool_net(net, inp, n):
+    """``tests/test_parallel.py:621``'s net (made by :func:`_inputs`) fit
+    outside the context, three times inside a {"seq": n} one, then
+    outside again: the losses and the parameters after."""
+    mesh = make_mesh({"seq": n})
+    losses = []
+    for inside in worker.POOLNET_FITS:
+        if inside:
+            _on_mesh(net, mesh)
+            with distributed_context(mesh):
+                net.fit(inp["poolnet/x"], inp["poolnet/y"])
+        else:
+            net.fit(inp["poolnet/x"], inp["poolnet/y"])
+        losses.append(float(net.score_))
+    return dict(losses=losses,
+                params=_flat(jax.tree.map(np.asarray, net.params),
+                             "params"))
+
+
+def _jax_bert(weights, inp, n):
+    """The BERT classifier graph in each of ``worker.BERT_MODES`` under a
+    {"seq": n} context, from ``weights``: ``output`` of the first batch,
+    the ``fit`` losses, ``score`` and the parameters."""
+    mesh = make_mesh({"seq": n})
+    res = {}
+    for mode in worker.BERT_MODES:
+        g = _jax_net(JaxComputationGraph, worker.bert_conf(JaxBert, mode),
+                     weights)
+        _on_mesh(g, mesh)
+        with distributed_context(mesh):
+            out = np.asarray(g.output(inp["bert/tok0"], inp["bert/seg0"])[0])
+            losses = []
+            for i in range(worker.BERT_STEPS):
+                m = inp[f"bert/mask{i}"]
+                g.fit([inp[f"bert/tok{i}"], inp[f"bert/seg{i}"]],
+                      [inp[f"bert/y{i}"]], features_masks=[m, m])
+                losses.append(float(g.score_))
+        res[mode] = dict(output=out, losses=losses, score=g.score(),
+                         params=_flat(jax.tree.map(np.asarray, g.params),
+                                      "params"))
+    return res
+
+
 def _port_local_noise(inp):
     """The port's weight-noise case (``worker.frozen_net`` with noise),
     local: 3 fit steps, their losses and the parameters after them."""
@@ -304,7 +508,8 @@ def runs(world, tmp_path_factory):
     """The ranks of a {"seq": world} mesh, spawned once per module, and
     the JAX side computed meanwhile."""
     out_dir = str(tmp_path_factory.mktemp("sp"))
-    inp = _inputs()
+    nets = {}
+    inp = _inputs(nets)
     np.savez(os.path.join(out_dir, "inputs.npz"), **inp)
     procs = _spawn(world, out_dir)
     try:
@@ -314,7 +519,10 @@ def runs(world, tmp_path_factory):
                        clip=_jax_lm(inp, worker.CLIP),
                        frozen=_jax_lm(inp,
                                       frozen_until=worker.FROZEN_UNTIL),
-                       noise=_port_local_noise(inp))
+                       noise=_port_local_noise(inp),
+                       pool=_jax_pool(inp),
+                       poolnet=_jax_pool_net(nets["poolnet"], inp, world),
+                       bert=_jax_bert(nets["bert"], inp, world))
     finally:
         ranks = _collect(procs, world, out_dir, timeout=600)
     return dict(inp=inp, ranks=ranks, n=world, **jax_res)
@@ -436,11 +644,11 @@ def test_learned_positions_at_the_rank_positions(runs, mode):
                                    rtol=0, atol=2e-6)
 
 
-def _param_check(got, ref):
+def _param_check(got, ref, lr=LR, steps=worker.LM_STEPS):
     d = np.concatenate([np.abs(got[k] - ref[k]).ravel() for k in ref])
     assert (d <= 1e-6).mean() >= 0.999, (d <= 1e-6).mean()
     assert (d > 1e-4).mean() <= 1e-4, (d > 1e-4).sum()
-    assert d.max() <= 2 * LR * worker.LM_STEPS, d.max()
+    assert d.max() <= 2 * lr * steps, d.max()
 
 
 @pytest.mark.parametrize("mode", worker.MODES)
@@ -556,14 +764,122 @@ def test_dropout_masks_differ_across_ranks(runs):
             np.testing.assert_array_equal(v, params[0][k], err_msg=k)
 
 
+@pytest.mark.parametrize("mode", worker.MODES)
+@pytest.mark.parametrize("kind,masked", worker.POOL_CASES)
+def test_reduction_on_the_rank_shard(runs, kind, masked, mode):
+    """A layer or vertex that reduces the sequence, on the rank's shard
+    (the context's layout set, as a network sets it): every rank's
+    pooled output equals the JAX layer's on the global input, and is the
+    same on every rank to the bit; the gradient of ``sum(y · co)``, the
+    loss counted on the first rank alone, gives each rank the JAX
+    gradient's rows at its positions, and the parameters' gradients
+    summed over the group the JAX ones (a rank with no live key of a
+    row, in the masked cases, gives exact zeros there)."""
+    ref, ranks, n = runs["pool"], runs["ranks"], runs["n"]
+    key = f"pool/{kind}/{int(masked)}"
+    names = _POOL_PARAMS.get(kind, {})
+    for m, (res, _) in enumerate(ranks):
+        got = f"{key}/{mode}"
+        np.testing.assert_allclose(res[f"{got}/out"], ref[f"{key}/out"],
+                                   rtol=2e-4, atol=2e-5, err_msg=got)
+        np.testing.assert_array_equal(res[f"{got}/out"],
+                                      ranks[0][0][f"{got}/out"])
+        pos = _positions(mode, n, m, worker.POOL_T)
+        np.testing.assert_allclose(res[f"{got}/dx"],
+                                   ref[f"{key}/dx"][:, pos],
+                                   rtol=2e-4, atol=2e-5, err_msg=got)
+        for k in names:
+            np.testing.assert_allclose(res[f"{got}/d{k}"],
+                                       ref[f"{key}/d{k}"], rtol=2e-4,
+                                       atol=2e-5, err_msg=f"{got} {k}")
+
+
+def _same_params(ranks, prefix):
+    first = ranks[0][0]
+    keys = [k for k in first if k.startswith(prefix)]
+    assert keys
+    for res, _ in ranks[1:]:
+        for k in keys:
+            np.testing.assert_array_equal(res[k], first[k], err_msg=k)
+
+
+def test_pooled_net_fits_in_and_out_of_the_context(runs):
+    """``tests/test_parallel.py:621`` and ``:665``: the causal ring block
+    → average pooling → softmax output net, fit once outside the
+    context, three times inside it and once outside again (the port
+    keeps no trace: each fit follows the context it runs in), gives the
+    JAX network's losses on the same batch, and its parameters after;
+    the ranks end with the same parameters to the bit."""
+    ref, ranks = runs["poolnet"], runs["ranks"]
+    steps = len(worker.POOLNET_FITS)
+    for res, log in ranks:
+        np.testing.assert_allclose(log["poolnet/losses"], ref["losses"],
+                                   rtol=LM_RTOL, atol=0)
+        got = {k.replace("poolnet/", ""): v for k, v in res.items()
+               if k.startswith("poolnet/params/")}
+        assert set(got) == set(ref["params"])
+        _param_check(got, ref["params"], lr=0.01, steps=steps)
+    _same_params(ranks, "poolnet/params/")
+
+
+def test_time_distributed_dense_on_the_rank_shard(runs):
+    """A ``TimeDistributed`` dense layer between the ring block and the
+    pool acts on the rank's steps as rows (it gathers nothing): one
+    ``fit`` and then ``output`` under the context give the port's run of
+    the same net outside it, the loss in the LM's band, the output in
+    the attention band and the parameters as the LM's; the ranks end
+    with the same parameters to the bit."""
+    ranks = runs["ranks"]
+    for res, log in ranks:
+        np.testing.assert_allclose(log["td/ctx/loss"], log["td/local/loss"],
+                                   rtol=LM_RTOL, atol=0)
+        np.testing.assert_allclose(res["td/ctx/output"],
+                                   res["td/local/output"], rtol=2e-4,
+                                   atol=2e-5)
+        got, ref = ({k.replace(f"td/{w}/", ""): v for k, v in res.items()
+                     if k.startswith(f"td/{w}/params/")}
+                    for w in ("ctx", "local"))
+        assert got and set(got) == set(ref)
+        _param_check(got, ref, lr=0.01, steps=1)
+    _same_params(ranks, "td/ctx/params/")
+
+
+@pytest.mark.parametrize("mode", worker.BERT_MODES)
+def test_bert_classifier_graph_matches_jax(runs, mode):
+    """The BERT classifier, a ``ComputationGraph`` whose CLS pool runs on
+    the rank's shard, under the context: ``output`` before training, 3
+    ``fit`` steps on padded batches and ``score``, against the JAX graph
+    under its own {"seq": n} context from the same weights; the
+    parameters after, and the same parameters on every rank to the
+    bit."""
+    ref, ranks = runs["bert"][mode], runs["ranks"]
+    for res, log in ranks:
+        np.testing.assert_allclose(res[f"bert/{mode}/output"],
+                                   ref["output"], rtol=2e-4, atol=2e-5)
+        np.testing.assert_allclose(log[f"bert/{mode}/losses"],
+                                   ref["losses"], rtol=LM_RTOL, atol=0)
+        np.testing.assert_allclose(log[f"bert/{mode}/score"], ref["score"],
+                                   rtol=LM_RTOL, atol=0)
+        got = {k.replace(f"bert/{mode}/", ""): v for k, v in res.items()
+               if k.startswith(f"bert/{mode}/params/")}
+        assert set(got) == set(ref["params"])
+        _param_check(got, ref["params"], lr=2e-5, steps=worker.BERT_STEPS)
+    _same_params(ranks, f"bert/{mode}/params/")
+
+
 REFUSED = {
     "batch_axis": ("NotImplementedError", "item A3"),
     "head_axis": ("NotImplementedError", "item A3"),
     "multi_axis": ("NotImplementedError", "item A3"),
     "ring_batch_axis": ("NotImplementedError", "item A3"),
-    "pooling": ("NotImplementedError", "item A10"),
-    "dense_flattens": ("NotImplementedError", "item A10"),
-    "graph": ("NotImplementedError", "item A4"),
+    "sp_after_pooling": ("ValueError", "reduces the sequence"),
+    "preprocessor_on_shard": ("NotImplementedError", "item A16"),
+    "reverse_vertex": ("NotImplementedError", "item A16"),
+    "flatten_vertex": ("NotImplementedError", "item A16"),
+    "reshape_vertex": ("NotImplementedError", "item A16"),
+    "attention_vertex": ("NotImplementedError", "item A16"),
+    "merge_on_time": ("NotImplementedError", "item A16"),
+    "graph_without_sequence_input": ("ValueError", "recurrent input type"),
     "modes_disagree": ("ValueError", "disagree"),
     "local_beside_sp": ("ValueError", "disagree"),
     "indivisible_t": ("ValueError", "not divisible"),

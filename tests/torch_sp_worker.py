@@ -23,11 +23,28 @@ up through a file under ``DIR``, and runs under ``distributed_context``:
 - a ring net with dropout on its embedding (:func:`dropout_cases`): the
   positions each rank kept in its first ``fit`` step, and its
   parameters after two;
-- the refusals of the context, the network and the graph.
+- the layers and the vertex that reduce the sequence (:func:`pool_cases`)
+  on this rank's shard in each mode: ``GlobalPoolingLayer`` of each
+  type, masked and not, ``ClsTokenPoolLayer`` with and without its
+  pooler, ``LearnedSelfAttentionLayer`` (one rank's keys all masked),
+  ``DenseLayer`` on [B, T, F] and ``LastTimeStepVertex``: the pooled
+  output, the gradient of this rank's tokens and the parameters'
+  gradients summed over the group;
+- the ring block → average pool → output net from the JAX weights
+  (:func:`pool_net_case`), fit outside the context, then inside, then
+  outside again;
+- the same net with a ``TimeDistributed`` dense layer before the pool,
+  from its own seed (:func:`td_case`): one ``fit`` and ``output`` under
+  the context, and the same on a copy outside it;
+- a BERT classifier graph from the JAX weights in ``"ring"`` and
+  ``"ulysses"`` (:func:`bert_cases`): ``output``, 3 ``fit`` steps on
+  padded batches, ``score`` and the parameters;
+- the refusals of the context, the networks and the vertices.
 
 It writes ``DIR/sp<WORLD>-rank<R>.npz`` (arrays) and ``.json`` (losses,
 checksums, messages).
 """
+import contextlib
 import json
 import os
 import sys
@@ -98,6 +115,26 @@ FROZEN_UNTIL, FROZEN_L2 = 2, 1e-3
 #: the weight-noise case: the frozen case with Gaussian weight noise of
 #: this standard deviation on the first trainable block
 NOISE_STD = 0.05
+#: the pooling twins: [B, T, F] inputs and the key-mask lengths of the
+#: masked cases (the second row's 3 steps leave a rank, in every mode at
+#: 2 and 4 ranks, with no live step)
+POOL_B, POOL_T, POOL_F = 2, 16, 8
+POOL_LENGTHS = (16, 3)
+POOL_TYPES = ("max", "avg", "sum", "pnorm")
+#: the learned queries' attention: head dim 16, one of K1's
+LEARNED = dict(n_out=32, n_heads=2, n_queries=3)
+#: the twins of ``tests/test_parallel.py:621`` and ``:665``: a causal ring
+#: encoder block, average pooling and a softmax output over [8, 16, 16],
+#: fit outside the context, three times inside it, then outside again
+POOLNET_B, POOLNET_T = 8, 16
+POOLNET_FITS = (False, True, True, True, False)
+#: the BERT classifier: BertTiny's widths (2 layers, 128 features) with 4
+#: heads, so that Ulysses' all-to-all divides them over 4 ranks;
+#: dropout 0, as the JAX package's masks are its own
+BERT = dict(vocab_size=64, hidden=128, n_layers=2, n_heads=4, max_len=32,
+            dropout=0.0, seed=11)
+BERT_B, BERT_T, BERT_STEPS = 2, 32, 3
+BERT_MODES = ("ring", "ulysses")
 
 
 def put(res, prefix, t):
@@ -106,6 +143,14 @@ def put(res, prefix, t):
             put(res, f"{prefix}/{k}", v)
     else:
         res[prefix] = t.detach().cpu().numpy()
+
+
+def jax_weights(net, flat, prefix):
+    """``net``'s parameters from the JAX weights under ``prefix`` of the
+    inputs (a group without parameters, dropped from the flat file,
+    comes back empty)."""
+    return net.params_from_jax({**{k: {} for k in net.params},
+                                **nested(flat, prefix)})
 
 
 def nested(flat, prefix):
@@ -317,15 +362,192 @@ def dropout_cases(inp, res):
     put(res, "dropout/params", net.params)
 
 
+def _rank_loss(y, co, m):
+    """The rank's share of ``sum(y · co)`` over a replicated ``y``: the
+    whole on the first rank, 0 elsewhere (the tail rule of
+    ``parallel/mesh.py``)."""
+    return (y * co).sum() * (1.0 if m == 0 else 0.0)
+
+
+def _summed(grads):
+    return [all_reduce_sum(g.contiguous().clone()) for g in grads]
+
+
+def pool_layer(kind, layers, vertices):
+    """The layer or vertex of a ``pool_cases`` case, from either
+    package's layer and vertex modules, and its parameter names."""
+    if kind in POOL_TYPES:
+        return layers.GlobalPoolingLayer(pooling_type=kind), ()
+    if kind == "cls":
+        return layers.ClsTokenPoolLayer(), ()
+    if kind == "cls_pooler":
+        return layers.ClsTokenPoolLayer(pooler=True), ("W", "b")
+    if kind == "learned":
+        return layers.LearnedSelfAttentionLayer(**LEARNED), ("Q", "Wk",
+                                                             "Wv")
+    if kind == "dense":
+        return layers.DenseLayer(n_out=4, activation="tanh"), ("W", "b")
+    return vertices.LastTimeStepVertex(), ()
+
+
+#: the reduction cases: (kind, masked) — every pooling type masked and
+#: not, the CLS pool with and without its pooler, the learned queries
+#: masked and not, the flattening dense layer, the last step masked and
+#: not — each in every mode
+POOL_CASES = ([(pt, mk) for pt in POOL_TYPES for mk in (False, True)]
+              + [("cls", False), ("cls_pooler", True), ("learned", False),
+                 ("learned", True), ("dense", False), ("last", False),
+                 ("last", True)])
+
+
+def pool_cases(inp, ctx, n, m, res):
+    """Each of :data:`POOL_CASES` in each mode on this rank's shard of
+    the global [B, T, F], the context's layout set as a network sets it:
+    the pooled output, the gradient of ``sum(y · co)`` (counted on the
+    first rank) for the rank's tokens, and the parameters' gradients
+    summed over the group."""
+    from deeplearning4j_tpu_torch.nn import layers, vertices
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    x, mask = inp["pool/x"], inp["pool/mask"]
+    for kind, masked in POOL_CASES:
+        layer, names = pool_layer(kind, layers, vertices)
+        params = {k: torch.tensor(inp[f"pool/{kind}/{k}"]).requires_grad_()
+                  for k in names}
+        co = torch.tensor(inp[f"pool/{kind}/co"])
+        for mode in MODES:
+            xs = shard_sequence(torch.tensor(x), mode, n,
+                                m).requires_grad_()
+            ms = shard_sequence(torch.tensor(mask), mode, n,
+                                m) if masked else None
+            with MultiLayerNetwork._layout((ctx, mode)):
+                if kind == "last":
+                    y = layer.apply([xs], mask=ms)
+                else:
+                    y, _ = layer.apply(params, {}, xs, mask=ms)
+            leaves = [xs] + [params[k] for k in names]
+            grads = torch.autograd.grad(_rank_loss(y, co, m), leaves)
+            key = f"pool/{kind}/{int(masked)}/{mode}"
+            res[f"{key}/out"] = y.detach().numpy()
+            res[f"{key}/dx"] = grads[0].numpy()
+            for k, g in zip(names, _summed(grads[1:])):
+                res[f"{key}/d{k}"] = g.numpy()
+
+
+def pool_net_conf(builder, layers, upd, input_type):
+    """``tests/test_parallel.py:621``'s net, from either package's
+    builder, layer and updater modules."""
+    return (builder().seed(3).updater(upd.Adam(learning_rate=0.01)).list()
+            .layer(layers.TransformerEncoderBlock(n_heads=8, causal=True,
+                                                  sequence_parallel="ring"))
+            .layer(layers.GlobalPoolingLayer(pooling_type="avg"))
+            .layer(layers.OutputLayer(n_out=2, activation="softmax",
+                                      loss="mcxent"))
+            .set_input_type(input_type("rnn", (POOLNET_T, 16))).build())
+
+
+def pool_net_case(inp, mesh, res, log):
+    """The pooled net from the JAX weights, fit on the same batch outside
+    the context, inside it and outside again (:data:`POOLNET_FITS`): the
+    losses and the parameters after."""
+    from deeplearning4j_tpu_torch.nn import layers
+    from deeplearning4j_tpu_torch.nn import updaters as upd
+    from deeplearning4j_tpu_torch.nn.config import (InputType,
+                                                    NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    net = jax_weights(MultiLayerNetwork(pool_net_conf(
+        NeuralNetConfiguration.builder, layers, upd, InputType)).init(
+            device="cpu"), inp, "poolnet/weights")
+    losses = []
+    for inside in POOLNET_FITS:
+        if inside:
+            with distributed_context(mesh):
+                net.fit(inp["poolnet/x"], inp["poolnet/y"])
+        else:
+            net.fit(inp["poolnet/x"], inp["poolnet/y"])
+        losses.append(net.score())
+    log["poolnet/losses"] = losses
+    put(res, "poolnet/params", net.params)
+
+
+def td_case(inp, mesh, res, log):
+    """:func:`pool_net_conf`'s net with a ``TimeDistributed`` dense layer
+    between the block and the pool, which feeds its dense layer the
+    rank's [B·T_loc, F] rows, from the port's own init: ``fit`` and then
+    ``output`` of the pooled net's batch under the context, and on a copy
+    outside it."""
+    from deeplearning4j_tpu_torch.nn import layers
+    from deeplearning4j_tpu_torch.nn.config import (InputType,
+                                                    NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    conf = (NeuralNetConfiguration.builder().seed(3)
+            .updater(Adam(learning_rate=0.01)).list()
+            .layer(layers.TransformerEncoderBlock(n_heads=8, causal=True,
+                                                  sequence_parallel="ring"))
+            .layer(layers.TimeDistributed(
+                underlying=layers.DenseLayer(n_out=16, activation="tanh")))
+            .layer(layers.GlobalPoolingLayer(pooling_type="avg"))
+            .layer(layers.OutputLayer(n_out=2, activation="softmax",
+                                      loss="mcxent"))
+            .set_input_type(InputType("rnn", (POOLNET_T, 16))).build())
+    x, y = inp["poolnet/x"], inp["poolnet/y"]
+    for where in ("ctx", "local"):
+        net = MultiLayerNetwork(conf).init(device="cpu")
+        with (distributed_context(mesh) if where == "ctx"
+              else contextlib.nullcontext()):
+            net.fit(x, y)
+            log[f"td/{where}/loss"] = net.score()
+            res[f"td/{where}/output"] = net.output(x).numpy()
+        put(res, f"td/{where}/params", net.params)
+
+
+def bert_conf(bert_cls, mode):
+    """The BERT classifier (:data:`BERT`) over ``BERT_T`` tokens, from
+    either package's ``Bert``, its encoder blocks in ``mode``."""
+    conf = bert_cls(**BERT).conf_classifier(2, BERT_T)
+    for node in conf.nodes:
+        if type(node.obj).__name__ == "TransformerEncoderBlock":
+            node.obj.sequence_parallel = mode
+    return conf
+
+
+def bert_cases(inp, res, log):
+    """The BERT classifier graph from the JAX weights in each of
+    :data:`BERT_MODES`: ``output`` of the first batch (unmasked, as the
+    JAX ``output`` takes no masks), ``fit`` on the padded batches, then
+    ``score`` and the parameters."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.zoo.bert import Bert
+    for mode in BERT_MODES:
+        net = jax_weights(ComputationGraph(bert_conf(Bert, mode)).init(
+            device="cpu"), inp, "bert/weights")
+        res[f"bert/{mode}/output"] = net.output(
+            inp["bert/tok0"], inp["bert/seg0"])[0].numpy()
+        losses = []
+        for i in range(BERT_STEPS):
+            m = inp[f"bert/mask{i}"]
+            net.fit([inp[f"bert/tok{i}"], inp[f"bert/seg{i}"]],
+                    [inp[f"bert/y{i}"]], features_masks=[m, m])
+            losses.append(net.score())
+        log[f"bert/{mode}/losses"] = losses
+        log[f"bert/{mode}/score"] = net.score()
+        put(res, f"bert/{mode}/params", net.params)
+
+
 def refusals(inp, mesh, n):
     """The message of every refused use."""
     from deeplearning4j_tpu_torch.nn.config import (InputType,
                                                     NeuralNetConfiguration)
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
     from deeplearning4j_tpu_torch.nn.layers import (
-        ClsTokenPoolLayer, DenseLayer, OutputLayer, RnnOutputLayer,
-        TransformerDecoderBlock, TransformerEncoderBlock)
+        ClsTokenPoolLayer, DenseLayer, LearnedSelfAttentionLayer, OutputLayer,
+        RnnOutputLayer, TransformerDecoderBlock, TransformerEncoderBlock)
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.preprocessors import \
+        RnnToFeedForwardPreProcessor
+    from deeplearning4j_tpu_torch.nn.vertices import (
+        AttentionVertex, FlattenVertex, MergeVertex, ReshapeVertex,
+        ReverseTimeSeriesVertex)
     out = {}
 
     def expect(name, fn):
@@ -346,25 +568,29 @@ def refusals(inp, mesh, n):
         *(torch.zeros(1, 8, 2, 4),) * 3, mesh, batch_axis="data"))
     x = np.zeros((2, 8 * n, 16), np.float32)
     y = np.zeros((2, 2), np.float32)
-    pooled = (NeuralNetConfiguration.builder().seed(3).list()
-              .layer(TransformerEncoderBlock(n_heads=2, causal=True,
-                                             sequence_parallel="ring"))
-              .layer(ClsTokenPoolLayer())
-              .layer(OutputLayer(n_out=2, activation="softmax",
-                                 loss="mcxent"))
-              .set_input_type(InputType("rnn", (8 * n, 16))).build())
-    net = MultiLayerNetwork(pooled).init(device="cpu")
-    flat = (NeuralNetConfiguration.builder().seed(3).list()
-            .layer(TransformerEncoderBlock(n_heads=2, causal=True,
-                                           sequence_parallel="ring"))
-            .layer(DenseLayer(n_out=2))
-            .layer(OutputLayer(n_out=2, activation="softmax",
-                               loss="mcxent"))
-            .set_input_type(InputType("rnn", (8 * n, 16))).build())
-    dense = MultiLayerNetwork(flat).init(device="cpu")
+    after = (NeuralNetConfiguration.builder().seed(3).list()
+             .layer(TransformerEncoderBlock(n_heads=2, causal=True,
+                                            sequence_parallel="ring"))
+             .layer(LearnedSelfAttentionLayer(n_out=16, n_heads=2,
+                                              n_queries=2))
+             .layer(TransformerEncoderBlock(n_heads=2, causal=True,
+                                            sequence_parallel="ring"))
+             .layer(OutputLayer(n_out=2, activation="softmax",
+                                loss="mcxent"))
+             .set_input_type(InputType("rnn", (8 * n, 16))).build())
+    tail = MultiLayerNetwork(after).init(device="cpu")
+    per_row = (NeuralNetConfiguration.builder().seed(3).list()
+               .layer(TransformerEncoderBlock(n_heads=2, causal=True,
+                                              sequence_parallel="ring"))
+               .layer(DenseLayer(n_out=4, activation="tanh"))
+               .layer(OutputLayer(n_out=2, activation="softmax",
+                                  loss="mcxent"))
+               .input_pre_processor(1, RnnToFeedForwardPreProcessor())
+               .set_input_type(InputType("rnn", (8 * n, 16))).build())
+    rows = MultiLayerNetwork(per_row).init(device="cpu")
     with distributed_context(mesh):
-        expect("pooling", lambda: net.fit(x, y))
-        expect("dense_flattens", lambda: dense.fit(x, y))
+        expect("sp_after_pooling", lambda: tail.fit(x, y))
+        expect("preprocessor_on_shard", lambda: rows.fit(x, y))
 
     def lm(*modes):
         b = (NeuralNetConfiguration.builder().seed(3).list())
@@ -390,20 +616,45 @@ def refusals(inp, mesh, n):
         three = torch.zeros(1, 16, 3, 8)
         expect("ulysses_heads", lambda: ulysses_self_attention(
             three, three, three, mesh))
-        graph_conf = (NeuralNetConfiguration.builder().seed(3)
-                      .graph_builder().add_inputs("x")
-                      .add_layer("att", MultiHeadAttention(
-                          n_in=16, n_out=16, n_heads=2,
-                          sequence_parallel="ring"), "x")
-                      .add_layer("pool", ClsTokenPoolLayer(), "att")
-                      .add_layer("out", OutputLayer(
-                          n_out=2, activation="softmax", loss="mcxent"),
-                          "pool")
-                      .set_outputs("out")
-                      .set_input_types(x=InputType("rnn", (8 * n, 16)))
-                      .build())
-        graph = ComputationGraph(graph_conf).init(device="cpu")
-        expect("graph", lambda: graph.output(x))
+
+        def graph(vertex, *extra):
+            """An attention node, ``vertex`` on it (and ``extra`` of its
+            inputs), a CLS pool where the vertex keeps the time axis, and
+            an output."""
+            b = (NeuralNetConfiguration.builder().seed(3).graph_builder()
+                 .add_inputs("x")
+                 .add_layer("att", MultiHeadAttention(
+                     n_in=16, n_out=16, n_heads=2,
+                     sequence_parallel="ring"), "x")
+                 .add_vertex("v", vertex, "att", *extra))
+            last = "v"
+            if not isinstance(vertex, FlattenVertex):
+                b.add_layer("pool", ClsTokenPoolLayer(), "v")
+                last = "pool"
+            b.add_layer("out", OutputLayer(
+                n_out=2, activation="softmax", loss="mcxent"), last)
+            b.set_outputs("out").set_input_types(
+                x=InputType("rnn", (8 * n, 16)))
+            return ComputationGraph(b.build()).init(device="cpu")
+        for name, vertex, extra in (
+                ("reverse_vertex", ReverseTimeSeriesVertex(), ()),
+                ("flatten_vertex", FlattenVertex(), ()),
+                ("reshape_vertex", ReshapeVertex(shape=(8 * n, 16)), ()),
+                ("attention_vertex", AttentionVertex(n_heads=2), ("att",)),
+                ("merge_on_time", MergeVertex(axis=1), ("att",))):
+            g = graph(vertex, *extra)
+            expect(name, lambda: g.output(x))
+        no_seq = (NeuralNetConfiguration.builder().seed(3).graph_builder()
+                  .add_inputs("x")
+                  .add_layer("att", MultiHeadAttention(
+                      n_in=16, n_out=16, n_heads=2,
+                      sequence_parallel="ring"), "x")
+                  .add_layer("pool", ClsTokenPoolLayer(), "att")
+                  .add_layer("out", OutputLayer(
+                      n_out=2, activation="softmax", loss="mcxent"), "pool")
+                  .set_outputs("out").build())
+        g = ComputationGraph(no_seq).init({"x": (8 * n, 16)}, device="cpu")
+        expect("graph_without_sequence_input", lambda: g.output(x))
     return out
 
 
@@ -424,6 +675,10 @@ def main():
         pos_cases(inp, res, log)
         lm_cases(inp, res, log)
         dropout_cases(inp, res)
+        pool_cases(inp, ctx, world, rank, res)
+        bert_cases(inp, res, log)
+    pool_net_case(inp, mesh, res, log)
+    td_case(inp, mesh, res, log)
     log["refused"] = refusals(inp, mesh, world)
     base = os.path.join(out_dir, f"{job}{world}-rank{rank}")
     np.savez(base + ".npz", **res)

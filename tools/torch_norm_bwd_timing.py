@@ -8,9 +8,13 @@ one NVIDIA card, for the checkout this file sits in or another one.
 ``DIR`` is the root of an unpacked checkout (for instance a parent commit
 from ``git archive``), so that two versions can be timed on one card in
 one process's turn each. For each kernel at its main path's shape (K6
-[16384, 768] and [32768, 768], K9 [8192, 768]; bf16) it prints the
-device time per call by CUDA-graph replay of 20 calls, and the host time
-per call (CUDA events around 20 eager calls). Where the tree still has
+[16384, 768] and [32768, 768], K9 [8192, 768]; bf16), and for K9 at
+``chip_smoke.py``'s closest library bar, [1000, 200] in bf16 and f32, it
+prints the device time per call by CUDA-graph replay of 20 calls, and
+the host time per call (CUDA events around 20 eager calls). At [1000,
+200] it also times the bar's yardstick as the kernels phase does: the
+backward of autograd through ``F.layer_norm``, its forward's time taken
+off, in ``TURNS`` alternating turns with the kernel, medians printed. Where the tree still has
 the Triton pair of a row pass and a partials reduce (``_triton_kernels``
 in ``ops/fused_norms.py`` with ``rms_bwd``, ``ln_bwd`` and
 ``bwd_reduce``), each of the two launches is also timed alone, which
@@ -24,8 +28,12 @@ from __future__ import annotations
 
 import argparse
 import os
+import statistics
 import subprocess
 import sys
+
+#: alternating (kernel, library) readings at the small-row bar's shape
+TURNS = 7
 
 
 def device_ms(fn, iters: int = 20, warm: int = 3) -> float:
@@ -108,6 +116,29 @@ def _paths(fn_mod, call):
     return times
 
 
+def _against_library(call, x, gamma, dy) -> str:
+    """The kernel and the library's LayerNorm backward (autograd through
+    ``F.layer_norm``, less its forward), ``TURNS`` readings each in
+    alternating turns (kernel, library, library, kernel, ...)."""
+    import torch
+    import torch.nn.functional as F
+    f = x.shape[-1]
+    xr, gr, br = (t.detach().clone().requires_grad_()
+                  for t in (x, gamma, torch.zeros_like(gamma)))
+    fwd = lambda: F.layer_norm(xr, (f,), gr, br, eps=1e-5)
+    lib = lambda: (device_ms(lambda: torch.autograd.grad(
+        fwd(), (xr, gr, br), dy)) - device_ms(fwd))
+    ks, ls = [], []
+    for i in range(TURNS):
+        turn = ((lambda: device_ms(call), ks), (lib, ls))
+        for fn, reads in (turn if i % 2 == 0 else turn[::-1]):
+            reads.append(fn())
+    k, v = statistics.median(ks), statistics.median(ls)
+    return (f" turns: kernel_ms={k:.5f} ({min(ks):.5f}-{max(ks):.5f}) "
+            f"library_ms={v:.5f} ({min(ls):.5f}-{max(ls):.5f}) "
+            f"kernel/library={k / v:.3f}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
@@ -130,19 +161,26 @@ def main(argv=None) -> int:
     has_pair = all(hasattr(fn_mod, a) for a in ("_triton_kernels",
                                                "_row_runs",
                                                "_reduce_partials"))
-    for key, rows, ln in (("K6", 16384, False), ("K6", 32768, False),
-                          ("K9", 8192, True)):
+    for key, rows, f, dt, ln in (
+            ("K6", 16384, 768, torch.bfloat16, False),
+            ("K6", 32768, 768, torch.bfloat16, False),
+            ("K9", 8192, 768, torch.bfloat16, True),
+            ("K9", 1000, 200, torch.bfloat16, True),
+            ("K9", 1000, 200, torch.float32, True)):
         g = torch.Generator(device="cuda").manual_seed(rows)
-        x = torch.randn((rows, 768), generator=g,
-                        device="cuda").to(torch.bfloat16)
-        dy = torch.randn((rows, 768), generator=g,
-                         device="cuda").to(torch.bfloat16)
-        gamma = (1 + 0.1 * torch.randn((768,), generator=g,
-                                       device="cuda")).to(torch.bfloat16)
+        x = torch.randn((rows, f), generator=g, device="cuda").to(dt)
+        dy = torch.randn((rows, f), generator=g, device="cuda").to(dt)
+        gamma = (1 + 0.1 * torch.randn((f,), generator=g,
+                                       device="cuda")).to(dt)
         call = ((lambda: fn_mod.layer_norm_bwd(x, gamma, dy)) if ln
                 else (lambda: fn_mod.rms_norm_bwd(x, gamma, dy)))
-        line = (f"{tag}{key} bf16 [{rows}, 768]: kernel_ms="
+        dname = str(dt).replace("torch.", "").replace("bfloat16", "bf16")
+        line = (f"{tag}{key} {dname} [{rows}, {f}]: kernel_ms="
                 f"{device_ms(call):.4f} host_ms={host_ms(call):.4f}")
+        if f != 768:
+            line += _against_library(call, x, gamma, dy)
+            print(f"{line} {card}", flush=True)
+            continue
         if has_pair:
             t_rows, t_red, n_prog = _split(fn_mod, x, gamma, dy, ln)
             line += (f" row_pass_ms={t_rows:.4f} reduce_ms={t_red:.4f} "

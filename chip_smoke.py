@@ -15,6 +15,7 @@
     python3 chip_smoke.py --phases transfer,transfer_agree,kernels
     python3 chip_smoke.py --phases mlm,mlm_agree,resnet,resnet_agree
     python3 chip_smoke.py --phases charrnn,charrnn_agree
+    python3 chip_smoke.py --phases attn_dims,dp_resnet,dp_resnet_agree,inference,kernels
     python3 chip_smoke.py --phases profile    # device-time breakdown
 
 Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
@@ -346,11 +347,33 @@ device-to-host copy and no host wait — and serve_fault):
   mask) whose forward and backward on the card launch K1 and K3 exactly
   ``CHARRNN_ATT_T + 2`` times each (Tq = 1 in the recurrent layer's
   steps, Tq = 4 learned queries), its loss and gradients against the CPU
-  in train_agree's bands.
+  in train_agree's bands;
+- dp_resnet — the resnet phase's ResNet-50 (224², bf16 on f32 masters)
+  under ``ParallelWrapper(net, mesh=data_parallel_mesh())`` in SYNC at
+  one rank, ``fit`` on one host batch of 128: 2 warm and 8 timed steps
+  in turns with plain ``fit`` on a second net (no ported kernel), ms a
+  step, images/s, peak memory, the wrapper's overhead, one profiled step
+  of each; the trained net stays for inference;
+- dp_resnet_agree — in f32 (TF32 off, cuDNN deterministic) at B = 16,
+  3 steps of the wrapper against plain ``fit`` from the same weights:
+  the parameters and one batch norm's running statistics within
+  ``DP_AGREE_TOL`` of their largest value;
+- inference — ``ParallelInference`` BATCHED serving the net dp_resnet
+  trained, in f32: 64 one-image requests from 8 threads, each result
+  against ``output`` on the stacked batch (rtol 1e-4, atol 1e-5), p50
+  and p99 latency and images/s; an injected ``serving`` fault answered
+  fast while the same worker serves on;
+- attn_dims — K1, K3 and K4 + K5 at head dims 2, 24, 48, 80 and 96
+  (zero-padded to the next of 16, 32, 64 and 128) in bf16 and f32,
+  causal and key-masked, against their plain versions; K1 timed beside
+  SDPA; the reference's ``SelfAttentionLayer(n_out=4, n_heads=2)`` (head
+  dim 2) forward and backward on the card against the CPU, launching
+  exactly K1 once and K3 once.
 
 Each main path (serve, serve_opts, beam, train, finetune, longctx, dp,
 dp_packed, sp, zero, dp_graph, eval, lenet, checkpoint, transfer,
-transfer_agree, mlm, resnet, charrnn, charrnn_agree) zeroes
+transfer_agree, mlm, resnet, charrnn, charrnn_agree, dp_resnet,
+attn_dims) zeroes
 the launch counters of the kernels just before it runs and reads them
 just after; it fails if a kernel the registry lists for that path was
 not launched, and on a stepped path (all but serve; eval counts its
@@ -392,7 +415,8 @@ PHASES = ("device", "serve", "agree", "serve_opts", "serve_opts_agree",
           "eval", "eval_agree", "train_opts", "train_opts_agree",
           "finetune_opts", "serve_fault", "lenet", "lenet_agree",
           "checkpoint", "transfer", "transfer_agree", "mlm", "mlm_agree",
-          "resnet", "resnet_agree", "charrnn", "charrnn_agree", "kernels")
+          "resnet", "resnet_agree", "dp_resnet", "dp_resnet_agree",
+          "inference", "charrnn", "charrnn_agree", "attn_dims", "kernels")
 
 # published peaks of one H100 SXM (dense): the bound of a kernel is the
 # larger of its operations over the peak rate for their type and its
@@ -2589,19 +2613,21 @@ def phase_longctx(state):
                steps=3)
 
 
-def _check_step_launches(path: str, steps: int, launches, card) -> None:
+def _check_step_launches(path: str, steps: int, launches, card,
+                         unit: str = "steps") -> None:
     """Every ported kernel was launched exactly its registry count per
-    step on the stepped ``path`` over ``steps`` steps: 0 for a kernel
-    the registry does not list for that path."""
+    step on the stepped ``path`` over ``steps`` steps (or requests, as
+    ``unit`` says): 0 for a kernel the registry does not list for that
+    path."""
     from deeplearning4j_tpu_torch.ops import kernel_registry
     per_step = {e.key: e.per_step.get(path, 0)
                 for e in kernel_registry.ported()}
-    log(f"{path}: launches over {steps} steps {launches} (per step "
-        f"expected {per_step}) {card}")
+    log(f"{path}: launches over {steps} {unit} {launches} (per "
+        f"{unit[:-1]} expected {per_step}) {card}")
     for key, n in per_step.items():
         want = steps * n
         assert launches[key] == want, \
-            f"{key}: {launches[key]} launches in {steps} steps of " \
+            f"{key}: {launches[key]} launches in {steps} {unit} of " \
             f"{path}, expected {want}"
 
 
@@ -2931,8 +2957,8 @@ def phase_zero_agree(state):
     batch = [DataSet(x, y)]
     # (1) one gradient, three update paths
     ref = ParallelWrapper(model.init(256), mesh=mesh)
-    fixed = ref._local_grads(ref.net.params, ref.net._as_input(x),
-                             ref.net._as_input(y),
+    fixed = ref._local_grads(ref.net.params, ref.net.state,
+                             ref.net._as_input(x), ref.net._as_input(y),
                              fold_in(ref.net.conf.seed, 0))
     nets = {}
     for name, kw in (("replicated", {}), ("sharded",
@@ -2940,7 +2966,7 @@ def phase_zero_agree(state):
                      ("overlap", {"sharded_update": True,
                                   "gather_overlap": True})):
         w = ParallelWrapper(model.init(256), mesh=mesh, **kw)
-        w._local_grads = lambda p, xs, ys, rng, w=w: (
+        w._local_grads = lambda p, st, xs, ys, rng, w=w: (
             fixed[0], tree.map_(torch.clone, fixed[1]), w.net.state)
         w.fit(batch, epochs=2)
         nets[name] = w
@@ -5683,6 +5709,431 @@ def phase_resnet_agree(state):
         f"probability {outs[1].max().item():.4f}), pooled features "
         f"{f_err:.3e}, tol={AGREE_TOL:.0e} {card}")
     assert err <= AGREE_TOL and f_err <= AGREE_TOL
+
+
+# -- the data-parallel ResNet-50 and its serving (BASELINE config #5) --------
+#: dp_resnet: ResNet-50 at the resnet phase's shape under ParallelWrapper
+#: SYNC at one rank (the card's machine has one H100; config #5's 1 → 32
+#: scaling cannot be measured on it), against plain ``fit`` in turns
+DP_RESNET_WARM, DP_RESNET_STEPS = 2, 8
+#: dp_resnet_agree: f32 (TF32 off, cuDNN's deterministic algorithms) at
+#: B = 16, the wrapper and plain ``fit`` from the same weights for 3
+#: steps; at one rank the wrapper's statistics are the rank's own rows
+#: and its mean over the group a division by one, so the two run the same
+#: arithmetic: each parameter leaf and res5_2_c_bn's running mean and
+#: variance within 1e-5 of the leaf's largest value (the max-pool
+#: backward's atomics may add in another order from run to run)
+DP_AGREE_B, DP_AGREE_STEPS, DP_AGREE_TOL = 16, 3, 1e-5
+#: inference: ParallelInference BATCHED over the trained ResNet-50 in f32
+#: (TF32 off): 64 requests of one image from 8 threads, each result
+#: against ``output`` on the 64 stacked images within the band of
+#: tests/test_parallel.py:723 (rtol 1e-4, atol 1e-5)
+INFER_REQUESTS, INFER_THREADS = 64, 8
+INFER_RTOL, INFER_ATOL = 1e-4, 1e-5
+INFER_PLAN = "serving:error=RuntimeError:nth=1:max=1"
+
+
+def _resnet50(dtype="bfloat16"):
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+    return ResNet50(num_classes=RESNET_CLASSES,
+                    input_shape=(RESNET_HW, RESNET_HW, 3),
+                    compute_dtype=dtype).init()
+
+
+def _dp_resnet_profile(steps, card) -> None:
+    """One step of each of ``steps`` ({name: step}) under
+    ``torch.profiler``: device busy ms, kernel launches and the host ops
+    the wrapper adds (c10d all-reduces, divisions, copies), beside a
+    second step's wall from a synchronised card to a synchronised card;
+    then the kernels whose summed time differs most between the two."""
+    import collections
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    kerns = {}
+    for name, step in steps.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        busy, kerns[name] = _kernel_split(prof)
+        ops = collections.Counter(e.key for e in prof.key_averages()
+                                  for _ in range(e.count))
+        wall = _wall_ms(step)
+        host = {k: ops[k] for k in ("c10d::allreduce_", "aten::div",
+                                    "aten::contiguous", "aten::copy_",
+                                    "aten::clone", "cudaLaunchKernel")}
+        log(f"dp_resnet: profiled {name} step device_busy_ms={busy:.3f} "
+            f"wall_ms={wall:.3f} idle_share={1 - busy / wall:.3f} "
+            f"kernels={sum(n for _, n in kerns[name].values())} host ops "
+            f"{host} {card}")
+    w, p = kerns["wrapper"], kerns["plain"]
+    diff = sorted(((w.get(k, (0, 0))[0] - p.get(k, (0, 0))[0], k)
+                   for k in set(w) | set(p)), reverse=True)[:6]
+    for d, k in diff:
+        log(f"  wrapper - plain {d:+9.3f} ms x{w.get(k, (0, 0))[1]}/"
+            f"{p.get(k, (0, 0))[1]} {k[:90]}")
+
+
+def phase_dp_resnet(state):
+    """ResNet-50 (the resnet phase's net: 224², bf16 compute on f32
+    masters, the zoo's Nesterovs) under ``ParallelWrapper(net,
+    mesh=data_parallel_mesh())`` in SYNC at one rank, through ``fit`` on
+    one synthetic ImageNet batch of 128 on the host (each step copies it
+    to the card, on both sides): 2 warm steps, then 8 timed ones
+    taken in turns with 8 steps of plain ``fit`` on a second net from the
+    same seed (wrapper, plain, plain, wrapper, ...), each step timed from
+    a synchronised card to a synchronised card; ms a step, images/s and
+    each net's peak memory over what was allocated before it; the
+    wrapper's overhead, and one profiled step of each. The launch
+    counters, zeroed just before each of the wrapper's timed steps and
+    read just after it, sum to 0 for every ported kernel (conv, batch
+    norm and pooling go to cuDNN and PyTorch's ops). Every loss finite, the
+    running statistics moved. The trained net stays for the inference
+    phase."""
+    import math
+    import torch
+    from deeplearning4j_tpu_torch import tree
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.ops import kernel_registry
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.train.listeners import \
+        CollectScoresListener
+    card = state["card"]
+    _free_card("dp_resnet", card)
+    mesh = _dp_mesh(state)
+    # one host batch, as a user's loader hands it to both: each step
+    # copies it to the card
+    xh, yh = _resnet_batch(0, RESNET_B, RESNET_HW)
+    batch = [DataSet(xh, yh)]
+    peaks = {}
+
+    def build(name):
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        net = _resnet50()
+        scores = CollectScoresListener()
+        net.set_listeners(scores)
+        if name == "wrapper":
+            w = ParallelWrapper(net, mesh=mesh)
+            step = lambda: w.fit(batch)
+        else:
+            step = lambda: net.fit(xh, yh)
+        for _ in range(DP_RESNET_WARM):
+            step()
+        torch.cuda.synchronize()
+        peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        return net, step, scores
+
+    net, w_step, w_scores = build("wrapper")
+    log(f"dp_resnet: ParallelWrapper mode=sync world={mesh.size('data')} "
+        f"over {net.num_params()} params {card}")
+    init_stats = tree.map_(torch.clone, net.state["res5_2_c_bn"])
+    plain, p_step, _ = build("plain")
+    times = {"wrapper": [], "plain": []}
+    order = ["wrapper", "plain", "plain", "wrapper"] * (DP_RESNET_STEPS // 2)
+    # the counters are zeroed just before each wrapper step and read just
+    # after it: the sum covers the wrapper's timed steps alone
+    launches = {e.key: 0 for e in kernel_registry.ported()}
+    for name in order:
+        if name == "wrapper":
+            for e in kernel_registry.ported():
+                e.reset()
+            times[name].append(_wall_ms(w_step))
+            for e in kernel_registry.ported():
+                launches[e.key] += e.launches()
+        else:
+            times[name].append(_wall_ms(p_step))
+    losses = [s for _, s in w_scores.scores]
+    _dp_resnet_profile({"wrapper": w_step, "plain": p_step}, card)
+    del plain, p_step
+    moved = {k: (net.state["res5_2_c_bn"][k] - init_stats[k]).abs().max()
+             .item() for k in ("mean", "var")}
+    ms = {k: statistics.mean(v) for k, v in times.items()}
+    for name in ("wrapper", "plain"):
+        log(f"dp_resnet: {name} B={RESNET_B} {RESNET_HW}x{RESNET_HW} "
+            f"steps={DP_RESNET_STEPS} mean_step_ms={ms[name]:.3f} "
+            f"median_step_ms={statistics.median(times[name]):.3f} "
+            f"images_per_s={RESNET_B / ms[name] * 1e3:.1f} "
+            f"peak_gb={peaks[name]:.3f} {card}")
+    log(f"dp_resnet: wrapper overhead {ms['wrapper'] - ms['plain']:.3f} ms "
+        f"a step ({100 * (ms['wrapper'] / ms['plain'] - 1):.2f} %) in "
+        f"turns; losses {' '.join(f'{l:.4f}' for l in losses)}; "
+        f"res5_2_c_bn moved by max|d mean|={moved['mean']:.4e} max|d var|="
+        f"{moved['var']:.4e} {card}")
+    assert all(math.isfinite(l) for l in losses), losses
+    assert len(losses) == DP_RESNET_WARM + DP_RESNET_STEPS
+    assert moved["mean"] > 0 and moved["var"] > 0
+    _check_step_launches("dp_resnet", DP_RESNET_STEPS, launches, card)
+    state["dp_resnet_net"] = net
+
+
+def phase_dp_resnet_agree(state):
+    """ResNet-50 at 224² in f32 (TF32 off, cuDNN's deterministic
+    algorithms), B = 16: ``DP_AGREE_STEPS`` steps of ``ParallelWrapper``
+    SYNC at one rank against as many of plain ``fit`` on a second net
+    from the same seed and batches. At one rank the two must agree: every
+    parameter leaf and one batch norm's (res5_2_c_bn) running mean and
+    variance within ``DP_AGREE_TOL`` of the leaf's largest value."""
+    import torch
+    from deeplearning4j_tpu_torch import tree
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    card = state["card"]
+    _free_card("dp_resnet_agree", card)
+    mesh = _dp_mesh(state)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        nets = [_resnet50(None) for _ in range(2)]
+        w = ParallelWrapper(nets[0], mesh=mesh, prefetch_buffer=0)
+        losses = {"wrapper": [], "plain": []}
+        for i in range(DP_AGREE_STEPS):
+            xh, yh = _resnet_batch(10 + i, DP_AGREE_B, RESNET_HW)
+            w.fit([DataSet(xh, yh)])
+            nets[1].fit(xh, yh)
+            losses["wrapper"].append(nets[0].score())
+            losses["plain"].append(nets[1].score())
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    worst = {}
+    for what in ("params", "state"):
+        a, b = (getattr(n, what) for n in nets)
+        if what == "state":
+            a, b = a["res5_2_c_bn"], b["res5_2_c_bn"]
+        errs = [(_rel_err(p, q), k) for (k, p), (_, q) in zip(
+            _named(a), _named(b))]
+        worst[what] = max(errs)
+    same = all(torch.equal(p, q) for p, q in zip(
+        tree.leaves(nets[0].params), tree.leaves(nets[1].params)))
+    log(f"dp_resnet_agree: f32 B={DP_AGREE_B} {DP_AGREE_STEPS} steps, "
+        f"ParallelWrapper SYNC at one rank vs plain fit: losses "
+        f"{losses['wrapper']} vs {losses['plain']}; worst param leaf "
+        f"{worst['params'][1]} {worst['params'][0]:.3e}, res5_2_c_bn "
+        f"{worst['state'][1]} {worst['state'][0]:.3e} (max|d|/max|x|, "
+        f"tol={DP_AGREE_TOL:.0e}); params equal to the bit: {same} {card}")
+    assert worst["params"][0] <= DP_AGREE_TOL
+    assert worst["state"][0] <= DP_AGREE_TOL
+
+
+def phase_inference(state):
+    """``ParallelInference`` BATCHED (``batch_limit`` 32, buckets up to
+    32) serving the ResNet-50 that dp_resnet trained, in f32 (its
+    ``compute_dtype`` cleared, TF32 off): 64 requests of one 224² image
+    ([1, 224, 224, 3]) from 8 threads, 8 each; every result against
+    ``net.output`` on the 64 stacked images within (INFER_RTOL,
+    INFER_ATOL); p50/p99 request latency and images/s; the batches the
+    worker formed (``dl4j_tpu_inference_batch_size``); the launch
+    counters, zeroed just before the 64 requests and read just after
+    them, read each ported kernel's registry count for ``inference`` (0
+    for all: the forward runs cuDNN and PyTorch's ops). Then under
+    ``INFER_PLAN`` a request fails fast with the injected error, the
+    fault counter moves by one, and the same worker serves the next
+    request, its result the direct output's row."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.obs import metrics
+    from deeplearning4j_tpu_torch.ops import kernel_registry
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+    from deeplearning4j_tpu_torch.resilience import faults
+    card = state["card"]
+    net = state.pop("dp_resnet_net", None)
+    assert net is not None, "inference serves the net dp_resnet trained"
+    _free_card("inference", card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    net.conf.compute_dtype = None
+    xh, _ = _resnet_batch(3, INFER_REQUESTS, RESNET_HW)
+    direct = net.output(xh)[0].cpu().numpy()
+    hist = metrics.INFER_BATCH._children[()]
+    n0, s0 = hist.count, hist.sum
+    pi = ParallelInference(net, batch_limit=32)
+    try:
+        pi.output(xh[:1], timeout=120)              # first use, untimed
+        n0, s0 = hist.count, hist.sum
+        results, lat = [None] * INFER_REQUESTS, [None] * INFER_REQUESTS
+
+        def client(t):
+            for i in range(t, INFER_REQUESTS, INFER_THREADS):
+                t0 = time.perf_counter()
+                results[i] = pi.output(xh[i:i + 1], timeout=120)
+                lat[i] = time.perf_counter() - t0
+
+        for e in kernel_registry.ported():
+            e.reset()
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(INFER_THREADS) as ex:
+            list(ex.map(client, range(INFER_THREADS)))
+        wall = time.perf_counter() - t0
+        launches = {e.key: e.launches() for e in kernel_registry.ported()}
+        batches, examples = hist.count - n0, hist.sum - s0
+        got = np.concatenate([r[0] for r in results])
+        err = np.abs(got - direct).max()
+        close = np.allclose(got, direct, rtol=INFER_RTOL, atol=INFER_ATOL)
+        lat_ms = np.array(lat) * 1e3
+        log(f"inference: ParallelInference batched, {INFER_REQUESTS} "
+            f"requests of [1,{RESNET_HW},{RESNET_HW},3] f32 from "
+            f"{INFER_THREADS} threads in {wall:.3f} s: images_per_s="
+            f"{INFER_REQUESTS / wall:.1f} p50_ms="
+            f"{np.percentile(lat_ms, 50):.3f} p99_ms="
+            f"{np.percentile(lat_ms, 99):.3f}; {batches:g} batches of "
+            f"{examples / max(batches, 1):.2f} images on average; max|d| "
+            f"vs output on the stacked batch {err:.3e} (rtol="
+            f"{INFER_RTOL:.0e}, atol={INFER_ATOL:.0e}): {close} {card}")
+        assert close and examples == INFER_REQUESTS
+        _check_step_launches("inference", INFER_REQUESTS, launches, card,
+                             unit="requests")
+        worker = pi._worker
+        f0 = metrics.FAULTS_INJECTED.labels(site="serving").get()
+        with faults.active(INFER_PLAN):
+            t0 = time.perf_counter()
+            try:
+                pi.output(xh[:1], timeout=60)
+            except RuntimeError as e:
+                failed = (str(e), time.perf_counter() - t0)
+            else:
+                failed = None
+        fired = metrics.FAULTS_INJECTED.labels(site="serving").get() - f0
+        after = pi.output(xh[5:6], timeout=60)[0]
+        ok_after = np.allclose(after, direct[5:6], rtol=INFER_RTOL,
+                               atol=INFER_ATOL)
+        alive = pi._worker is worker and worker.is_alive()
+        log(f"inference: plan {INFER_PLAN}: the request failed with "
+            f"{failed}, FAULTS_INJECTED{{site=serving}} +{fired:g}; then "
+            f"the same worker ({alive}) served the next request, equal to "
+            f"the direct output: {ok_after} {card}")
+        assert failed is not None and "injected fault" in failed[0]
+        assert failed[1] < 5.0 and fired == 1 and alive and ok_after
+    finally:
+        faults.reset()
+        pi.shutdown()
+
+
+# -- head dims between the kernels' own (ROADMAP C11) -------------------------
+#: attn_dims: the head dims off K1's 16, 32, 64 and 128 (zero-padded to
+#: the next one inside the launch helpers), the shape of their kernel
+#: cases (GQA), and the timed shape (the train path's rows and heads)
+ATTN_DIMS = (2, 24, 48, 80, 96)
+ATTN_B, ATTN_T, ATTN_H, ATTN_HKV = 2, 200, 4, 2
+ATTN_TIMED_T = 2048
+#: the reference's SelfAttentionLayer(n_out=4, n_heads=2): head dim 2,
+#: one forward and backward on the card (K1, K3; f32, TF32 off) against
+#: the port on the CPU (the einsum): max |d| over the largest value
+#: within FLASH_TOL's f32 band (f32 sums in another order, __expf)
+ATTN_LAYER_B, ATTN_LAYER_T = 4, 37
+
+
+def phase_attn_dims(state):
+    """K1, K3 and the K4/K5 pair at head dims ``ATTN_DIMS`` in bfloat16
+    and float32, causal and key-masked, [2, 200, 4 heads on 2 kv heads],
+    each against its plain version at the real dim (the bands of the
+    kernels phase); K1 timed at [1, 2048, 6, D] bf16 causal beside SDPA
+    at the real dim. Then ``SelfAttentionLayer(n_out=4, n_heads=2)`` (head
+    dim 2) forward and backward on the card against the port on the CPU,
+    between zeroed and read launch counters: K1 and K3 once each and no
+    other kernel, so the einsum did not take it."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.nn.layers.attention import \
+        SelfAttentionLayer
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    from deeplearning4j_tpu_torch.ops import kernel_registry
+    card = state["card"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for d in ATTN_DIMS:
+        for dname in ("bfloat16", "float32"):
+            dt = getattr(torch, dname)
+            for j, (causal, masked) in enumerate(((True, False),
+                                                  (False, True))):
+                q, k, v, out, lse, do, mask = _flash_bwd_case(
+                    dt, ATTN_B, ATTN_T, ATTN_H, ATTN_HKV, causal, masked,
+                    700 + 10 * d + j, d=d)
+                kw = dict(causal=causal, mask=mask)
+                ref_out, ref_lse = ck.flash_attention_reference(
+                    q, k, v, return_lse=True, **kw)
+                fused = ck.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+                split = (ck.flash_attention_bwd_dq(q, k, v, out, lse, do,
+                                                   **kw),
+                         *ck.flash_attention_bwd_dkv(q, k, v, out, lse, do,
+                                                     **kw))
+                ref = ck.flash_attention_bwd_reference(q, k, v, out, lse,
+                                                       do, **kw)
+                torch.cuda.synchronize()
+                o_err = (out.float() - ref_out.float()).abs().max().item()
+                lse_err = (lse - ref_lse).abs().max().item()
+                r3 = max(_rel_err(a, r) for a, r in zip(fused, ref))
+                r45 = max(_rel_err(a, r) for a, r in zip(split, ref))
+                finite = all(bool(torch.isfinite(x).all())
+                             for x in (out, lse, *fused, *split))
+                line = (f"attn_dims D={d} {dname} [{ATTN_B},{ATTN_T},"
+                        f"{ATTN_H},{d}] Hkv={ATTN_HKV} causal={causal} "
+                        f"mask={masked} (kernel dim {ck._kernel_dim(d)}): "
+                        f"K1 out max_abs_err={o_err:.3e} tol="
+                        f"{FLASH_TOL[dname]:.0e} lse {lse_err:.3e} tol="
+                        f"{LSE_TOL:.0e}; K3 rel={r3:.3e} K4+K5 rel={r45:.3e}"
+                        f" tol={K3_TOL[dname]:.0e} {card}")
+                log(line)
+                if not (o_err <= FLASH_TOL[dname] and lse_err <= LSE_TOL
+                        and r3 <= K3_TOL[dname] and r45 <= K3_TOL[dname]
+                        and finite):
+                    raise AssertionError(f"a flash kernel disagrees with "
+                                         f"its plain version: {line}")
+        q, k, v, _ = _flash_case(torch.bfloat16, ATTN_TIMED_T, 6, 6, True,
+                                 False, 900 + d)
+        q, k, v = (x[..., :d].contiguous() for x in (q, k, v))
+        t_k = device_ms(lambda: ck.flash_attention(q, k, v, causal=True))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        t_l = device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))
+        flops = 4 * d * 6 * ATTN_TIMED_T * (ATTN_TIMED_T + 1) / 2
+        b_ms, b_by = bound_ms(flops, 4 * q.numel() * q.element_size(),
+                              PEAK_BF16_FLOPS)
+        log(f"attn_dims K1 bfloat16 [1,{ATTN_TIMED_T},6,{d}] causal "
+            f"(run at {ck._kernel_dim(d)}): kernel_ms={t_k:.4f} "
+            f"sdpa_ms={t_l:.4f} kernel/sdpa={t_k / t_l:.2f} bound_ms="
+            f"{b_ms:.5f}({b_by}) {_rate(flops, t_k, b_ms)} {card}")
+    # the reference's layer at head dim 2, card against CPU
+    layer = SelfAttentionLayer(n_out=4, n_heads=2)
+    params, _, _ = layer.init(torch.Generator().manual_seed(0),
+                              (ATTN_LAYER_T, 4))
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((ATTN_LAYER_B, ATTN_LAYER_T, 4)).astype(
+        np.float32)
+    w = rng.standard_normal(x.shape).astype(np.float32)
+    mask = (rng.random((ATTN_LAYER_B, ATTN_LAYER_T)) > 0.3).astype(
+        np.float32)
+    mask[:, 0] = 1
+
+    def run(dev):
+        p = {k_: t.to(dev).requires_grad_() for k_, t in params.items()}
+        xt = torch.tensor(x, device=dev, requires_grad=True)
+        y, _ = layer.apply(p, {}, xt, mask=torch.tensor(mask, device=dev))
+        (y * torch.tensor(w, device=dev)).sum().backward()
+        return [y.detach().cpu(), xt.grad.cpu(),
+                *(p[k_].grad.cpu() for k_ in sorted(p))]
+
+    for e in kernel_registry.ported():
+        e.reset()
+    card_out = run("cuda")
+    torch.cuda.synchronize()
+    launches = {e.key: e.launches() for e in kernel_registry.ported()}
+    cpu_out = run("cpu")
+    errs = [_rel_err(a, b) for a, b in zip(card_out, cpu_out)]
+    log(f"attn_dims: SelfAttentionLayer(n_out=4, n_heads=2) (head dim 2) "
+        f"B={ATTN_LAYER_B} T={ATTN_LAYER_T} key-masked, card vs CPU: max|d|"
+        f"/max|x| of y, dx, {', '.join('d' + k_ for k_ in sorted(params))}"
+        f" = {', '.join(f'{e:.3e}' for e in errs)} tol="
+        f"{FLASH_TOL['float32']:.0e} {card}")
+    want = {e.key: 0 for e in kernel_registry.ported()}
+    want.update(K1=1, K3=1)
+    log(f"attn_dims: the layer's launches {launches} (expected {want}) "
+        f"{card}")
+    assert max(errs) <= FLASH_TOL["float32"], errs
+    assert launches == want, launches
 
 
 # -- the char-RNN ------------------------------------------------------------

@@ -188,7 +188,17 @@ class BatchNormalization(Layer):
     ``lock_gamma_beta``), running ``mean`` and ``var`` in ``state``.
     The statistics reduce over every axis but the last, so a [B, T, F]
     input under a sequence-parallel context would need every rank's
-    share: the layer mixes positions."""
+    share: the layer mixes positions.
+
+    In training the statistics are means over the rows of the batch
+    (``parallel.mesh.group_mean``): this rank's rows, or, under
+    ``ParallelWrapper``'s SYNC step (``mesh.batch_statistics``), the rows
+    of every rank of its data group, as the JAX SYNC step's one program
+    over the global batch takes them. The JAX rules hold in both: bf16
+    and f16 inputs in one pass (E[x²] − E[x]², the squares summed in f32,
+    one reduction for both sums), full precision in the shifted two
+    passes (the mean first, then the mean of the squared deviations from
+    it), the variance biased (over the count of rows)."""
     decay: float = 0.9
     eps: float = 1e-5
     lock_gamma_beta: bool = False
@@ -206,16 +216,19 @@ class BatchNormalization(Layer):
         axes = tuple(range(x.ndim - 1))
         sdt = torch.promote_types(x.dtype, torch.float32)  # f64 stays f64
         if train:
+            from deeplearning4j_tpu_torch.parallel.mesh import group_mean
             xf = x.to(sdt)
-            mu = xf.mean(dim=axes)
+            rows = math.prod(x.shape[:-1])
             if x.dtype in (torch.bfloat16, torch.float16):
                 # one pass: E[x²] − E[x]², the squares summed in f32
-                var = torch.clamp_min(
-                    torch.square(xf).mean(dim=axes) - torch.square(mu),
-                    0.0)
+                mu, ex2 = group_mean(torch.stack(
+                    [xf.sum(dim=axes), torch.square(xf).sum(dim=axes)]),
+                    rows)
+                var = torch.clamp_min(ex2 - torch.square(mu), 0.0)
             else:
                 # full precision: the shifted two-pass variance
-                var = torch.square(xf - mu).mean(dim=axes)
+                mu = group_mean(xf.sum(dim=axes), rows)
+                var = group_mean(torch.square(xf - mu).sum(dim=axes), rows)
             new_state = {
                 "mean": (self.decay * state["mean"]
                          + (1 - self.decay) * mu.detach()),

@@ -35,6 +35,8 @@ from deeplearning4j_tpu_torch.obs import trace as _trace
 # first-use kernel builds
 LATENCY_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
                    0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
+# size buckets (examples): the serving batches of ParallelInference
+SIZE_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 
 
 def _escape(v: str) -> str:
@@ -374,6 +376,23 @@ SERVING_PREFIX_SHARED = REGISTRY.gauge(
 SERVING_PREFIX_COW = REGISTRY.counter(
     "dl4j_tpu_serving_prefix_cow_copies_total",
     "copy-on-write page copies (a write hit a shared page)")
+
+# -- batched inference serving (parallel/inference.py) ------------------------
+INFER_REQS = REGISTRY.counter(
+    "dl4j_tpu_inference_requests_total",
+    "ParallelInference requests enqueued")
+INFER_LATENCY = REGISTRY.histogram(
+    "dl4j_tpu_inference_request_latency_seconds",
+    "enqueue->result latency per request")
+INFER_QUEUE = REGISTRY.gauge(
+    "dl4j_tpu_inference_queue_depth",
+    "ParallelInference request queue depth")
+INFER_BATCH = REGISTRY.histogram(
+    "dl4j_tpu_inference_batch_size",
+    "examples per dispatched serving batch", buckets=SIZE_BUCKETS)
+REQS_SHED = REGISTRY.counter(
+    "dl4j_tpu_inference_requests_shed_total",
+    "serving requests shed instead of served", ("reason",))
 
 # -- parallel training (parallel/wrapper.py) -----------------------------------
 # the optimizer-state footprint the ZeRO sharded update divides by N:

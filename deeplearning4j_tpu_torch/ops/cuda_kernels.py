@@ -47,6 +47,16 @@ gradient it runs through :class:`_FlashAttentionFn`, whose forward calls
 the forward kernel with the logsumexp and whose backward calls
 :func:`flash_attention_bwd` (the plain versions for CPU tensors).
 
+**Head dims.** The four flash kernels are compiled at the head dims of
+:data:`_HEAD_DIMS`. Any other head dim up to 128 runs through them
+zero-padded to the next of those (:func:`_kernel_dim`): the launch
+helpers pad q, k, v (and dO) with zero columns, pass the softmax scale
+of the REAL head dim, and slice the pad off out, dq, dk and dv. The pad
+is exact: zero columns of q and k leave every score unchanged, zero
+columns of v give zero output columns, and the pad's gradients are
+dropped. The fused/split choice of the backward is made at the real
+head dim, before any pad. A head dim above 128 raises.
+
 The ring-composition entries :func:`flash_block_fwd` and
 :func:`flash_block_bwd` (the JAX entries of the same names) run one
 (query block, key block) pair of a ring step at GLOBAL offsets ``(q_off,
@@ -66,6 +76,8 @@ import torch
 from deeplearning4j_tpu_torch.obs import devtime
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the head dims the flash kernels are compiled at; any other head dim up
+#: to the last runs at the next of them, zero-padded (:func:`_kernel_dim`)
 _HEAD_DIMS = (16, 32, 64, 128)
 #: the kernels' fixed tile: 64 query rows by 64 keys
 KERNEL_BLOCK = 64
@@ -124,21 +136,49 @@ def _raise_on(lib, err: int, what: str,
         raise RuntimeError(f"{what} kernel launch failed ({err}): {msg}")
 
 
+def _kernel_dim(d: int) -> int:
+    """The head dim the flash kernels run a real head dim ``d`` at: the
+    least of :data:`_HEAD_DIMS` that holds it. Above the largest,
+    ``ValueError`` (ROADMAP C11: no model of the repo has one)."""
+    for dp in _HEAD_DIMS:
+        if d <= dp:
+            return dp
+    raise ValueError(f"flash_attention kernels take head dims up to "
+                     f"{_HEAD_DIMS[-1]}, got {d} (ROADMAP C11: head dims "
+                     f"above {_HEAD_DIMS[-1]} are not instantiated)")
+
+
+def _pad_head(x: torch.Tensor, dp: int) -> torch.Tensor:
+    """``x`` with its head dim zero-padded to ``dp`` (``x`` itself when it
+    is already ``dp`` wide)."""
+    d = x.shape[-1]
+    return x if d == dp else torch.nn.functional.pad(x, (0, dp - d))
+
+
+def _unpad_head(x: torch.Tensor, d: int) -> torch.Tensor:
+    """The first ``d`` columns of ``x``'s head dim, contiguous (``x``
+    itself when it is ``d`` wide)."""
+    return x if x.shape[-1] == d else x[..., :d].contiguous()
+
+
 def _reference_scan(q, k, v, km=None, offs=None, causal: bool = False,
-                    block: int = 512, return_lse: bool = False):
+                    block: int = 512, return_lse: bool = False,
+                    scale: Optional[float] = None):
     """Plain blockwise attention (port of ``pallas_kernels.py``
     ``_reference_scan``): a loop over ``block``-key tiles with the same
     online softmax, mask and offset semantics as the kernel. q: [BH, T,
     D]; k, v: [BH, Tk, D] (already expanded to the query heads); km:
     [BH, Tk] key mask (> 0 = attend); offs: ``(q_offset, k_offset)``
-    global positions for causal masking. Scores and accumulators are
+    global positions for causal masking; ``scale`` the softmax scale
+    (default 1/√D). Scores and accumulators are
     f32 (inputs upcast); the output is cast back to q's dtype. Returns
     out [BH, T, D] and, with ``return_lse``, the f32 row logsumexp [BH,
     T, 1] (-inf for a row with no live key)."""
     bh, t, d = q.shape
     tk_real = k.shape[1]
     q_off, k_off = (0, 0) if offs is None else offs
-    scale = 1.0 / (d ** 0.5)
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
     dev = q.device
     qf = q.float()
     q_idx = q_off + torch.arange(t, device=dev)[:, None]
@@ -190,10 +230,11 @@ def _check_cuda_inputs(q, k, v, mask, block_q, block_k) -> None:
         raise ValueError(f"flash_attention kernel takes float32 or "
                          f"bfloat16, not {q.dtype}")
     d = q.shape[-1]
-    if d not in _HEAD_DIMS or k.shape[-1] != d or v.shape[-1] != d:
-        raise ValueError(f"flash_attention kernel takes head dim in "
-                         f"{_HEAD_DIMS} (q, k, v all alike), got "
-                         f"{q.shape[-1]}, {k.shape[-1]}, {v.shape[-1]}")
+    if d < 1 or k.shape[-1] != d or v.shape[-1] != d:
+        raise ValueError(f"flash_attention kernel takes one head dim for "
+                         f"q, k and v, got {q.shape[-1]}, {k.shape[-1]}, "
+                         f"{v.shape[-1]}")
+    _kernel_dim(d)
     if k.shape != v.shape or k.shape[0] != q.shape[0]:
         raise ValueError(f"flash_attention: k {tuple(k.shape)} / v "
                          f"{tuple(v.shape)} do not match q "
@@ -212,30 +253,35 @@ def _check_cuda_inputs(q, k, v, mask, block_q, block_k) -> None:
 
 def _flash_cuda(q, k, v, mask, causal: bool, q_off: int,
                 return_lse: bool):
+    """K1, its head dim zero-padded to :func:`_kernel_dim` at the real
+    head dim's softmax scale, the pad sliced off the output."""
     b, t, h, d = q.shape
     tk, h_kv = k.shape[1], k.shape[2]
-    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    scale = 1.0 / math.sqrt(d)
+    dp = _kernel_dim(d)
+    q, k, v = (_pad_head(x, dp) for x in (q, k, v))
+    out = torch.empty((b, t, h, dp), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
            if return_lse else None)
     if t == 0:
-        return out, lse
+        return _unpad_head(out, d), lse
     km = None if mask is None else mask.to(torch.float32).contiguous()
     lib = _lib()
     # the stream of the CALLING thread (the gateway steps the scheduler
     # on its own worker thread)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.dl4j_flash_attention_fwd(
-        _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
+        _DTYPE_CODES[q.dtype], dp, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), None if km is None else km.data_ptr(),
         out.data_ptr(), None if lse is None else lse.data_ptr(),
         b, t, tk, h, h_kv,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
-        int(causal), int(q_off), 1.0 / math.sqrt(d), stream)
+        int(causal), int(q_off), scale, stream)
     _raise_on(lib, err, "flash_attention")
     flash_attention.launches += 1
-    return out, lse
+    return _unpad_head(out, d), lse
 
 
 def flash_attention(q, k, v, causal: bool = False,
@@ -284,12 +330,14 @@ def flash_attention(q, k, v, causal: bool = False,
 
 def flash_attention_reference(q, k, v, causal: bool = False, mask=None,
                               block_k: int = 512,
-                              return_lse: bool = False, offsets=None):
+                              return_lse: bool = False, offsets=None,
+                              scale: Optional[float] = None):
     """The plain version of :func:`flash_attention` on any device:
     the same [B, T, H, D] arguments, folded to [B·H, T, D] rows (kv rows
     repeated per head group, the key mask per head) and run through
     :func:`_reference_scan`. ``offsets``: the causal ``(q_off, k_off)``
-    (default the end-aligned ``(Tk − Tq, 0)``)."""
+    (default the end-aligned ``(Tk − Tq, 0)``); ``scale``: the softmax
+    scale (default 1/√D)."""
     b, t, h, d = q.shape
     groups = h // k.shape[2]
     q_off, k_off = _offsets(t, k.shape[1], causal, offsets)
@@ -300,7 +348,7 @@ def flash_attention_reference(q, k, v, causal: bool = False, mask=None,
           else mask.to(torch.float32).repeat_interleave(h, dim=0))
     res = _reference_scan(fold(q), expand(fold(k)), expand(fold(v)), km,
                           (q_off, k_off), causal, block=block_k,
-                          return_lse=return_lse)
+                          return_lse=return_lse, scale=scale)
     out, lse = res if return_lse else (res, None)
     out = out.reshape(b, h, t, d).permute(0, 2, 1, 3)
     return (out, lse.reshape(b, h, t)) if return_lse else out
@@ -429,23 +477,29 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = False,
 def _flash_bwd_cuda(q, k, v, out, lse, dout, mask, causal: bool,
                     q_off: int):
     """K3. ``q_off``: the causal rule's one offset, row i sees key j
-    when j <= i + q_off."""
+    when j <= i + q_off. The head dim zero-padded as K1's
+    (:func:`_flash_cuda`), out and dO too, at the real dim's scale; the
+    pad's gradients are sliced off."""
     b, t, h, d = q.shape
     tk, h_kv = k.shape[1], k.shape[2]
-    dq = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
-    dk = torch.empty((b, tk, h_kv, d), dtype=k.dtype, device=q.device)
-    dv = torch.empty((b, tk, h_kv, d), dtype=v.dtype, device=q.device)
     if t == 0 or tk == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
+        return (torch.zeros_like(q), torch.zeros_like(k),
+                torch.zeros_like(v))
+    scale = 1.0 / math.sqrt(d)
+    dp = _kernel_dim(d)
+    q, k, v, out, dout = (_pad_head(x, dp) for x in (q, k, v, out, dout))
+    dq = torch.empty((b, t, h, dp), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, tk, h_kv, dp), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, tk, h_kv, dp), dtype=v.dtype, device=q.device)
     # scratch: dq accumulates in f32 across key tiles, Delta per row
-    dq_acc = torch.empty((b, t, h, d), dtype=torch.float32,
+    dq_acc = torch.empty((b, t, h, dp), dtype=torch.float32,
                          device=q.device)
     delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     km = None if mask is None else mask.to(torch.float32).contiguous()
     lib = _lib("flash_attention_bwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.dl4j_flash_attention_bwd(
-        _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
+        _DTYPE_CODES[q.dtype], dp, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         None if km is None else km.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), dq_acc.data_ptr(),
@@ -455,10 +509,10 @@ def _flash_bwd_cuda(q, k, v, out, lse, dout, mask, causal: bool,
         v.stride(0), v.stride(1), v.stride(2),
         out.stride(0), out.stride(1), out.stride(2),
         dout.stride(0), dout.stride(1), dout.stride(2),
-        int(causal), int(q_off), 1.0 / math.sqrt(d), stream)
+        int(causal), int(q_off), scale, stream)
     _raise_on(lib, err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
-    return dq, dk, dv
+    return tuple(_unpad_head(x, d) for x in (dq, dk, dv))
 
 
 def _offsets(tq: int, tk: int, causal: bool, offsets):
@@ -471,7 +525,8 @@ def _offsets(tq: int, tk: int, causal: bool, offsets):
 
 def _flash_delta_cuda(out, dout):
     """Delta = rowsum(dO ∘ O) in f32, [B, H, Tq], by the split library's
-    pre-pass kernel (read by K4 and K5)."""
+    pre-pass kernel (read by K4 and K5). It takes any head dim: it runs
+    on the unpadded out and dO (a zero pad would add zeros)."""
     b, t, h, d = out.shape
     delta = torch.empty((b, h, t), dtype=torch.float32, device=out.device)
     if delta.numel():
@@ -492,17 +547,27 @@ def _delta_reference(out, dout):
 
 
 def _split_launch(entry: str, q, k, v, out, lse, dout, causal, mask,
-                  offsets, delta, outputs) -> None:
-    """Launch K4 (``outputs`` = (dq,)) or K5 (``outputs`` = (dk, dv))."""
+                  offsets, delta):
+    """Launch K4 (``entry`` ``dl4j_flash_attention_bwd_dq``: returns
+    (dq,)) or K5 (``dl4j_flash_attention_bwd_dkv``: returns (dk, dv)),
+    the head dim zero-padded as K1's (:func:`_flash_cuda`) at the real
+    dim's scale and the pad sliced off the gradients."""
     b, t, h, d = q.shape
     tk, h_kv = k.shape[1], k.shape[2]
     if delta is None:
         delta = _flash_delta_cuda(out, dout)
+    scale = 1.0 / math.sqrt(d)
+    dp = _kernel_dim(d)
+    q, k, v, dout = (_pad_head(x, dp) for x in (q, k, v, dout))
+    outputs = ((torch.empty(q.shape, dtype=q.dtype, device=q.device),)
+               if entry.endswith("_dq") else
+               (torch.empty(k.shape, dtype=k.dtype, device=k.device),
+                torch.empty(v.shape, dtype=v.dtype, device=v.device)))
     km = None if mask is None else mask.to(torch.float32).contiguous()
     q_off, k_off = _offsets(t, tk, causal, offsets)
     lib = _lib("flash_attention_bwd_split")
     err = getattr(lib, entry)(
-        _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
+        _DTYPE_CODES[q.dtype], dp, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         None if km is None else km.data_ptr(),
         *(x.data_ptr() for x in outputs), b, t, tk, h, h_kv,
@@ -510,9 +575,10 @@ def _split_launch(entry: str, q, k, v, out, lse, dout, causal, mask,
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         dout.stride(0), dout.stride(1), dout.stride(2),
-        int(causal), q_off, k_off, 1.0 / math.sqrt(d),
+        int(causal), q_off, k_off, scale,
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(lib, err, entry)
+    return tuple(_unpad_head(x, d) for x in outputs)
 
 
 def flash_attention_bwd_dq(q, k, v, out, lse, dout, causal: bool = False,
@@ -532,11 +598,10 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, causal: bool = False,
             return flash_attention_bwd_dq_reference(
                 q, k, v, out, lse, dout, causal, mask, offsets, delta)
         _check_bwd_inputs(q, k, v, out, lse, dout, mask, delta)
-        dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
         if q.shape[1] == 0 or k.shape[1] == 0:
-            return dq.zero_()
-        _split_launch("dl4j_flash_attention_bwd_dq", q, k, v, out, lse,
-                      dout, causal, mask, offsets, delta, (dq,))
+            return torch.zeros_like(q)
+        dq, = _split_launch("dl4j_flash_attention_bwd_dq", q, k, v, out,
+                            lse, dout, causal, mask, offsets, delta)
         flash_attention_bwd_dq.launches += 1
         return dq
 
@@ -555,12 +620,11 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, dout, causal: bool = False,
             return flash_attention_bwd_dkv_reference(
                 q, k, v, out, lse, dout, causal, mask, offsets, delta)
         _check_bwd_inputs(q, k, v, out, lse, dout, mask, delta)
-        dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-        dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
         if q.shape[1] == 0 or k.shape[1] == 0:
-            return dk.zero_(), dv.zero_()
-        _split_launch("dl4j_flash_attention_bwd_dkv", q, k, v, out, lse,
-                      dout, causal, mask, offsets, delta, (dk, dv))
+            return torch.zeros_like(k), torch.zeros_like(v)
+        dk, dv = _split_launch("dl4j_flash_attention_bwd_dkv", q, k, v,
+                               out, lse, dout, causal, mask, offsets,
+                               delta)
         flash_attention_bwd_dkv.launches += 1
         return dk, dv
 
@@ -629,18 +693,20 @@ def _reduce_kv(x, b: int, h: int, h_kv: int):
 
 def flash_attention_bwd_reference(q, k, v, out, lse, dout,
                                   causal: bool = False, mask=None,
-                                  offsets=None):
+                                  offsets=None,
+                                  scale: Optional[float] = None):
     """The plain version of :func:`flash_attention_bwd`'s fused kernel
     on any device — the port of the JAX ``_reference_bwd_block`` on
     [B, T, H, D]: the kv heads repeated per head group, the whole
     [Tq, Tk] probability matrix recomputed in f32 from the logsumexp
     (lse taken as 0 where it is not finite), dk/dv summed back onto the
     kv heads; ``offsets`` the causal ``(q_off, k_off)`` (default
-    end-aligned). O(Tq·Tk) memory: for tests and the card's comparison
-    only (the split pair's plain versions are blockwise)."""
+    end-aligned); ``scale`` the softmax scale (default 1/√D).
+    O(Tq·Tk) memory: for tests and the card's comparison only (the split
+    pair's plain versions are blockwise)."""
     b, t, h, d = q.shape
     tk, h_kv = k.shape[1], k.shape[2]
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     r = _rows(q, k, v, out, lse, dout, mask, None)
     p, ds = _tile_p_ds(r, 0, t, 0, tk, causal,
                        *_offsets(t, tk, causal, offsets), scale)
@@ -655,16 +721,17 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout,
 def flash_attention_bwd_dq_reference(q, k, v, out, lse, dout,
                                      causal: bool = False, mask=None,
                                      offsets=None, delta=None,
-                                     block: int = 512):
+                                     block: int = 512,
+                                     scale: Optional[float] = None):
     """The plain version of :func:`flash_attention_bwd_dq` on any device,
     the port of the JAX dq pass: for each ``block``-row query tile, a
     loop over ``block``-key tiles up to the causal diagonal, p
     recomputed in f32 from the logsumexp, dq accumulated in f32 and
-    scaled once. O(B·H·T·block) memory."""
+    scaled once (``scale``, default 1/√D). O(B·H·T·block) memory."""
     b, t, h, d = q.shape
     tk = k.shape[1]
     q_off, k_off = _offsets(t, tk, causal, offsets)
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     r = _rows(q, k, v, out, lse, dout, mask, delta)
     dq = torch.zeros_like(r.q)
     for i0 in range(0, t, block):
@@ -682,17 +749,18 @@ def flash_attention_bwd_dq_reference(q, k, v, out, lse, dout,
 def flash_attention_bwd_dkv_reference(q, k, v, out, lse, dout,
                                       causal: bool = False, mask=None,
                                       offsets=None, delta=None,
-                                      block: int = 512):
+                                      block: int = 512,
+                                      scale: Optional[float] = None):
     """The plain version of :func:`flash_attention_bwd_dkv` on any
     device, the port of the JAX dk/dv pass: for each ``block``-key tile,
     a loop over ``block``-row query tiles from the causal diagonal on,
     dv += pᵀ·dO and dk += dsᵀ·q in f32 per query head, dk scaled once,
-    then both summed onto the kv heads (``_reduce_kv_rows``).
-    O(B·H·T·block) memory."""
+    then both summed onto the kv heads (``_reduce_kv_rows``); ``scale``
+    the softmax scale (default 1/√D). O(B·H·T·block) memory."""
     b, t, h, d = q.shape
     tk, h_kv = k.shape[1], k.shape[2]
     q_off, k_off = _offsets(t, tk, causal, offsets)
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     r = _rows(q, k, v, out, lse, dout, mask, delta)
     dk, dv = torch.zeros_like(r.k), torch.zeros_like(r.v)
     for j0 in range(0, tk, block):

@@ -13,8 +13,9 @@ entries (K1, K3, K4, K5) and the Ulysses all-to-all of ``ulysses.py``.
 Distributed evaluation: the facades' ``evaluate``, ``evaluate_regression``
 and ``do_evaluation``, and ``master.merge_across_processes``, which folds
 every rank's statistics together over the group.
-``composed.py``, ``pipeline.py``, ``moe.py`` and
-``ParallelInference`` come with later slices.
+Batched inference serving: ``ParallelInference`` (``inference.py``,
+modes INPLACE and BATCHED). ``composed.py``, ``pipeline.py``, ``moe.py``
+and model-parallel serving come with later slices.
 """
 from deeplearning4j_tpu_torch.parallel.mesh import (
     Mesh, active_context, context_epoch, data_parallel_mesh,
@@ -30,6 +31,8 @@ from deeplearning4j_tpu_torch.parallel.zero import (
     FlatShardLayout, LayoutMismatch, per_device_bytes, repad_flat_leaves,
     zero_dp_report)
 from deeplearning4j_tpu_torch.parallel.wrapper import ParallelWrapper
+from deeplearning4j_tpu_torch.parallel.inference import (
+    ParallelInference, shard_model_params)
 from deeplearning4j_tpu_torch.parallel.master import (
     ParameterAveragingTrainingMaster, ShardedDataSetIterator,
     SharedTrainingMaster, SparkComputationGraph, SparkDl4jMultiLayer,
@@ -40,7 +43,7 @@ __all__ = [
     "zigzag_ring_self_attention", "zigzag_permute", "zigzag_unpermute",
     "distributed_context", "active_context", "context_epoch",
     "Mesh", "make_mesh", "data_parallel_mesh", "initialize_distributed",
-    "ParallelWrapper",
+    "ParallelWrapper", "ParallelInference", "shard_model_params",
     "FlatShardLayout", "LayoutMismatch", "repad_flat_leaves",
     "per_device_bytes", "zero_dp_report",
     "EncodedGradientsAccumulator", "encode_threshold", "decode_threshold",

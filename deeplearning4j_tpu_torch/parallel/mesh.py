@@ -259,6 +259,35 @@ def reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
     return x if _alone(group) else _ReduceSum.apply(x, group)
 
 
+# -- batch statistics over a data group (ParallelWrapper's SYNC step) --------
+@contextlib.contextmanager
+def batch_statistics(group):
+    """Context: the training layers that take statistics of their batch
+    (``BatchNormalization``) take them over every rank of ``group``, as
+    the JAX SYNC step's one program over the global batch does. Every rank
+    of the group holds the same number of rows (``ParallelWrapper`` cuts
+    each rank's batch to the agreed size), so a layer's global count is
+    its own times the group's size. ``None`` (or a group of one): each
+    rank's own rows. Per-thread."""
+    prev = getattr(_TLS, "batch_group", None)
+    _TLS.batch_group = group
+    try:
+        yield
+    finally:
+        _TLS.batch_group = prev
+
+
+def group_mean(sums: torch.Tensor, rows: int) -> torch.Tensor:
+    """The mean over the rows of every rank of the active
+    :func:`batch_statistics` group, from this rank's ``sums`` over its
+    ``rows`` rows: the sums reduced by :func:`reduce_sum` (differentiable;
+    the identity with no group or a group of one), over the global count
+    of rows."""
+    group = getattr(_TLS, "batch_group", None)
+    n = 1 if _alone(group) else dist.get_world_size(group)
+    return reduce_sum(sums, group) / (rows * n)
+
+
 def reduce_max(x: torch.Tensor, group=None) -> torch.Tensor:
     """The elementwise max of ``x`` over ``group``, differentiable: the
     summed cotangent goes to the first rank holding each max. ``x``

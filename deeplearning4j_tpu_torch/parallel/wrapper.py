@@ -55,10 +55,33 @@ is the mean over ranks. Past one rank, each rank folds its ``data``
 index into the step's seed, so that the ranks draw their own dropout
 masks for their own rows, as the JAX SYNC step's one global program
 draws one mask over the global batch (the JAX ``shard_map`` modes pass
-every device the same key; the port does not copy that). The first step
+every device the same key; the port does not copy that). At one rank
+SYNC's gradient mean is the rank's own gradient: no collective runs for
+it. The first step
 broadcasts rank 0's params and optimizer state, the counterpart of JAX's
 replicated placement. After AVERAGING and ASYNC, ``fit`` folds the
 replicas back (``_sync_back``).
+
+**Layer state** (batch norm's running statistics) follows the JAX
+steps mode by mode. Under SYNC the JAX step is one ``jit`` over the
+global batch, so a training layer's batch statistics cover every row of
+it: here each rank's ``_local_grads`` runs under
+``mesh.batch_statistics`` over the ``data`` group, the statistics are
+summed over the ranks by the differentiable ``mesh.reduce_sum`` (the
+identity at one rank), and every rank computes the same new state. The
+other modes — ENCODED, AVERAGING, ASYNC and SYNC with
+``sharded_update`` — are ``shard_map`` programs in the JAX package: each
+device computes its new state from its own shard, and the step returns
+it under ``out_specs=P()`` unchecked (``check_vma=False``), so each
+device carries its own chain of states and ``net.state`` reads device
+0's (measured on 2 CPU devices: the two chains differ, ``np.asarray``
+gives the first device's). Training reads only the batch's statistics,
+so device 0's chain depends on its own shards alone: here each rank
+computes its state from its own rows, then takes rank 0's by a
+broadcast, so every rank ends each step with the state the JAX
+``net.state`` shows. No statistics are reduced in those modes. The
+replicas of AVERAGING and ASYNC carry (params, optimizer state, layer
+state), and ``_sync_back`` folds the state back with them.
 
 Every mode updates each parameter group by the network's own chain
 (``net._chains``: a frozen group not at all, and its gradient is never
@@ -95,6 +118,7 @@ from deeplearning4j_tpu_torch.parallel.compression import \
     EncodedGradientsAccumulator
 from deeplearning4j_tpu_torch.parallel.mesh import (Mesh, all_gather_,
                                                     all_reduce_sum,
+                                                    batch_statistics,
                                                     broadcast_,
                                                     data_parallel_mesh,
                                                     mean_over)
@@ -187,8 +211,13 @@ class ParallelWrapper:
         self.prefetch_buffer = prefetch_buffer
         self.sharded_update = bool(sharded_update)
         self.gather_overlap = bool(gather_overlap)
+        # plain SYNC is one JAX program over the global batch: its layers'
+        # batch statistics cover every rank's rows; every other mode is a
+        # shard_map step, whose layer state is rank 0's own
+        self._global_stats = mode == self.SYNC and not self.sharded_update
         self._acc_state = None      # this rank's accumulator state
-        self._rep = None            # AVERAGING/ASYNC: (params, opt state)
+        self._rep = None            # AVERAGING/ASYNC: (params, opt
+        #                             state, layer state)
         self._placed = False        # rank 0's replica broadcast yet?
         # ZeRO: the layout, this rank's 1/N optimizer state, and (overlap)
         # its carried 1/N param shards with the leaves they came from
@@ -205,17 +234,17 @@ class ParallelWrapper:
         if hasattr(net.conf, "inputs"):
             ins = net.conf.inputs
 
-            def _graph_loss(p, x, y, rng):
+            def _graph_loss(p, s, x, y, rng):
                 xd = x if isinstance(x, dict) else (
                     dict(zip(ins, x)) if isinstance(x, (list, tuple))
                     else {ins[0]: x})
                 yl = list(y) if isinstance(y, (list, tuple)) else [y]
-                return net._loss_fn(p, net.state, xd, yl, {}, {}, rng)
+                return net._loss_fn(p, s, xd, yl, {}, {}, rng)
 
             self._loss = _graph_loss
         else:
-            self._loss = lambda p, x, y, rng: net._loss_fn(
-                p, net.state, x, y, None, None, rng)
+            self._loss = lambda p, s, x, y, rng: net._loss_fn(
+                p, s, x, y, None, None, rng)
         #: ``resilience.elastic.ElasticContext`` in the JAX package; set,
         #: ``fit`` raises (the resilience slice)
         self.elastic = None
@@ -287,11 +316,42 @@ class ParallelWrapper:
         _later("load_gathered_tree (sharded checkpoints)", "resilience")
 
     # -- shared step pieces (every mode composes these) ----------------
-    def _local_grads(self, params, x, y, rng):
-        """(loss, gradients, new layer state) of this rank's rows; a
-        frozen group's gradients are zeros, never computed."""
-        return loss_and_grads(lambda p: self._loss(p, x, y, rng), params,
-                              self.net._frozen())
+    def _local_grads(self, params, state, x, y, rng):
+        """(loss, gradients, new layer state) of this rank's rows from
+        ``params`` and layer ``state``; a frozen group's gradients are
+        zeros, never computed. Under plain SYNC the training layers'
+        batch statistics cover the rows of the whole ``data`` group (the
+        JAX SYNC step's one program over the global batch); under every
+        other mode, a ``shard_map`` step in the JAX package, this rank's
+        rows alone."""
+        with batch_statistics(self.group if self._global_stats else None):
+            return loss_and_grads(
+                lambda p: self._loss(p, state, x, y, rng), params,
+                self.net._frozen())
+
+    def _shared_state(self, state):
+        """The layer state every rank ends a step with: ``state`` itself
+        under plain SYNC (its statistics already cover the group) and at
+        one rank; else rank 0's, broadcast over the group — the state the
+        JAX ``shard_map`` step's unchecked ``P()`` output shows. The
+        leaves go as one flat buffer a dtype (ResNet-50: 106 running
+        statistics in one broadcast)."""
+        if self.n == 1 or self._global_stats:
+            return state
+        leaves = list(tree.leaves(state))
+        out = [None] * len(leaves)
+        by_dtype = {}
+        for i, t in enumerate(leaves):
+            by_dtype.setdefault(t.dtype, []).append(i)
+        with torch.no_grad():
+            for idx in by_dtype.values():
+                flat = broadcast_(torch.cat(
+                    [leaves[i].reshape(-1) for i in idx]), 0, self.group)
+                pieces = flat.split([leaves[i].numel() for i in idx])
+                for i, piece in zip(idx, pieces):
+                    out[i] = piece.view_as(leaves[i])
+        it = iter(out)
+        return tree.map_(lambda _: next(it), state)
 
     def _apply_update(self, params, opt_state, grads, constrain=True):
         """One optimizer application by the network's per-group chains,
@@ -305,29 +365,35 @@ class ParallelWrapper:
                              constrain)
 
     def _replica(self):
-        """(params, optimizer state) this rank trains: the net's own under
-        SYNC and ENCODED, where every rank holds the same; under
-        AVERAGING and ASYNC the replica carried from fit to fit (JAX's
-        per-device ``_dp_state``), which ``_sync_back`` folds into the
-        net."""
+        """(params, optimizer state, layer state) this rank trains: the
+        net's own under SYNC and ENCODED, where every rank holds the same;
+        under AVERAGING and ASYNC the replica carried from fit to fit
+        (JAX's per-device ``_dp_state``, with the carried layer state),
+        which ``_sync_back`` folds into the net."""
         if self._rep is not None:
             return self._rep
-        return self.net.params, self.net.opt_state
+        return self.net.params, self.net.opt_state, self.net.state
 
     def _exchanged_grads(self, x, y, rng):
         """(loss, the gradient this mode applies, new layer state): the
         local gradients, then SYNC's mean over the group, ENCODED's
         ``exchange`` or ASYNC's ``exchange_async`` (the accumulator state
         advances); AVERAGING's stay local."""
-        loss, grads, new_state = self._local_grads(self._replica()[0], x,
-                                                   y, rng)
+        params, _, state = self._replica()
+        loss, grads, new_state = self._local_grads(params, state, x, y, rng)
+        if self.mode == self.AVERAGING or (self.mode == self.SYNC
+                                           and self.n == 1):
+            # AVERAGING's gradients stay local; SYNC's mean over a group
+            # of one is the rank's own
+            return loss, grads, new_state
+        # a convolution's kernel gradient comes back in the permuted
+        # (channels-last) layout: the collectives, and the exchanges'
+        # codes and residuals, take dense tensors
+        grads = tree.map_(torch.Tensor.contiguous, grads)
         if self.mode == self.SYNC:
-            # the autograd gradients are fresh tensors, summed in place; a
-            # convolution's kernel gradient comes back in the permuted
-            # (channels-last) layout, so it is made contiguous first
+            # the autograd gradients are fresh tensors, summed in place
             grads = tree.map_(
-                lambda g: all_reduce_sum(g.contiguous(), self.group)
-                / self.n, grads)
+                lambda g: all_reduce_sum(g, self.group) / self.n, grads)
         elif self.mode == self.ENCODED:
             grads, self._acc_state = self.accumulator.exchange(
                 grads, self._acc_state, self.group)
@@ -347,8 +413,9 @@ class ParallelWrapper:
         if self.sharded_update:
             return self._sharded_step(x, y, rng)
         net = self.net
-        loss, grads, net.state = self._exchanged_grads(x, y, rng)
-        params, opt_state = self._apply_update(*self._replica(), grads)
+        loss, grads, new_state = self._exchanged_grads(x, y, rng)
+        net.state = self._shared_state(new_state)
+        params, opt_state = self._apply_update(*self._replica()[:2], grads)
         k = self.averaging_frequency
         if self.mode == self.AVERAGING and net.iteration % k == k - 1:
             # every k-th iteration: replica averaging (reference
@@ -358,7 +425,7 @@ class ParallelWrapper:
             if self.average_updaters:
                 opt_state = tree.map_(self._mean_floats, opt_state)
         if self._rep is not None:
-            self._rep = (params, opt_state)
+            self._rep = (params, opt_state, net.state)
         else:
             net.params, net.opt_state = params, opt_state
         return mean_over(loss, self.group)
@@ -385,7 +452,9 @@ class ParallelWrapper:
         else:
             params = net.params
             pshard = layout.shard(layout.flatten(params), self.index)
-        loss, grads, net.state = self._local_grads(params, x, y, rng)
+        loss, grads, new_state = self._local_grads(params, net.state, x, y,
+                                                   rng)
+        net.state = self._shared_state(new_state)
         # the whole gathered params and gradients go before the update
         # allocates its new shards and moments
         del params
@@ -540,18 +609,20 @@ class ParallelWrapper:
 
     # ------------------------------------------------------------------
     def _place(self):
-        """First step: every rank takes rank 0's params and optimizer
-        state (JAX's replicated placement, in place); the replicas of
-        AVERAGING and ASYNC start from them, and so do the accumulator
-        state and, under the sharded update, the rank's shards."""
+        """First step: every rank takes rank 0's params, optimizer state
+        and layer state (JAX's replicated placement, in place); the
+        replicas of AVERAGING and ASYNC start from them, and so do the
+        accumulator state and, under the sharded update, the rank's
+        shards."""
         net = self.net
         if self.sharded_update:
             self._check_sharded_update_supported()
         with torch.no_grad():
-            for t in (*tree.leaves(net.params), *tree.leaves(net.opt_state)):
+            for t in (*tree.leaves(net.params), *tree.leaves(net.opt_state),
+                      *tree.leaves(net.state)):
                 broadcast_(t, 0, self.group)
         if self.mode in (self.AVERAGING, self.ASYNC):
-            self._rep = (net.params, net.opt_state)
+            self._rep = (net.params, net.opt_state, net.state)
         if self.mode == self.ENCODED:
             self._acc_state = self.accumulator.init_state(net.params)
         elif self.mode == self.ASYNC:
@@ -701,10 +772,12 @@ class ParallelWrapper:
         """After averaging/async-mode training, fold the replicas into
         every rank's net (reference: ParallelWrapper final params copy):
         the params' mean; the optimizer moments' mean under AVERAGING
-        with ``average_updaters``, else rank 0's optimizer state. The
-        replicas themselves train on at the next ``fit``."""
+        with ``average_updaters``, else rank 0's optimizer state; the
+        layer state the replicas carry, every rank's rank 0's already
+        (:meth:`_shared_state`). The replicas themselves train on at the
+        next ``fit``."""
         net = self.net
-        params, opt_state = self._rep
+        params, opt_state, net.state = self._rep
         net.params = tree.map_(lambda t: mean_over(t, self.group), params)
         if self.mode == self.AVERAGING and self.average_updaters:
             net.opt_state = tree.map_(self._mean_floats, opt_state)

@@ -31,6 +31,10 @@ Tolerances:
     allowed to flip (measured 18 and 9 of 988 816). The encoding is
     discontinuous at |g| = τ, so an element whose gradient lies within
     f32 rounding of ±τ may take another code on the two sides.
+- the wrapper over a conv net with batch norm, every mode, and one SYNC
+  step's all-reduced bytes: ``tests/torch_bn_twins.py`` states what the
+  JAX wrapper computes in each mode and the bands (the ones above, on the
+  params and the running statistics alike).
 """
 import json
 import os
@@ -50,6 +54,7 @@ from deeplearning4j_tpu.parallel import master as jmaster
 from deeplearning4j_tpu.zoo.gpt import GPTNano as JaxGPTNano
 from deeplearning4j_tpu_torch.parallel import master as pmaster
 
+import torch_bn_twins as bn
 import torch_dp_worker as worker
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -208,6 +213,7 @@ def _jax_wrappers(inp):
 def runs(tmp_path_factory):
     out_dir = str(tmp_path_factory.mktemp("dp"))
     inp = _inputs()
+    bn.bn_inputs(inp)
     np.savez(os.path.join(out_dir, "inputs.npz"), **inp)
     dp2, mesh4 = _spawn("dp2", 2, out_dir), _spawn("mesh4", 4, out_dir)
     try:
@@ -221,10 +227,12 @@ def runs(tmp_path_factory):
             {"slice": 2, "data": 2}, inp, intra_axis="data",
             cross_axis="slice")
         jax_w = _jax_wrappers(inp)
+        jax_bn = bn.jax_bn(inp, MODES)
     finally:
         ranks2 = _collect(dp2, "dp2", out_dir, timeout=300)
         ranks4 = _collect(mesh4, "mesh4", out_dir, timeout=300)
-    return dict(jax_ex=jax_ex, jax_w=jax_w, dp2=ranks2, mesh4=ranks4)
+    return dict(jax_ex=jax_ex, jax_w=jax_w, jax_bn=jax_bn, dp2=ranks2,
+                mesh4=ranks4)
 
 
 # -- the checks ---------------------------------------------------------------
@@ -279,6 +287,24 @@ def test_wrapper_trains_as_jax(runs, mode):
     for k in a:
         if k.startswith(f"wrapper/{mode}/params/"):
             np.testing.assert_array_equal(a[k], b[k])
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_wrapper_trains_batch_norm_as_jax(runs, mode):
+    """The conv net with two batch norms: SYNC normalises over the global
+    batch of both ranks, the other modes end every step with rank 0's
+    state, as the JAX wrapper's ``net.state`` reads (device 0's); the
+    params and running statistics of each rank against the JAX wrapper's
+    in the mode's bands, every rank's equal."""
+    bn.check_bn(runs["dp2"], runs["jax_bn"][mode], mode)
+
+
+def test_sync_step_all_reduces_the_gradient_bytes_once(runs):
+    """Twin of ``tests/test_collective_volume.py:46``: one all-reduce a
+    gradient leaf, and the step's bytes within [1.00, 1.05] of the fp32
+    gradient bytes, the batch-norm statistics riding along."""
+    for _, log in runs["dp2"]:
+        bn.check_volume(log)
 
 
 def test_wrapper_trains_a_transferred_net_as_jax(runs):

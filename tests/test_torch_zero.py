@@ -25,6 +25,10 @@ rank fed its block of rows:
   against the JAX sharded wrapper in ``tests/test_torch_bert.py``'s f32
   bands (losses 1e-5 relative; each tensor 99.5 % within 1e-6 and all
   within lr/3);
+- the conv net with batch norm of ``tests/torch_bn_twins.py`` under the
+  sharded update, with and without the gather overlap: each rank's params
+  and running statistics against the JAX wrapper's (a ``shard_map`` step:
+  device 0's state), in that file's bands, every rank's equal;
 - a masked batch under the wrapper raises ``NotImplementedError`` naming
   the JAX adapter's gap (a ``DataSet`` with a labels mask, a
   ``MultiDataSet`` with features masks).
@@ -55,6 +59,7 @@ from deeplearning4j_tpu.zoo.bert import BertTiny as JaxBertTiny
 from deeplearning4j_tpu_torch import tree
 from deeplearning4j_tpu_torch.parallel import zero as pzero
 
+import torch_bn_twins as bn
 import torch_zero_twins as twins
 import torch_zero_worker as worker
 from torch_zero_twins import *  # noqa: F401,F403  (the twins, collected here)
@@ -65,6 +70,8 @@ BERT_B = 4
 #: the share of params allowed past 1e-4, by mode (test_torch_parallel.py)
 OFF_SHARE = {"sync": 1e-5, "averaging": 1e-5, "encoded": 1e-4,
              "async": 1e-4, "sharded": 1e-5}
+#: the batch-norm twins' sharded modes (``tests/torch_bn_twins.py``)
+BN_MODES = ("sharded", "overlap")
 
 
 @pytest.fixture(scope="module")
@@ -115,6 +122,7 @@ def _graph_inputs(inp):
     inp["bert/seg"] = (np.arange(t)[None, :] >= split[:, None]).astype(
         np.int64)
     inp["bert/y"] = np.eye(2, dtype=np.float32)[rng.integers(0, 2, BERT_B)]
+    bn.bn_inputs(inp)
 
 
 def _jax_graphs(inp):
@@ -151,6 +159,7 @@ def _jax_graphs(inp):
         losses.append(float(net.score_))
     out["bert"] = (losses, twins._flat(jax.tree.map(np.asarray,
                                                     net.params), "params"))
+    out["bn"] = bn.jax_bn(inp, BN_MODES)
     return out
 
 
@@ -187,6 +196,14 @@ def test_graph_trains_as_jax(runs, mode):
     assert keys
     for k in keys:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.parametrize("mode", BN_MODES)
+def test_sharded_update_trains_batch_norm_as_jax(runs, mode):
+    """The batch-norm net under the sharded update (and its overlap): the
+    rank's own statistics, rank 0's state kept on every rank, against the
+    JAX sharded wrapper's ``net.state`` (device 0's)."""
+    bn.check_bn(runs["ranks"], runs["jax"]["bn"][mode], mode)
 
 
 @pytest.mark.parametrize("name", ["averaging", "encoded"])

@@ -8,8 +8,10 @@ JOB ``dp2`` (world 2) runs the accumulator's ``exchange``,
 ``exchange_async`` and ``exchange_packed`` on the per-rank gradients of
 ``DIR/inputs.npz``, ``ParallelWrapper`` in its four modes on GPTNano from
 the carried-across weights there (rank r fed its rows of each global
-batch), the training masters and the Spark facade, and every refused
-option; JOB ``mesh4`` (world 4) builds a {"slice": 2, "data": 2} mesh and
+batch), the same four modes on a small conv net with batch norm
+(:func:`bn_conf`, its weights from there too) with the bytes one SYNC
+step all-reduces, the training masters and the Spark facade, and every
+refused option; JOB ``mesh4`` (world 4) builds a {"slice": 2, "data": 2} mesh and
 runs ``exchange_hierarchical``; JOB ``fit2`` (world 2) and ``fit4``
 (world 4) train the dense net of ``tests/test_multiprocess.py`` through
 ``SparkDl4jMultiLayer`` on its ``ShardedDataSetIterator`` shard of 7
@@ -104,6 +106,127 @@ def transfer_net(net, tl, ftc, constraint):
         .set_feature_extractor(2).build())
     new.layers[3].constraints = [constraint(max_norm=1.0)]
     return new
+
+
+#: the batch-norm twins (A15): a small conv net with two batch norms, one
+#: over conv channels and one over dense features, trained 3 steps of
+#: BN_ROWS global rows at Adam's BN_LR
+BN_SHAPE = (8, 8, 3)
+BN_ROWS, BN_CLASSES, BN_LR = 8, 3, 3e-4
+
+
+def bn_conf(ns):
+    """The batch-norm twins' configuration from ``ns`` — the port's
+    classes here, the JAX package's in the twins: a 3×3 SAME convolution
+    of 8 channels, batch norm, 2×2 max pooling, a dense layer of 64, batch
+    norm, a softmax of ``BN_CLASSES``."""
+    return (ns.NeuralNetConfiguration.builder().seed(3)
+            .updater(ns.Adam(learning_rate=BN_LR)).list()
+            .layer(ns.ConvolutionLayer(n_out=8, kernel_size=(3, 3),
+                                       padding="SAME", activation="relu"))
+            .layer(ns.BatchNormalization())
+            .layer(ns.SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2)))
+            .layer(ns.DenseLayer(n_out=64, activation="tanh"))
+            .layer(ns.BatchNormalization())
+            .layer(ns.OutputLayer(n_out=BN_CLASSES, activation="softmax",
+                                  loss="mcxent"))
+            .set_input_type(ns.InputType.convolutional(*BN_SHAPE)).build())
+
+
+def port_classes():
+    """The port's classes :func:`bn_conf` reads."""
+    from deeplearning4j_tpu_torch.nn import layers
+    from deeplearning4j_tpu_torch.nn.config import (InputType,
+                                                    NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    return types.SimpleNamespace(
+        NeuralNetConfiguration=NeuralNetConfiguration, InputType=InputType,
+        Adam=Adam, **{k: getattr(layers, k) for k in (
+            "ConvolutionLayer", "BatchNormalization", "SubsamplingLayer",
+            "DenseLayer", "OutputLayer")})
+
+
+def bn_net(inp):
+    """The batch-norm net on the CPU with the JAX weights of ``inp``."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    net = MultiLayerNetwork(bn_conf(port_classes())).init(device="cpu")
+    weights = {name: {} for name in net.params}    # pooling holds none
+    weights.update(nested(inp, "bn/weights"))
+    return net.params_from_jax(tree.map_(lambda t: t.numpy(), weights))
+
+
+def bn_batches(inp, rank, world):
+    """Rank ``rank``'s rows of the batch-norm twins' three global
+    batches."""
+    rows = lambda a: a[rank * len(a) // world:(rank + 1) * len(a) // world]
+    return [DataSet(rows(inp[f"bn/x{i}"]), rows(inp[f"bn/y{i}"]))
+            for i in range(3)]
+
+
+def run_bn_wrappers(inp, mesh, res, log, modes):
+    """Each of ``modes`` (a wrapper mode, ``"sharded"`` for SYNC under the
+    sharded update, ``"overlap"`` for it with the gather overlap) on the
+    batch-norm net, one ``fit`` a batch: the losses, params and layer
+    state."""
+    kws = {"sharded": {"sharded_update": True},
+           "overlap": {"sharded_update": True, "gather_overlap": True}}
+    data = bn_batches(inp, mesh.index("data"), mesh.size("data"))
+    for mode in modes:
+        net = bn_net(inp)
+        w = ParallelWrapper(net, mesh=mesh, averaging_frequency=2,
+                            **kws.get(mode, {"mode": mode}))
+        losses = []
+        for ds in data:
+            w.fit([ds])
+            losses.append(net.score())
+        log[f"bn/{mode}/losses"] = losses
+        put(res, f"bn/{mode}/params", net.params)
+        put(res, f"bn/{mode}/state", net.state)
+
+
+def bn_volume(inp, mesh, log):
+    """The bytes ``torch.distributed.all_reduce`` carries in one SYNC step
+    of the batch-norm net (its second: the first places the replicas), and
+    the gradient all-reduces among them (``all_reduce_sum`` of
+    ``parallel/wrapper.py``): their count, their bytes, and the net's
+    fp32 parameter leaves and bytes."""
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.parallel import wrapper as wmod
+    net = bn_net(inp)
+    w = ParallelWrapper(net, mesh=mesh)
+    data = bn_batches(inp, mesh.index("data"), mesh.size("data"))
+    w.fit(data[:1])
+    seen = {"total": 0, "grad_calls": 0, "grad_bytes": 0}
+    plain_ar, plain_sum, plain_step = dist.all_reduce, wmod.all_reduce_sum, \
+        w._step
+    recording = [False]
+
+    def all_reduce(t, *a, **k):
+        if recording[0]:
+            seen["total"] += t.numel() * t.element_size()
+        return plain_ar(t, *a, **k)
+
+    def grad_sum(t, group=None):
+        if recording[0]:
+            seen["grad_calls"] += 1
+            seen["grad_bytes"] += t.numel() * t.element_size()
+        return plain_sum(t, group)
+
+    def step(*a):
+        recording[0] = True
+        try:
+            return plain_step(*a)
+        finally:
+            recording[0] = False
+
+    dist.all_reduce, wmod.all_reduce_sum, w._step = all_reduce, grad_sum, step
+    try:
+        w.fit(data[1:2])
+    finally:
+        dist.all_reduce, wmod.all_reduce_sum = plain_ar, plain_sum
+    leaves = list(tree.leaves(net.params))
+    log["bn/volume"] = dict(seen, leaves=len(leaves),
+                            param_bytes=4 * sum(t.numel() for t in leaves))
 
 
 def batches(inp, rank, world=2):
@@ -349,6 +472,8 @@ def main():
         log["mesh"] = [mesh.size(), mesh.index("data")]
         run_exchanges(inp, rank, mesh.group("data"), res)
         run_wrappers(inp, mesh, res, log)
+        run_bn_wrappers(inp, mesh, res, log, MODES)
+        bn_volume(inp, mesh, log)
         log["refused"] = refusals(inp, mesh)
     elif job in ("fit2", "fit4"):
         res, trainer, data = run_sharded_fit(data_parallel_mesh(), log, job)

@@ -17,8 +17,10 @@ layer, sharded beside replicated (``chains``, ``frozen``); a resume inside the p
 optimizer state (``resume``); ``zero_dp_report``; the dropout masks of
 the ranks and a one-rank group's seed (``c4``); and every refused
 option. At world size 2 also the multi-input graph in every mode and
-under the sharded update, the Spark facade over a graph, and BertTiny's
-classifier under the sharded update (``graph``, ``spark``, ``bert``).
+under the sharded update, the Spark facade over a graph, BertTiny's
+classifier under the sharded update (``graph``, ``spark``, ``bert``),
+and the batch-norm net of ``tests/torch_dp_worker.py`` under the sharded
+update, with and without the overlap (``bn``).
 Each rank writes ``DIR/zero-rank<R>.npz`` (arrays) and ``.json``
 (losses, shapes, messages). The process group comes up through a file
 under ``DIR``.
@@ -34,7 +36,7 @@ import torch.distributed as dist
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-from torch_dp_worker import nested, put  # noqa: E402
+from torch_dp_worker import nested, put, run_bn_wrappers  # noqa: E402
 
 from deeplearning4j_tpu_torch import tree  # noqa: E402
 from deeplearning4j_tpu_torch.data import DataSet, MultiDataSet  # noqa
@@ -445,6 +447,7 @@ def main():
     log["refused"] = refusals(inp, mesh)
     if world == 2:
         graph_cases(inp, mesh, res, log)
+        run_bn_wrappers(inp, mesh, res, log, ("sharded", "overlap"))
     base = os.path.join(out_dir, f"{job}-rank{rank}")
     np.savez(base + ".npz", **res)
     with open(base + ".json", "w") as f:

@@ -16,6 +16,7 @@
     python3 chip_smoke.py --phases mlm,mlm_agree,resnet,resnet_agree
     python3 chip_smoke.py --phases charrnn,charrnn_agree
     python3 chip_smoke.py --phases attn_dims,dp_resnet,dp_resnet_agree,inference,kernels
+    python3 chip_smoke.py --phases capture,capture_agree,attn_dims,kernels
     python3 chip_smoke.py --phases profile    # device-time breakdown
 
 Drives ``deeplearning4j_tpu_torch`` (never JAX, never the JAX package):
@@ -363,12 +364,49 @@ device-to-host copy and no host wait — and serve_fault):
   against ``output`` on the stacked batch (rtol 1e-4, atol 1e-5), p50
   and p99 latency and images/s; an injected ``serving`` fault answered
   fast while the same worker serves on;
-- attn_dims — K1, K3 and K4 + K5 at head dims 2, 24, 48, 80 and 96
-  (zero-padded to the next of 16, 32, 64 and 128) in bf16 and f32,
-  causal and key-masked, against their plain versions; K1 timed beside
+- attn_dims — K1, K3 and K4 + K5 at head dims 2, 24, 48, 80, 96, 160
+  and 256 (zero-padded to the next of 16, 32, 64, 128 and 256) in bf16
+  and f32, causal and key-masked, against their plain versions, each
+  case launching exactly K1, K3, K4 and K5 once; K1 timed beside
   SDPA; the reference's ``SelfAttentionLayer(n_out=4, n_heads=2)`` (head
   dim 2) forward and backward on the card against the CPU, launching
   exactly K1 once and K3 once.
+
+Every phase drives the entry points as a user calls them: on the card
+their programs capture a CUDA graph per signature at its first call (or
+at ``warmup``) and replay it after (``perf/sentry.py``); the steps that
+run a collective over a process group, and every program under a
+sequence-parallel context, stay eager. Runs whose measurement hooks
+sit inside a program's body (serve_opts' recorded margins and logits,
+its patched divisor; serve_opts_agree's recorded suffix start) run the
+functions (``perf.sentry.eager()``), since a replay runs no Python.
+Then the compile lifecycle (``perf/``) itself, warmed paths against the
+same paths run eagerly:
+
+- capture — three paths at full width, each warmed and then driven
+  through the entry points a user calls, their programs replaying CUDA
+  graphs: the serve phase's gateway warmed over prompts of 1..28
+  tokens, then a burst of ``CAPTURE_REQS`` such requests, greedy and
+  then sampled (seed ``CAPTURE_SAMPLE_SEED``): no trace after the
+  warmups, the decode step and the prefill served by warmed graphs
+  (aot_hits > 0, compiles 0), the launches exactly K1 12 an admission
+  and K2 25 an admission and a step; BERT-base's classifier (B = 64,
+  T = 128, dropout 0.1) warmed at the batch's shapes, then
+  ``CAPTURE_FT_STEPS`` ``fit`` steps (the registry's launches exactly)
+  and one ``output`` whose rows sum to 1; the char-RNN of phase charrnn,
+  ``CAPTURE_RNN_BATCHES`` tBPTT batches; each path's peak memory, and
+  every entry point's build (capture) time and the compile report;
+  then admissions at the temperatures ``CAPTURE_TEMPS`` through the
+  warmed sampled gateway: no trace, one prefill graph a bucket;
+- capture_agree — the same three paths eagerly (``perf.sentry.eager()``)
+  from the same seeds: the
+  bursts' tokens equal token for token, the fine-tune and char-RNN
+  parameters equal to the bit (or, printed, within
+  ``CAPTURE_PARAM_TOL`` of each leaf's largest value), the launches
+  equal; each path's eager peak memory; then each path's step (a decode
+  step, a fine-tune step, a char-RNN batch) timed captured and eager in
+  ``CAPTURE_TURNS`` turns in this process, and one of each (for serve,
+  a whole burst) profiled for the device's busy time and idle share.
 
 Each main path (serve, serve_opts, beam, train, finetune, longctx, dp,
 dp_packed, sp, zero, dp_graph, eval, lenet, checkpoint, transfer,
@@ -416,7 +454,8 @@ PHASES = ("device", "serve", "agree", "serve_opts", "serve_opts_agree",
           "finetune_opts", "serve_fault", "lenet", "lenet_agree",
           "checkpoint", "transfer", "transfer_agree", "mlm", "mlm_agree",
           "resnet", "resnet_agree", "dp_resnet", "dp_resnet_agree",
-          "inference", "charrnn", "charrnn_agree", "attn_dims", "kernels")
+          "inference", "charrnn", "charrnn_agree", "attn_dims", "capture",
+          "capture_agree", "kernels")
 
 # published peaks of one H100 SXM (dense): the bound of a kernel is the
 # larger of its operations over the peak rate for their type and its
@@ -1875,6 +1914,15 @@ def _opts_requests():
         vocab_size=SERVE["vocab_size"], seed=0)
 
 
+def _hooked():
+    """Context for a run whose measurement hooks sit inside a program's
+    body (a wrapped ``_pick``, a patched divisor, a recorded argument):
+    the programs run their functions (``perf.sentry.eager()``), as a
+    replay runs no Python."""
+    from deeplearning4j_tpu_torch.perf import sentry
+    return sentry.eager()
+
+
 def _record_margins(model, sched):
     """Record, for every token the scheduler picks, the top-two logit
     margin of the row it came from: ``model._pick`` and ``sched.admit``
@@ -1933,8 +1981,9 @@ def _path_logits(params, requests, forced, dtype: str, model_kw,
     hook = "_suffix_logits" if spec else "_prefill_logits_into_pages"
     real = getattr(sched, hook)
     setattr(sched, hook, lambda *a: firsts.append(real(*a)) or firsts[-1])
-    for r in requests[:2]:
-        sched.admit(_ForcedReq(r["prompt"], OPTS_NEW))
+    with _hooked():
+        for r in requests[:2]:
+            sched.admit(_ForcedReq(r["prompt"], OPTS_NEW))
     assert len(firsts) == (1 if spec else 2), len(firsts)
     f = sched._ensure_feed([0, 1])
     dev = f["lengths"].device
@@ -2181,7 +2230,8 @@ def _margins_pass(gw, model, requests, streams, timed, tag, card):
     sched = gw._sched
     margins = _record_margins(model, sched)
     streams.clear()
-    stats = run_trace(gw, requests, mode="burst", timeout_s=600)
+    with _hooked():
+        stats = run_trace(gw, requests, mode="burst", timeout_s=600)
     assert stats["completed"] == OPTS_REQUESTS, stats
     sched.pager.check_invariants()
     assert sched.pager.free_pages() == sched.pager.n_pages - 1
@@ -2224,10 +2274,11 @@ def _opts_step_costs(params, requests, card) -> None:
     requests, admitted densely) at bf16, with the int8 cache, with the
     int8 cache whose quantiser copies its divisor from the host (a 0-dim
     ``torch.tensor``: a copy that waits for the stream, 12 a step), and
-    with int8 weights: wall ms of 8 steps from a synchronised card, in
-    ``STEP_TURNS`` turns after one warm turn (median, min, max); and the
-    page-table gather of one layer's context with its conversion to
-    bf16 (``DecodeScheduler._context``) timed alone."""
+    with int8 weights: wall ms of 8 eager steps from a synchronised
+    card (the divisor is swapped in the step's body, which a replay does
+    not run), in ``STEP_TURNS`` turns after one warm turn (median, min,
+    max); and the page-table gather of one layer's context with its
+    conversion to bf16 (``DecodeScheduler._context``) timed alone."""
     import torch
     from deeplearning4j_tpu_torch.serving.scheduler import DecodeScheduler
     from deeplearning4j_tpu_torch.zoo import gpt
@@ -2259,11 +2310,12 @@ def _opts_step_costs(params, requests, card) -> None:
         finally:
             gpt._div127 = real_div
     walls = {tag: [] for tag in scheds}
-    for i in range(STEP_TURNS + 1):
-        for tag in scheds:
-            ms = turn(tag)
-            if i:
-                walls[tag].append(ms)
+    with _hooked():
+        for i in range(STEP_TURNS + 1):
+            for tag in scheds:
+                ms = turn(tag)
+                if i:
+                    walls[tag].append(ms)
     for tag, (sched, _) in scheds.items():
         pt = torch.as_tensor(sched._page_table, device=sched.device)
         ctx_ms = time_ms(lambda: sched._context(0, pt, torch.bfloat16))
@@ -2410,9 +2462,11 @@ def phase_serve_opts_agree(state):
                 sched.admit(_ForcedReq(donor, 16))
                 seen = []
                 real = sched._suffix_logits
+                # the shared length comes as a 0-d tensor on the device
                 sched._suffix_logits = (lambda *a: seen.append(
-                    (a[3], real(*a))) or seen[-1][1])
-                sched.admit(_ForcedReq(sharer, 16))
+                    (int(a[3]), real(*a))) or seen[-1][1])
+                with _hooked():
+                    sched.admit(_ForcedReq(sharer, 16))
                 (shared_len, suffix), = seen
                 assert shared_len == 256, shared_len
                 out[f"suffix_{tag}"] = suffix.float().cpu().numpy()[0]
@@ -3879,7 +3933,7 @@ def _device_window(name: str, fn, wall_ms: float, card: str,
     log(f"profile {name}: wall_ms={wall_ms:.3f} device_busy_ms={busy:.3f}"
         f" idle_share={1 - busy / wall_ms:.3f} {card}")
     for key, ms in by_name.most_common(10):
-        log(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}% x{count[key]:<5d} "
+        log(f"  {ms:9.3f} ms {_pct(ms, busy):5.1f}% x{count[key]:<5d} "
             f"{key[:90]}")
     for key in sorted(by_name):
         if any(k in key for k in PROFILE_KERNELS):
@@ -5274,6 +5328,12 @@ def _kernel_split(prof):
     return sum(ms.values()), {k: (ms[k], n[k]) for k in ms}
 
 
+def _pct(part: float, busy: float) -> float:
+    """``part`` as a percentage of ``busy`` (nan when the profiler saw no
+    device time: a window it could not trace)."""
+    return 100 * part / busy if busy else float("nan")
+
+
 def _head_gemms(n_rows: int, card) -> None:
     """The masked-LM head's three GEMMs alone in bf16 at the mlm step's
     shapes — logits [n, 768] @ [768, V], dX = dZ @ Wᵀ and dW = Xᵀ @ dZ,
@@ -5391,7 +5451,7 @@ def phase_mlm(state):
         f"idle_share={1 - busy / wall:.3f} {card}")
     for name, (ms, cnt) in sorted(kern.items(), key=lambda kv: -kv[1][0]
                                   )[:10]:
-        log(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}% x{cnt:<5d} "
+        log(f"  {ms:9.3f} ms {_pct(ms, busy):5.1f}% x{cnt:<5d} "
             f"{name[:90]}")
     _head_gemms(MLM_B * MLM_T, card)
     b = built[0]
@@ -5546,8 +5606,8 @@ def _resnet_profile(net, x, y, card) -> None:
     wall = _wall_ms(lambda: net.fit(x, y))
     log(f"resnet: profiled step device_busy_ms={busy:.3f} wall_ms="
         f"{wall:.3f} idle_share={1 - busy / wall:.3f}; convolution "
-        f"{conv:.3f} ms ({100 * conv / busy:.1f}%), batch norm and "
-        f"elementwise {elem:.3f} ms ({100 * elem / busy:.1f}%), rest "
+        f"{conv:.3f} ms ({_pct(conv, busy):.1f}%), batch norm and "
+        f"elementwise {elem:.3f} ms ({_pct(elem, busy):.1f}%), rest "
         f"{busy - conv - elem:.3f} ms; SAME pads (constant_pad_nd) "
         f"{0 if pads is None else pads.count} calls "
         f"{dev_ms('aten::constant_pad_nd'):.3f} ms; cuDNN layout "
@@ -5556,7 +5616,7 @@ def _resnet_profile(net, x, y, card) -> None:
         f"{dtod[1]} ({dtod[0]:.3f} ms) {card}")
     for name, (ms, cnt) in sorted(kern.items(), key=lambda kv: -kv[1][0]
                                   )[:10]:
-        log(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}% x{cnt:<5d} "
+        log(f"  {ms:9.3f} ms {_pct(ms, busy):5.1f}% x{cnt:<5d} "
             f"{name[:90]}")
     log(f"resnet: memory format around the convolutions of one forward "
         f"and backward: {_conv_layouts(net, x, y)} {card}")
@@ -6012,10 +6072,11 @@ def phase_inference(state):
 
 
 # -- head dims between the kernels' own (ROADMAP C11) -------------------------
-#: attn_dims: the head dims off K1's 16, 32, 64 and 128 (zero-padded to
-#: the next one inside the launch helpers), the shape of their kernel
-#: cases (GQA), and the timed shape (the train path's rows and heads)
-ATTN_DIMS = (2, 24, 48, 80, 96)
+#: attn_dims: the head dims off K1's 16, 32, 64, 128 and 256 (zero-padded
+#: to the next one inside the launch helpers) and 256 itself, the shape of
+#: their kernel cases (GQA), and the timed shape (the train path's rows
+#: and heads)
+ATTN_DIMS = (2, 24, 48, 80, 96, 160, 256)
 ATTN_B, ATTN_T, ATTN_H, ATTN_HKV = 2, 200, 4, 2
 ATTN_TIMED_T = 2048
 #: the reference's SelfAttentionLayer(n_out=4, n_heads=2): head dim 2,
@@ -6049,6 +6110,8 @@ def phase_attn_dims(state):
             dt = getattr(torch, dname)
             for j, (causal, masked) in enumerate(((True, False),
                                                   (False, True))):
+                for e in kernel_registry.ported():
+                    e.reset()
                 q, k, v, out, lse, do, mask = _flash_bwd_case(
                     dt, ATTN_B, ATTN_T, ATTN_H, ATTN_HKV, causal, masked,
                     700 + 10 * d + j, d=d)
@@ -6063,6 +6126,14 @@ def phase_attn_dims(state):
                 ref = ck.flash_attention_bwd_reference(q, k, v, out, lse,
                                                        do, **kw)
                 torch.cuda.synchronize()
+                case_launches = {e.key: e.launches()
+                                 for e in kernel_registry.ported()}
+                case_want = {e.key: 0 for e in kernel_registry.ported()}
+                case_want.update(K1=1, K3=1, K4=1, K5=1)
+                if case_launches != case_want:
+                    raise AssertionError(
+                        f"attn_dims D={d} {dname}: launches "
+                        f"{case_launches}, expected {case_want}")
                 o_err = (out.float() - ref_out.float()).abs().max().item()
                 lse_err = (lse - ref_lse).abs().max().item()
                 r3 = max(_rel_err(a, r) for a, r in zip(fused, ref))
@@ -6272,12 +6343,12 @@ def phase_charrnn(state):
         f"{one:.3f} (median of 3 unprofiled) idle_share="
         f"{1 - busy / one:.3f} kernel_launches="
         f"{n_kern} ({n_kern / segments:.0f} a segment); GEMM {gemm:.3f} "
-        f"ms ({100 * gemm / busy:.1f}%), elementwise and reductions "
-        f"{elem:.3f} ms ({100 * elem / busy:.1f}%), rest "
+        f"ms ({_pct(gemm, busy):.1f}%), elementwise and reductions "
+        f"{elem:.3f} ms ({_pct(elem, busy):.1f}%), rest "
         f"{busy - gemm - elem:.3f} ms {card}")
     for name, (ms_, cnt) in sorted(kern.items(), key=lambda kv: -kv[1][0]
                                    )[:8]:
-        log(f"  {ms_:9.3f} ms {100 * ms_ / busy:5.1f}% x{cnt:<6d} "
+        log(f"  {ms_:9.3f} ms {_pct(ms_, busy):5.1f}% x{cnt:<6d} "
             f"{name[:90]}")
     for e in kernel_registry.ported():
         e.reset()
@@ -6426,6 +6497,422 @@ def phase_charrnn_agree(state):
     assert loss_rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_TOL
     state.setdefault("launches", {})["charrnn_agree"] = launches
     _check_step_launches("charrnn_agree", 1, launches, card)
+
+
+# -- the compile lifecycle: captured paths against eager ones (A12) ----------
+#: capture: the serve burst (requests, new tokens; prompts of 1..28
+#: tokens, inside the warmed buckets 16 and 32), the fine-tune steps, the
+#: char-RNN batches, and the seed of the sampled burst; capture_agree: the
+#: timing turns (each a burst, CAPTURE_TURN_STEPS fine-tune steps or one
+#: char-RNN batch, captured then eager)
+CAPTURE_REQS, CAPTURE_NEW, CAPTURE_PROMPT_MAX = 32, 64, 28
+CAPTURE_FT_STEPS, CAPTURE_RNN_BATCHES = 10, 4
+CAPTURE_SAMPLE_SEED = 11
+CAPTURE_TURNS, CAPTURE_TURN_STEPS = 2, 5
+#: capture: the temperatures of the admissions that must share each
+#: prompt bucket's one prefill graph
+CAPTURE_TEMPS = (0.35, 0.8, 1.0, 1.6)
+
+
+def _capture_prompts(vocab: int):
+    import numpy as np
+    rng = np.random.default_rng(5)
+    return [rng.integers(0, vocab, int(t))
+            for t in rng.integers(1, CAPTURE_PROMPT_MAX + 1, CAPTURE_REQS)]
+
+
+def _serve_burst(gw, prompts):
+    """One burst through ``gw`` (queued while the worker is parked):
+    the tokens of every stream, the mean decode step and prefill ms
+    (the scheduler's histograms), the steps and admissions."""
+    import torch
+    from deeplearning4j_tpu_torch.obs import metrics
+    step0 = metrics.SERVING_STEP.snapshot()[""]
+    pre0 = metrics.SERVING_PREFILL.snapshot()[""]
+    gw.pause()
+    streams = [gw.submit(p, max_new=CAPTURE_NEW) for p in prompts]
+    gw.resume()
+    outs = [st.result(timeout=600) for st in streams]
+    torch.cuda.synchronize()
+    assert all(st.error() is None for st in streams)
+    step1 = metrics.SERVING_STEP.snapshot()[""]
+    pre1 = metrics.SERVING_PREFILL.snapshot()[""]
+    n_steps = step1["count"] - step0["count"]
+    n_pre = pre1["count"] - pre0["count"]
+    return {"tokens": [o[len(p):].tolist() for p, o in zip(prompts, outs)],
+            "steps": n_steps, "admissions": n_pre,
+            "step_ms": (step1["sum"] - step0["sum"]) / n_steps * 1e3,
+            "prefill_ms": (pre1["sum"] - pre0["sum"]) / n_pre * 1e3}
+
+
+def _launches():
+    from deeplearning4j_tpu_torch.ops import kernel_registry
+    return {e.key: e.launches() for e in kernel_registry.ported()}
+
+
+def _reset_launches():
+    from deeplearning4j_tpu_torch.ops import kernel_registry
+    for e in kernel_registry.ported():
+        e.reset()
+
+
+def _capture_serve(state, eager: bool, sample: bool):
+    """A serve-width gateway (phase serve's configuration, greedy or
+    sampled from ``CAPTURE_SAMPLE_SEED``) warmed over the prompt lengths
+    1..28, then one burst; eagerly under ``sentry.eager()``. Returns the
+    gateway (kept for the timing turns) and the run's record."""
+    import contextlib
+    import torch
+    from deeplearning4j_tpu_torch.perf import sentry
+    from deeplearning4j_tpu_torch.serving.gateway import ServingGateway
+    from deeplearning4j_tpu_torch.zoo.gpt import CausalTransformerLM
+    model = CausalTransformerLM(compute_dtype="bfloat16", **SERVE)
+    params = model.init_params(seed=0, device="cuda")
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with sentry.eager() if eager else contextlib.nullcontext():
+        gw = ServingGateway(model, params, max_slots=32, block=16,
+                            max_context=2048, queue_limit=64,
+                            default_max_new=CAPTURE_NEW, sample=sample,
+                            seed=CAPTURE_SAMPLE_SEED)
+        t0 = time.perf_counter()
+        warm = gw.warmup(prompt_lens=range(1, CAPTURE_PROMPT_MAX + 1))
+        warm_s = time.perf_counter() - t0
+        traces = sentry.total_traces()
+        _reset_launches()
+        run = _serve_burst(gw, _capture_prompts(model.vocab_size))
+        run["launches"] = _launches()
+    run.update(warm=warm, warm_s=warm_s,
+               traces_moved=sentry.total_traces() - traces,
+               peak_gb=(torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+    return gw, run
+
+
+def _capture_finetune(eager: bool):
+    """BERT-base's classifier (phase finetune's, dropout 0.1) warmed at
+    the fine-tune batch's shapes, then CAPTURE_FT_STEPS ``fit`` steps and
+    one ``output``; eagerly under ``sentry.eager()``. Returns the net
+    (kept for the timing turns) and the run's record."""
+    import contextlib
+    import torch
+    from deeplearning4j_tpu_torch.perf import WarmupSpec, sentry
+    from deeplearning4j_tpu_torch.zoo.bert import BertBase
+    net = BertBase(seed=2, compute_dtype="bfloat16").init_classifier(
+        2, BERT_T)
+    tokens, segments, mask, labels = _finetune_batch(0, BERT_B, BERT_T)
+    spec = WarmupSpec(features=[(BERT_B, BERT_T)] * 2,
+                      labels=[(BERT_B, 2)], features_mask=(BERT_B, BERT_T),
+                      dtype="int32", labels_dtype="float32")
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with sentry.eager() if eager else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        warm = net.warmup([spec])
+        warm_s = time.perf_counter() - t0
+        _reset_launches()
+        losses = []
+        for _ in range(CAPTURE_FT_STEPS):
+            net.fit([tokens, segments], [labels], features_masks=[mask])
+            losses.append(net.score_)
+        launches = _launches()
+        probs = net.output(tokens, segments)[0]
+    params = {k: v.detach().float().cpu()
+              for k, v in _flat_params(net.params).items()}
+    return net, {
+        "warm": warm, "warm_s": warm_s, "losses": losses,
+        "launches": launches, "params": params,
+        "probs": probs.float().cpu(),
+        "peak_gb": (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+        "fit": lambda: net.fit([tokens, segments], [labels],
+                               features_masks=[mask])}
+
+
+def _capture_charrnn(eager: bool):
+    """The char-RNN of phase charrnn (tBPTT, 4 segments a batch) with
+    its output warmed, then CAPTURE_RNN_BATCHES ``fit`` batches;
+    eagerly under ``sentry.eager()``. Returns the net and the record."""
+    import contextlib
+    import torch
+    from deeplearning4j_tpu_torch.perf import WarmupSpec, sentry
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+    v, b, t = CHARRNN["vocab_size"], CHARRNN_B, CHARRNN_T
+    host, _ = _charrnn_text(0, CAPTURE_RNN_BATCHES, b, t, v)
+    batches = [(torch.as_tensor(x, device="cuda"),
+                torch.as_tensor(y, device="cuda")) for x, y in host]
+    net = TextGenerationLSTM(**CHARRNN).init()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with sentry.eager() if eager else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        warm = net.warmup([WarmupSpec(features=(b, t, v), train=False)])
+        warm_s = time.perf_counter() - t0
+        _reset_launches()
+        losses = []
+        for x, y in batches:
+            net.fit(x, y)
+            losses.append(net.score_)
+        launches = _launches()
+    params = {k: v_.detach().cpu()
+              for k, v_ in _flat_params(net.params).items()}
+    x, y = batches[-1]
+    return net, {
+        "warm": warm, "warm_s": warm_s, "losses": losses,
+        "launches": launches, "params": params,
+        "peak_gb": (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+        "fit": lambda: net.fit(x, y)}
+
+
+def _check_temperatures(gw, card) -> None:
+    """Admissions at each of CAPTURE_TEMPS, at prompt lengths 1..28 in
+    turn, through a warmed gateway: no trace, and one prefill graph a
+    bucket however many temperatures it served (the temperature is a
+    0-d tensor on the device, not a key of the graph)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.perf import sentry
+    sched = gw._sched
+    traces = sentry.total_traces()
+    rng = np.random.default_rng(6)
+    n = 0
+    for temp in CAPTURE_TEMPS:                 # one burst a temperature
+        gw.pause()
+        streams = [gw.submit(rng.integers(0, SERVE["vocab_size"], t0),
+                             max_new=4, temperature=temp)
+                   for t0 in range(1, CAPTURE_PROMPT_MAX + 1)]
+        gw.resume()
+        for st in streams:
+            st.result(timeout=600)
+            assert st.error() is None, st.error()
+        n += len(streams)
+    graphs = {tb: fn.graphs() for tb, fn in sorted(sched._admit_fns.items())}
+    log(f"capture: {n} admissions at temperatures "
+        f"{CAPTURE_TEMPS}: prefill graphs by bucket {graphs}, traces "
+        f"moved {sentry.total_traces() - traces} {card}")
+    assert sentry.total_traces() == traces
+    assert all(g == 1 for g in graphs.values()), graphs
+
+
+def _flat_params(params, prefix=""):
+    out = {}
+    for k, v in params.items():
+        if isinstance(v, dict):
+            out.update(_flat_params(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _capture_times(card) -> None:
+    """Every entry point's build (capture) time and traces, and the
+    compile report."""
+    from deeplearning4j_tpu_torch import perf
+    rep = perf.compile_report()
+    for name, st in sorted(rep["per_function"].items()):
+        log(f"capture: entry {name} traces={st['traces']} "
+            f"warmed={st['warmed']} compiles={st['compiles']} "
+            f"aot_hits={st['aot_hits']} build_s={st['compile_time_s']:.3f} "
+            f"{card}")
+    log(f"capture: compile_report {json.dumps({k: v for k, v in rep.items() if k != 'per_function'})} {card}")
+
+
+def phase_capture(state):
+    """The compile lifecycle on the card (``perf/``): three paths at
+    full width, each warmed and then run through the entry points a
+    user calls, their programs replaying CUDA graphs. serve: the serve
+    phase's gateway warmed over prompts of 1..28 tokens, one burst of
+    CAPTURE_REQS such requests (greedy), then a sampled gateway's burst;
+    no trace after the warmups, the decode step and the prefill served
+    by warmed graphs (aot_hits > 0, compiles 0), the launches exactly
+    K1 12 an admission and K2 25 an admission and a step. finetune:
+    BERT-base's classifier (dropout 0.1) warmed at the batch's shapes,
+    CAPTURE_FT_STEPS steps, the launches exactly the registry's, an
+    ``output`` whose rows sum to 1. charrnn: CAPTURE_RNN_BATCHES tBPTT
+    batches, no ported kernel, its tBPTT steps captured at their first
+    calls. Each path's peak memory and build times; capture_agree holds
+    them against the eager runs. Then admissions at CAPTURE_TEMPS through
+    the sampled gateway: one prefill graph a bucket."""
+    import math
+    import torch
+    from deeplearning4j_tpu_torch.perf import sentry
+    card = state["card"]
+    _free_card("capture", card)
+    sentry.reset()
+    cap = state["capture"] = {}
+    for tag, sample in (("serve", False), ("serve_sampled", True)):
+        gw, run = _capture_serve(state, eager=False, sample=sample)
+        cap[tag] = (gw, run)
+        st = sentry.stats()
+        log(f"capture: {tag} warmup {run['warm']['buckets']} compiled="
+            f"{run['warm']['compiled']} in {run['warm_s']:.2f}s; burst of "
+            f"{CAPTURE_REQS}: admissions={run['admissions']} steps="
+            f"{run['steps']} mean_step_ms={run['step_ms']:.3f} "
+            f"mean_prefill_ms={run['prefill_ms']:.3f} traces after "
+            f"warmup {run['traces_moved']} peak_gb={run['peak_gb']:.3f} "
+            f"{card}")
+        assert run["traces_moved"] == 0, run["traces_moved"]
+        for name in ("serving.decode_step", "serving.prefill"):
+            assert st[name]["aot_hits"] > 0 and st[name]["compiles"] == 0, \
+                (name, st[name])
+        want = {k: 0 for k in run["launches"]}
+        want.update(K1=12 * run["admissions"],
+                    K2=25 * (run["admissions"] + run["steps"]))
+        log(f"capture: {tag} launches {run['launches']} expected {want} "
+            f"{card}")
+        assert run["launches"] == want, (run["launches"], want)
+        assert gw._sched._step_fn.graphs() > 0
+        if sample:
+            _check_temperatures(gw, card)
+    state.setdefault("launches", {}).setdefault(
+        "serve", cap["serve"][1]["launches"])
+    net, run = _capture_finetune(eager=False)
+    cap["finetune"] = (net, run)
+    log(f"capture: finetune warmup {run['warm']} in {run['warm_s']:.2f}s; "
+        f"losses {' '.join(f'{l:.4f}' for l in run['losses'])} "
+        f"peak_gb={run['peak_gb']:.3f} graphs train_step="
+        f"{net._train_step_fn.graphs()} output={net._output_fn.graphs()} "
+        f"{card}")
+    assert all(math.isfinite(l) for l in run["losses"]), run["losses"]
+    _check_step_launches("finetune", CAPTURE_FT_STEPS, run["launches"],
+                         card)
+    state["launches"].setdefault("finetune", run["launches"])
+    _check_prob_rows("capture finetune", run["probs"].cuda(), (BERT_B, 2),
+                     PROB_SUM_TOL["bfloat16"], card)
+    assert net._train_step_fn.graphs() == 1
+    net, run = _capture_charrnn(eager=False)
+    cap["charrnn"] = (net, run)
+    log(f"capture: charrnn losses "
+        f"{' '.join(f'{l:.4f}' for l in run['losses'])} peak_gb="
+        f"{run['peak_gb']:.3f} graphs tbptt_step="
+        f"{net._tbptt_step_fn.graphs()} {card}")
+    assert all(math.isfinite(l) for l in run["losses"]), run["losses"]
+    _check_step_launches("charrnn", CAPTURE_RNN_BATCHES, run["launches"],
+                         card)
+    assert net._tbptt_step_fn.graphs() == 2
+    _capture_times(card)
+
+
+def _max_rel(a: dict, b: dict):
+    """Over the leaves of two flat trees: whether every leaf is equal to
+    the bit, and the largest |a - b| over the leaf's largest |b|."""
+    import torch
+    same = all(torch.equal(a[k], b[k]) for k in b)
+    worst = max(((a[k].double() - b[k].double()).abs().max()
+                 / b[k].double().abs().max().clamp_min(1e-30)).item()
+                for k in b)
+    return same, worst
+
+
+def _capture_turns(label, captured, eager, card, unit="step"):
+    """``captured()`` and ``eager()`` (each returning ms a ``unit``)
+    taken in turns, CAPTURE_TURNS each; prints every reading and the
+    medians."""
+    from deeplearning4j_tpu_torch.perf import sentry
+    got = {"captured": [], "eager": []}
+    for _ in range(CAPTURE_TURNS):
+        got["captured"].append(captured())
+        with sentry.eager():
+            got["eager"].append(eager())
+    med = {k: statistics.median(v) for k, v in got.items()}
+    log(f"capture_agree: {label} ms a {unit} in turns captured "
+        f"{' '.join(f'{x:.3f}' for x in got['captured'])} eager "
+        f"{' '.join(f'{x:.3f}' for x in got['eager'])}; medians "
+        f"captured={med['captured']:.3f} eager={med['eager']:.3f} "
+        f"eager/captured={med['eager'] / med['captured']:.3f} {card}")
+
+
+def _capture_idle(label, captured, eager, card) -> None:
+    """``captured()`` and then ``eager()`` (its programs under
+    ``sentry.eager()``), each once unprofiled for its wall and once under
+    ``torch.profiler`` for the device's busy time: the idle share of the
+    replayed work beside the eager work's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from deeplearning4j_tpu_torch.perf import sentry
+    rows = []
+    for tag, fn in (("captured", captured), ("eager", eager)):
+        with (sentry.eager() if tag == "eager"
+              else contextlib.nullcontext()):
+            wall = _wall_ms(fn)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+        busy, kern = _kernel_split(prof)
+        rows.append(f"{tag} wall_ms={wall:.3f} device_busy_ms={busy:.3f} "
+                    f"idle_share={1 - busy / wall:.3f} kernels="
+                    f"{sum(n for _, n in kern.values())}")
+    log(f"capture_agree: {label} profiled once each: {'; '.join(rows)} "
+        f"{card}")
+
+
+def phase_capture_agree(state):
+    """The paths of phase capture run eagerly (``sentry.eager()``) from
+    the same seeds: the greedy and the sampled bursts' tokens equal
+    token for token, the fine-tune and char-RNN parameters after their
+    steps equal to the bit (else the largest difference over the largest
+    value is printed and must stay within ``CAPTURE_PARAM_TOL``), the
+    ported kernels' launches equal; each path's peak memory. Then each
+    path's step timed captured and eager in turns in this process, one
+    of each profiled for the device's idle share (for serve, a whole
+    burst), and the entry points' build times."""
+    import torch
+    card = state["card"]
+    cap = state["capture"]
+    for tag, sample in (("serve", False), ("serve_sampled", True)):
+        gw_c, run_c = cap[tag]
+        gw_e, run_e = _capture_serve(state, eager=True, sample=sample)
+        same = run_c["tokens"] == run_e["tokens"]
+        log(f"capture_agree: {tag} captured tokens == eager tokens: "
+            f"{same}; launches captured {run_c['launches']} eager "
+            f"{run_e['launches']}; peak_gb captured={run_c['peak_gb']:.3f}"
+            f" eager={run_e['peak_gb']:.3f} {card}")
+        assert same, [i for i, (a, b) in enumerate(
+            zip(run_c["tokens"], run_e["tokens"])) if a != b]
+        assert run_c["launches"] == run_e["launches"]
+        if not sample:
+            prompts = _capture_prompts(SERVE["vocab_size"])
+            _capture_turns("serve decode step",
+                   lambda: _serve_burst(gw_c, prompts)["step_ms"],
+                   lambda: _serve_burst(gw_e, prompts)["step_ms"], card)
+            _capture_idle(f"serve burst ({CAPTURE_REQS} requests of 1.."
+                          f"{CAPTURE_PROMPT_MAX} tokens, {CAPTURE_NEW} new)",
+                          lambda: _serve_burst(gw_c, prompts),
+                          lambda: _serve_burst(gw_e, prompts), card)
+        gw_e.shutdown(drain=False)
+        gw_c.shutdown(drain=False)
+    for tag, make in (("finetune", _capture_finetune),
+                      ("charrnn", _capture_charrnn)):
+        net_c, run_c = cap[tag]
+        net_e, run_e = make(eager=True)
+        same, worst = _max_rel(run_c["params"], run_e["params"])
+        log(f"capture_agree: {tag} parameters after the captured steps "
+            f"equal to the bit: {same}; max |d|/max|x| over the leaves "
+            f"{worst:.3e}; losses captured "
+            f"{' '.join(f'{l:.6f}' for l in run_c['losses'])} eager "
+            f"{' '.join(f'{l:.6f}' for l in run_e['losses'])}; launches "
+            f"captured {run_c['launches']} eager {run_e['launches']}; "
+            f"peak_gb captured={run_c['peak_gb']:.3f} eager="
+            f"{run_e['peak_gb']:.3f} {card}")
+        assert same or worst <= CAPTURE_PARAM_TOL, worst
+        assert run_c["launches"] == run_e["launches"]
+        reps = CAPTURE_TURN_STEPS if tag == "finetune" else 1
+        fit_c, fit_e = run_c["fit"], run_e["fit"]
+        _capture_turns(f"{tag} {'step' if tag == 'finetune' else 'batch'}",
+               lambda: _wall_ms(lambda: [fit_c() for _ in range(reps)])
+               / reps,
+               lambda: _wall_ms(lambda: [fit_e() for _ in range(reps)])
+               / reps, card, unit="step" if tag == "finetune" else "batch")
+        _capture_idle(f"{tag} {'step' if tag == 'finetune' else 'batch'}",
+                      fit_c, fit_e, card)
+        del net_c, net_e
+    state.pop("capture")
+    _capture_times(card)
+    torch.cuda.synchronize()
+
+
+#: capture_agree: the parameters of a captured path against the eager
+#: path's from the same start, when they are not equal to the bit (a
+#: library that picks another algorithm under capture): the largest
+#: difference over the leaf's largest value
+CAPTURE_PARAM_TOL = 1e-3
 
 
 def phase_profile(state):

@@ -279,7 +279,10 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int j = 0; j < D / 8; ++j)
     acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  uint32_t qf[D / 16][4];
+  // the warp's Q fragments stay in registers up to D = 128; above, the
+  // 16 x D accumulator leaves no room and each tile reads them again
+  constexpr bool QREG = D <= 128;
+  uint32_t qf[QREG ? D / 16 : 1][4];
 
   for (int kt = 0; kt < nkt; ++kt) {
     const int st = kt & 1, k0 = kt * BK;
@@ -289,9 +292,10 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // with the previous tile, whose stage the next tile then refills
     const bool any =
         __syncthreads_or(threadIdx.x < BK && ms[threadIdx.x] > 0.f) != 0;
-    if (kt == 0) {
+    if (QREG && kt == 0) {
 #pragma unroll
-      for (int kk = 0; kk < D; kk += 16) load_a<D>(qf[kk / 16], Qs, rw, kk);
+      for (int kk = 0; kk < D; kk += 16)
+        load_a<D>(qf[QREG ? kk / 16 : 0], Qs, rw, kk);
     }
     if (kt + 1 < nkt) {   // the next tile into the other stage
       load_tile<D, BK, NTHR>(Ks + (st ^ 1) * BK * D, kb, skt, k0 + BK, Tk,
@@ -311,8 +315,10 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int n = 0; n < KW / 8; ++n)
         s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < D; kk += 16)
-        mma_abt_kstep<D, KW>(s, qf[kk / 16], kt_s, key0, kk);
+      for (int kk = 0; kk < D; kk += 16) {
+        if (!QREG) load_a<D>(qf[0], Qs, rw, kk);
+        mma_abt_kstep<D, KW>(s, qf[QREG ? kk / 16 : 0], kt_s, key0, kk);
+      }
       // every key of the warp's share live for every row of the warp
       const bool full = kmb == nullptr && kw0 + KW <= Tk &&
                         (!causal || kw0 + KW - 1 <= q0 + rw + q_off);
@@ -517,6 +523,7 @@ int dispatch_d(int D, const void* q, const void* k, const void* v,
     DL4J_FWD_CASE(32)
     DL4J_FWD_CASE(64)
     DL4J_FWD_CASE(128)
+    DL4J_FWD_CASE(256)
     default:
       return -1;
   }

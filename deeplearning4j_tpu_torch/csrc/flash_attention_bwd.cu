@@ -88,12 +88,13 @@ int launch(const Args& a) {
         a.H, a.Hkv, a.sq, a.sk, a.sv, a.sd, a.causal, a.q_off, 0, a.scale,
         a.stream);
   } else {
-    constexpr size_t smem = kv_smem_bytes<D>();
+    constexpr int KT = kv_tile<D>();
+    constexpr size_t smem = kv_smem_bytes<D, KT>();
     static const cudaError_t attr =
-        fmma::set_smem_attr(flash_bwd_kv_kernel<T, D, true>, smem);
+        fmma::set_smem_attr(flash_bwd_kv_kernel<T, D, true, KT>, smem);
     if (attr != cudaSuccess) return (int)attr;
-    const dim3 grid((a.Tk + BK - 1) / BK, a.Hkv, a.B);
-    flash_bwd_kv_kernel<T, D, true><<<grid, NTHREADS, smem, a.stream>>>(
+    const dim3 grid((a.Tk + KT - 1) / KT, a.Hkv, a.B);
+    flash_bwd_kv_kernel<T, D, true, KT><<<grid, NTHREADS, smem, a.stream>>>(
         (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,
         (const float*)a.lse, (const float*)a.delta, (const float*)a.km,
         (float*)a.dq_acc, (T*)a.dk, (T*)a.dv, a.Tq, a.Tk, a.H, a.Hkv,
@@ -122,6 +123,8 @@ int dispatch_d(int D, const Args& a) {
       return launch<T, 64>(a);
     case 128:
       return launch<T, 128>(a);
+    case 256:
+      return launch<T, 256>(a);
     default:
       return -1;
   }

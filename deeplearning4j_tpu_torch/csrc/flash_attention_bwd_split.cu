@@ -62,8 +62,9 @@ namespace {
 
 // The CUDA-core dq pass (f32). Thread t owns query rows 4*(t/16) ..
 // 4*(t/16)+3 of the tile; for those rows it computes score columns
-// (t%16) + 16*c and dq channels (t%16) + 16*j.
-template <typename T, int D>
+// (t%16) + 16*c and dq channels (t%16) + 16*j. KT keys a tile
+// (dq_kv_tile: 32 above D = 128, where 64 would not fit shared memory).
+template <typename T, int D, int KT>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
@@ -78,16 +79,17 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     int k_off, float scale) {
   constexpr int DPT = D / 16;  // dq channels per thread
   constexpr int LD = D + 1;    // padded rows: conflict-free column reads
-  constexpr int LP = BK + 1;
+  constexpr int CP = KT / 16;   // score columns per thread
+  constexpr int LP = KT + 1;
   extern __shared__ float smem[];
   float* Qs = smem;              // [BQ][LD]
   float* dOs = Qs + BQ * LD;     // [BQ][LD]
-  float* Ks = dOs + BQ * LD;     // [BK][LD]
-  float* Vs = Ks + BK * LD;      // [BK][LD]
-  float* dSs = Vs + BK * LD;     // [BQ][LP]
+  float* Ks = dOs + BQ * LD;     // [KT][LD]
+  float* Vs = Ks + KT * LD;      // [KT][LD]
+  float* dSs = Vs + KT * LD;     // [BQ][LP]
   float* Ls = dSs + BQ * LP;     // [BQ] lse, 0 where not finite
   float* Ds = Ls + BQ;           // [BQ] Delta
-  float* Ms = Ds + BQ;           // [BK] 1 = live key
+  float* Ms = Ds + BQ;           // [KT] 1 = live key
 
   const int tid = threadIdx.x;
   // the last query tile first: under causal masking it has the most key
@@ -125,17 +127,17 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DPT; ++j) acc[rr][j] = 0.f;
 
-  int nkt = (Tk + BK - 1) / BK;
+  int nkt = (Tk + KT - 1) / KT;
   if (causal) {
     // the last key any row of this tile may see
     const int k_last = min(q0 + BQ, Tq) - 1 + q_off - k_off;
-    nkt = min(nkt, k_last < 0 ? 0 : k_last / BK + 1);
+    nkt = min(nkt, k_last < 0 ? 0 : k_last / KT + 1);
   }
 
   for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * BK;
+    const int k0 = kt * KT;
     __syncthreads();  // Q/dO staged; the previous tile's reads done
-    for (int i = tid; i < BK * D; i += NTHREADS) {
+    for (int i = tid; i < KT * D; i += NTHREADS) {
       const int r = i / D, d = i % D;
       const int t = k0 + r;
       const bool in = t < Tk;
@@ -143,7 +145,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       Vs[r * LD + d] = in ? to_f(vb[t * svt + d]) : 0.f;
     }
     int live_key = 0;
-    for (int i = tid; i < BK; i += NTHREADS) {
+    for (int i = tid; i < KT; i += NTHREADS) {
       const int t = k0 + i;
       const bool m =
           t < Tk && (km == nullptr || km[(long long)b * Tk + t] > 0.f);
@@ -153,29 +155,29 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // block-uniform: a tile of dead keys adds nothing to dq
     if (!__syncthreads_or(live_key)) continue;
 
-    // s = q k^T and dp = dO v^T for 4 rows x 4 columns
-    float s[RPT][CPT], dp[RPT][CPT];
+    // s = q k^T and dp = dO v^T for 4 rows x CP columns
+    float s[RPT][CP], dp[RPT][CP];
 #pragma unroll
     for (int rr = 0; rr < RPT; ++rr)
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) s[rr][c] = dp[rr][c] = 0.f;
+      for (int c = 0; c < CP; ++c) s[rr][c] = dp[rr][c] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float qv[RPT], ov[RPT], kv[CPT], vv[CPT];
+      float qv[RPT], ov[RPT], kv[CP], vv[CP];
 #pragma unroll
       for (int rr = 0; rr < RPT; ++rr) {
         qv[rr] = Qs[(r0 + rr) * LD + d];
         ov[rr] = dOs[(r0 + rr) * LD + d];
       }
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) {
+      for (int c = 0; c < CP; ++c) {
         kv[c] = Ks[(lane + 16 * c) * LD + d];
         vv[c] = Vs[(lane + 16 * c) * LD + d];
       }
 #pragma unroll
       for (int rr = 0; rr < RPT; ++rr)
 #pragma unroll
-        for (int c = 0; c < CPT; ++c) {
+        for (int c = 0; c < CP; ++c) {
           s[rr][c] = fmaf(qv[rr], kv[c], s[rr][c]);
           dp[rr][c] = fmaf(ov[rr], vv[c], dp[rr][c]);
         }
@@ -184,7 +186,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int rr = 0; rr < RPT; ++rr) {
       const int qi = q0 + r0 + rr;
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) {
+      for (int c = 0; c < CP; ++c) {
         const int col = lane + 16 * c;
         const bool live = qi < Tq && Ms[col] > 0.f &&
                           (!causal || k_off + k0 + col <= qi + q_off);
@@ -196,7 +198,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // dq += ds k (4 query rows x DPT channels)
 #pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
+    for (int c = 0; c < KT; ++c) {
       float sv[RPT];
 #pragma unroll
       for (int rr = 0; rr < RPT; ++rr) sv[rr] = dSs[(r0 + rr) * LP + c];
@@ -383,13 +385,14 @@ int launch_dq(const Args& a) {
         a.sk[0], a.sk[1], a.sk[2], a.sv[0], a.sv[1], a.sv[2], a.sd[0],
         a.sd[1], a.sd[2], a.causal, a.q_off, a.k_off, a.scale, vec);
   } else {
+    constexpr int KT = kv_tile<D>();
     constexpr size_t smem = sizeof(float) * (2 * BQ * (D + 1) +
-                                             2 * BK * (D + 1) +
-                                             BQ * (BK + 1) + 2 * BQ + BK);
+                                             2 * KT * (D + 1) +
+                                             BQ * (KT + 1) + 2 * BQ + KT);
     static const cudaError_t attr =
-        fmma::set_smem_attr(flash_bwd_dq_kernel<T, D>, smem);
+        fmma::set_smem_attr(flash_bwd_dq_kernel<T, D, KT>, smem);
     if (attr != cudaSuccess) return (int)attr;
-    flash_bwd_dq_kernel<T, D><<<grid, NTHREADS, smem, a.stream>>>(
+    flash_bwd_dq_kernel<T, D, KT><<<grid, NTHREADS, smem, a.stream>>>(
         (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,
         (const float*)a.lse, (const float*)a.delta, (const float*)a.km,
         (T*)a.dq, a.Tq, a.Tk, a.H, a.H / a.Hkv, a.sq[0], a.sq[1], a.sq[2],
@@ -408,12 +411,14 @@ int launch_dkv(const Args& a) {
         a.Hkv, a.sq, a.sk, a.sv, a.sd, a.causal, a.q_off, a.k_off, a.scale,
         a.stream);
   } else {
-    constexpr size_t smem = kv_smem_bytes<D>();
+    constexpr int KT = kv_tile<D>();
+    constexpr size_t smem = kv_smem_bytes<D, KT>();
     static const cudaError_t attr =
-        fmma::set_smem_attr(flash_bwd_kv_kernel<T, D, false>, smem);
+        fmma::set_smem_attr(flash_bwd_kv_kernel<T, D, false, KT>, smem);
     if (attr != cudaSuccess) return (int)attr;
-    const dim3 grid((a.Tk + BK - 1) / BK, a.Hkv, a.B);
-    flash_bwd_kv_kernel<T, D, false><<<grid, NTHREADS, smem, a.stream>>>(
+    const dim3 grid((a.Tk + KT - 1) / KT, a.Hkv, a.B);
+    flash_bwd_kv_kernel<T, D, false, KT><<<grid, NTHREADS, smem,
+                                           a.stream>>>(
         (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,
         (const float*)a.lse, (const float*)a.delta, (const float*)a.km,
         nullptr, (T*)a.dk, (T*)a.dv, a.Tq, a.Tk, a.H, a.Hkv, a.H / a.Hkv,
@@ -436,6 +441,8 @@ int dispatch_d(int D, const Args& a) {
       return DKV ? launch_dkv<T, 64>(a) : launch_dq<T, 64>(a);
     case 128:
       return DKV ? launch_dkv<T, 128>(a) : launch_dq<T, 128>(a);
+    case 256:
+      return DKV ? launch_dkv<T, 256>(a) : launch_dq<T, 256>(a);
     default:
       return -1;
   }

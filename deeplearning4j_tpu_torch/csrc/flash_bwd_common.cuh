@@ -95,11 +95,20 @@ int launch_delta(const void* o, const void* dout, void* delta, int B, int Tq,
   return (int)cudaGetLastError();
 }
 
-// Shared memory of flash_bwd_kv_kernel, in bytes.
+// Keys a tile of the f32 kernels that keep a [keys][D] K and V tile
+// beside [64][D] query-side tiles (flash_bwd_kv_kernel, the split file's
+// dq pass): 64, or 32 above D = 128, where 64 keys would pass the 227 KB
+// of shared memory a block may take.
 template <int D>
+__host__ __device__ constexpr int kv_tile() {
+  return D > 128 ? 32 : BK;
+}
+
+// Shared memory of flash_bwd_kv_kernel at KT keys a tile, in bytes.
+template <int D, int KT>
 constexpr size_t kv_smem_bytes() {
-  return sizeof(float) * (2 * BK * (D + 1) + 2 * BQ * (D + 1) +
-                          2 * BQ * (BK + 1) + 2 * BQ + BK);
+  return sizeof(float) * (2 * KT * (D + 1) + 2 * BQ * (D + 1) +
+                          2 * BQ * (KT + 1) + 2 * BQ + KT);
 }
 
 // The f32 key-side pass: one block per (batch, kv head, 64-key tile) keeps
@@ -111,8 +120,10 @@ constexpr size_t kv_smem_bytes() {
 // the f32 buffer dq_acc [B, Tq, H, D]; without it (K5) dq_acc is unused.
 //
 // Thread t owns rows 4*(t/16) .. 4*(t/16)+3 of a tile (query rows for s,
-// dp and dq; key rows for dk and dv) and columns (t%16) + 16*c of it.
-template <typename T, int D, bool DQ>
+// dp and dq; key rows for dk and dv) and columns (t%16) + 16*c of it. At
+// KT = 32 keys a tile (kv_tile) the threads past the 32 key rows take no
+// dk/dv rows.
+template <typename T, int D, bool DQ, int KT>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
@@ -128,20 +139,21 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     float scale) {
   constexpr int DPT = D / 16;  // channels per thread
   constexpr int LD = D + 1;    // padded rows: conflict-free column reads
-  constexpr int LP = BK + 1;
+  constexpr int CP = KT / 16;   // score columns per thread
+  constexpr int LP = KT + 1;
   extern __shared__ float smem[];
-  float* Ks = smem;              // [BK][LD]
-  float* Vs = Ks + BK * LD;      // [BK][LD]
-  float* Qs = Vs + BK * LD;      // [BQ][LD]
+  float* Ks = smem;              // [KT][LD]
+  float* Vs = Ks + KT * LD;      // [KT][LD]
+  float* Qs = Vs + KT * LD;      // [BQ][LD]
   float* dOs = Qs + BQ * LD;     // [BQ][LD]
   float* Ps = dOs + BQ * LD;     // [BQ][LP]
   float* dSs = Ps + BQ * LP;     // [BQ][LP]
   float* Ls = dSs + BQ * LP;     // [BQ] lse, 0 where not finite
   float* Ds = Ls + BQ;           // [BQ] Delta
-  float* Ms = Ds + BQ;           // [BK] 1 = live key
+  float* Ms = Ds + BQ;           // [KT] 1 = live key
 
   const int tid = threadIdx.x;
-  const int k0 = blockIdx.x * BK;
+  const int k0 = blockIdx.x * KT;
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int r0 = (tid / 16) * RPT;
@@ -149,7 +161,7 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const T* kb = k + b * skb + hk * skh;
   const T* vb = v + b * svb + hk * svh;
-  for (int i = tid; i < BK * D; i += NTHREADS) {
+  for (int i = tid; i < KT * D; i += NTHREADS) {
     const int r = i / D, d = i % D;
     const int t = k0 + r;
     const bool in = t < Tk;
@@ -157,7 +169,7 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     Vs[r * LD + d] = in ? to_f(vb[t * svt + d]) : 0.f;
   }
   int live_key = 0;
-  for (int i = tid; i < BK; i += NTHREADS) {
+  for (int i = tid; i < KT; i += NTHREADS) {
     const int t = k0 + i;
     const bool m =
         t < Tk && (km == nullptr || km[(long long)b * Tk + t] > 0.f);
@@ -202,29 +214,29 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       __syncthreads();
 
-      // s = q k^T and dp = dO v^T for 4 rows x 4 columns
-      float s[RPT][CPT], dp[RPT][CPT];
+      // s = q k^T and dp = dO v^T for 4 rows x CP columns
+      float s[RPT][CP], dp[RPT][CP];
 #pragma unroll
       for (int rr = 0; rr < RPT; ++rr)
 #pragma unroll
-        for (int c = 0; c < CPT; ++c) s[rr][c] = dp[rr][c] = 0.f;
+        for (int c = 0; c < CP; ++c) s[rr][c] = dp[rr][c] = 0.f;
 #pragma unroll 4
       for (int d = 0; d < D; ++d) {
-        float qv[RPT], ov[RPT], kv[CPT], vv[CPT];
+        float qv[RPT], ov[RPT], kv[CP], vv[CP];
 #pragma unroll
         for (int rr = 0; rr < RPT; ++rr) {
           qv[rr] = Qs[(r0 + rr) * LD + d];
           ov[rr] = dOs[(r0 + rr) * LD + d];
         }
 #pragma unroll
-        for (int c = 0; c < CPT; ++c) {
+        for (int c = 0; c < CP; ++c) {
           kv[c] = Ks[(lane + 16 * c) * LD + d];
           vv[c] = Vs[(lane + 16 * c) * LD + d];
         }
 #pragma unroll
         for (int rr = 0; rr < RPT; ++rr)
 #pragma unroll
-          for (int c = 0; c < CPT; ++c) {
+          for (int c = 0; c < CP; ++c) {
             s[rr][c] = fmaf(qv[rr], kv[c], s[rr][c]);
             dp[rr][c] = fmaf(ov[rr], vv[c], dp[rr][c]);
           }
@@ -233,7 +245,7 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int rr = 0; rr < RPT; ++rr) {
         const int qi = q0 + r0 + rr;
 #pragma unroll
-        for (int c = 0; c < CPT; ++c) {
+        for (int c = 0; c < CP; ++c) {
           const int col = lane + 16 * c;
           const bool live = qi < Tq && Ms[col] > 0.f &&
                             (!causal || k_off + k0 + col <= qi + q_off);
@@ -244,9 +256,10 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       __syncthreads();
 
-      // dv += p^T dO and dk += ds^T q (4 key rows x DPT channels)
+      // dv += p^T dO and dk += ds^T q (4 key rows x DPT channels);
+      // warp-uniform: a warp's key rows all inside the tile, or none
 #pragma unroll 4
-      for (int i = 0; i < BQ; ++i) {
+      for (int i = 0; i < (r0 < KT ? BQ : 0); ++i) {
         float pv[RPT], sv[RPT];
 #pragma unroll
         for (int rr = 0; rr < RPT; ++rr) {
@@ -275,7 +288,7 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
           for (int j = 0; j < DPT; ++j) aq[rr][j] = 0.f;
 #pragma unroll 4
-        for (int c = 0; c < BK; ++c) {
+        for (int c = 0; c < KT; ++c) {
           float sv[RPT];
 #pragma unroll
           for (int rr = 0; rr < RPT; ++rr) sv[rr] = dSs[(r0 + rr) * LP + c];
@@ -303,7 +316,7 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int rr = 0; rr < RPT; ++rr) {
     const int t = k0 + r0 + rr;
-    if (t >= Tk) continue;
+    if (r0 >= KT || t >= Tk) continue;
     const long long row = (((long long)b * Tk + t) * Hkv + hk) * D;
 #pragma unroll
     for (int j = 0; j < DPT; ++j) {

@@ -289,21 +289,24 @@ __device__ __forceinline__ int key_tiles(int q0, int Tq, int Tk, bool causal,
   return nkt;
 }
 
-// Write the warp's 16 x D f32 accumulator, times `mul` (per row), as bf16
-// rows of a contiguous [B, T, H, D] output (rows at or past T skipped).
-template <int D>
+// Write the warp's 16 x NC f32 accumulator, times `mul` (per row), as
+// bf16 columns col0 .. col0 + NC - 1 of the rows of a contiguous
+// [B, T, H, D] output (rows at or past T skipped).
+template <int D, int NC = D>
 __device__ __forceinline__ void store_rows(bf16* out,
-                                           const float (&acc)[D / 8][4],
+                                           const float (&acc)[NC / 8][4],
                                            const float (&mul)[2], int b,
-                                           int row0, int T, int H, int h) {
+                                           int row0, int T, int H, int h,
+                                           int col0 = 0) {
   const int t4 = threadIdx.x & 3;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + 8 * i;
     if (row >= T) continue;
-    bf16* dst = out + (((long long)b * T + row) * H + h) * D + 2 * t4;
+    bf16* dst =
+        out + (((long long)b * T + row) * H + h) * D + col0 + 2 * t4;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < NC / 8; ++j)
       *reinterpret_cast<uint32_t*>(dst + 8 * j) =
           pack_bf16(acc[j][2 * i] * mul[i], acc[j][2 * i + 1] * mul[i]);
   }
@@ -323,6 +326,16 @@ cudaError_t set_smem_attr(K kern, size_t bytes) {
   return e;
 }
 
+
+// The dk/dv (and dq) columns one block of flash_bwd_kv_mma_kernel owns:
+// all of them up to D = 128; above, D / 128 blocks share a key tile,
+// each recomputing S^T and dP^T over all D and keeping its 128 columns
+// of dk and dv in registers (a warp's 16 x 256 f32 pair would take 256
+// registers a thread).
+template <int D>
+__host__ __device__ constexpr int kv_cols() {
+  return D > 128 ? 128 : D;
+}
 
 // Shared memory of flash_bwd_kv_mma_kernel: K and V resident, two ring
 // stages of Q and dO, (DQ) the dS^T tile, two stages of lse and Delta.
@@ -373,6 +386,8 @@ flash_bwd_kv_mma_kernel(const bf16* __restrict__ q,
   // at 16 + 16 f32 a thread beside dk and dv's 128
   constexpr int QW = D >= 128 ? 32 : BQ;
   constexpr int DW = D >= 128 ? 64 : D;   // dq columns a pass
+  constexpr int DC = kv_cols<D>();        // dk/dv/dq columns of the block
+  constexpr int NS = D / DC;              // blocks sharing a key tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);   // [BK][D]
   bf16* Vs = Ks + BK * D;                         // [BK][D]
@@ -384,7 +399,9 @@ flash_bwd_kv_mma_kernel(const bf16* __restrict__ q,
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int t4 = lane & 3;
-  const int kt = blockIdx.x / (Hkv * B), bh = blockIdx.x % (Hkv * B);
+  const int c_base = (int)(blockIdx.x % NS) * DC;   // the block's columns
+  const int bx = (int)(blockIdx.x / NS);
+  const int kt = bx / (Hkv * B), bh = bx % (Hkv * B);
   const int hk = bh % Hkv, b = bh / Hkv;
   const int k0 = kt * BK;
   const int kw = warp * 16;                 // the warp's first key
@@ -433,9 +450,9 @@ flash_bwd_kv_mma_kernel(const bf16* __restrict__ q,
   if (items > 0) load_item(0, 0);
   cp_async_commit();
 
-  float adk[D / 8][4], adv[D / 8][4];
+  float adk[DC / 8][4], adv[DC / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DC / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) adk[j][e] = adv[j][e] = 0.f;
 
@@ -501,9 +518,9 @@ flash_bwd_kv_mma_kernel(const bf16* __restrict__ q,
           }
         }
         to_a_frags<QW>(pa, s);
-        mma_ab<D, QW>(adv, pa, dos, c0);
+        mma_ab_cols<D, QW, DC>(adv, pa, dos, c0, c_base);
         to_a_frags<QW>(pa, dp);
-        mma_ab<D, QW>(adk, pa, qs, c0);
+        mma_ab_cols<D, QW, DC>(adk, pa, qs, c0, c_base);
       } else if constexpr (DQ) {
 #pragma unroll
         for (int ks = 0; ks < QW / 16; ++ks)
@@ -543,7 +560,7 @@ flash_bwd_kv_mma_kernel(const bf16* __restrict__ q,
         float* dst = dq_acc + (((long long)b * Tq + row) * H + h) * D +
                      2 * (t4 & ~1);
 #pragma unroll
-        for (int d0 = 0; d0 < D; d0 += DW) {
+        for (int d0 = c_base; d0 < c_base + DC; d0 += DW) {
           float acc[DW / 8][4];
 #pragma unroll
           for (int n = 0; n < DW / 8; ++n)
@@ -569,8 +586,8 @@ flash_bwd_kv_mma_kernel(const bf16* __restrict__ q,
   }
   cp_async_wait<0>();   // no copy left in flight (items = 0: K's and V's)
   const float mul_k[2] = {scale, scale}, mul_v[2] = {1.f, 1.f};
-  store_rows<D>(dk, adk, mul_k, b, krow0, Tk, Hkv, hk);
-  store_rows<D>(dv, adv, mul_v, b, krow0, Tk, Hkv, hk);
+  store_rows<D, DC>(dk, adk, mul_k, b, krow0, Tk, Hkv, hk, c_base);
+  store_rows<D, DC>(dv, adv, mul_v, b, krow0, Tk, Hkv, hk, c_base);
 }
 
 // Launch flash_bwd_kv_mma_kernel on [B, T, H, D] bf16 operands (strides
@@ -593,7 +610,8 @@ cudaError_t launch_bwd_kv_mma(const void* q, const void* k, const void* v,
                   vec_ok(k, sk[0], sk[1], sk[2]) &&
                   vec_ok(v, sv[0], sv[1], sv[2]) &&
                   vec_ok(dout, sd[0], sd[1], sd[2]);
-  const long long blocks = (long long)((Tk + BK - 1) / BK) * Hkv * B;
+  const long long blocks =
+      (long long)((Tk + BK - 1) / BK) * Hkv * B * (D / kv_cols<D>());
   flash_bwd_kv_mma_kernel<D, DQ><<<(unsigned)blocks, NTHREADS, smem,
                                    stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse,

@@ -4,7 +4,9 @@
 Every variable the port reads is declared here with its type, default
 and purpose, and read through :func:`get_flag`, so the whole surface is
 greppable and :func:`describe` prints the live values. Names, defaults
-and parsers are the JAX package's. Only the flags the port reads are
+and parsers are the JAX package's. The JAX compile cache's eligibility
+floors (``DL4J_TPU_COMPILE_CACHE_MIN_BYTES``, ``_MIN_SECS``) have no
+counterpart: every kernel build is kept. Only the flags the port reads are
 registered; each later slice registers its own. The JAX package's
 TPU roofline figures and its TPU size crossovers are not flags here: a
 size threshold in the port needs its own measurement on the card.
@@ -56,6 +58,28 @@ _register("DL4J_TPU_METRICS_PORT", 0, int,
           "starts it on demand, port 0 -> ephemeral)")
 _register("DL4J_TPU_STALE_WORKER_SECS", 30.0, float,
           "heartbeat age beyond which /healthz flags a worker stale")
+
+# -- compile lifecycle (perf/: kernel build cache, store, retrace sentry) --
+_register("DL4J_TPU_COMPILE_CACHE",
+          os.path.expanduser("~/.dl4j_tpu/compile_cache"), str,
+          "kernel build cache dir (perf/compile_cache.py): where nvcc's "
+          "libraries and Triton's cache go, shared across processes and "
+          "restarts; honoured only when the variable is set (the default "
+          "is the JAX package's XLA cache dir; unset, or '' | '0' | "
+          "'off' | 'none', builds go to the package's own _build/)")
+_register("DL4J_TPU_COMPILE_STORE", "", str,
+          "content-addressed compile store root (perf/compile_store.py), "
+          "fenced by (store version, torch + CUDA version, device "
+          "capability); when set it supersedes DL4J_TPU_COMPILE_CACHE: "
+          "its fenced kernels/ plane becomes the build dir ('' | '0' | "
+          "'off' disables)")
+_register("DL4J_TPU_RETRACE_BUDGET", 16, int,
+          "distinct UNPLANNED argument signatures tolerated per sentried "
+          "entry point before the retrace sentry warns (warmed-up "
+          "signatures don't count against it)")
+_register("DL4J_TPU_RETRACE_STRICT", False, _bool,
+          "retrace sentry raises RetraceBudgetExceeded instead of "
+          "warning when an entry point blows its retrace budget")
 
 # -- resilience (resilience/faults.py) -------------------------------------
 _register("DL4J_TPU_FAULT_PLAN", "", str,

@@ -14,7 +14,7 @@ cast. By default both touch the weights only: a key named like a bias
 or a norm's scale and shift (:data:`_NON_WEIGHT_KEYS`) is left alone
 unless ``apply_to_bias``.
 
-Noise is drawn from integer seeds (``nn.layers.base.split_seed``), as
+Noise is drawn from integer seeds (``rng.split_seed``), as
 dropout is: the network splits a seed off the step's seed, one per layer
 with noise, and the layer splits one per leaf it perturbs, in the
 parameter dict's order. The draws differ from ``jax.random``'s, and a
@@ -31,7 +31,7 @@ from typing import Any, Dict
 
 import torch
 
-from deeplearning4j_tpu_torch.nn.layers.base import split_seed
+from deeplearning4j_tpu_torch.rng import generator, split_seed
 
 #: parameter keys that are not weights (a bias, a norm's scale and
 #: shift, a recurrent bias, a peephole)
@@ -165,7 +165,7 @@ class BaseWeightNoise:
 
         def one(p):
             box[0], sub = split_seed(box[0])
-            gen = torch.Generator(device=p.device).manual_seed(sub)
+            gen = generator(p.device, sub)
             return self.perturb(p, gen)
 
         return _map_weights(one, params, self.apply_to_bias)

@@ -66,6 +66,17 @@ observatory.
 ``fit(iterator, steps_per_loop=K)`` runs K-step regions as
 ``MultiLayerNetwork`` does, and groups masked batches of one mask
 structure (a padded BERT fine-tune keeps its region).
+
+**Entry points** (``perf/sentry.py``), under the JAX package's names and
+argument structure (inputs by name, labels in output order, masks by
+input and output name): ``ComputationGraph.train_step``,
+``.train_loop`` (the K-step region: K runs of the step's executable)
+and ``.output``, with :meth:`ComputationGraph.warmup`, to the rules of
+``MultiLayerNetwork``'s: on the card the step and ``output`` replay a
+CUDA graph per signature (eager under a sequence-parallel context), the
+captured step leaves the trees as the graph's state tensors, and
+``output``'s cast of the f32 masters to the compute dtype is part of its
+graph.
 """
 from __future__ import annotations
 
@@ -89,12 +100,13 @@ from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     RnnOutputLayer, returns_carries)
 from deeplearning4j_tpu_torch.nn.multilayer import (
     _FUSABLE, REGION_SCOPE, MultiLayerNetwork, _check_seq_layer, _mesh,
-    _sum_over, apply_updates, apply_weight_noise, check_frozen_options,
-    evaluate_batches, has_weight_noise, loss_and_grads, notify_steps,
-    stage)
+    _sum_over, apply_updates, apply_weight_noise, bound_trees,
+    check_frozen_options, evaluate_batches, has_weight_noise,
+    loss_and_grads, notify_steps, stage)
 from deeplearning4j_tpu_torch.nn.vertices import (GraphVertex,
                                                   vertex_from_dict)
 from deeplearning4j_tpu_torch.ops import losses as losses_mod
+from deeplearning4j_tpu_torch.perf import sentry
 from deeplearning4j_tpu_torch.resilience import faults
 
 
@@ -262,6 +274,9 @@ def _toposort(nodes: List[_Node], inputs: List[str]) -> List[_Node]:
 
 class ComputationGraph:
     """DAG network (reference ComputationGraph)."""
+
+    #: the entry points (``perf.sentry``), made at their first use
+    _train_step_fn = _train_loop_fn = _output_fn = None
 
     def __init__(self, conf: ComputationGraphConfiguration):
         self.conf = conf
@@ -551,9 +566,15 @@ class ComputationGraph:
         the global one: the rank's tokens are taken here
         (:meth:`_shard_feed`), and the loss and gradients come back
         summed over the group."""
+        return self._loss_and_grads_fed(*self._feed(xs, ys, fms, lms),
+                                        rng)
+
+    def _loss_and_grads_fed(self, inputs, labels, masks, lmasks, rng):
+        """:meth:`_loss_and_grads` on a batch already fed (inputs and
+        masks by name, labels in output order, on the device)."""
         sp = self._seq_parallel()
         inputs, labels, masks, lmasks = self._shard_feed(
-            sp, *self._feed(xs, ys, fms, lms))
+            sp, inputs, labels, masks, lmasks)
         loss, grads, state = loss_and_grads(
             lambda p: self._loss_fn(p, self.state, inputs, labels, masks,
                                     lmasks, rng, sp), self.params,
@@ -652,21 +673,25 @@ class ComputationGraph:
         def field(pos, j, dtype=None):
             return stage([item[pos][j] for item in group], dev, dtype)
 
-        xs = [field(0, j) for j in range(len(group[0][0]))]
-        ys = [field(1, j) for j in range(len(group[0][1]))]
-        fms = [None if m is None else field(2, j, torch.float32)
-               for j, m in enumerate(group[0][2] or [])]
-        lms = [None if m is None else field(3, j, torch.float32)
-               for j, m in enumerate(group[0][3] or [])]
+        inputs = {n: field(0, j) for j, n in
+                  enumerate(self.conf.inputs[:len(group[0][0])])}
+        labels = [field(1, j) for j in range(len(group[0][1]))]
+        masks = {n: field(2, j, torch.float32)
+                 for j, (n, m) in enumerate(zip(self.conf.inputs,
+                                                group[0][2] or []))
+                 if m is not None}
+        lmasks = {n: field(3, j, torch.float32)
+                  for j, (n, m) in enumerate(zip(self.conf.outputs,
+                                                 group[0][3] or []))
+                  if m is not None}
         t1 = obs.now()
-        losses = torch.empty(len(group), dtype=torch.float32, device=dev)
+        rngs = tuple(fold_in(self.conf.seed, self.iteration + i)
+                     for i in range(len(group)))
         with obs.devtime.scope(REGION_SCOPE.format("ComputationGraph")):
-            for i in range(len(group)):
-                rng = fold_in(self.conf.seed, self.iteration + i)
-                losses[i] = self._update(
-                    [x[i] for x in xs], [y[i] for y in ys],
-                    [None if m is None else m[i] for m in fms],
-                    [None if m is None else m[i] for m in lms], rng)
+            (self.params, self.opt_state, self.state,
+             losses) = self._loop_program()(
+                self.params, self.opt_state, self.state, inputs, labels,
+                masks, lmasks, rngs)
         t2 = obs.now()
         host = losses.cpu()         # the group's one device sync
         t3 = obs.now()
@@ -674,22 +699,88 @@ class ComputationGraph:
         obs.record_step("ComputationGraph.fit", t0, t1, t2, t3,
                         args={"steps": len(group)}, turn=True)
 
-    def _update(self, xs, ys, fms, lms, rng):
-        """One gradient + optimizer update; returns the loss (on the
-        device)."""
-        loss, grads, new_state = self._loss_and_grads(xs, ys, fms, lms,
-                                                      rng)
-        self.params, self.opt_state = apply_updates(
-            self._chains, self.params, grads, self.opt_state)
-        self.state = new_state
-        return loss
+    # -- the entry points (perf/sentry.py) --------------------------------
+    _capturable = MultiLayerNetwork._capturable
+
+    def _train_step(self, params, opt_state, state, inputs, labels, masks,
+                    lmasks, rng):
+        """``ComputationGraph.train_step``: one update as a function of
+        the three trees and a fed batch; returns the new trees and the
+        loss."""
+        with bound_trees(self, params, opt_state, state):
+            loss, grads, new_state = self._loss_and_grads_fed(
+                inputs, labels, masks, lmasks, rng)
+            params, opt_state = apply_updates(self._chains, params, grads,
+                                              opt_state)
+            return params, opt_state, new_state, loss
+
+    def _train_loop(self, params, opt_state, state, inputs, labels, masks,
+                    lmasks, rngs):
+        """``ComputationGraph.train_loop``: K runs of the step's
+        executable over the stacked fields, the K losses in one [K]
+        tensor on the device."""
+        step = self._step_program()
+        at = lambda d, i: {n: a[i] for n, a in d.items()}
+        losses = torch.empty(len(rngs), dtype=torch.float32,
+                             device=self.device)
+        for i, rng in enumerate(rngs):
+            params, opt_state, state, losses[i] = step.run(
+                params, opt_state, state, at(inputs, i),
+                [y[i] for y in labels], at(masks, i), at(lmasks, i), rng)
+        return params, opt_state, state, losses
+
+    @torch.no_grad()
+    def _output(self, params, state, inputs, masks, train):
+        """``ComputationGraph.output``'s program (see :meth:`output`)."""
+        cd = self.conf.compute_dtype
+        sp = self._seq_parallel()
+        inputs, _, masks, _ = self._shard_feed(sp, inputs, [], masks, {})
+        if cd is not None:
+            params = dtypes.cast_float_tree(params, cd)
+            state = dtypes.cast_float_tree(state, cd)
+            inputs = dtypes.cast_float_tree(inputs, cd)
+        acts, _ = self._forward(params, state, inputs, train=train,
+                                rng=None, masks=masks, sp=sp)
+        outs = [acts[o] for o in self.conf.outputs]
+        if sp is not None and sp[0].size > 1:
+            ctx, mode, sharded = sp
+            outs = [_mesh().unshard_sequence(
+                _mesh().all_gather(o, ctx.group), mode)
+                if name in sharded else o
+                for name, o in zip(self.conf.outputs, outs)]
+        return [o.float() for o in outs] if cd is not None else outs
+
+    def _step_program(self) -> sentry.SentryJit:
+        if self._train_step_fn is None:
+            self._train_step_fn = sentry.jit(
+                self._train_step, name="ComputationGraph.train_step",
+                capture=self._capturable, state=(0, 1, 2), seeds=(7,))
+        return self._train_step_fn
+
+    def _loop_program(self) -> sentry.SentryJit:
+        if self._train_loop_fn is None:
+            self._train_loop_fn = sentry.jit(
+                self._train_loop, name="ComputationGraph.train_loop")
+        return self._train_loop_fn
+
+    def _output_program(self) -> sentry.SentryJit:
+        if self._output_fn is None:
+            self._output_fn = sentry.jit(
+                self._output, name="ComputationGraph.output",
+                capture=self._capturable, const=(0, 1))
+        return self._output_fn
+
+    warmup = MultiLayerNetwork.warmup
 
     def _fit_batch(self, xs, ys, fms=None, lms=None, _t0=None):
         t0 = obs.now() if _t0 is None else _t0
         faults.inject("step")       # site: step dispatch (resilience/)
+        fed = self._feed(xs, ys, fms, lms)
         rng = fold_in(self.conf.seed, self.iteration)
         t1 = obs.now()
-        loss = self._update(xs, ys, fms, lms, rng)
+        (self.params, self.opt_state, self.state,
+         loss) = self._step_program()(self.params, self.opt_state,
+                                      self.state, *fed, rng)
         t2 = obs.now()
         score = float(loss)           # blocking device sync
         t3 = obs.now()
@@ -709,25 +800,9 @@ class ComputationGraph:
         takes none. Under a sequence-parallel context every rank is given
         the global inputs, and an output that keeps its time axis is
         gathered from the ranks' shards."""
-        cd = self.conf.compute_dtype
-        params, state = self.params, self.state
-        sp = self._seq_parallel()
-        inputs, _, masks, _ = self._shard_feed(
-            sp, *self._feed(features, fms=features_masks))
-        if cd is not None:
-            params = dtypes.cast_float_tree(params, cd)
-            state = dtypes.cast_float_tree(state, cd)
-            inputs = dtypes.cast_float_tree(inputs, cd)
-        acts, _ = self._forward(params, state, inputs, train=train,
-                                rng=None, masks=masks, sp=sp)
-        outs = [acts[o] for o in self.conf.outputs]
-        if sp is not None and sp[0].size > 1:
-            ctx, mode, sharded = sp
-            outs = [_mesh().unshard_sequence(
-                _mesh().all_gather(o, ctx.group), mode)
-                if name in sharded else o
-                for name, o in zip(self.conf.outputs, outs)]
-        return [o.float() for o in outs] if cd is not None else outs
+        inputs, _, masks, _ = self._feed(features, fms=features_masks)
+        return self._output_program()(self.params, self.state, inputs,
+                                      masks, train)
 
     def output_single(self, *features, features_masks=None):
         return self.output(*features, features_masks=features_masks)[0]

@@ -12,8 +12,8 @@ and the reference's :class:`SelfAttentionLayer`,
 :class:`LearnedSelfAttentionLayer` and :class:`RecurrentAttentionLayer`.
 On the card each of them reaches the flash kernels through
 ``scaled_dot_attention``, whatever its query length (one query a step in
-the recurrent layer) and head dim (up to 128; a head dim between K1's
-16, 32, 64 and 128 runs zero-padded to the next). Shapes are the
+the recurrent layer) and head dim (up to 256; a head dim between K1's
+16, 32, 64, 128 and 256 runs zero-padded to the next). Shapes are the
 JAX package's: [B, T, H, D], head axis 2; key mask [B, Tk].
 """
 from __future__ import annotations

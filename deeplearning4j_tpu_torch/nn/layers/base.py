@@ -7,7 +7,8 @@ JAX package. Randomness is explicit: ``init`` draws from a CPU
 ``torch.Generator``, and a training forward hands each layer an integer
 seed (the counterpart of a ``jax.random`` key; :func:`split_seed` splits
 it) from which dropout builds its own generator — so recomputing a
-block (``remat``) draws the same mask.
+block (``remat``) draws the same mask. The seed arithmetic and the
+draws' generators live in ``deeplearning4j_tpu_torch/rng.py``.
 
 ``Layer.to_dict`` and :func:`layer_from_dict` are the JAX package's
 JSON beans: a layer's dict names its class under ``"@class"`` and holds
@@ -18,12 +19,13 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional
 
-import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.ops import activations
+from deeplearning4j_tpu_torch.rng import (  # noqa: F401 (re-exported)
+    fold_in, generator, split_seed)
 
 _LAYER_REGISTRY: Dict[str, type] = {}
 
@@ -65,20 +67,6 @@ def layer_from_dict(d: Dict[str, Any]) -> "Layer":
                  else layer_from_dict(v))
         kwargs[k] = v
     return cls(**kwargs)
-
-
-def split_seed(seed: int, n: int = 2) -> Tuple[int, ...]:
-    """``n`` independent seeds derived from ``seed`` (a deterministic
-    counterpart of ``jax.random.split``)."""
-    state = np.random.SeedSequence(int(seed)).generate_state(n)
-    return tuple(int(s) for s in state)
-
-
-def fold_in(seed: int, data: int) -> int:
-    """A seed derived from ``seed`` and ``data`` (the counterpart of
-    ``jax.random.fold_in``)."""
-    return int(np.random.SeedSequence([int(seed), int(data)])
-               .generate_state(1)[0])
 
 
 def sharded_input():
@@ -169,6 +157,6 @@ class Layer:
                 f"Layer {self.name or type(self).__name__} has dropout "
                 "but no rng was supplied to apply()")
         keep = 1.0 - self.dropout
-        gen = torch.Generator(device=x.device).manual_seed(int(rng))
+        gen = generator(x.device, rng)
         m = torch.rand(x.shape, generator=gen, device=x.device) < keep
         return torch.where(m, x / keep, torch.zeros_like(x)).to(x.dtype)

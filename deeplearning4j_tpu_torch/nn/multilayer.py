@@ -64,7 +64,23 @@ observatory.
 K-step region (:meth:`MultiLayerNetwork._fit_group`): the counterpart of
 the JAX package's scanned loop, with one host→device copy a field and
 one device→host copy of the K losses, and no read-back between the
-updates; a CUDA graph over the region is later work.
+updates.
+
+**Entry points** (``perf/sentry.py``), under the JAX package's names:
+``MultiLayerNetwork.train_step`` (one update, a function of the
+parameter, optimizer-state and layer-state trees), ``.train_loop`` (the
+K-step region: K runs of the step), ``.tbptt_step`` and ``.tbptt_loop``
+(a truncated-BPTT segment, and the segments after the first of a batch
+whose length the segment divides), and ``.output``. Each counts its
+traces as the JAX jitted function does; :meth:`MultiLayerNetwork.warmup`
+declares shape buckets ahead of traffic. On the card the step, the
+tBPTT step and ``output`` replay a CUDA graph per signature, captured at
+``warmup`` or at the first call (under a sequence-parallel context they
+run eagerly: their collectives are not captured in this slice); the two
+loops run their step's graph once a step. A captured step leaves the
+network's trees as the graph's own state tensors, updated in place by
+each replay; the loss it returns is a copy. The step's one device sync
+(``float(loss)``, the K losses' copy) stays outside the graph.
 
 Under a ``parallel.distributed_context`` a network whose layers carry a
 ``sequence_parallel`` mode trains and infers sequence-parallel, by the
@@ -111,6 +127,7 @@ from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     BaseRecurrentLayer, RnnOutputLayer, returns_carries)
 from deeplearning4j_tpu_torch.nn.layers.special import FrozenLayer
 from deeplearning4j_tpu_torch.ops import losses as losses_mod
+from deeplearning4j_tpu_torch.perf import sentry
 from deeplearning4j_tpu_torch.resilience import faults
 
 # losses that support the fused from_logits path, keyed by activation
@@ -305,6 +322,20 @@ def _sum_over(group, loss, grads):
     return summed[0].reshape(()), tree.map_(lambda _: next(it), grads)
 
 
+@contextlib.contextmanager
+def bound_trees(net, params, opt_state, state):
+    """``net``'s parameter, optimizer-state and layer-state trees bound
+    to the given ones for the body of one program, and put back after
+    it: a program is a function of its arguments (its caller rebinds
+    the trees it returns)."""
+    saved = net.params, net.opt_state, net.state
+    net.params, net.opt_state, net.state = params, opt_state, state
+    try:
+        yield
+    finally:
+        net.params, net.opt_state, net.state = saved
+
+
 def loss_and_grads(loss_fn, params, frozen=()):
     """``(loss, gradients, aux)`` of ``loss_fn(params) -> (loss, aux)``
     at ``params`` (a dict of parameter groups, each a nested dict of
@@ -420,6 +451,10 @@ def apply_updates(chains, params, grads, opt_state, constrain=True):
 
 class MultiLayerNetwork:
     """Sequential stack model (reference MultiLayerNetwork)."""
+
+    #: the entry points (``perf.sentry``), made at their first use
+    _train_step_fn = _train_loop_fn = _output_fn = None
+    _tbptt_step_fn = _tbptt_loop_fn = None
 
     def __init__(self, conf: MultiLayerConfiguration):
         self.conf = conf
@@ -848,6 +883,127 @@ class MultiLayerNetwork:
         self.state = new_state
         return loss
 
+    # -- the entry points (perf/sentry.py) --------------------------------
+    def _capturable(self) -> bool:
+        """Whether the programs capture CUDA graphs on the card: not
+        under a sequence-parallel context (its collectives stay eager in
+        this slice)."""
+        return _mesh().active_context() is None
+
+    def _train_step(self, params, opt_state, state, x, y, mask, lmask,
+                    rng):
+        """``MultiLayerNetwork.train_step``: :meth:`_update` as a
+        function of the three trees (the JAX ``_update``); returns the
+        new trees and the loss."""
+        with bound_trees(self, params, opt_state, state):
+            loss = self._update(x, y, mask, lmask, rng)
+            return self.params, self.opt_state, self.state, loss
+
+    def _train_loop(self, params, opt_state, state, x_stack, y_stack,
+                    rngs):
+        """``MultiLayerNetwork.train_loop``: the K-step region, K runs of
+        the step's executable (on the card its graph's replays), the K
+        losses written into one [K] tensor on the device."""
+        step = self._step_program()
+        losses = torch.empty(len(rngs), dtype=torch.float32,
+                             device=x_stack.device)
+        for i, rng in enumerate(rngs):
+            params, opt_state, state, losses[i] = step.run(
+                params, opt_state, state, x_stack[i], y_stack[i], None,
+                None, rng)
+        return params, opt_state, state, losses
+
+    def _tbptt_step(self, params, opt_state, state, rnn_init, x, y, mask,
+                    lmask, rng):
+        """``MultiLayerNetwork.tbptt_step``: one segment's update from
+        the recurrent layers' carries ``rnn_init`` (None at a batch's
+        first segment); returns the new trees, the segment's final
+        carries (detached) and its loss."""
+        out: Dict[str, Any] = {}
+        with bound_trees(self, params, opt_state, state):
+            loss = self._update(x, y, mask, lmask, rng, rnn_init=rnn_init,
+                                rnn_out=out)
+            rnn = {name: tree.map_(torch.Tensor.detach, carries)
+                   for name, carries in out.items()}
+            return self.params, self.opt_state, self.state, rnn, loss
+
+    def _tbptt_loop(self, params, opt_state, state, rnn, x_stack, y_stack,
+                    rng):
+        """``MultiLayerNetwork.tbptt_loop``: the segments [S, B, k, ...]
+        after a batch's first, one tBPTT step each; returns the trees,
+        the carries and the last segment's loss."""
+        step = self._tbptt_program()
+        loss = None
+        for i in range(x_stack.shape[0]):
+            params, opt_state, state, rnn, loss = step(
+                params, opt_state, state, rnn, x_stack[i], y_stack[i],
+                None, None, rng)
+        return params, opt_state, state, rnn, loss
+
+    @torch.no_grad()
+    def _output(self, params, state, x, mask, train):
+        """``MultiLayerNetwork.output``'s program (see :meth:`output`)."""
+        cd = self.conf.compute_dtype
+        sp = self._seq_parallel()
+        x, mask = self._shard(sp, x, mask)
+        if cd is not None:
+            params = dtypes.cast_float_tree(params, cd)
+            state = dtypes.cast_float_tree(state, cd)
+            x = dtypes.cast_float_tree(x, cd)
+        with self._layout(sp):
+            out, _, _ = self._forward(params, state, x, train=train,
+                                      rng=None, mask=mask)
+        if (sp is not None and sp[0].size > 1
+                and self._pooled_at() is None):
+            ctx, mode = sp
+            out = _mesh().unshard_sequence(
+                _mesh().all_gather(out, ctx.group), mode)
+        return out.float() if cd is not None else out
+
+    def _step_program(self) -> sentry.SentryJit:
+        if self._train_step_fn is None:
+            self._train_step_fn = sentry.jit(
+                self._train_step, name="MultiLayerNetwork.train_step",
+                capture=self._capturable, state=(0, 1, 2), seeds=(7,))
+        return self._train_step_fn
+
+    def _loop_program(self) -> sentry.SentryJit:
+        if self._train_loop_fn is None:
+            self._train_loop_fn = sentry.jit(
+                self._train_loop, name="MultiLayerNetwork.train_loop")
+        return self._train_loop_fn
+
+    def _tbptt_program(self) -> sentry.SentryJit:
+        if self._tbptt_step_fn is None:
+            self._tbptt_step_fn = sentry.jit(
+                self._tbptt_step, name="MultiLayerNetwork.tbptt_step",
+                capture=self._capturable, state=(0, 1, 2), seeds=(8,))
+        return self._tbptt_step_fn
+
+    def _tbptt_loop_program(self) -> sentry.SentryJit:
+        if self._tbptt_loop_fn is None:
+            self._tbptt_loop_fn = sentry.jit(
+                self._tbptt_loop, name="MultiLayerNetwork.tbptt_loop")
+        return self._tbptt_loop_fn
+
+    def _output_program(self) -> sentry.SentryJit:
+        if self._output_fn is None:
+            self._output_fn = sentry.jit(
+                self._output, name="MultiLayerNetwork.output",
+                capture=self._capturable, const=(0, 1))
+        return self._output_fn
+
+    def warmup(self, specs):
+        """Build the train step, the K-step loop and ``output`` for every
+        declared shape bucket (``perf.warmup.WarmupSpec``) BEFORE the
+        first batch or request: on the card each captures its graph now;
+        the first live call on a warmed bucket then adds no trace. Changes
+        no state: parameters, optimizer and layer state, ``iteration``
+        and the next ``fit``'s draws stay as they were. Returns
+        ``{"compiled": n, "seconds": t}``."""
+        from deeplearning4j_tpu_torch.perf.warmup import warmup_network
+        return warmup_network(self, specs)
+
     def _as_input(self, a, dtype=None):
         if a is None:
             return None
@@ -936,7 +1092,8 @@ class MultiLayerNetwork:
         port's counterpart of the JAX package's scanned device loop.
         The fault site fires first (a fire changes nothing); each array
         of the group is stacked on the host and moved to the device in
-        one copy; the K updates then run in turn, update ``i`` with the
+        one copy; the K updates then run in turn
+        (``MultiLayerNetwork.train_loop``), update ``i`` with the
         dropout seed of iteration ``iteration + i`` and its loss written
         into a [K] tensor on the device, with no read-back between them;
         the K losses come to the host in one copy at the end, and the
@@ -946,12 +1103,12 @@ class MultiLayerNetwork:
         xs = stage([x for x, _ in group], self.device)
         ys = stage([y for _, y in group], self.device)
         t1 = obs.now()
-        losses = torch.empty(len(group), dtype=torch.float32,
-                             device=self.device)
+        rngs = tuple(fold_in(self.conf.seed, self.iteration + i)
+                     for i in range(len(group)))
         with obs.devtime.scope(REGION_SCOPE.format("MultiLayerNetwork")):
-            for i in range(len(group)):
-                rng = fold_in(self.conf.seed, self.iteration + i)
-                losses[i] = self._update(xs[i], ys[i], None, None, rng)
+            (self.params, self.opt_state, self.state,
+             losses) = self._loop_program()(self.params, self.opt_state,
+                                            self.state, xs, ys, rngs)
         t2 = obs.now()
         host = losses.cpu()         # the group's one device sync
         t3 = obs.now()
@@ -971,7 +1128,10 @@ class MultiLayerNetwork:
             loss = self._fit_tbptt(x, y, fmask, lmask, rng)
             entry = "MultiLayerNetwork.fit_tbptt"
         else:
-            loss = self._update(x, y, fmask, lmask, rng)
+            (self.params, self.opt_state, self.state,
+             loss) = self._step_program()(self.params, self.opt_state,
+                                          self.state, x, y, fmask, lmask,
+                                          rng)
             entry = "MultiLayerNetwork.fit"
         t2 = obs.now()
         score = float(loss)         # blocking device sync
@@ -984,17 +1144,32 @@ class MultiLayerNetwork:
         segment of ``tbptt_fwd_length`` steps, each segment's recurrent
         layers starting from the previous one's final carries, detached,
         and every segment with the batch's seed ``rng``. Returns the last
-        segment's loss, on the device: no segment reads back."""
+        segment's loss, on the device: no segment reads back. As in the
+        JAX network, a batch whose length the segment divides into more
+        than one, with [B, T, C] labels and no masks, runs its first
+        segment through ``tbptt_step`` and the rest through
+        ``tbptt_loop``; any other batch runs ``tbptt_step`` a
+        segment."""
         k = self.conf.tbptt_fwd_length
-        rnn, loss = None, None
-        for s0 in range(0, x.shape[1], k):
-            cut = lambda a: None if a is None else a[:, s0:s0 + k]
-            out = {}
-            loss = self._update(cut(x), cut(y) if y.ndim == 3 else y,
-                                cut(fmask), cut(lmask), rng, rnn_init=rnn,
-                                rnn_out=out)
-            rnn = {name: tree.map_(torch.Tensor.detach, carries)
-                   for name, carries in out.items()}
+        t = x.shape[1]
+        step = self._tbptt_program()
+        trees = (self.params, self.opt_state, self.state)
+        if (t % k == 0 and t // k > 1 and y.ndim == 3 and fmask is None
+                and lmask is None):
+            *trees, rnn, loss = step(*trees, None, x[:, :k], y[:, :k],
+                                     None, None, rng)
+            stack = lambda a: a[:, k:].reshape(
+                a.shape[0], t // k - 1, k, *a.shape[2:]).transpose(0, 1)
+            *trees, rnn, loss = self._tbptt_loop_program()(
+                *trees, rnn, stack(x), stack(y), rng)
+        else:
+            rnn = loss = None
+            for s0 in range(0, t, k):
+                cut = lambda a: None if a is None else a[:, s0:s0 + k]
+                *trees, rnn, loss = step(*trees, rnn, cut(x),
+                                         cut(y) if y.ndim == 3 else y,
+                                         cut(fmask), cut(lmask), rng)
+        self.params, self.opt_state, self.state = trees
         return loss
 
     # ------------------------------------------------------------------
@@ -1003,26 +1178,13 @@ class MultiLayerNetwork:
     @torch.no_grad()
     def output(self, x, train: bool = False, mask=None):
         """Reference: MultiLayerNetwork.output. Returns a tensor on the
-        network's device (f32 under ``compute_dtype``)."""
-        cd = self.conf.compute_dtype
-        params, state = self.params, self.state
-        x = self._as_input(x)
-        mask = self._as_input(mask, torch.float32)
-        sp = self._seq_parallel()
-        x, mask = self._shard(sp, x, mask)
-        if cd is not None:
-            params = dtypes.cast_float_tree(params, cd)
-            state = dtypes.cast_float_tree(state, cd)
-            x = dtypes.cast_float_tree(x, cd)
-        with self._layout(sp):
-            out, _, _ = self._forward(params, state, x, train=train,
-                                      rng=None, mask=mask)
-        if (sp is not None and sp[0].size > 1
-                and self._pooled_at() is None):
-            ctx, mode = sp
-            out = _mesh().unshard_sequence(
-                _mesh().all_gather(out, ctx.group), mode)
-        return out.float() if cd is not None else out
+        network's device (f32 under ``compute_dtype``), through the
+        ``MultiLayerNetwork.output`` entry point (on the card a graph
+        that reads the network's trees in place, the compute-dtype cast
+        of the masters inside it)."""
+        return self._output_program()(
+            self.params, self.state, self._as_input(x),
+            self._as_input(mask, torch.float32), train)
 
     @torch.no_grad()
     def score(self, dataset=None) -> float:

@@ -411,7 +411,7 @@ class AttentionVertex(GraphVertex):
     (or [q, kv]), each [B, T, F] split into ``n_heads`` heads.
     Parameter-free scaled dot-product attention through the port's
     ``scaled_dot_attention``: on the card the flash kernels (K1 forward,
-    K3 backward; head dims up to 128). For projected attention
+    K3 backward; head dims up to 256). For projected attention
     use ``nn.layers.attention.MultiHeadAttention``."""
     n_heads: int = 1
 

@@ -17,10 +17,13 @@ Family names are the JAX package's (``dl4j_tpu_<subsystem>_<name>_
   step latency, collective-sync time, heartbeat age and staleness;
 - ``dl4j_tpu_faults_injected_total{site=...}`` — ``resilience/faults.py``;
 - ``dl4j_tpu_serving_*`` — the serving gateway, scheduler and pager;
-- ``dl4j_tpu_opt_state_bytes_per_device{layout=...}`` — ZeRO.
+- ``dl4j_tpu_opt_state_bytes_per_device{layout=...}`` — ZeRO;
+- ``dl4j_tpu_retrace_*``, ``dl4j_tpu_aot_hits_total``,
+  ``dl4j_tpu_compile_time_seconds_total`` and
+  ``dl4j_tpu_compile_cache_*`` — the compile lifecycle (``perf/``: the
+  retrace sentry and the kernel build cache), read at scrape.
 
-The JAX package's compile-cache and retrace families and its ``/fleet``
-aggregation have no counterpart here.
+The JAX package's ``/fleet`` aggregation has no counterpart here.
 """
 from __future__ import annotations
 
@@ -447,7 +450,39 @@ def exposition() -> str:
     return REGISTRY.exposition()
 
 
-# -- pull-time collector: worker health ---------------------------------------
+# -- pull-time collectors: the compile lifecycle + worker health ------------
+
+def _perf_collector():
+    """The retrace sentry and the kernel build cache as metric families
+    (read at scrape; ``perf/`` owns the counters)."""
+    from deeplearning4j_tpu_torch.perf import compile_cache, sentry
+    rows = list(sentry.stats().items())
+    yield ("dl4j_tpu_retrace_traces_total", "counter",
+           "distinct traces per sentried entry point",
+           [({"function": n}, s["traces"]) for n, s in rows])
+    yield ("dl4j_tpu_retrace_unplanned_shapes", "gauge",
+           "distinct UNPLANNED traced shapes (the retrace budget meter)",
+           [({"function": n}, s["unplanned_shapes"]) for n, s in rows])
+    yield ("dl4j_tpu_retrace_compiles_total", "counter",
+           "first calls not covered by a warmup, per entry point",
+           [({"function": n}, s["compiles"]) for n, s in rows])
+    yield ("dl4j_tpu_aot_hits_total", "counter",
+           "live calls served by a warmed executable (a captured graph "
+           "on the card)",
+           [({"function": n}, s["aot_hits"]) for n, s in rows])
+    yield ("dl4j_tpu_compile_time_seconds_total", "counter",
+           "wall time spent building the sentried entry points' "
+           "executables (capturing their graphs on the card)",
+           [({}, sentry.total_compile_time_s())])
+    c = compile_cache.counters()
+    yield ("dl4j_tpu_compile_cache_requests_total", "counter",
+           "kernel library loads through the build cache",
+           [({}, c["compile_requests"])])
+    yield ("dl4j_tpu_compile_cache_hits_total", "counter",
+           "kernel libraries found built in the build cache",
+           [({}, c["persistent_hits"])])
+
+
 
 def _health_collector():
     from deeplearning4j_tpu_torch.obs import health
@@ -462,6 +497,7 @@ def _health_collector():
            [({"worker": w}, int(s["stale"])) for w, s in chk.items()])
 
 
+REGISTRY.register_collector(_perf_collector)
 REGISTRY.register_collector(_health_collector)
 
 

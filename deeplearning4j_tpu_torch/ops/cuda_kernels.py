@@ -48,14 +48,18 @@ the forward kernel with the logsumexp and whose backward calls
 :func:`flash_attention_bwd` (the plain versions for CPU tensors).
 
 **Head dims.** The four flash kernels are compiled at the head dims of
-:data:`_HEAD_DIMS`. Any other head dim up to 128 runs through them
+:data:`_HEAD_DIMS`. Any other head dim up to 256 runs through them
 zero-padded to the next of those (:func:`_kernel_dim`): the launch
 helpers pad q, k, v (and dO) with zero columns, pass the softmax scale
 of the REAL head dim, and slice the pad off out, dq, dk and dv. The pad
 is exact: zero columns of q and k leave every score unchanged, zero
 columns of v give zero output columns, and the pad's gradients are
 dropped. The fused/split choice of the backward is made at the real
-head dim, before any pad. A head dim above 128 raises.
+head dim, before any pad. A head dim above 256 raises. At 256 the f32
+CUDA-core backward kernels take 32 keys a tile (64 would pass an H100
+block's 227 KB of shared memory), and the bf16 key-stationary loop splits
+dk, dv and dq over two blocks of 128 columns a key tile, each recomputing
+the scores over all 256 (``flash_mma.cuh`` ``kv_cols``).
 
 The ring-composition entries :func:`flash_block_fwd` and
 :func:`flash_block_bwd` (the JAX entries of the same names) run one
@@ -78,7 +82,7 @@ from deeplearning4j_tpu_torch.obs import devtime
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the head dims the flash kernels are compiled at; any other head dim up
 #: to the last runs at the next of them, zero-padded (:func:`_kernel_dim`)
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128, 256)
 #: the kernels' fixed tile: 64 query rows by 64 keys
 KERNEL_BLOCK = 64
 

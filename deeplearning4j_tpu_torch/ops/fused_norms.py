@@ -130,6 +130,8 @@ def layer_norm_bwd_reference(x, gamma, dy, eps: float = LAYERNORM_EPS):
 
 @functools.lru_cache(maxsize=1)
 def _triton_kernels():
+    from deeplearning4j_tpu_torch.perf import compile_cache
+    compile_cache.prepare_triton()   # Triton's cache beside the libraries
     import triton
     import triton.language as tl
 
@@ -288,7 +290,9 @@ _TMA_ROWS_PER_WARP = {False: math.inf, True: 2}
 _GRID_LIMITS = {}
 #: (device, stream) -> the int32 tickets [8] of the kernel's finish, one
 #: per cluster rank: 0 between launches (each finishing block resets its
-#: own), so one set per stream, whose launches run in order
+#: own), so one set per stream, whose launches run in order. A CUDA graph
+#: (``perf/sentry.py``) is captured on the stream of its warm run, whose
+#: eager launches made and zeroed that stream's set: the graph keeps it
 _TICKETS = {}
 
 

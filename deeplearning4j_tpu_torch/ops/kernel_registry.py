@@ -46,11 +46,12 @@ is the serving gateway under the ``serving`` fault site. ``serve``,
 ``serve_opts`` and ``serve_fault`` run no fixed steps:
 ``chip_smoke.py`` derives their exact counts from the admissions and
 steps each run made.
-The four flash rows (K1, K3, K4, K5) take every head dim up to 128:
-their CUDA sources are compiled at 16, 32, 64 and 128, and any other
+The four flash rows (K1, K3, K4, K5) take every head dim up to 256:
+their CUDA sources are compiled at 16, 32, 64, 128 and 256, and any other
 head dim reaches them zero-padded to the next of those, at the softmax
 scale of the real dim (``ops/cuda_kernels.py`` ``_kernel_dim``; the
-card's ``attn_dims`` phase holds them at 2, 24, 48, 80 and 96).
+card's ``attn_dims`` phase holds them at 2, 24, 48, 80, 96, 160 and
+256).
 
 ``chip_smoke.py`` reads this table: it builds and checks every
 ``ported`` row on the card, zeroes the launch counters just before each

@@ -27,9 +27,14 @@ example (the JAX rule: send an image as [1, H, W, C]). A
 request with the list of its rows of every output; the JAX worker
 handles a ``MultiLayerNetwork``'s one output only.
 
+:meth:`ParallelInference.warmup` builds the network's forward for every
+batch bucket before the first request (on the card it captures the
+``output`` graph of each; ``perf/warmup.py``), so a first request on a
+warmed bucket adds no trace.
+
 Not in this slice: model-parallel serving (``mesh``, ``shard_params``,
-:func:`shard_model_params`; ROADMAP item A13) and ``warmup`` (the
-compile lifecycle, ROADMAP item A12) raise ``NotImplementedError``.
+:func:`shard_model_params`; ROADMAP item A13) raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -150,12 +155,12 @@ class ParallelInference:
 
     # -- public API (reference ParallelInference.output) ----------------
     def warmup(self, feature_shape, dtype: str = "float32"):
-        """Ahead-of-time compiled serving forwards: the compile lifecycle,
-        ROADMAP item A12."""
-        raise NotImplementedError(
-            "ParallelInference.warmup (ahead-of-time compiled forwards "
-            "per bucket) comes with the compile-lifecycle slice, ROADMAP "
-            "item A12")
+        """Build the network's forward for every declared batch bucket
+        (``perf.warmup.warmup_inference``; the JAX ``warmup``):
+        ``feature_shape`` is ONE example's shape. Returns
+        ``{"compiled": n, "seconds": t}``."""
+        from deeplearning4j_tpu_torch.perf.warmup import warmup_inference
+        return warmup_inference(self, feature_shape, dtype)
 
     def output(self, x, timeout: Optional[float] = 30.0):
         """The network's output for ``x`` as host numpy arrays.

@@ -93,9 +93,17 @@ refused for a network with constraints, as in the JAX wrapper
 draws from the step's seed, into which each rank past one has folded
 its index, as dropout does.
 
+**Entry point** (``perf/sentry.py``): a rank's step runs through one
+entry point named as the JAX wrapper's step of its mode
+(``ParallelWrapper.sync_step``, ``.sync_sharded_step``,
+``.sync_sharded_overlap_step``, ``.encoded_step``, ``.async_step``,
+``.averaging_step``), whose traces are counted as the JAX jitted step's
+and whose batch shapes :meth:`ParallelWrapper.warmup` declares ahead.
+The steps run collectives over the process group, which this slice does
+not capture: they stay eager on the card (``ROADMAP.md`` A17).
+
 Not in this slice (each raises ``NotImplementedError`` naming its
-slice): the numerics diagnostic steps, ``elastic``, checkpoints and
-``warmup``.
+slice): the numerics diagnostic steps, ``elastic`` and checkpoints.
 """
 from __future__ import annotations
 
@@ -124,6 +132,8 @@ from deeplearning4j_tpu_torch.parallel.mesh import (Mesh, all_gather_,
                                                     mean_over)
 from deeplearning4j_tpu_torch.parallel.zero import (FlatShardLayout,
                                                     per_device_bytes)
+from deeplearning4j_tpu_torch.perf import sentry
+from deeplearning4j_tpu_torch.perf.sentry import ShapeDtype
 from deeplearning4j_tpu_torch.resilience import faults
 
 _LOG = logging.getLogger("deeplearning4j_tpu_torch")
@@ -299,9 +309,61 @@ class ParallelWrapper:
     def builder(net) -> "ParallelWrapper.Builder":
         return ParallelWrapper.Builder(net)
 
-    # -- not in this slice ---------------------------------------------
+    # -- the step's entry point (perf/sentry.py) -------------------------
+    def _step_name(self) -> str:
+        """The JAX wrapper's name for this mode's step."""
+        if self.mode == self.SYNC:
+            if not self.sharded_update:
+                return "ParallelWrapper.sync_step"
+            return ("ParallelWrapper.sync_sharded_overlap_step"
+                    if self.gather_overlap
+                    else "ParallelWrapper.sync_sharded_step")
+        return f"ParallelWrapper.{self.mode}_step"
+
+    _step_fn = None
+
+    def _step_program(self) -> sentry.SentryJit:
+        if self._step_fn is None:
+            self._step_fn = sentry.jit(
+                lambda x, y, rng: self._step(x, y, rng),
+                name=self._step_name())
+        return self._step_fn
+
     def warmup(self, specs):
-        _later("warmup (ahead-of-time compiled steps)", "compile-lifecycle")
+        """Declare this mode's step for every batch shape of ``specs``
+        (``perf.warmup.WarmupSpec``) before the first batch: each is a
+        planned signature, and the first live step on it adds no trace.
+        Spec features and labels carry the GLOBAL batch dim, as the JAX
+        wrapper's do; a rank's step takes its 1/n of the rows (``fit``'s
+        per-rank batches). The step's collectives stay eager in this
+        slice, so there is no graph to capture, and warmup runs nothing:
+        it changes no state. Returns ``{"compiled": n, "seconds": t}``."""
+        from deeplearning4j_tpu_torch.perf.warmup import (_feature_sds,
+                                                          _label_sds)
+        net = self.net
+        graph = hasattr(net.conf, "inputs")
+        rng = fold_in(net.conf.seed, 0)
+        if self.n > 1:
+            rng = fold_in(rng, self.index)
+        rows = lambda s: ShapeDtype((s.shape[0] // self.n,)
+                                    + tuple(s.shape[1:]), s.dtype, s.device)
+        local = lambda t: (rows(t) if isinstance(t, ShapeDtype)
+                           else [rows(a) for a in t])
+        step = self._step_program()
+        compiled, seconds = 0, 0.0
+        for spec in specs:
+            if not spec.train:
+                continue
+            x = _feature_sds(spec, net.conf, net.device)
+            y = _label_sds(spec, net.conf, net.device)
+            if graph:
+                x = list(x.values())
+            dt = step.warmup(local(x), local(y), rng)
+            compiled += dt > 0
+            seconds += dt
+        return {"compiled": compiled, "seconds": seconds}
+
+    # -- not in this slice ---------------------------------------------
 
     def checkpoint_tree(self):
         _later("checkpoint_tree (sharded checkpoints)", "resilience")
@@ -755,7 +817,7 @@ class ParallelWrapper:
                     # each rank draws the dropout masks of its own rows
                     rng = fold_in(rng, self.index)
                 t1 = obs.now()
-                loss = self._step(x, y, rng)
+                loss = self._step_program()(x, y, rng)
                 t2 = obs.now()
                 score = float(loss)          # blocking device sync
                 obs.record_worker_step(worker, t0, t1, t2, obs.now())

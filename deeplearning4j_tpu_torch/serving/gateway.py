@@ -245,10 +245,10 @@ class ServingGateway:
 
     # -- public API ------------------------------------------------------
     def warmup(self, prompt_lens=None):
-        """Run every program of the scheduler's mode once (kernels
-        built, every shape through the device; see
-        ``DecodeScheduler.warmup``). Call BEFORE taking traffic: the
-        worker is idle then."""
+        """Declare and build every program of the scheduler's mode (on
+        the card: capture its CUDA graphs; see
+        ``DecodeScheduler.warmup``), so that no admission order adds a
+        trace. Call BEFORE taking traffic: the worker is idle then."""
         self._warm_report = self._sched.warmup(prompt_lens)
         return self._warm_report
 

@@ -251,9 +251,9 @@ def smoke_report(n_requests: int = 32, max_new: int = 32,
                  max_slots: int = 16, device="cuda") -> Dict[str, Any]:
     """The JAX package's smoke config on ``device``: a small LM, a
     burst multi-tenant trace, continuous vs request-at-a-time
-    tokens/sec. (The JAX report's retrace count has no counterpart
-    until the port has a compile lifecycle; the warmup report stands in
-    its place.)"""
+    tokens/sec, and the traces the burst added after the gateway's
+    warmup (``perf.sentry``; the acceptance row: zero)."""
+    from deeplearning4j_tpu_torch.perf import sentry
     from deeplearning4j_tpu_torch.serving.gateway import ServingGateway
 
     model = _smoke_model(128)
@@ -269,7 +269,9 @@ def smoke_report(n_requests: int = 32, max_new: int = 32,
                         max_context=64, queue_limit=n_requests + 8,
                         default_max_new=max_new)
     warm = gw.warmup(prompt_lens=range(1, 29))
+    traces_before = sentry.total_traces()
     stats = run_trace(gw, requests, mode="burst")
+    retraces = sentry.total_traces() - traces_before
     gw.shutdown()
     cont_tps = stats["tokens_per_sec"] or 0.0
     return {
@@ -286,6 +288,7 @@ def smoke_report(n_requests: int = 32, max_new: int = 32,
         "shed_rate": stats["shed_rate"],
         "completed": stats["completed"],
         "failed": stats["failed"],
+        "retraces_after_warmup": retraces,
         "warmup": warm,
     }
 
@@ -300,7 +303,8 @@ def shared_prefix_report(n_requests: int = 32, prefix_len: int = 216,
     single-token decode; B: prefix sharing + speculative decode. Reports
     the A-vs-B p50 TTFT and tokens/sec ratios, the prefix-hit rate, the
     prefill tokens saved and the spec accept rate (each gateway's best
-    of two burst trials)."""
+    of two burst trials), and B's traces after its warmup (zero)."""
+    from deeplearning4j_tpu_torch.perf import sentry
     from deeplearning4j_tpu_torch.serving.gateway import ServingGateway
 
     model = _smoke_model(256)
@@ -316,6 +320,7 @@ def shared_prefix_report(n_requests: int = 32, prefix_len: int = 216,
                             max_context=mc, queue_limit=n_requests + 8,
                             default_max_new=max_new, **kw)
         warm = gw.warmup(prompt_lens=range(1, hi + 1))
+        traces_before = sentry.total_traces()
         runs = [run_trace(gw, requests, mode="burst")
                 for _ in range(trials)]
         stats = min(runs, key=lambda s: s["ttft_p50_ms"] or 1e18)
@@ -324,6 +329,8 @@ def shared_prefix_report(n_requests: int = 32, prefix_len: int = 216,
         stats["tokens_per_sec"] = max(s["tokens_per_sec"] for s in runs
                                       if s["tokens_per_sec"])
         stats["trials"] = trials
+        stats["retraces_after_warmup"] = (sentry.total_traces()
+                                          - traces_before)
         stats["warmup"] = warm
         gw.shutdown()
         return stats
@@ -352,6 +359,7 @@ def shared_prefix_report(n_requests: int = 32, prefix_len: int = 216,
         "spec_accept_rate": both["spec_accept_rate"],
         "completed": both["completed"],
         "failed": both["failed"],
+        "retraces_after_warmup": both["retraces_after_warmup"],
     }
 
 

@@ -40,6 +40,20 @@ The scheduler is single-threaded host logic (the gateway's worker
 drives it); requests are duck-typed: ``.prompt`` (1-D int32),
 ``.max_new``, ``.temperature``, ``.eos_id``, and ``push(tok)`` /
 ``finish()`` / ``fail(exc)`` callbacks (``gateway.TokenStream``).
+
+**Entry points** (``perf/sentry.py``), the JAX package's five programs
+under its names: ``serving.decode_step``, ``serving.spec_step_k{k}``,
+``serving.prefill`` (one a prompt bucket), ``serving.suffix_prefill``
+(one a suffix bucket) and ``serving.cow_copy``. :meth:`DecodeScheduler.
+warmup` declares all of them before traffic. On the card the first four
+replay a CUDA graph per signature (captured at warmup, or at first use):
+the prepared decode parameters are read in place, the prompt's length,
+a suffix's start and the request's temperature come in as 0-d tensors
+on the device (one graph a bucket), the pool is written in place as the
+eager step writes it, and the sampling generator is registered with the
+graphs, so a replay draws what the eager step draws and advances the
+generator as it does. ``cow_copy`` stays an eager PyTorch copy of one
+page (``ROADMAP.md`` A17).
 """
 from __future__ import annotations
 
@@ -50,8 +64,9 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch import obs
+from deeplearning4j_tpu_torch.perf import sentry
 from deeplearning4j_tpu_torch.serving.kv_pager import KVPager
-from deeplearning4j_tpu_torch.zoo.gpt import (_quant_kv, _rms,
+from deeplearning4j_tpu_torch.zoo.gpt import (_quant_kv, _rms, _row,
                                               prompt_bucket)
 
 #: the speculative-decode k grid: ``spec_k`` must come from this tuple,
@@ -169,10 +184,40 @@ class DecodeScheduler:
         self._feed_dirty = True
         self.steps = 0
         self.tokens_out = 0
+        # the entry points (perf/sentry.py)
+        self._step_fn = self._program("_decode_step", "serving.decode_step")
+        self._spec_fn = self._program("_spec_step",
+                                      f"serving.spec_step_k{self.spec_k}")
+        self._admit_fns: Dict[int, sentry.SentryJit] = {}
+        self._suffix_fns: Dict[int, sentry.SentryJit] = {}
+        self._cow_fn = sentry.jit(lambda src, dst: self._cow_copy(src, dst),
+                                  name="serving.cow_copy")
+
+    def _program(self, method: str, name: str) -> sentry.SentryJit:
+        """A capturable entry point that calls the instance's ``method``
+        at each call (a method patched on the instance included)."""
+        return sentry.jit(lambda *a: getattr(self, method)(*a), name=name,
+                          capture=True, const=(0,),
+                          generators=lambda: [self._gen])
+
+    def _admit_fn(self, tb: int) -> sentry.SentryJit:
+        """``serving.prefill`` at prompt bucket ``tb`` (one a bucket, as
+        in the JAX scheduler)."""
+        if tb not in self._admit_fns:
+            self._admit_fns[tb] = self._program("_prefill_into_pages",
+                                                "serving.prefill")
+        return self._admit_fns[tb]
+
+    def _suffix_fn(self, sb: int) -> sentry.SentryJit:
+        """``serving.suffix_prefill`` at suffix bucket ``sb``."""
+        if sb not in self._suffix_fns:
+            self._suffix_fns[sb] = self._program("_suffix_first",
+                                                 "serving.suffix_prefill")
+        return self._suffix_fns[sb]
 
     # -- device programs --------------------------------------------------
     def _pick(self, logits, temp):
-        """The gateway's pick rule on [rows, V] logits (``temp`` a float
+        """The gateway's pick rule on [rows, V] logits (``temp`` a 0-d
         or a [rows, 1] tensor)."""
         return self.model._pick(logits, temp,
                                 1.0 if self.top_p is None else self.top_p,
@@ -397,11 +442,11 @@ class DecodeScheduler:
         return m, e, lengths + e, prev_next
 
     def _prefill_logits_into_pages(self, params, page_ids, prompt_pad,
-                                   t0: int):
+                                   t0):
         """ONE batched causal forward over the padded prompt (the same
         ``_prefill_forward`` the dense path runs), its per-layer caches
         written into this sequence's pages in place; returns the logits
-        [1, V] at position ``t0 - 1``."""
+        [1, V] at position ``t0 - 1`` (``t0`` an int or a 0-d tensor)."""
         model = self.model
         tb = prompt_pad.shape[1]
         n_chunks = tb // self.block
@@ -424,15 +469,13 @@ class DecodeScheduler:
             kvpool[:, page_ids] = paged(kv).to(kvpool.dtype)
         return logits0
 
-    def _prefill_into_pages(self, params, page_ids, prompt_pad, t0: int,
-                            temp):
+    def _prefill_into_pages(self, params, page_ids, prompt_pad, t0, temp):
         """Prefill-into-pages and the pick of the first generated
         token (the same ``_pick`` the dense path runs)."""
         return self._pick(self._prefill_logits_into_pages(
             params, page_ids, prompt_pad, t0), temp)
 
-    def _suffix_logits(self, params, page_row, suffix_pad, start: int,
-                       t0: int):
+    def _suffix_logits(self, params, page_row, suffix_pad, start, t0):
         """Prefill ONLY the novel suffix of a shared-prefix admission:
         positions ``0 .. start-1`` already sit in adopted pages, so the
         ``sb``-bucketed suffix rows (``suffix_pad`` [1, sb]) run through
@@ -441,7 +484,8 @@ class DecodeScheduler:
         write their own KV into its novel (or copied) pages; rows past
         ``t0 - 1`` write the trash page. No flash kernel runs, as in the
         JAX package. Returns the logits [1, V] of prompt row
-        ``t0 - 1``."""
+        ``t0 - 1``. ``start`` and ``t0`` are ints or 0-d tensors on the
+        device."""
         model = self.model
         sb = suffix_pad.shape[1]
         ar = torch.arange(sb, device=suffix_pad.device)
@@ -449,9 +493,16 @@ class DecodeScheduler:
                                (start + ar)[None], (ar < t0 - start)[None],
                                "suffix_prefill")
         with obs.devtime.scope("suffix_prefill.lm_head"):
-            row = x[0, t0 - 1 - start][None]
+            row = _row(x, t0 - 1 - start)
             h = _rms(row, params[f"layer_{model.n_layers + 1}"]["gamma"])
             return model._head_logits(params, h)
+
+    def _suffix_first(self, params, page_row, suffix_pad, start, t0,
+                      temp):
+        """The suffix prefill and the pick of the first generated token
+        (the dense admission's pick rule)."""
+        return self._pick(self._suffix_logits(params, page_row, suffix_pad,
+                                              start, t0), temp)
 
     def _cow_copy(self, src: int, dst: int) -> None:
         """Copy one physical page of every pool tensor (all layers; codes
@@ -521,9 +572,9 @@ class DecodeScheduler:
                 device=dev)
             prompt_pad = torch.as_tensor(pad, device=dev)
             ts1 = obs.now()
-            g0 = self._prefill_into_pages(
+            g0 = self._admit_fn(tb)(
                 self.model._decode_params(self.params), page_ids,
-                prompt_pad, t0, 1.0 if temp is None else float(temp))
+                prompt_pad, self._scalar(t0), self._temp(temp))
             ts2 = obs.now()
             first = int(g0[0])                  # blocking device sync
         except BaseException:
@@ -570,7 +621,7 @@ class DecodeScheduler:
             if tail:
                 old_tail = spages[-1]
                 target = new_pages[0]
-                self._cow_copy(old_tail, target)
+                self._cow_fn(old_tail, target)
                 self.pager.drop_ref(req, old_tail)
                 obs.metrics.SERVING_PREFIX_COW.inc()
                 row_pages = (list(spages[:-1]) + [target]
@@ -588,10 +639,10 @@ class DecodeScheduler:
             suffix_pad = torch.as_tensor(pad, device=dev)
             ts1 = obs.now()
             # the first token by the dense admission's pick rule
-            g0 = self._pick(self._suffix_logits(
+            g0 = self._suffix_fn(sb)(
                 self.model._decode_params(self.params), page_row,
-                suffix_pad, shared_len, t0),
-                1.0 if temp is None else float(temp))
+                suffix_pad, self._scalar(shared_len), self._scalar(t0),
+                self._temp(temp))
             ts2 = obs.now()
             first = int(g0[0])                  # blocking device sync
         except BaseException:
@@ -629,6 +680,19 @@ class DecodeScheduler:
         if self._slots[slot].remaining <= 0 or first == getattr(
                 req, "eos_id", None):
             self._retire(slot)
+
+    def _scalar(self, n: int) -> torch.Tensor:
+        """``n`` as a 0-d int64 tensor on the device (filled there: no
+        host copy)."""
+        return torch.full((), int(n), dtype=torch.int64,
+                          device=self.device)
+
+    def _temp(self, temp) -> torch.Tensor:
+        """A request's temperature (1.0 when it has none) as a 0-d f32
+        tensor on the device, as the JAX scheduler passes it: one
+        prefill graph a bucket serves every temperature."""
+        return torch.full((), 1.0 if temp is None else float(temp),
+                          dtype=torch.float32, device=self.device)
 
     def _ensure_feed(self, act) -> dict:
         """Rebuild the device-side feed if an admit/retire/shed dirtied
@@ -668,7 +732,7 @@ class DecodeScheduler:
         ts0 = obs.now()
         f = self._ensure_feed(act)
         ts1 = obs.now()
-        nxt, len_next = self._decode_step(
+        nxt, len_next = self._step_fn(
             self.model._decode_params(self.params), f["pt"],
             f["lengths"], f["active"], f["prev"], f["temps"])
         # feed the step's own outputs back: no h2d on the clean path
@@ -712,7 +776,7 @@ class DecodeScheduler:
             drafts_np[i] = self._draft(self._slots[i].history, k - 1)
         drafts = torch.as_tensor(drafts_np, device=self.device)
         ts1 = obs.now()
-        m, e, len_next, prev_next = self._spec_step(
+        m, e, len_next, prev_next = self._spec_fn(
             self.model._decode_params(self.params), f["pt"],
             f["lengths"], f["active"], f["prev"], drafts)
         f["prev"], f["lengths"] = prev_next, len_next
@@ -767,7 +831,7 @@ class DecodeScheduler:
                 pid = int(self._page_table[i, pi])
                 if pid and self.pager.refcount(pid) > 1:
                     new = self.pager.cow(s.req, pid)
-                    self._cow_copy(pid, new)
+                    self._cow_fn(pid, new)
                     self._page_table[i, pi] = new
                     self._feed_dirty = True
                     obs.metrics.SERVING_PREFIX_COW.inc()
@@ -842,17 +906,18 @@ class DecodeScheduler:
     # -- warmup ------------------------------------------------------------
     @torch.no_grad()
     def warmup(self, prompt_lens=None) -> Dict[str, object]:
-        """Run every program of the configured mode once BEFORE traffic,
-        so the kernels are built and every shape has been through the
-        device before the first request: the decode step, the prefill of
-        every reachable prompt bucket, and with ``spec_k > 1`` the verify
-        step; with ``prefix_sharing`` the suffix prefill of every suffix
-        bucket a shared prefix can leave (the downward closure of the
-        prompt buckets; the page copy is a PyTorch copy, with nothing
-        to build). Nothing writes a live page: the steps run with every
-        slot inactive and the suffix prefills against the trash page.
-        Returns
-        ``{"buckets", "suffix_buckets", "spec_k", "seconds"}``."""
+        """Declare and build every program of the configured mode BEFORE
+        traffic (the JAX ``warmup``): the decode step, the prefill of
+        every reachable prompt bucket, with ``spec_k > 1`` the verify
+        step, and with ``prefix_sharing`` the page copy and the suffix
+        prefill of every suffix bucket a shared prefix can leave (the
+        downward closure of the prompt buckets). On the card each
+        capturable program captures its graph now (its warm run with
+        every slot inactive, the prefills into the trash page); on the
+        CPU each runs once so. After it no admission order adds a trace.
+        Nothing writes a live page, and the sampling generator's state
+        is as it was. Returns ``{"compiled", "seconds", "buckets",
+        "suffix_buckets", "spec_k"}``."""
         ts0 = obs.now()
         if prompt_lens is None:
             prompt_lens = range(1, self.max_context)
@@ -864,26 +929,29 @@ class DecodeScheduler:
         zeros = lambda *shape: torch.zeros(shape, dtype=torch.int64,
                                            device=dev)
         inactive = torch.zeros(S, dtype=torch.bool, device=dev)
-        nxt, _ = self._decode_step(params, zeros(S, MP), zeros(S),
-                                   inactive, zeros(S),
-                                   torch.ones(S, device=dev))
-        nxt.cpu()
+        state = self._gen.get_state()
+        compiled = self._step_fn.warmup(
+            params, zeros(S, MP), zeros(S), inactive, zeros(S),
+            torch.ones(S, device=dev)) > 0
         for tb in buckets:
-            logits, _ = self.model._prefill_forward(params, zeros(1, tb),
-                                                    tb, tb)
-            logits.cpu()
+            compiled += self._admit_fn(tb).warmup(
+                params, zeros(tb // self.block), zeros(1, tb),
+                self._scalar(tb), self._temp(None)) > 0
         if self.spec_k > 1:
-            m, *_ = self._spec_step(params, zeros(S, MP), zeros(S),
-                                    inactive, zeros(S),
-                                    zeros(S, self.spec_k - 1))
-            m.cpu()
+            compiled += self._spec_fn.warmup(
+                params, zeros(S, MP), zeros(S), inactive, zeros(S),
+                zeros(S, self.spec_k - 1)) > 0
         sbuckets = []
         if self.prefix_sharing:
+            compiled += self._cow_fn.warmup(0, 0) > 0
             top = max(buckets) if buckets else 16
             sbuckets = sorted({prompt_bucket(t, self.max_context)
                                for t in range(1, top + 1)})
             for sb in sbuckets:
-                self._suffix_logits(params, zeros(MP), zeros(1, sb), 0,
-                                    sb).cpu()
-        return {"buckets": list(buckets), "suffix_buckets": sbuckets,
-                "spec_k": self.spec_k, "seconds": obs.now() - ts0}
+                compiled += self._suffix_fn(sb).warmup(
+                    params, zeros(MP), zeros(1, sb), self._scalar(0),
+                    self._scalar(sb), self._temp(None)) > 0
+        self._gen.set_state(state)        # the warm runs drew nothing
+        return {"compiled": int(compiled), "seconds": obs.now() - ts0,
+                "buckets": list(buckets), "suffix_buckets": sbuckets,
+                "spec_k": self.spec_k}

@@ -33,6 +33,7 @@ both change decoding only, never the training parameters.
 """
 from __future__ import annotations
 
+import functools
 import math
 import weakref
 from typing import Dict, Optional
@@ -52,6 +53,16 @@ from deeplearning4j_tpu_torch.nn.layers.attention import (
     rotary_embedding, scaled_dot_attention)
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.ops import fused_norms
+from deeplearning4j_tpu_torch.perf import sentry
+
+
+def _row(x, i):
+    """``x[:, i]`` for an int ``i`` or a 0-d index tensor on ``x``'s
+    device (a gather a CUDA graph can capture; an index below 0 reads
+    row 0)."""
+    if isinstance(i, int):
+        return x[:, i]
+    return x.index_select(1, i.clamp(min=0).reshape(1))[:, 0]
 
 
 def _rms(x, gamma):
@@ -339,16 +350,68 @@ class CausalTransformerLM:
             generator = torch.Generator(device=dev).manual_seed(
                 self._gen_calls)
         ts1 = obs.now()
-        gen = self._decode_gen(
+        gen = self._decode_program(b, tb, n_new, sample, top_k,
+                                   top_p is not None)(
             p, toks, t0, temperature or 1.0,
-            1.0 if top_p is None else top_p, generator, b=b, tb=tb,
-            n_new=n_new, sample=sample, top_k=top_k,
-            nucleus=top_p is not None)
+            1.0 if top_p is None else top_p, generator)
         ts2 = obs.now()
         gen_np = gen.cpu().numpy().astype(np.int32)   # device sync
         obs.record_step("CausalTransformerLM.generate", ts0, ts1, ts2,
                         obs.now())
         return np.concatenate([prompt_np, gen_np], axis=1)
+
+    def _decode_program(self, b: int, tb: int, n_new: int, sample: bool,
+                        top_k, nucleus: bool) -> sentry.SentryJit:
+        """``CausalTransformerLM.decode``: one entry point a key of the
+        JAX ``_jit_cached`` (batch, prompt bucket, ``n_new``, the
+        sampling flags, ``cache_quant``), its arguments the decode
+        parameters, the padded prompt, the true prompt length, the
+        temperature, ``top_p`` and the generator. It stays eager on the
+        card in this slice: its cache writes and rotary offsets index by
+        the Python position of each step (``ROADMAP.md`` A17)."""
+        key = (b, tb, n_new, sample, top_k, nucleus, self.cache_quant)
+        cache = self.__dict__.setdefault("_gen_cache", {})
+        if key not in cache:
+            cache[key] = sentry.jit(
+                functools.partial(self._decode_gen, b=b, tb=tb,
+                                  n_new=n_new, sample=sample, top_k=top_k,
+                                  nucleus=nucleus),
+                name="CausalTransformerLM.decode")
+        return cache[key]
+
+    @torch.no_grad()
+    def warmup_decode(self, net, *, n_new: int, batch_sizes=(1,),
+                      prompt_lens=None, temperature: float = 0.0,
+                      top_k: Optional[int] = None,
+                      top_p: Optional[float] = None):
+        """Build the decode program of every (batch, prompt bucket) pair
+        BEFORE the first request (``perf.warmup``): prompts snap to the
+        power-of-two buckets of :func:`prompt_bucket`, so the set is
+        O(batch_sizes × log max_len), and a first ``generate`` on a
+        warmed bucket adds no trace. ``prompt_lens`` (true lengths,
+        bucketed here) defaults to every reachable one given ``n_new``;
+        the sampling flags must match the serving call's (they key the
+        program). Returns ``{"compiled": n, "seconds": t}``."""
+        if prompt_lens is None:
+            prompt_lens = range(1, self.max_len - n_new + 1)
+        buckets = sorted({prompt_bucket(t0, self.max_len)
+                          for t0 in prompt_lens})
+        params = net.params if isinstance(net, MultiLayerNetwork) else net
+        p = self._decode_params(params)
+        dev = p["layer_0"]["W"].device
+        sample = temperature > 0
+        gen = torch.Generator(device=dev) if sample else None
+        compiled, seconds = 0, 0.0
+        for b in batch_sizes:
+            for tb in buckets:
+                dt = self._decode_program(b, tb, n_new, sample, top_k,
+                                          top_p is not None).warmup(
+                    p, torch.zeros((b, tb), dtype=torch.int64, device=dev),
+                    tb, temperature or 1.0,
+                    1.0 if top_p is None else top_p, gen)
+                compiled += dt > 0
+                seconds += dt
+        return {"compiled": compiled, "seconds": seconds}
 
     def _prep_decode(self, net, prompt, n_new: int):
         """Shared ``generate``/``generate_beam`` prologue: coerce, guard,
@@ -476,7 +539,8 @@ class CausalTransformerLM:
         prompt [B, Tb] builds every layer's dense cache [B, Hkv, 2D,
         cache_len] (int8 codes and f32 scales under ``cache_quant``)
         and yields the logits at the last real prompt position
-        ``t0 - 1``. Attention goes through
+        ``t0 - 1`` (``t0`` an int, or a 0-d tensor on the device in a
+        captured program). Attention goes through
         ``scaled_dot_attention`` (the flash kernel on the card). Rows
         past ``t0 - 1`` hold right-padding junk, but causality keeps
         them out of every real row's context, and decode overwrites row
@@ -522,7 +586,7 @@ class CausalTransformerLM:
                     caches.append(kv)
         with obs.devtime.scope("prefill.lm_head"):
             x = _rms(x, params[f"layer_{self.n_layers + 1}"]["gamma"])
-            logits = self._head_logits(params, x[:, t0 - 1])
+            logits = self._head_logits(params, _row(x, t0 - 1))
         return logits, caches
 
     def _pick(self, logits, temperature, top_p, generator, *, sample,

@@ -1,7 +1,7 @@
-"""Head dims between the flash kernels' own (16, 32, 64, 128) on the CPU:
-the zero pad of ``ops/cuda_kernels.py`` (ROADMAP C11).
+"""Head dims between the flash kernels' own (16, 32, 64, 128, 256) on the
+CPU: the zero pad of ``ops/cuda_kernels.py`` (ROADMAP C11).
 
-The kernels are compiled at four head dims; any other up to 128 reaches
+The kernels are compiled at five head dims; any other up to 256 reaches
 them zero-padded to the next, at the softmax scale of the real dim, the
 pad sliced off the outputs. Here the launch helpers themselves run
 (``_flash_cuda`` for K1, ``_flash_bwd_cuda`` for K3, ``_split_launch``
@@ -10,17 +10,18 @@ read the operands through the pointers, strides, head dim and scale they
 are given and run the plain versions on them: the plain kernels on the
 zero-padded inputs at the scale the helper passes. Their out, lse, dq,
 dk and dv equal the unpadded plain versions' to 1e-6 at D in {2, 24, 48,
-80, 96}, with grouped-query heads, causal rows at offsets and a key mask
-(f32: the pad adds exact zeros to every dot product, so the two differ
-only by the order the shorter sums are taken in). Every entry receives
-the padded head dim and the real dim's scale; a head dim above 128 is
-refused naming C11.
+80, 96, 160, 192, 256}, with grouped-query heads, causal rows at offsets
+and a key mask (f32: the pad adds exact zeros to every dot product, so
+the two differ only by the order the shorter sums are taken in). Every
+entry receives the padded head dim and the real dim's scale; a head dim
+above 256 is refused naming C11.
 
 Then the layer the reference computes off the TPU at head dim 2,
 ``SelfAttentionLayer(n_out=4, n_heads=2)``: its forward and the
 gradients of its parameters and input against the JAX layer's within
 ``tests/test_torch_layers.py``'s band (1e-5), on the einsum and on the
-flash path's plain versions (the dispatch gate opened on the CPU).
+flash path's plain versions (the dispatch gate opened on the CPU); and
+the same layer at head dims 160, 192 and 256.
 """
 import ctypes
 import math
@@ -38,7 +39,7 @@ from deeplearning4j_tpu_torch.nn.layers import attention
 from deeplearning4j_tpu_torch.nn.layers.attention import SelfAttentionLayer
 from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
 
-DIMS = (2, 24, 48, 80, 96)
+DIMS = (2, 24, 48, 80, 96, 160, 192, 256)
 TOL = 1e-6
 LAYER_TOL = 1e-5        # tests/test_torch_layers.py's band
 
@@ -238,7 +239,7 @@ def test_padded_launches_equal_the_unpadded_plain_versions(plain_lib, d,
             assert dim == dp, (entry, dim)
 
 
-@pytest.mark.parametrize("d", (2, 24, 64, 80, 128))
+@pytest.mark.parametrize("d", (2, 24, 64, 80, 128, 160, 256))
 def test_no_launch_helper_scales_by_the_padded_dim(plain_lib, d):
     """Every entry K1, K3, K4 and K5 receive takes 1/√d of the real head
     dim as its softmax scale, the padded dim as its head dim; a dim the
@@ -274,10 +275,14 @@ def test_fused_split_choice_is_made_at_the_real_dim(monkeypatch):
 
 
 def test_head_dim_above_128_is_refused_naming_c11(plain_lib):
-    for d in (129, 256):
+    """The refusal now starts above 256, the largest kernel dim: every
+    head dim in (128, 256] runs at 256 (the padded cases above)."""
+    for d in (129, 160, 256):
+        assert ck._kernel_dim(d) == 256
+    for d in (257, 512):
         with pytest.raises(ValueError, match="C11"):
             ck._kernel_dim(d)
-    q, k, v, _, _ = _case(160, 2, 2, False, 1, t=4, tk=4)
+    q, k, v, _, _ = _case(320, 2, 2, False, 1, t=4, tk=4)
     with pytest.raises(ValueError, match="C11"):
         ck._flash_cuda(q, k, v, None, False, 0, True)
     assert not plain_lib.calls
@@ -332,3 +337,45 @@ def test_self_attention_at_head_dim_2_matches_jax(monkeypatch, path):
     for k, p in params.items():
         np.testing.assert_allclose(p.grad.numpy(), np.asarray(jgp[k]),
                                    atol=LAYER_TOL, rtol=0, err_msg=k)
+
+
+@pytest.mark.parametrize("d", (160, 192, 256))
+@pytest.mark.parametrize("path", ["einsum", "flash"])
+def test_self_attention_at_head_dims_past_128_matches_jax(monkeypatch, d,
+                                                          path):
+    """``SelfAttentionLayer(n_out=2·d, n_heads=2)`` at head dims 160, 192
+    and 256, which the JAX layer computes by its einsum off the TPU
+    (``deeplearning4j_tpu/nn/layers/attention.py:87-94``) and the port's
+    card runs through the kernels at 256: output and the gradients of
+    the parameters and the input against the JAX layer's within 1e-5
+    (f32) of the larger of 1 and the leaf's largest value (the head dim
+    2 test's band, scaled: at 320 features the gradients reach ~2), on
+    the einsum and on the flash path's plain versions."""
+    if path == "flash":
+        monkeypatch.setattr(
+            attention, "_use_flash",
+            lambda q, k, causal=False: (
+                not (causal and q.shape[1] > k.shape[1])
+                and q.dtype != torch.float64))
+    n = 2 * d
+    jlayer = JSelfAttention(n_out=n, n_heads=2)
+    jparams, _, _ = jlayer.init(jax.random.PRNGKey(1), (6, n))
+    rng = np.random.default_rng(d)
+    x = rng.standard_normal((2, 6, n)).astype(np.float32)
+    w = rng.standard_normal((2, 6, n)).astype(np.float32)
+    mask = np.array([[1, 1, 1, 1, 0, 0], [1] * 6], np.float32)
+    jy, (jgp, jgx) = _jax_layer_grads(jlayer, jparams, jnp.asarray(x),
+                                      jnp.asarray(mask), jnp.asarray(w))
+    layer = SelfAttentionLayer(n_out=n, n_heads=2)
+    params = {k: torch.tensor(np.asarray(a), requires_grad=True)
+              for k, a in jparams.items()}
+    xt = torch.tensor(x, requires_grad=True)
+    y, _ = layer.apply(params, {}, xt, mask=torch.tensor(mask))
+    (y * torch.tensor(w)).sum().backward()
+    pairs = [("y", y.detach().numpy(), jy), ("dx", xt.grad.numpy(), jgx)]
+    pairs += [(f"d{k}", p.grad.numpy(), jgp[k]) for k, p in params.items()]
+    for what, got, want in pairs:
+        want = np.asarray(want)
+        band = LAYER_TOL * max(1.0, float(np.abs(want).max()))
+        np.testing.assert_allclose(got, want, atol=band, rtol=0,
+                                   err_msg=what)

@@ -53,7 +53,12 @@ def test_importing_every_port_module_stays_light():
             "deeplearning4j_tpu_torch.zoo.vgg",
             "deeplearning4j_tpu_torch.zoo.simple_cnn",
             "deeplearning4j_tpu_torch.nn.layers.recurrent",
-            "deeplearning4j_tpu_torch.zoo.textgen_lstm"} <= set(mods)
+            "deeplearning4j_tpu_torch.zoo.textgen_lstm",
+            "deeplearning4j_tpu_torch.perf",
+            "deeplearning4j_tpu_torch.perf.sentry",
+            "deeplearning4j_tpu_torch.perf.warmup",
+            "deeplearning4j_tpu_torch.perf.compile_cache",
+            "deeplearning4j_tpu_torch.perf.compile_store"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"

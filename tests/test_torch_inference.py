@@ -297,11 +297,30 @@ def test_graph_answers_with_every_output():
     np.testing.assert_allclose(outs[1][1], o2[1:], rtol=RTOL, atol=ATOL)
 
 
+def test_warmup_builds_every_bucket_before_the_first_request():
+    """``ParallelInference.warmup`` (the JAX ``warmup``, formerly refused
+    naming A12): one forward built a batch bucket, and the first request
+    on a warmed bucket (3 rows, padded to 4) adds no trace; the output
+    is the network's."""
+    from deeplearning4j_tpu_torch.perf import sentry
+    _, net = _pair("parallel")
+    pi = pinf.ParallelInference(net, buckets=(2, 4))
+    try:
+        report = pi.warmup((4,))
+        assert report["compiled"] == 2 and report["seconds"] > 0
+        before = sentry.total_traces()
+        x = np.random.default_rng(3).normal(size=(3, 4)).astype(np.float32)
+        out = pi.output(x)
+        assert out.shape == (3, 2)
+        assert sentry.total_traces() == before
+        np.testing.assert_allclose(out, net.output(x).numpy(), rtol=RTOL,
+                                   atol=ATOL)
+    finally:
+        pi.shutdown()
+
+
 def test_unported_options_raise_naming_their_items():
     _, net = _pair("parallel")
-    pi = pinf.ParallelInference(net, mode=pinf.ParallelInference.INPLACE)
-    with pytest.raises(NotImplementedError, match="A12"):
-        pi.warmup((4,))
     for kw in ({"mesh": object()}, {"shard_params": True}):
         with pytest.raises(NotImplementedError, match="A13"):
             pinf.ParallelInference(net, **kw)

@@ -112,13 +112,14 @@ def test_baseline_tokens_per_sec(tiny):
 def test_reports_on_the_named_device():
     """``smoke_report`` and ``shared_prefix_report`` build their model on
     the device they are given (the CPU here) and serve every request;
-    their keys are the JAX reports' but the retrace count (the port has
-    no compile lifecycle yet)."""
+    their keys are the JAX reports', the retrace count after the warmup
+    included, and it is zero."""
     rep = loadgen.smoke_report(n_requests=4, max_new=4, max_slots=4,
                                device="cpu")
     assert rep["completed"] == 4 and rep["failed"] == 0
     assert rep["continuous_tokens_per_sec"] > 0 and rep["speedup"] > 0
     assert "(cpu)" in rep["model"] and rep["warmup"]["buckets"] == [16, 32]
+    assert rep["retraces_after_warmup"] == 0
     shared = loadgen.shared_prefix_report(n_requests=4, prefix_len=40,
                                           max_new=4, max_slots=4,
                                           device="cpu")
@@ -127,3 +128,4 @@ def test_reports_on_the_named_device():
     assert shared["prefill_tokens_saved"] == 3 * 32
     assert shared["ttft_speedup"] > 0
     assert shared["spec_accept_rate"] is not None
+    assert shared["retraces_after_warmup"] == 0

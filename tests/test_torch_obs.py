@@ -72,22 +72,31 @@ def _batches(n=10, b=8, seed=0):
 PORT_FLAGS = {"DL4J_TPU_COORD", "DL4J_TPU_NPROC", "DL4J_TPU_PROC_ID",
               "DL4J_TPU_TRACE", "DL4J_TPU_TRACE_RING",
               "DL4J_TPU_METRICS_PORT", "DL4J_TPU_STALE_WORKER_SECS",
-              "DL4J_TPU_FAULT_PLAN"}
+              "DL4J_TPU_FAULT_PLAN", "DL4J_TPU_COMPILE_CACHE",
+              "DL4J_TPU_COMPILE_STORE", "DL4J_TPU_RETRACE_BUDGET",
+              "DL4J_TPU_RETRACE_STRICT"}
 
 
 def test_flag_registry_matches_the_jax_flags():
     """Every flag the port registers is a JAX flag with the same name,
-    default and parser; no TPU roofline figure or TPU crossover is a
-    flag of the port."""
+    default and parser (the JAX package's own function, or for its
+    boolean parser the port's copy, which reads every spelling alike);
+    no TPU roofline figure or TPU crossover is a flag of the port, nor
+    are the XLA cache's eligibility floors."""
     assert set(environment.FLAGS) == PORT_FLAGS
     for name, flag in environment.FLAGS.items():
         jflag = jenv.FLAGS[name]
         assert flag.name == jflag.name == name
         assert flag.default == jflag.default, name
-        assert flag.parse is jflag.parse, name
+        assert flag.parse is jflag.parse or all(
+            flag.parse(v) == jflag.parse(v)
+            for v in ("1", "true", "YES", "on", "0", "false", "off", "",
+                      " yes ")), name
     for tpu_only in ("DL4J_TPU_PEAK_TFLOPS", "DL4J_TPU_PEAK_HBM_GBS",
                      "DL4J_TPU_PEAK_ICI_GBS", "DL4J_TPU_FLASH_MIN_T",
-                     "DL4J_TPU_FUSED_NORM_MIN_F"):
+                     "DL4J_TPU_FUSED_NORM_MIN_F",
+                     "DL4J_TPU_COMPILE_CACHE_MIN_BYTES",
+                     "DL4J_TPU_COMPILE_CACHE_MIN_SECS"):
         assert tpu_only not in environment.FLAGS
     text = environment.describe()
     assert all(name in text for name in PORT_FLAGS)

@@ -206,6 +206,18 @@ def _jax_wrappers(inp):
         losses.append(float(net.score_))
     res["transfer"] = (losses, _flat(jax.tree.map(np.asarray, net.params),
                                      "params"))
+    # the warmup twin: the SYNC step declared at the first batch's shape,
+    # then that batch fitted
+    from deeplearning4j_tpu.perf import WarmupSpec, sentry
+    net = JaxGPTNano(**KW).init(seq_len=24)
+    net.params = jax.tree.map(jnp.asarray, weights)
+    w = JaxWrapper(net, workers=2, prefetch_buffer=0)
+    sentry.reset()
+    w.warmup([WarmupSpec(features=inp["x0"].shape, labels=inp["y0"].shape,
+                         dtype="int32", labels_dtype="int32")])
+    w.fit([JaxDataSet(inp["x0"], inp["y0"])])
+    res["warmup_stats"] = sentry.stats()["ParallelWrapper.sync_step"]
+    res["warmup_stats"].pop("compile_time_s")
     return res
 
 
@@ -360,7 +372,6 @@ def test_spark_fit_equals_the_wrapper(runs, name, mode):
 
 
 REFUSED = {
-    "warmup": "compile-lifecycle slice",
     "checkpoint_tree": "resilience slice",
     "checkpoint_target": "resilience slice",
     "load_checkpoint_tree": "resilience slice",
@@ -372,6 +383,21 @@ BAD_ARGS = {"bad_mode": "unknown mode", "mesh_size": "needs 3 ranks",
             "workers": "needs 3 ranks", "cuda_in_gloo": "CUDA tensor",
             "sharded_not_sync": "SYNC-mode",
             "overlap_alone": "set sharded_update=True"}
+
+
+def test_wrapper_warmup_declares_the_step_ahead(runs):
+    """``ParallelWrapper.warmup`` (refused before this slice): on both
+    ranks the SYNC step's signature at the first batch's global shape is
+    declared ahead without touching a parameter, and the first ``fit`` on
+    it adds no trace, served by the warmed signature; every counter of
+    ``ParallelWrapper.sync_step`` but the build time equals the JAX
+    wrapper's for the same calls (two devices there, two ranks here)."""
+    for _, log in runs["dp2"]:
+        assert log["warmup"] == {"compiled": 1, "unchanged": True,
+                                 "traces_moved": 0, "iteration": 1}
+        assert log["warmup/stats"]["aot_hits"] == 1
+        assert log["warmup/stats"]["compiles"] == 0
+        assert log["warmup/stats"] == runs["jax_w"]["warmup_stats"]
 
 
 def test_refused_options_raise_naming_their_slice(runs):

@@ -282,6 +282,44 @@ def run_wrappers(inp, mesh, res, log):
         put(res, f"spark/{name}/params", net.params)
 
 
+def warmup_case(inp, mesh, log):
+    """``ParallelWrapper.warmup`` (the JAX wrapper's): the SYNC step
+    declared at the global shape of the first batch before any fit
+    changes no parameter, and the fit of that batch then adds no trace,
+    its step served by the warmed signature; the step's counters, for
+    the twin's comparison with the JAX wrapper's."""
+    from deeplearning4j_tpu_torch.perf import WarmupSpec, sentry
+    sentry.reset()
+    net = nano_net(inp)
+    data = batches(inp, mesh.index("data"))
+    w = ParallelWrapper(net, mesh=mesh)
+    before = {k: v.clone() for k, v in _flat(net.params).items()}
+    report = w.warmup([WarmupSpec(features=inp["x0"].shape,
+                                  labels=inp["y0"].shape,
+                                  dtype=str(inp["x0"].dtype),
+                                  labels_dtype=str(inp["y0"].dtype))])
+    same = all(torch.equal(before[k], v)
+               for k, v in _flat(net.params).items())
+    traces = sentry.total_traces()
+    w.fit(data[:1])
+    st = sentry.stats()["ParallelWrapper.sync_step"]
+    st.pop("compile_time_s")
+    log["warmup"] = {"compiled": report["compiled"], "unchanged": same,
+                     "traces_moved": sentry.total_traces() - traces,
+                     "iteration": net.iteration}
+    log["warmup/stats"] = st
+
+
+def _flat(tree_, prefix=""):
+    out = {}
+    for k, v in tree_.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
 def refusals(inp, mesh):
     """The message of every option this slice refuses, and of the
     sharded update's bad arguments."""
@@ -302,7 +340,7 @@ def refusals(inp, mesh):
         net, mode="encoded", sharded_update=True, mesh=mesh))
     expect("overlap_alone", lambda: ParallelWrapper.builder(net)
            .gather_overlap().build())
-    for meth in ("warmup", "checkpoint_tree", "checkpoint_target",
+    for meth in ("checkpoint_tree", "checkpoint_target",
                  "load_checkpoint_tree", "load_gathered_tree"):
         args = () if meth in ("checkpoint_tree",
                               "checkpoint_target") else ({},)
@@ -475,6 +513,7 @@ def main():
         run_bn_wrappers(inp, mesh, res, log, MODES)
         bn_volume(inp, mesh, log)
         log["refused"] = refusals(inp, mesh)
+        warmup_case(inp, mesh, log)
     elif job in ("fit2", "fit4"):
         res, trainer, data = run_sharded_fit(data_parallel_mesh(), log, job)
         run_eval_cases(inp, trainer, data, res, log)
